@@ -1,0 +1,46 @@
+"""Carry weights across from the JAX reference.
+
+``jax.random`` cannot be replayed in PyTorch, so the parity tests hand the
+reference's own weights to the port. The input is framework-neutral: a
+nested dict/list of **numpy arrays**, with each quantized weight given as a
+dict ``{"q", "scale", "bits", "shape"}``. bf16 leaves arrive as ``uint16``
+views of their bits, because ``torch.from_numpy`` rejects ml_dtypes'
+bfloat16; they become ``torch.bfloat16`` through a bit view.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+from repro_torch.device import resolve_device
+
+_QT_KEYS = {"q", "scale", "bits", "shape"}
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def from_jax_params(tree, device=None):
+    """Numpy params tree (see module docstring) → the port's params."""
+    device = resolve_device(device)
+
+    def walk(x):
+        if isinstance(x, dict) and set(x) == _QT_KEYS:
+            return QuantizedTensor(q=_tensor(x["q"], device),
+                                   scale=_tensor(x["scale"], device),
+                                   bits=int(x["bits"]),
+                                   shape=tuple(int(d) for d in x["shape"]))
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        if isinstance(x, np.ndarray):
+            return _tensor(x, device)
+        raise TypeError(f"unsupported leaf {type(x)}")
+
+    return walk(tree)

@@ -1,0 +1,120 @@
+"""GQA attention with rope / qk-norm / qkv-bias over the paged int8 cache.
+
+Port of ``repro/models/attention.py``: the full causal branch (no cache)
+and the two paged branches of the serving engine.
+
+* cache None              → full causal self-attention (``_grouped_attn``).
+* PagedPrefillCache       → chunked paged prefill: the chunk's KV is
+  quantized into the sequence's pages, then causal attention over every
+  cached page through the paged-prefill kernel (K2).
+* PagedDecodeCache, S = 1 → ragged decode: append one token per sequence,
+  then the paged decode kernel (K3).
+
+Grouped computation never repeats KV heads: q is viewed as (B, S, KV, G,
+hd). The ``DenseKVCache`` branch and the tensor-parallel wrappers come in
+later slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import apply_rope, linear, rms_norm, rope_freqs
+from repro_torch.serving.kv_cache import PagedDecodeCache, PagedPrefillCache
+
+_NEG = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   device) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sc = d ** -0.5
+
+    def normal(shape):
+        return (torch.randn(shape, generator=gen, device=device) * sc).to(dtype)
+
+    p = {"wq": normal((d, h * hd)), "wk": normal((d, kv * hd)),
+         "wv": normal((d, kv * hd)), "wo": normal((h * hd, d))}
+    if cfg.qkv_bias:
+        p["wq_bias"] = torch.zeros(h * hd, dtype=dtype, device=device)
+        p["wk_bias"] = torch.zeros(kv * hd, dtype=dtype, device=device)
+        p["wv_bias"] = torch.zeros(kv * hd, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    return p
+
+
+def _grouped_attn(q, k, v, q_pos, k_pos, *, k_len=None):
+    """q (B,S,KV,G,hd); k, v (B,T,KV,hd) → (B,S,KV,G,hd).
+
+    Scores and softmax in f32; probabilities stored in q's dtype before the
+    value product, as the reference does.
+    """
+    hd = q.shape[-1]
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) \
+        * (hd ** -0.5)
+    mask = q_pos[:, None] >= k_pos[None, :]                      # (S, T)
+    if k_len is not None:
+        mask = mask & (k_pos[None, :] < k_len)
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full_like(scores, _NEG))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v).to(q.dtype)
+
+
+def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, cache=None, qmode: str = "none",
+              impl: str = "auto"):
+    """x (B, S, D) → (y, new_cache)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kv
+
+    def proj(name, heads):
+        return linear(x, p[name], p.get(name + "_bias"), qmode=qmode,
+                      impl=impl).reshape(b, s, heads, hd)
+
+    q, k, v = proj("wq", h), proj("wk", kv), proj("wv", kv)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    cos, sin = rope_freqs(positions, hd, cfg.rope_theta)         # (B,S,hd/2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    def out_proj(out):
+        return linear(out, p["wo"], qmode=qmode, impl=impl)
+
+    if isinstance(cache, PagedPrefillCache):
+        if b != 1:
+            raise ValueError("paged prefill runs one sequence's chunk at a time")
+        new_cache = cache.write_chunk(k.transpose(1, 2), v.transpose(1, 2))
+        qp = q.reshape(s, kv, g, hd).permute(1, 0, 2, 3).contiguous()
+        ctx = paged_prefill_attention(
+            qp, new_cache.k_pages, new_cache.v_pages, new_cache.k_scale,
+            new_cache.v_scale, new_cache.table, q_start=new_cache.q_start,
+            pages_per_step=new_cache.pages_per_step, impl=impl)
+        out = ctx.permute(1, 0, 2, 3).reshape(1, s, h * hd)
+        return out_proj(out), new_cache
+
+    if isinstance(cache, PagedDecodeCache):
+        if s != 1:
+            raise ValueError("paged decode takes one token per sequence")
+        new_cache = cache.append(k.transpose(1, 2)[:, :, 0],
+                                 v.transpose(1, 2)[:, :, 0])
+        ctx = paged_attention(q.reshape(b, kv, g, hd).contiguous(),
+                              new_cache.k_pages, new_cache.v_pages,
+                              new_cache.k_scale, new_cache.v_scale,
+                              new_cache.tables, new_cache.lengths, impl=impl)
+        return out_proj(ctx.reshape(b, 1, h * hd)), new_cache
+
+    if cache is not None:
+        raise NotImplementedError(
+            f"{type(cache).__name__}: the dense KV slab is not ported yet")
+    qg = q.reshape(b, s, kv, g, hd)
+    pos = positions[0]
+    out = _grouped_attn(qg, k, v, pos, pos)
+    return out_proj(out.reshape(b, s, h * hd)), None

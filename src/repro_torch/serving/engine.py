@@ -1,0 +1,270 @@
+"""Serving engine: continuous batching over the paged int8 KV pool.
+
+Port of ``ContinuousBatchingEngine`` and ``generate`` from
+``repro/serving/engine.py``. Each :meth:`ContinuousBatchingEngine.step`:
+
+1. admits the next queued request once the prefill lane is clear, sharing
+   the pages of any registered prompt prefix (refcounted, copy-on-write) and
+   reserving only the remainder;
+2. advances the head prefill by one **chunk**: the chunk's KV quantizes
+   straight into the sequence's pages and attends over the cached prefix
+   through the paged-prefill kernel (K2);
+3. runs **one ragged decode** over every active sequence: per-sequence
+   positions and block tables, attention through the paged decode kernel
+   (K3); every projection goes through the fused w8a8 GEMM (K1) when the
+   weights are quantized;
+4. retires sequences that hit their token budget and decrefs their pages.
+
+A sequence decodes identically alone or inside a changing batch: pages are
+owned exclusively or shared immutably, per-token scales depend only on a
+token's own values, attention is masked per sequence, chunk boundaries
+depend only on the engine's chunk size, and temperature sampling draws each
+token's noise from a generator seeded by (engine seed, seq_id, token index).
+
+Page size, prefill chunk and pages per kernel step are fixed, documented
+defaults here (the reference takes them from its TPU autotune); a Hopper
+autotune is later work. Tensor parallelism (``mesh=``) and speculative
+decoding (``spec=``) come in later slices and raise.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Dict, List, Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import forward
+from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving import spec_decode as sd
+
+DEFAULT_PREFILL_CHUNK = 256      # prompt tokens per prefill step
+DEFAULT_PAGES_PER_STEP = 1       # pages the prefill kernel stages per step
+
+
+@dataclasses.dataclass
+class Request:
+    """One in-flight generation request."""
+    seq_id: int
+    prompt: torch.Tensor                 # (S,) long, on the engine's device
+    max_new_tokens: int
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    pos: int = 0                         # prompt tokens cached so far
+
+    def __post_init__(self):
+        # host-side token tuple: prefix-trie keys without device round-trips
+        self.prompt_tokens = tuple(self.prompt.tolist())
+
+    @property
+    def reserve_tokens(self) -> int:
+        return int(self.prompt.shape[0]) + self.max_new_tokens
+
+
+class ContinuousBatchingEngine:
+    """Admit/finish sequences mid-flight over a shared paged int8 KV pool.
+
+    A request is admitted only when the pool can reserve its worst-case page
+    count (prompt + max_new_tokens, minus the prefix pages the trie lookup
+    shares), so an admitted sequence never stalls mid-decode. One prefill is
+    in flight at a time, so a burst of same-prefix prompts shares the pages
+    the first one writes. ``impl`` selects the kernels or the plain versions
+    (see :mod:`repro_torch.kernels.ops`); ``device`` defaults to the card.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *,
+                 kv_dtype: Optional[str] = "int8",
+                 page_size: Optional[int] = None,
+                 capacity_tokens: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 pages_per_step: Optional[int] = None,
+                 sample: str = "greedy", temperature: float = 1.0,
+                 seed: int = 0, retain_pages: Optional[int] = None,
+                 mesh=None, spec=None, device=None, impl: str = "auto"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh=) is not ported yet")
+        if spec is not None:
+            raise NotImplementedError(
+                "speculative decoding (spec=) is not ported yet")
+        mixers = {cfg.mixer_of(i) for i in range(cfg.n_layers)}
+        if mixers != {"attn"}:
+            raise ValueError(
+                f"continuous batching requires attention mixers, got {mixers}")
+        if kv_dtype != "int8":
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r}: the port serves the int8 paged pool")
+        if sample not in ("greedy", "temperature"):
+            raise ValueError(f"sample={sample!r}")
+        self.device = resolve_device(device)
+        self.params, self.cfg = params, cfg
+        self.sample, self.temperature, self.seed = sample, temperature, seed
+        self.impl = impl
+        ps = page_size or kvc.DEFAULT_PAGE_SIZE
+        chunk = prefill_chunk or DEFAULT_PREFILL_CHUNK
+        # non-final chunks cover whole pages, so a partial page is quantized
+        # exactly once (by the final chunk)
+        self.chunk_tokens = max(ps, chunk - chunk % ps)
+        self.pages_per_step = pages_per_step or DEFAULT_PAGES_PER_STEP
+        capacity_tokens = capacity_tokens or 8 * cfg.max_seq_len
+        self.pool = kvc.PagePool(
+            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            num_pages=-(-capacity_tokens // ps), page_size=ps,
+            retain_pages=retain_pages, device=self.device)
+        self.waiting: collections.deque = collections.deque()
+        self.prefilling: collections.deque = collections.deque()
+        self.active: List[Request] = []
+        self.finished: Dict[int, Request] = {}
+        self._next_id = 0
+
+    # -- request lifecycle ----------------------------------------------
+    def submit(self, prompt, max_new_tokens: int) -> int:
+        """Queue a prompt; returns its sequence id."""
+        prompt = torch.as_tensor(prompt).reshape(-1).to(self.device,
+                                                         torch.long)
+        seq_id = self._next_id
+        self._next_id += 1
+        self.waiting.append(Request(seq_id, prompt, max_new_tokens))
+        return seq_id
+
+    def _sample_tokens(self, logits: torch.Tensor,
+                       reqs: List[Request]) -> List[int]:
+        """logits (B, V) → B token ids; rows align with ``reqs``.
+
+        Temperature sampling is Gumbel-max with noise from a CPU generator
+        seeded by (engine seed, seq_id, token index), never from a shared
+        stream: a token does not depend on which other sequences share the
+        batch, nor on the device.
+        """
+        last = logits.float()
+        if self.sample == "greedy":
+            return last.argmax(dim=-1).tolist()
+        out = []
+        for row, r in zip(last, reqs):
+            gen = torch.Generator().manual_seed(
+                (self.seed * 1_000_003 + r.seq_id) * 1_000_003 + len(r.tokens))
+            u = torch.rand(row.shape[-1], generator=gen).clamp_(min=1e-20)
+            gumbel = -torch.log(-torch.log(u))
+            out.append(int((row / self.temperature
+                            + gumbel.to(row.device)).argmax()))
+        return out
+
+    def _finish(self, req: Request) -> None:
+        self.pool.release(req.seq_id)
+        self.finished[req.seq_id] = req
+
+    def _admit(self) -> None:
+        """Admit the next queued request once the prefill lane is clear."""
+        while self.waiting and not self.prefilling:
+            nxt: Request = self.waiting[0]
+            if not self.pool.can_reserve(nxt.reserve_tokens,
+                                         prompt=nxt.prompt_tokens):
+                if not self.active:
+                    raise RuntimeError(
+                        f"request {nxt.seq_id} needs "
+                        f"{self.pool.pages_for(nxt.reserve_tokens)} pages; "
+                        f"pool has {self.pool.num_pages} total")
+                break
+            self.waiting.popleft()
+            nxt.pos = self.pool.reserve(nxt.seq_id, nxt.reserve_tokens,
+                                        prompt=nxt.prompt_tokens)
+            self.prefilling.append(nxt)
+
+    def _prefill_step(self) -> None:
+        """Advance the head prefill by up to ``chunk_tokens`` prompt tokens;
+        the final chunk registers the prompt's full pages in the prefix trie
+        and moves the request to the decode lane."""
+        budget = self.chunk_tokens
+        while budget > 0 and self.prefilling:
+            req: Request = self.prefilling[0]
+            s = int(req.prompt.shape[0])
+            remaining = s - req.pos
+            chunk = min(budget, remaining)
+            if chunk < remaining:
+                chunk -= chunk % self.pool.page_size
+                if chunk == 0:
+                    break        # leftover budget smaller than one page
+            last = req.pos + chunk == s
+            logits = sd.paged_chunk_forward(
+                self.params, self.cfg, self.pool, req.seq_id,
+                req.prompt[req.pos:req.pos + chunk], req.pos,
+                pages_per_step=self.pages_per_step,
+                logits="last" if last else "none", impl=self.impl)
+            req.pos += chunk
+            budget -= chunk
+            if not last:
+                continue
+            self.prefilling.popleft()
+            self.pool.register_prefix(req.seq_id, req.prompt_tokens)
+            req.tokens.append(self._sample_tokens(logits[:, -1], [req])[0])
+            if len(req.tokens) >= req.max_new_tokens:
+                self._finish(req)
+            else:
+                self.active.append(req)
+
+    def _decode(self) -> None:
+        """One ragged decode step over all active sequences."""
+        reqs = list(self.active)
+        ps = self.pool.page_size
+        for r in reqs:
+            # COW barrier: the page this append touches must be exclusive
+            self.pool.ensure_writable(r.seq_id, self.pool.lens[r.seq_id] // ps)
+        tokens = torch.tensor([[r.tokens[-1]] for r in reqs], dtype=torch.long,
+                              device=self.device)
+        tables, lengths = self.pool.batch_tables([r.seq_id for r in reqs])
+        caches = [{"attn": self.pool.layer_cache(i, tables, lengths)}
+                  for i in range(self.cfg.n_layers)]
+        logits, new_caches = forward(self.params, self.cfg, tokens,
+                                     positions=lengths[:, None].long(),
+                                     caches=caches, impl=self.impl)
+        for i, layer in enumerate(new_caches):
+            self.pool.writeback(i, layer["attn"])
+        for r in reqs:
+            self.pool.lens[r.seq_id] += 1
+        nxt = self._sample_tokens(logits[:, -1], reqs)
+        self.active = []
+        for r, t in zip(reqs, nxt):
+            r.tokens.append(t)
+            if len(r.tokens) >= r.max_new_tokens:
+                self._finish(r)
+            else:
+                self.active.append(r)
+
+    # -- driving ---------------------------------------------------------
+    def step(self) -> bool:
+        """Admit what fits, one prefill chunk, one ragged decode step.
+        Returns True while work remains."""
+        self._admit()
+        if self.prefilling:
+            self._prefill_step()
+        if self.active:
+            self._decode()
+        return bool(self.active or self.waiting or self.prefilling)
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain all queued/active requests; {seq_id: generated tokens}."""
+        while self.step():
+            pass
+        return {sid: list(r.tokens) for sid, r in self.finished.items()}
+
+
+def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
+             seed: int = 0, sample: str = "greedy", temperature: float = 1.0,
+             kv_dtype: Optional[str] = "int8",
+             page_size: Optional[int] = None,
+             prefill_chunk: Optional[int] = None,
+             retain_pages: Optional[int] = None, device=None,
+             impl: str = "auto") -> torch.Tensor:
+    """Batched generation on the continuous-batching engine: prompt (B, S)
+    → (B, steps) new tokens (on the CPU)."""
+    b, s = prompt.shape[:2]
+    ps = page_size or kvc.DEFAULT_PAGE_SIZE
+    eng = ContinuousBatchingEngine(
+        params, cfg, kv_dtype=kv_dtype, page_size=ps,
+        capacity_tokens=b * kvc.round_up(s + steps, ps),
+        prefill_chunk=prefill_chunk, sample=sample, temperature=temperature,
+        seed=seed, retain_pages=retain_pages, device=device, impl=impl)
+    sids = [eng.submit(prompt[i], steps) for i in range(b)]
+    outs = eng.run()
+    return torch.tensor([outs[sid] for sid in sids], dtype=torch.long)

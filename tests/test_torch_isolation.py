@@ -1,0 +1,87 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``; its
+entry points need an explicit CPU request on a host without CUDA; and a
+CPU tensor goes to a kernel's plain version without counting a launch."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]
+for name in mods:
+    importlib.import_module(name)
+sys.path.insert(0, {root!r})
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'repro'
+             or m.startswith('repro.'))
+print(len(mods), bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_or_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(root=str(ROOT))],
+        capture_output=True, text=True, env=env, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    n_mods, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(n_mods) >= 20
+    assert bad == "[]", f"port imported {bad}"
+
+
+def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2-0.5b", reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax_params({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced", "--steps", "1"])
+    params = init_params(cfg, device="cpu")
+    assert params["embedding"].device.type == "cpu"
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    from repro_torch.kernels import camp_gemm_fused as k1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as k3
+    from repro_torch.kernels import paged_prefill as k2
+    before = (k1.launches, k2.launches, k3.launches)
+    x = torch.randn(3, 64)
+    w = torch.randint(-127, 128, (64, 8), dtype=torch.int8)
+    s = torch.rand(1, 8)
+    y = k1.camp_gemm_fused_w8a8(x, w, s)
+    torch.testing.assert_close(y, k1.camp_gemm_fused_w8a8_ref(x, w, s),
+                               rtol=0, atol=0)
+    ops.gemm_i8_fused(x, w, s)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.gemm_i8_fused(x, w, s, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        ops.gemm_i8_fused(x, w, s, impl="pallas")
+    pages = torch.randint(-127, 128, (4, 1, 8, 16), dtype=torch.int8)
+    scales = torch.rand(4, 1, 8)
+    k3.paged_attention_cuda(torch.randn(2, 1, 2, 16), pages, pages, scales,
+                            scales, torch.tensor([[0, 1], [2, 3]],
+                                                 dtype=torch.int32),
+                            torch.tensor([3, 9], dtype=torch.int32))
+    k2.paged_prefill_cuda(torch.randn(1, 5, 2, 16), pages, pages, scales,
+                          scales, torch.tensor([1, 2], dtype=torch.int32),
+                          q_start=4)
+    assert (k1.launches, k2.launches, k3.launches) == before

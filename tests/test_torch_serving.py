@@ -1,0 +1,95 @@
+"""The port's continuous-batching engine against the reference's engine.
+
+Cases of tests/test_serving.py, with the reference's own weights carried
+across and ``page_size`` / ``prefill_chunk`` pinned in both engines
+(prefix sharing is in test_torch_serving_prefix.py):
+
+* the mixed trace (requests entering and leaving mid-flight over a pool
+  too small for all of them at once) gives the reference's greedy streams,
+  and each port stream equals the port's solo run;
+* temperature sampling is deterministic and independent of co-scheduling.
+
+Greedy streams must be identical. A divergence would be acceptable only
+where the reference's top-2 logit gap at the first differing step is
+below the forward-logit tolerance (1% of max |logit|); the test reports
+that gap if it ever happens.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.serving.engine import \
+    ContinuousBatchingEngine as JaxEngine  # noqa: E402
+from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
+                                        generate)
+from torch_parity import (check_streams, random_prompts,  # noqa: E402
+                          reduced_qwen_pair)
+
+
+@pytest.fixture(scope="module")
+def model():
+    return reduced_qwen_pair()
+
+
+def test_mixed_trace_matches_reference_and_solo(model):
+    jcfg, jp, cfg, tp = model
+    specs = [(5, 6), (12, 4), (8, 10), (3, 3), (16, 5)]     # (prompt, max_new)
+    prompts = random_prompts([n for n, _ in specs], seed=10)
+    kw = dict(kv_dtype="int8", page_size=8, capacity_tokens=64,
+              prefill_chunk=8)
+    jeng = JaxEngine(jp, jcfg, **kw)
+    teng = ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+    for p, (_, mx) in zip(prompts, specs):
+        jeng.submit(jnp.asarray(p), mx)
+        teng.submit(torch.from_numpy(p), mx)
+    want, got = jeng.run(), teng.run()
+    assert sorted(got) == sorted(want)
+    check_streams([got[s] for s in sorted(got)],
+                   [want[s] for s in sorted(want)], jcfg, jp, prompts)
+    assert teng.pool.num_free == teng.pool.num_pages
+    assert teng.pool.free == jeng.pool.free
+    for i, (p, (_, mx)) in enumerate(zip(prompts, specs)):
+        solo = ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+        sid = solo.submit(torch.from_numpy(p), mx)
+        assert solo.run()[sid] == got[i], f"request {i} diverged under batching"
+
+
+def test_temperature_sampling_deterministic_and_batch_independent(model):
+    _, _, cfg, tp = model
+    prompts = random_prompts([8, 11, 5], seed=30)
+    kw = dict(sample="temperature", temperature=0.8, seed=3, page_size=8,
+              prefill_chunk=8, capacity_tokens=256, device="cpu")
+
+    def run(ps):
+        eng = ContinuousBatchingEngine(tp, cfg, **kw)
+        sids = [eng.submit(torch.from_numpy(p), 6) for p in ps]
+        out = eng.run()
+        return [out[s] for s in sids]
+
+    batched = run(prompts)
+    assert batched == run(prompts)
+    # the same request (same seq_id 1) beside a different neighbour
+    eng = ContinuousBatchingEngine(tp, cfg, **kw)
+    eng.submit(torch.from_numpy(prompts[2]), 6)
+    sid = eng.submit(torch.from_numpy(prompts[1]), 6)
+    assert eng.run()[sid] == batched[1]
+    toks = generate(tp, cfg, torch.from_numpy(np.stack([prompts[0]] * 2)),
+                    steps=4, sample="temperature", temperature=0.8,
+                    device="cpu")
+    assert toks.shape == (2, 4)
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+
+
+def test_engine_rejects_oversized_request_and_unported_options(model):
+    _, _, cfg, tp = model
+    eng = ContinuousBatchingEngine(tp, cfg, page_size=8, capacity_tokens=16,
+                                   device="cpu")
+    eng.submit(torch.zeros(8, dtype=torch.long), 32)  # 5 pages, pool has 2
+    with pytest.raises(RuntimeError):
+        eng.run()
+    for kw in ({"mesh": object()}, {"spec": object()}, {"kv_dtype": None}):
+        with pytest.raises(NotImplementedError):
+            ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)

@@ -1,0 +1,81 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py).
+
+The same numpy arrays go into the JAX reference and into the port. JAX
+arrays become numpy here (bf16 as its uint16 bits), and the port's
+``from_jax_params`` takes that framework-neutral tree.
+"""
+import numpy as np
+
+
+def jax_to_numpy(tree):
+    """JAX params tree → numpy tree; QuantizedTensor → {q, scale, bits, shape}."""
+    import jax.numpy as jnp
+    from repro.core.quant import QuantizedTensor
+
+    def leaf(x):
+        a = np.asarray(x)
+        if x.dtype == jnp.bfloat16:
+            return a.view(np.uint16)
+        return a
+
+    def walk(x):
+        if isinstance(x, QuantizedTensor):
+            return {"q": leaf(x.q), "scale": leaf(x.scale), "bits": x.bits,
+                    "shape": tuple(x.shape)}
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [walk(v) for v in x]
+        return leaf(x)
+
+    return walk(tree)
+
+
+def to_numpy(x):
+    """A JAX or torch array as float32/int numpy (bf16 upcast exactly)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    a = np.array(x)                    # a writable copy, as torch wants
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return a
+
+
+def reduced_qwen_pair():
+    """(jax cfg, jax params, port cfg, port params): the reduced qwen2-0.5b
+    with the reference's weights, carried to the port on the CPU."""
+    import jax
+    from repro.configs import get_config as jax_get_config
+    from repro.models import init_params as jax_init_params
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_jax_params
+    jcfg = jax_get_config("qwen2-0.5b", reduced=True)
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    return (jcfg, jp, get_config("qwen2-0.5b", reduced=True),
+            from_jax_params(jax_to_numpy(jp), device="cpu"))
+
+
+def random_prompts(lengths, seed, vocab=512):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
+
+
+def check_streams(got, want, jcfg, jp, prompts):
+    """Identical greedy streams; on a divergence report the reference's
+    top-2 logit gap at the first differing step."""
+    import jax.numpy as jnp
+    import pytest
+    from repro.models import forward as jax_forward
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        step = next(t for t, (a, b) in enumerate(zip(g, w)) if a != b)
+        ctx = np.concatenate([prompts[i], np.asarray(w[:step], np.int32)])
+        logits, _, _ = jax_forward(jp, jcfg, jnp.asarray(ctx)[None])
+        top2 = np.sort(to_numpy(logits)[0, -1])[-2:]
+        pytest.fail(f"request {i} diverged at step {step}: reference top-2 "
+                    f"gap {top2[1] - top2[0]:.5f}")
