@@ -4,20 +4,27 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. Build: compile the three CUDA kernels (one nvcc each, all at once).
+1. Build: compile the five CUDA kernel libraries (one nvcc each, all at
+   once).
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
    before every launch), the bound and a PyTorch library yardstick:
-   K1 fused w8a8 GEMM, K3 paged decode attention, K2 paged prefill.
-3. Serving: full-width qwen2-0.5b with random weights from a seed, W8A8,
-   8 requests of 512 prompt tokens (two sharing a 256-token prefix) and 32
-   new tokens each on the continuous-batching engine over the int8 paged
-   pool. Every kernel's launch count must rise during this run. Then a
-   profiled rerun; every kernel call of one request held against its plain
-   version on the same inputs; and that request's first-step logits
-   through the kernels against the same forward through the plain versions
-   (impl='torch'), in bf16 and in f32.
-4. Report: a ``kernels`` JSON line, the card's name and power limit, and as
+   K1 fused w8a8 GEMM; K4 fused w4a8 and w4a4 GEMMs; K5, K6a, K6b unfused
+   int8 / w4 / a4w4 GEMMs; K7 rowwise quantize (bits 8 and 4); K3 paged
+   decode attention; K2 paged prefill.
+3. Serving: full-width qwen2-0.5b with random weights from a seed, in
+   W8A8, W4A8 and W4A4, 8 requests of 512 prompt tokens (two sharing a
+   256-token prefix) and 32 new tokens each on the continuous-batching
+   engine over the int8 paged pool. Every kernel of the mode's path must be
+   launched during its run. Then, per mode, a profiled rerun; every kernel
+   call of one request held against its plain version on the same inputs;
+   and that request's first-step logits through the kernels against the
+   same forward through the plain versions (impl='torch'), in bf16 and f32.
+4. The unfused path: ``camp_matmul(fused=False)`` in w8a8, w4a8 and w4a4 at
+   the serving shapes (K7, then K5, K6a or K6b), every one of its kernels
+   launched, each output equal bit for bit to ``camp_matmul(fused=True)``
+   and to the plain versions.
+5. Report: a ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs the repository's ``src/`` beside it; imports nothing of JAX.
@@ -37,11 +44,16 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import camp  # noqa: E402
+from repro_torch.core.quant import pack_int4, unpack_int4  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import camp_gemm as k5  # noqa: E402
 from repro_torch.kernels import camp_gemm_fused as k1  # noqa: E402
+from repro_torch.kernels import camp_gemm_w4 as k6  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as k3  # noqa: E402
 from repro_torch.kernels import paged_prefill as k2  # noqa: E402
+from repro_torch.kernels import quantize as k7  # noqa: E402
 from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue  # noqa: E402
 from repro_torch.kernels.ref import quantize_rowwise_ref  # noqa: E402
 from repro_torch.models import init_params, quantize_params  # noqa: E402
@@ -52,24 +64,53 @@ from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 BF16_ULP_REL = 2.0 ** -7           # one bf16 ULP, relative, at most
+F32_ULP_REL = 2.0 ** -23           # one f32 ULP, relative, at most
 ATT_TOL = 1e-5                     # K2/K3 f32 atol = rtol
-# First-step logits, kernels vs plain versions, through all 24 layers: 10%
-# of max |logit|, in bf16 and in f32 alike. Each kernel call agrees with its
-# plain version on the same inputs (exactly, or within one ULP: phase 2 and
-# the in-situ check), but a last-bit difference flips the int8 rounding of
-# an activation now and then, and every flip moves that GEMM's outputs by
-# ~1e-3 relative, which flips many more roundings in the next layer: W8A8
-# amplifies rounding noise to a few percent of the logits over 24 layers of
-# random weights. 10% still catches a wrong page, row or scale (errors of
-# order 100%); the in-situ check holds every kernel call tightly.
-LOGIT_TOL = 0.10
+# First-step logits, kernels vs plain versions, through all 24 layers, as a
+# share of max |logit|, in bf16 and in f32 alike. Each kernel call agrees
+# with its plain version on the same inputs (exactly, or within one ULP:
+# phase 2 and the in-situ check), but a last-bit difference flips the
+# integer rounding of an activation now and then, and every flip moves that
+# GEMM's outputs, which flips more roundings in the next layer. Two
+# controls, printed beside the gap, measure that amplification (H100, this
+# seed): flipping the last bit of layer 0's norm weights moves the plain
+# path's own logits by 3.3-8.2% in W8A8 and W4A8 and by 64-78% in W4A4 (an
+# int4 activation step is 127/7 ≈ 18× an int8 one), while an unrelated
+# prompt lands 135-171% away in every mode.
+# * W8A8, W4A8: 10% (measured gaps 3.2-4.6%), well under a wrong page,
+#   row or scale.
+# * W4A4: 100% (measured gaps 41.0% bf16, 42.6% f32, argmax differing):
+#   above what one flipped bit does to this model, below an unrelated
+#   prompt.
+# The in-situ check holds every kernel call tightly in every mode.
+LOGIT_TOL = {"w8a8": 0.10, "w4a8": 0.10, "w4a4": 1.00}
 SEED = 0                           # inputs and random weights
+QMODES = ("w8a8", "w4a8", "w4a4")
 
 KERNELS = {
     "K1": dict(name="camp_gemm_fused_w8a8", route="cuda",
                source="src/repro_torch/csrc/camp_gemm_fused.cu",
                replaces="src/repro/kernels/camp_gemm_fused.py:108"),
+    "K4 w4a8": dict(name="camp_gemm_fused_w4a8", route="cuda",
+                    source="src/repro_torch/csrc/camp_gemm_fused.cu",
+                    replaces="src/repro/kernels/camp_gemm_fused.py:108"),
+    "K4 w4a4": dict(name="camp_gemm_fused_w4a4", route="cuda",
+                    source="src/repro_torch/csrc/camp_gemm_fused.cu",
+                    replaces="src/repro/kernels/camp_gemm_fused.py:108"),
+    "K5": dict(name="camp_gemm_i8", route="cuda",
+               source="src/repro_torch/csrc/camp_gemm.cu",
+               replaces="src/repro/kernels/camp_gemm.py:121"),
+    "K6a": dict(name="camp_gemm_w4", route="cuda",
+                source="src/repro_torch/csrc/camp_gemm.cu",
+                replaces="src/repro/kernels/camp_gemm_w4.py:135"),
+    "K6b": dict(name="camp_gemm_a4w4", route="cuda",
+                source="src/repro_torch/csrc/camp_gemm.cu",
+                replaces="src/repro/kernels/camp_gemm_w4.py:194"),
+    "K7": dict(name="quantize_rowwise", route="cuda",
+               source="src/repro_torch/csrc/quantize.cu",
+               replaces="src/repro/kernels/quantize.py:46"),
     "K2": dict(name="paged_prefill", route="cuda",
                source="src/repro_torch/csrc/paged_prefill.cu",
                replaces="src/repro/kernels/paged_prefill.py:197"),
@@ -77,6 +118,34 @@ KERNELS = {
                source="src/repro_torch/csrc/paged_attention.cu",
                replaces="src/repro/kernels/paged_attention.py:178"),
 }
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"K1": (k1, "launches"), "K4 w4a8": (k1, "launches_w4a8"),
+            "K4 w4a4": (k1, "launches_w4a4"), "K5": (k5, "launches"),
+            "K6a": (k6, "launches_w4"), "K6b": (k6, "launches_a4w4"),
+            "K7": (k7, "launches"), "K2": (k2, "launches"),
+            "K3": (k3, "launches")}
+# the kernels each path launches
+PATHS = {"w8a8": ("K1", "K2", "K3"), "w4a8": ("K4 w4a8", "K2", "K3"),
+         "w4a4": ("K4 w4a4", "K2", "K3"), "unfused": ("K7", "K5", "K6a", "K6b")}
+# qmode → the fused GEMM's key and wrapper name (kernels/camp_gemm_fused.py)
+FUSED = {"w8a8": ("K1", "camp_gemm_fused_w8a8"),
+         "w4a8": ("K4 w4a8", "camp_gemm_fused_w4a8"),
+         "w4a4": ("K4 w4a4", "camp_gemm_fused_w4a4")}
+# the six GEMM shapes (M, K, N) of full-width qwen2-0.5b serving: decode
+# (batch 8) and prefill (chunk 256) of the gate/up, q/o, k/v and down
+# projections
+SERVING_SHAPES = ((8, 896, 4864), (8, 896, 896), (8, 896, 128),
+                  (8, 4864, 896), (256, 896, 4864), (256, 4864, 896))
+EPILOGUES = ("none", "bias", "silu", "mul")
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {key: getattr(mod, attr) for key, (mod, attr) in COUNTERS.items()}
 
 
 class Timer:
@@ -113,6 +182,10 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
                                        else "operations")
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -124,68 +197,182 @@ def within_bf16_ulp(a, b, atol: float = 0.0) -> bool:
                  * torch.maximum(a.abs(), b.abs())).all())
 
 
+def gemm_close(got, want, epilogue: str) -> bool:
+    """Exact, except through silu/gelu: one bf16 ULP, or 4 f32 ULPs (the
+    card's expf/tanhf against PyTorch's)."""
+    if "silu" not in epilogue and "gelu" not in epilogue:
+        return torch.equal(got, want)
+    if got.dtype == torch.bfloat16:
+        return within_bf16_ulp(got, want)
+    return bool(((got - want).abs() <= 4 * F32_ULP_REL
+                 * torch.maximum(got.abs(), want.abs())).all())
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def k1_library(x, w_q, s_b, epilogue, bias, operand):
-    """Yardstick: rowwise quantize, torch._int_mm, then the elementwise
-    flush (cuBLASLt wants M > 16, so small M is padded to 32 rows)."""
-    a_q, a_s = quantize_rowwise_ref(x)
+def int_mm(a_q, b_q):
+    """torch._int_mm (cuBLASLt wants M > 16, so small M is padded to 32)."""
     m = a_q.shape[0]
     if m <= 16:
         a_q = F.pad(a_q, (0, 0, 0, 32 - m))
-    acc = torch._int_mm(a_q, w_q)[:m]
+    return torch._int_mm(a_q, b_q)[:m]
+
+
+def library_flush(acc, a_s, s_b, epilogue, bias, operand, out_dtype):
     y = acc.float() * (a_s * s_b)
     y = apply_epilogue(y, parse_epilogue(epilogue),
                        bias=None if bias is None else bias.reshape(1, -1),
                        operand=operand)
-    return y.to(x.dtype)
+    return y.to(out_dtype)
 
 
-def check_k1(timer, gen):
+def fused_library(qmode):
+    """Yardstick for K1/K4: rowwise quantize, unpack W (int4), then
+    torch._int_mm and the elementwise flush."""
+    a_bits = 4 if qmode == "w4a4" else 8
+
+    def run(x, w, s_b, *, out_dtype, epilogue, bias, operand):
+        a_q, a_s = quantize_rowwise_ref(x, a_bits)
+        b_q = w if qmode == "w8a8" else unpack_int4(w, x.shape[1])
+        return library_flush(int_mm(a_q, b_q), a_s, s_b, epilogue, bias,
+                             operand, out_dtype)
+    return run
+
+
+def unfused_library(kind):
+    """Yardstick for K5/K6: unpack the packed operands, torch._int_mm, and
+    the elementwise flush."""
+    def run(a, w, s_a, s_b, *, out_dtype, epilogue, bias, operand):
+        k = w.shape[0] * (1 if kind == "i8" else 2)
+        a_q = unpack_int4(a.T, k).T if kind == "a4w4" else a
+        b_q = w if kind == "i8" else unpack_int4(w, k)
+        return library_flush(int_mm(a_q.contiguous(), b_q), s_a, s_b,
+                             epilogue, bias, operand, out_dtype)
+    return run
+
+
+def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc):
+    """One GEMM kernel against its plain version: error, times, bound."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    epi = kw["epilogue"]
+    err, ok = max_err(got, want), gemm_close(got, want, epi)
+    m, n = got.shape
+    n_bytes = nbytes(*args, kw["bias"], kw["operand"]) + m * n * got.element_size()
+    b_ms, b_by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
+    try:
+        lib = timer(lambda: library(*args, **kw))
+    except RuntimeError as e:           # cuBLASLt refused the shape
+        print(f"  {key} library yardstick unavailable: {e}")
+        lib = None
+    row = dict(kernel=key, **desc, epilogue=epi, dtype=str(got.dtype),
+               max_abs_err=err, ok=ok, ms=timer(lambda: kernel(*args, **kw)),
+               plain_ms=timer(lambda: plain(*args, **kw)), library_ms=lib,
+               bound_ms=b_ms, bound_by=b_by)
+    tol = "exact" if "silu" not in epi else "1 ULP"
+    print(f"  {key:7s} " + " ".join(f"{a}={b}" for a, b in desc.items())
+          + f" {epi:4s} {str(got.dtype)[6:]:8s} err={err:.3g} ({tol} "
+          f"{'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
+          f"plain={row['plain_ms']:.4f} lib={lib} bound={b_ms:.4f} ({b_by})")
+    return row
+
+
+def _weight(gen, k, n, w4):
+    """Random int8 (K, N) weights, or int4 values packed to (K//2, N)."""
+    if not w4:
+        return torch.randint(-127, 128, (k, n), dtype=torch.int8,
+                             device="cuda", generator=gen)
+    return pack_int4(torch.randint(-7, 8, (k, n), dtype=torch.int8,
+                                   device="cuda", generator=gen))
+
+
+def _extras(gen, m, n, epi, dtype):
+    bias = (torch.randn(n, device="cuda", generator=gen).to(dtype)
+            if epi == "bias" else None)
+    opd = (torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+           if epi == "mul" else None)
+    return bias, opd
+
+
+def check_fused(timer, gen, qmode, shapes, dtypes):
+    """K1 (w8a8) or K4 (w4a8, w4a4) at ``shapes`` for every epilogue."""
+    key, name = FUSED[qmode]
+    kernel, plain = getattr(k1, name), getattr(k1, name + "_ref")
     rows = []
-    for m in (1, 8, 256):
-        for (k, n) in ((896, 896), (896, 128), (896, 4864), (4864, 896)):
-            w = torch.randint(-127, 128, (k, n), dtype=torch.int8,
-                              device="cuda", generator=gen)
-            s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
-            x = torch.randn(m, k, device="cuda",
-                            generator=gen).to(torch.bfloat16)
-            for epi in ("none", "bias", "silu", "mul"):
-                bias = (torch.randn(n, device="cuda", generator=gen)
-                        .to(torch.bfloat16) if epi == "bias" else None)
-                opd = (torch.randn(m, n, device="cuda", generator=gen)
-                       .to(torch.bfloat16) if epi == "mul" else None)
-                kw = dict(out_dtype=torch.bfloat16, epilogue=epi, bias=bias,
+    for m, k, n in shapes:
+        w = _weight(gen, k, n, qmode != "w8a8")
+        s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
+        for dtype in dtypes:
+            x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+            for epi in EPILOGUES:
+                bias, opd = _extras(gen, m, n, epi, dtype)
+                kw = dict(out_dtype=dtype, epilogue=epi, bias=bias,
                           operand=opd)
-                got = k1.camp_gemm_fused_w8a8(x, w, s_b, **kw)
-                want = k1.camp_gemm_fused_w8a8_ref(x, w, s_b, **kw)
+                rows.append(gemm_case(timer, key, kernel, plain,
+                                      fused_library(qmode), (x, w, s_b), kw,
+                                      2.0 * m * n * k, dict(m=m, k=k, n=n)))
+    return rows
+
+
+def check_unfused(timer, gen, kind):
+    """K5 (i8), K6a (w4) or K6b (a4w4) at the serving shapes, bf16."""
+    key, kernel, plain = {
+        "i8": ("K5", k5.camp_gemm_i8, k5.camp_gemm_i8_ref),
+        "w4": ("K6a", k6.camp_gemm_w4, k6.camp_gemm_w4_ref),
+        "a4w4": ("K6b", k6.camp_gemm_a4w4, k6.camp_gemm_a4w4_ref)}[kind]
+    rows = []
+    for m, k, n in SERVING_SHAPES:
+        w = _weight(gen, k, n, kind != "i8")
+        s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
+        if kind == "a4w4":
+            a = pack_int4(torch.randint(-7, 8, (m, k), dtype=torch.int8,
+                                        device="cuda", generator=gen).T
+                          ).T.contiguous()
+        else:
+            a = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                              device="cuda", generator=gen)
+        s_a = torch.rand(m, 1, device="cuda", generator=gen) * 0.01 + 1e-4
+        for epi in EPILOGUES:
+            bias, opd = _extras(gen, m, n, epi, torch.bfloat16)
+            kw = dict(out_dtype=torch.bfloat16, epilogue=epi, bias=bias,
+                      operand=opd)
+            rows.append(gemm_case(timer, key, kernel, plain,
+                                  unfused_library(kind), (a, w, s_a, s_b),
+                                  kw, 2.0 * m * n * k, dict(m=m, k=k, n=n)))
+    return rows
+
+
+def check_k7(timer, gen):
+    """K7 at the serving activations' shapes, bits 8 and 4, bf16 and f32.
+    No single PyTorch call computes it, so there is no library yardstick."""
+    rows = []
+    for m, k in ((8, 896), (256, 896), (256, 4864)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
+            x[m // 2] = 0.0                             # a zero row → (0, 1)
+            for bits in (8, 4):
+                q, s = k7.quantize_rowwise_kernel(x, bits=bits)
+                q_r, s_r = quantize_rowwise_ref(x, bits)
                 torch.cuda.synchronize()
-                err = max_err(got, want)
-                ok = (within_bf16_ulp(got, want) if epi == "silu"
-                      else torch.equal(got, want))
-                n_bytes = (2 * m * k + k * n + 4 * n + 2 * m * n
-                           + (2 * n if bias is not None else 0)
-                           + (2 * m * n if opd is not None else 0))
-                b_ms, b_by = bound(n_bytes, 2.0 * m * n * k, INT8_OPS_PER_S)
-                try:
-                    lib = timer(lambda: k1_library(x, w, s_b, epi, bias, opd))
-                except RuntimeError as e:       # cuBLASLt refused the shape
-                    print(f"  K1 library yardstick unavailable: {e}")
-                    lib = None
-                row = dict(kernel="K1", m=m, k=k, n=n, epilogue=epi,
-                           max_abs_err=err, ok=ok,
-                           ms=timer(lambda: k1.camp_gemm_fused_w8a8(
-                               x, w, s_b, **kw)),
-                           plain_ms=timer(lambda: k1.camp_gemm_fused_w8a8_ref(
-                               x, w, s_b, **kw)),
-                           library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+                ok = torch.equal(q, q_r) and torch.equal(s, s_r)
+                err = max(max_err(q, q_r), max_err(s, s_r))
+                # reads x, writes q and s; ~3 f32 operations a value
+                b_ms, b_by = bound(nbytes(x, q, s), 3.0 * m * k,
+                                   F32_OPS_PER_S)
+                row = dict(kernel="K7", m=m, k=k, bits=bits,
+                           dtype=str(dtype), max_abs_err=err, ok=ok,
+                           ms=timer(lambda: k7.quantize_rowwise_kernel(
+                               x, bits=bits)),
+                           plain_ms=timer(lambda: quantize_rowwise_ref(
+                               x, bits)),
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
-                print(f"  K1 M={m:3d} K={k:4d} N={n:4d} {epi:4s} "
-                      f"err={err:.3g} ({'exact' if epi != 'silu' else '1 bf16 ULP'}"
-                      f" {'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
-                      f"plain={row['plain_ms']:.4f} lib={lib} "
-                      f"bound={b_ms:.4f} ({b_by})")
+                print(f"  K7      m={m} k={k} bits={bits} {str(dtype)[6:]:8s}"
+                      f" err={err:.3g} (exact {'ok' if ok else 'FAIL'}) "
+                      f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                      f"lib=None bound={b_ms:.4f} ({b_by})")
     return rows
 
 
@@ -314,36 +501,14 @@ def check_k2(timer, gen):
 # ---------------------------------------------------------------------------
 # Phase 3: full-width serving
 # ---------------------------------------------------------------------------
-def serve(seed: int):
-    cfg = get_config("qwen2-0.5b", qmode="w8a8")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    t0 = time.perf_counter()
-    params = quantize_params(init_params(cfg, generator=gen, device="cuda"),
-                             cfg, "w8a8")
-    torch.cuda.synchronize()
-    print(f"  init_params + quantize_params(w8a8): "
-          f"{time.perf_counter() - t0:.2f} s")
-    n_req, prompt_len, prefix_len, new = 8, 512, 256, 32
-    prompts = torch.randint(0, cfg.vocab_size, (n_req, prompt_len),
-                            generator=gen, device="cuda")
-    prompts[1, :prefix_len] = prompts[0, :prefix_len]   # a shared prefix
-    ps = kvc.DEFAULT_PAGE_SIZE
+N_REQ, PROMPT_LEN, PREFIX_LEN, NEW = 8, 512, 256, 32
 
-    def engine():
-        return ContinuousBatchingEngine(
-            params, cfg, page_size=ps,
-            capacity_tokens=n_req * kvc.round_up(prompt_len + new, ps),
-            device="cuda")
 
-    warm = engine()                      # first-use costs (cuBLAS, caches)
-    warm.submit(prompts[0, :40], 2)
-    warm.run()
-    torch.cuda.synchronize()
-    eng = engine()
-    for k in (k1, k2, k3):
-        k.launches = 0
+def run_workload(eng, prompts):
+    """The request mix on engine ``eng`` → (wall s, TTFTs, pages shared,
+    streams)."""
     t0 = time.perf_counter()
-    sids = [eng.submit(p, new) for p in prompts]
+    sids = [eng.submit(p, NEW) for p in prompts]
     ttft, shared = {}, 0
     while eng.step():
         now = time.perf_counter() - t0
@@ -353,48 +518,97 @@ def serve(seed: int):
         shared = max(shared, eng.pool.shared_page_stats()["shared_slots"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}
     for r in eng.finished.values():
         ttft.setdefault(r.seq_id, wall)
-    out = [eng.finished[s].tokens for s in sids]
+    return wall, sorted(ttft.values()), shared, [eng.finished[s].tokens
+                                                 for s in sids]
+
+
+def serve(seed: int, qmode: str):
+    """The serving path in ``qmode``; every kernel of that path must launch.
+    → (measurements, engine factory, prompts)."""
+    cfg = get_config("qwen2-0.5b", qmode=qmode)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = quantize_params(init_params(cfg, generator=gen, device="cuda"),
+                             cfg, qmode)
+    torch.cuda.synchronize()
+    print(f"  init_params + quantize_params({qmode}): "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (N_REQ, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    prompts[1, :PREFIX_LEN] = prompts[0, :PREFIX_LEN]   # a shared prefix
+    ps = kvc.DEFAULT_PAGE_SIZE
+
+    def engine():
+        return ContinuousBatchingEngine(
+            params, cfg, page_size=ps,
+            capacity_tokens=N_REQ * kvc.round_up(PROMPT_LEN + NEW, ps),
+            device="cuda")
+
+    warm = engine()                      # first-use costs (cuBLAS, caches)
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    torch.cuda.synchronize()
+    reset_counts()
+    wall, ttft, shared, out = run_workload(engine(), prompts)
+    launches = {k: v for k, v in read_counts().items() if v}
     steps = sum(len(t) for t in out)
-    print(f"  served {n_req} requests x {prompt_len} prompt + {new} new "
-          f"tokens in {wall:.3f} s: {steps / wall:.1f} generated tok/s, "
-          f"{n_req * (prompt_len + new) / wall:.1f} processed tok/s")
-    print(f"  time to first token: first {min(ttft.values()):.3f} s, "
-          f"median {sorted(ttft.values())[n_req // 2]:.3f} s, "
-          f"last {max(ttft.values()):.3f} s; pages shared: {shared} "
-          f"(prefix {prefix_len} tokens = {prefix_len // ps} pages)")
+    print(f"  {qmode}: served {N_REQ} requests x {PROMPT_LEN} prompt + {NEW} "
+          f"new tokens in {wall:.3f} s: {steps / wall:.1f} generated tok/s, "
+          f"{N_REQ * (PROMPT_LEN + NEW) / wall:.1f} processed tok/s")
+    print(f"  time to first token: first {ttft[0]:.3f} s, "
+          f"median {ttft[N_REQ // 2]:.3f} s, last {ttft[-1]:.3f} s; pages "
+          f"shared: {shared} (prefix {PREFIX_LEN} tokens = "
+          f"{PREFIX_LEN // ps} pages)")
     print(f"  kernel launches during serving: {launches}")
-    if any(v == 0 for v in launches.values()):
-        raise RuntimeError(f"a kernel of the path was never launched: "
-                           f"{launches}")
-    if [len(t) for t in out] != [new] * n_req or not all(
+    if set(launches) != set(PATHS[qmode]):
+        raise RuntimeError(f"{qmode} serving launched {launches}; its path "
+                           f"is {PATHS[qmode]}")
+    if [len(t) for t in out] != [NEW] * N_REQ or not all(
             0 <= x < cfg.vocab_size for t in out for x in t):
         raise RuntimeError("generated tokens of the wrong count or range")
-    if shared != prefix_len // ps:
-        raise RuntimeError(f"expected {prefix_len // ps} shared pages, "
+    if shared != PREFIX_LEN // ps:
+        raise RuntimeError(f"expected {PREFIX_LEN // ps} shared pages, "
                            f"saw {shared}")
 
-    profile = profile_serving(engine, prompts, new)
-    in_situ = check_in_situ(engine, prompts[0])
-    logit_checks = {"bfloat16": first_step_logits(params, cfg, prompts[0])}
-    cfg32 = get_config("qwen2-0.5b", qmode="w8a8", dtype="float32")
+    profile = profile_serving(engine, prompts)
+    in_situ = check_in_situ(engine, prompts[0], qmode)
+    logit_checks = {"bfloat16": first_step_logits(params, cfg, prompts)}
+    cfg32 = get_config("qwen2-0.5b", qmode=qmode, dtype="float32")
     params32 = quantize_params(init_params(
         cfg32, generator=torch.Generator(device="cuda").manual_seed(seed),
-        device="cuda"), cfg32, "w8a8")
-    logit_checks["float32"] = first_step_logits(params32, cfg32, prompts[0])
-    return dict(launches=launches, wall_s=wall, gen_tok_s=steps / wall,
-                ttft_s=sorted(ttft.values()), shared_pages=shared,
-                in_situ=in_situ, logits=logit_checks, profile=profile)
+        device="cuda"), cfg32, qmode)
+    logit_checks["float32"] = first_step_logits(params32, cfg32, prompts)
+    del params32
+    return (dict(launches=launches, wall_s=wall, gen_tok_s=steps / wall,
+                 ttft_s=ttft, shared_pages=shared, in_situ=in_situ,
+                 logits=logit_checks, profile=profile), engine, prompts)
 
 
-def check_in_situ(engine, prompt):
+def serve_in_turns(engines):
+    """Generated tok/s of every mode's serving run again, in turns
+    (w8a8, w4a8, w4a4, w4a4, w4a8, w8a8), so that host-side drift on the
+    shared machine falls on all modes alike."""
+    tok_s = {q: [] for q in engines}
+    for q in list(engines) + list(reversed(list(engines))):
+        engine, prompts = engines[q]
+        wall, ttft, _, out = run_workload(engine(), prompts)
+        tok_s[q].append(sum(len(t) for t in out) / wall)
+        print(f"  {q}: {tok_s[q][-1]:.1f} generated tok/s, wall {wall:.3f} "
+              f"s, TTFT first/median/last {ttft[0]:.3f}/"
+              f"{ttft[N_REQ // 2]:.3f}/{ttft[-1]:.3f} s")
+    return tok_s
+
+
+def check_in_situ(engine, prompt, qmode):
     """Every kernel launch of one request (two prefill chunks, two decode
     steps) on the engine, held against its plain version on the very same
-    inputs: K1 exact (silu: one bf16 ULP), K2/K3 within one bf16 ULP."""
-    worst, calls = {"K1": 0.0, "K2": 0.0, "K3": 0.0}, {"K1": 0, "K2": 0,
-                                                      "K3": 0}
+    inputs: the GEMM exact (silu: one bf16 ULP), K2/K3 within one bf16
+    ULP."""
+    gemm, name = FUSED[qmode]
+    worst = {gemm: 0.0, "K2": 0.0, "K3": 0.0}
+    calls = {gemm: 0, "K2": 0, "K3": 0}
 
     def checked(key, kernel, plain, close):
         def call(*args, **kw):
@@ -409,17 +623,15 @@ def check_in_situ(engine, prompt):
             return got
         return call
 
-    def k1_close(got, want, kw):
-        return (within_bf16_ulp(got, want) if "silu" in kw.get("epilogue", "")
-                else torch.equal(got, want))
-
     def att_close(got, want, kw):
         return _att_ok(got.float(), want.float(), got.dtype)
 
-    saved = (ops.camp_gemm_fused_w8a8, k2.paged_prefill_cuda,
+    saved = (getattr(ops, name), k2.paged_prefill_cuda,
              k3.paged_attention_cuda)
-    ops.camp_gemm_fused_w8a8 = checked("K1", saved[0],
-                                       k1.camp_gemm_fused_w8a8_ref, k1_close)
+    setattr(ops, name, checked(
+        gemm, saved[0], getattr(k1, name + "_ref"),
+        lambda got, want, kw: gemm_close(got, want,
+                                         kw.get("epilogue", "none"))))
     k2.paged_prefill_cuda = checked("K2", saved[1],
                                     k2.paged_prefill_reference, att_close)
     k3.paged_attention_cuda = checked("K3", saved[2],
@@ -429,15 +641,16 @@ def check_in_situ(engine, prompt):
         eng.submit(prompt, 3)
         eng.run()
     finally:
-        (ops.camp_gemm_fused_w8a8, k2.paged_prefill_cuda,
-         k3.paged_attention_cuda) = saved
+        setattr(ops, name, saved[0])
+        k2.paged_prefill_cuda, k3.paged_attention_cuda = saved[1:]
     print(f"  in situ, every kernel call vs its plain version on the same "
           f"inputs: calls {calls}, max |diff| {worst}")
     if not all(calls.values()):
         raise RuntimeError(f"in-situ check saw no call of a kernel: {calls}")
     return dict(calls=calls, max_abs_diff=worst)
 
-def profile_serving(engine, prompts, new):
+
+def profile_serving(engine, prompts):
     """The same workload again under torch.profiler: device busy share of
     the wall time and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -446,7 +659,7 @@ def profile_serving(engine, prompts, new):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for p in prompts:
-            eng.submit(p, new)
+            eng.submit(p, NEW)
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -469,20 +682,28 @@ def profile_serving(engine, prompts, new):
                 top=[[n, ms] for n, ms in top])
 
 
-def first_step_logits(params, cfg, prompt, rel_tol=LOGIT_TOL):
-    """One request's first-step logits (its prompt prefilled in two chunks
-    of 256) through the kernels and through the plain versions, on the
-    card; fails beyond ``rel_tol`` × max |logit|."""
-    ps = kvc.DEFAULT_PAGE_SIZE
+def first_step_logits(params, cfg, prompts):
+    """The first request's first-step logits (its prompt prefilled in two
+    chunks of 256) through the kernels and through the plain versions, on
+    the card; fails beyond ``LOGIT_TOL[cfg.qmode]`` × max |logit|.
 
-    def run(impl):
+    Two controls through the plain versions, printed beside the gap and
+    gating nothing: the same prompt with the last bit of every weight of
+    layer 0's input norm flipped, which moves every input of the first
+    GEMMs by about one ULP (how far the model itself amplifies last-bit
+    differences), and an unrelated prompt (how far apart a wrong result
+    would be)."""
+    ps = kvc.DEFAULT_PAGE_SIZE
+    rel_tol = LOGIT_TOL[cfg.qmode]
+
+    def run(impl, p=params, prompt=prompts[0]):
         pool = kvc.PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.hd, num_pages=len(prompt) // ps + 1,
                             page_size=ps, device="cuda")
         pool.reserve(0, len(prompt))
         for start in range(0, len(prompt), 256):
             logits = paged_chunk_forward(
-                params, cfg, pool, 0, prompt[start:start + 256], start,
+                p, cfg, pool, 0, prompt[start:start + 256], start,
                 logits="last" if start + 256 >= len(prompt) else "none",
                 impl=impl)
         return logits[0, -1].float()
@@ -490,15 +711,90 @@ def first_step_logits(params, cfg, prompt, rel_tol=LOGIT_TOL):
     got, want = run("auto"), run("torch")
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         raise RuntimeError("non-finite logits")
-    err, scale = max_err(got, want), want.abs().max().item()
-    print(f"  first-step logits ({cfg.dtype}), kernels vs plain: max |diff| "
-          f"{err:.4g} = {err / scale:.2%} of max |logit| {scale:.4g} "
-          f"(limit {rel_tol:.0%}); argmax {got.argmax().item()} vs "
-          f"{want.argmax().item()}")
+    scale = want.abs().max().item()
+    ln1 = params["layers"][0]["ln1"].clone()   # each value one ULP away
+    bits = ln1.view({torch.bfloat16: torch.int16,
+                     torch.float32: torch.int32}[ln1.dtype])
+    bits ^= 1
+    layers = [{**params["layers"][0], "ln1": ln1}] + params["layers"][1:]
+    controls = {"last_bit": max_err(run("torch",
+                                        {**params, "layers": layers}),
+                                    want) / scale,
+                "other_prompt": max_err(run("torch", prompt=prompts[2]),
+                                        want) / scale}
+    err = max_err(got, want)
+    print(f"  first-step logits ({cfg.qmode}, {cfg.dtype}), kernels vs "
+          f"plain: max |diff| {err:.4g} = {err / scale:.2%} of max |logit| "
+          f"{scale:.4g} (limit {rel_tol:.0%}); argmax {got.argmax().item()} "
+          f"vs {want.argmax().item()}; plain vs plain with the last bit of "
+          f"layer 0's norm weights flipped {controls['last_bit']:.2%}, vs an "
+          f"unrelated prompt {controls['other_prompt']:.2%}")
     if err > rel_tol * scale:
-        raise RuntimeError(f"{cfg.dtype} kernel logits differ from the plain "
-                           f"versions by more than {rel_tol:.0%} of max |logit|")
-    return dict(max_abs_diff=err, max_abs_logit=scale, rel_tol=rel_tol)
+        raise RuntimeError(f"{cfg.qmode} {cfg.dtype} kernel logits differ "
+                           f"from the plain versions by more than "
+                           f"{rel_tol:.0%} of max |logit|")
+    return dict(max_abs_diff=err, max_abs_logit=scale, rel_tol=rel_tol,
+                controls=controls)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the unfused path
+# ---------------------------------------------------------------------------
+# the epilogue each serving shape carries on the model path
+SHAPE_EPILOGUE = {(8, 896, 4864): "silu", (8, 896, 896): "none",
+                  (8, 896, 128): "bias", (8, 4864, 896): "none",
+                  (256, 896, 4864): "silu", (256, 4864, 896): "none"}
+
+
+def unfused_path(timer, gen):
+    """``camp_matmul(fused=False)`` in every integer mode at the serving
+    shapes: K7, then K5 (w8a8), K6a (w4a8) or K6b (w4a4) must each launch,
+    and every output must equal ``camp_matmul(fused=True)`` bit for bit
+    (the reference's claim, tests/test_fused_gemm.py) and the plain
+    versions (exactly; silu within one bf16 ULP)."""
+    cases = []
+    for (m, k, n), epi in SHAPE_EPILOGUE.items():
+        w = torch.randn(k, n, device="cuda", generator=gen) * k ** -0.5
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        bias = (torch.randn(n, device="cuda", generator=gen)
+                .to(torch.bfloat16) if epi == "bias" else None)
+        for qmode in QMODES:
+            cases.append((qmode, x, camp.prepare_weight(w, qmode),
+                          dict(epilogue=epi, bias=bias)))
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [camp.camp_matmul(x, w, qmode=q, fused=False, **kw)
+            for q, x, w, kw in cases]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    print(f"  kernel launches on the unfused path: {launches}")
+    if set(launches) != set(PATHS["unfused"]):
+        raise RuntimeError(f"the unfused path launched {launches}; its "
+                           f"kernels are {PATHS['unfused']}")
+    rows = []
+    for (q, x, w, kw), y in zip(cases, outs):
+        fused = camp.camp_matmul(x, w, qmode=q, **kw)
+        plain = camp.camp_matmul(x, w, qmode=q, fused=False, impl="torch",
+                                 **kw)
+        torch.cuda.synchronize()
+        ok = torch.equal(y, fused) and gemm_close(y, plain, kw["epilogue"])
+        (m, k), n = x.shape, w.shape[1]
+        row = dict(qmode=q, m=m, k=k, n=n, epilogue=kw["epilogue"], ok=ok,
+                   max_abs_err_fused=max_err(y, fused),
+                   max_abs_err_plain=max_err(y, plain),
+                   fused_ms=timer(lambda: camp.camp_matmul(x, w, qmode=q,
+                                                           **kw)),
+                   unfused_ms=timer(lambda: camp.camp_matmul(
+                       x, w, qmode=q, fused=False, **kw)))
+        rows.append(row)
+        print(f"  {q} M={m:3d} K={k:4d} N={n:4d} {kw['epilogue']:4s} unfused "
+              f"== fused {'ok' if ok else 'FAIL'} (vs plain "
+              f"{row['max_abs_err_plain']:.3g}); fused {row['fused_ms']:.4f}"
+              f" ms, unfused {row['unfused_ms']:.4f} ms")
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError("the unfused path differs from the fused path "
+                           "or from the plain versions")
+    return dict(launches=launches, rows=rows)
 
 
 def main(argv=None) -> int:
@@ -524,37 +820,73 @@ def main(argv=None) -> int:
 
     print("[phase 2] kernels vs plain versions at the serving shapes")
     timer, gen = Timer(), torch.Generator(device="cuda").manual_seed(SEED)
-    rows = check_k1(timer, gen) + check_k3(timer, gen) + check_k2(timer, gen)
+    k1_shapes = [(m, k, n) for m in (1, 8, 256)
+                 for k, n in ((896, 896), (896, 128), (896, 4864),
+                              (4864, 896))]
+    both = (torch.bfloat16, torch.float32)
+    rows = (check_fused(timer, gen, "w8a8", k1_shapes, (torch.bfloat16,))
+            + check_fused(timer, gen, "w4a8", SERVING_SHAPES, both)
+            + check_fused(timer, gen, "w4a4", SERVING_SHAPES, both)
+            + check_unfused(timer, gen, "i8") + check_unfused(timer, gen, "w4")
+            + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen)
+            + check_k3(timer, gen) + check_k2(timer, gen))
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel checks failed: {bad}")
 
-    print("[phase 3] full-width qwen2-0.5b W8A8 serving")
-    served = serve(SEED)
+    served, engines = {}, {}
+    for qmode in QMODES:
+        print(f"[phase 3] full-width qwen2-0.5b {qmode.upper()} serving")
+        served[qmode], engine, prompts = serve(SEED, qmode)
+        engines[qmode] = (engine, prompts)
+        torch.cuda.empty_cache()
+    print("[phase 3] the three modes' serving runs again, in turns")
+    in_turns = serve_in_turns(engines)
+    del engines
 
-    # one headline row per kernel: a decode-shaped gate GEMM, the K3 bf16
+    print("[phase 4] the unfused path: camp_matmul(fused=False) at the "
+          "serving shapes")
+    unfused = unfused_path(timer, gen)
+
+    # one headline row per kernel: the decode gate GEMM (K1, K4), the
+    # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
     # batch, the K2 chunk at q_start 512 in bf16; errors over every case
+    def pick(key, **want):
+        return next(r for r in rows if r["kernel"] == key
+                    and all(r[a] == b for a, b in want.items()))
+    decode_gate = dict(m=8, k=896, n=4864, epilogue="silu",
+                       dtype=str(torch.bfloat16))
+    prefill_down = dict(m=256, k=4864, n=896, epilogue="none")
     headline = {
-        "K1": next(r for r in rows if r["kernel"] == "K1" and r["m"] == 8
-                   and r["n"] == 4864 and r["epilogue"] == "silu"),
-        "K2": next(r for r in rows if r["kernel"] == "K2"
-                   and r["q_start"] == 512 and "bfloat16" in r["dtype"]),
-        "K3": next(r for r in rows if r["kernel"] == "K3"
-                   and "bfloat16" in r["dtype"])}
+        "K1": pick("K1", **decode_gate),
+        "K4 w4a8": pick("K4 w4a8", **decode_gate),
+        "K4 w4a4": pick("K4 w4a4", **decode_gate),
+        "K5": pick("K5", **prefill_down), "K6a": pick("K6a", **prefill_down),
+        "K6b": pick("K6b", **prefill_down),
+        "K7": pick("K7", m=256, k=4864, bits=8, dtype=str(torch.bfloat16)),
+        "K2": pick("K2", q_start=512, dtype=str(torch.bfloat16)),
+        "K3": pick("K3", dtype=str(torch.bfloat16))}
+    # the path whose run counts each kernel's launches
+    path_of = {"K1": "w8a8", "K2": "w8a8", "K3": "w8a8", "K4 w4a8": "w4a8",
+               "K4 w4a4": "w4a4", "K5": "unfused", "K6a": "unfused",
+               "K6b": "unfused", "K7": "unfused"}
+    counts = {q: served[q]["launches"] for q in QMODES}
+    counts["unfused"] = unfused["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
         kernels.append(dict(
-            meta, launches=served["launches"][key],
+            meta, launches=counts[path_of[key]][key],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["kernel"] == key),
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
-            bound_by=h["bound_by"], library_ms=h["library_ms"]))
+            bound_by=h["bound_by"], library_ms=h["library_ms"],
+            path=path_of[key]))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, rows=rows, serving=served, kernels=kernels),
-            indent=1))
+            dict(card=smi, rows=rows, serving=served, in_turns=in_turns,
+                 unfused=unfused, kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

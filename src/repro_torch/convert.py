@@ -3,7 +3,8 @@
 ``jax.random`` cannot be replayed in PyTorch, so the parity tests hand the
 reference's own weights to the port. The input is framework-neutral: a
 nested dict/list of **numpy arrays**, with each quantized weight given as a
-dict ``{"q", "scale", "bits", "shape"}``. bf16 leaves arrive as ``uint16``
+dict ``{"q", "scale", "bits", "shape"}`` (for ``bits`` 4, ``q`` is the
+packed (K//2, N) payload and ``shape`` the logical (K, N)). bf16 leaves arrive as ``uint16``
 views of their bits, because ``torch.from_numpy`` rejects ml_dtypes'
 bfloat16; they become ``torch.bfloat16`` through a bit view.
 """

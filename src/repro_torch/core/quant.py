@@ -1,20 +1,21 @@
-"""Quantization primitives (int8) for the CAMP technique.
+"""Quantization primitives (int8 and packed int4) for the CAMP technique.
 
 Conventions, as in the reference (``repro/core/quant.py``):
 
 * Weights ``(K, N)`` are quantized **per output channel** (one scale per
   column, absmax over K).
 * Activations ``(M, K)`` are quantized **per row** (per token).
-* int8 values live in [-127, 127] (symmetric; -128 excluded).
+* int8 values live in [-127, 127] (symmetric; -128 excluded), int4 values
+  in [-7, 7].
+* int4 payloads are packed two per byte along axis 0 (K for a weight):
+  row ``2i`` goes to the low nibble of byte row ``i``, row ``2i+1`` to the
+  high nibble; both nibbles are sign-extended when unpacked.
 
 The f32 chain is the reference's: ``scale = absmax / qmax`` (1 where absmax
 is 0), then a true division ``x / scale``, round half to even
 (``torch.round``), clip. The division by ``qmax`` is computed by dividing
 by a tensor, never by a Python scalar: PyTorch's CUDA division by a CPU
 scalar multiplies by the reciprocal, which is not correctly rounded.
-
-Packed int4 storage (``pack_int4``/``unpack_int4``) comes with the int4
-GEMM kernels in a later slice.
 """
 from __future__ import annotations
 
@@ -41,9 +42,10 @@ def div_exact(x: torch.Tensor, c: float) -> torch.Tensor:
 
 @dataclasses.dataclass
 class QuantizedTensor:
-    """A quantized weight: int8 payload + f32 per-column scales.
+    """A quantized weight: int8 or packed-int4 payload + f32 column scales.
 
-    ``q``: (K, N) int8; ``scale``: (1, N) f32; ``shape``: logical (K, N).
+    ``q``: (K, N) int8, or (K//2, N) packed int4 when ``bits`` is 4;
+    ``scale``: (1, N) f32; ``shape``: the logical (K, N).
     """
 
     q: torch.Tensor
@@ -51,12 +53,18 @@ class QuantizedTensor:
     bits: int
     shape: tuple
 
+    def __post_init__(self):
+        _qmax(self.bits)
+        k, n = self.shape
+        rows = k // 2 if self.bits == 4 else k
+        if tuple(self.q.shape) != (rows, n):
+            raise ValueError(f"{self.bits}-bit payload of a {self.shape} "
+                             f"weight must be ({rows}, {n}); got "
+                             f"{tuple(self.q.shape)}")
+
     def dequantize(self) -> torch.Tensor:
-        if self.bits != 8:
-            raise NotImplementedError(
-                "int4 payloads come with the int4 GEMM kernels (ROADMAP "
-                "queue 2, K4)")
-        return self.q.to(self.scale.dtype) * self.scale
+        w = unpack_int4(self.q, self.shape[0]) if self.bits == 4 else self.q
+        return w.to(self.scale.dtype) * self.scale
 
 
 def quantize_rowwise(x: torch.Tensor, bits: int = 8):
@@ -80,12 +88,28 @@ def quantize_colwise(w: torch.Tensor, bits: int = 8):
     return q.to(torch.int8), scale
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4-valued int8 (first dim even) two per byte along axis 0."""
+    if q.shape[0] % 2 != 0:
+        raise ValueError(f"K={q.shape[0]} must be even to pack int4")
+    lo, hi = q[0::2].to(torch.int8), q[1::2].to(torch.int8)
+    return (hi << 4) | (lo & 0x0F)
+
+
+def unpack_int4(packed: torch.Tensor, k=None) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`, sign-extending both nibbles; the first
+    ``k`` rows of the result when ``k`` is given."""
+    p = packed.to(torch.int8)
+    lo, hi = (p << 4) >> 4, p >> 4          # arithmetic shifts on int8
+    out = torch.stack([lo, hi], dim=1).reshape(2 * p.shape[0], *p.shape[1:])
+    return out if k is None else out[:k]
+
+
 def quantize_weight(w: torch.Tensor, bits: int = 8) -> QuantizedTensor:
-    """Quantize a (K, N) weight to an int8 :class:`QuantizedTensor`."""
+    """Quantize a (K, N) weight; 4-bit payloads are packed along K."""
     if w.ndim != 2:
         raise ValueError(f"quantize_weight expects 2-D (K, N); got {tuple(w.shape)}")
-    if bits != 8:
-        raise NotImplementedError(
-            "int4 weights come with the int4 GEMM kernels (ROADMAP queue 2, K4)")
     q, scale = quantize_colwise(w, bits)
+    if bits == 4:
+        q = pack_int4(q)
     return QuantizedTensor(q=q, scale=scale, bits=bits, shape=tuple(w.shape))

@@ -1,0 +1,132 @@
+"""K5: int8 GEMM of pre-quantized activations, and the launch plumbing of
+every CAMP GEMM kernel.
+
+Port of the reference's ``camp_gemm_i8`` (``repro/kernels/camp_gemm.py``):
+int8 A (M, K) with row scales (M, 1) times int8 B (K, N) with column scales
+(1, N), accumulated in int32 and flushed as ``acc · (s_a · s_b)`` followed
+by the epilogue stages (:func:`repro_torch.kernels.ref.flush_ref`). It is
+the unfused path's GEMM: ``quantize_rowwise`` (K7) then this kernel equals
+the fused K1 bit for bit.
+
+* :func:`camp_gemm_i8_ref` is the plain PyTorch version.
+* :func:`camp_gemm_i8` is the wrapper: a CPU tensor goes to the plain
+  version; a CUDA tensor launches ``csrc/camp_gemm.cu`` (or raises).
+  ``launches`` counts kernel launches.
+* :func:`launch_gemm` binds the one C signature that every GEMM instance of
+  ``csrc/camp_gemm_common.cuh`` shares (K1, K4, K5, K6a, K6b).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.epilogue import EPILOGUE_STAGES, validate_epilogue
+from repro_torch.kernels.ref import dot_i32, flush_ref
+
+launches = 0          # kernel launches through the wrapper
+
+FLOATS = (torch.float32, torch.bfloat16)
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT,
+             _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
+_fns = {}
+
+
+def check_tensor(name, t, shape, dtypes, device):
+    """Raise unless ``t`` is on ``device``, of ``shape``, one of ``dtypes``
+    and contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {t.device}")
+
+
+def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
+                out_dtype, epilogue: str, bias, operand) -> torch.Tensor:
+    """Check the flush's tensors, allocate the (M, N) output and launch
+    ``symbol`` of ``csrc/<lib>.cu``. ``a``/``b`` are checked by the caller;
+    ``a_scale`` is None for the fused kernels, which compute it."""
+    stages = validate_epilogue(epilogue, bias, operand)
+    m, n, dev = a.shape[0], b.shape[1], a.device
+    check_tensor("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,),
+                 dev)
+    if not b_scale.is_contiguous():
+        raise ValueError("b_scale must be contiguous")
+    if a_scale is not None:
+        check_tensor("a_scale", a_scale, (m, 1), (torch.float32,), dev)
+    if bias is not None:
+        check_tensor("bias", bias.reshape(-1), (n,), FLOATS, dev)
+    if operand is not None:
+        check_tensor("operand", operand, (m, n), FLOATS, dev)
+    if out_dtype not in FLOATS:
+        raise ValueError(f"out_dtype {out_dtype} not in {FLOATS}")
+    code = 0
+    for i, s in enumerate(stages):
+        code |= (EPILOGUE_STAGES.index(s) + 1) << (4 * i)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(build.load(lib), symbol)
+        fn.argtypes, fn.restype = _ARGTYPES, _INT
+        _fns[symbol] = fn
+
+    def bf16(t):
+        return int(t is not None and t.dtype == torch.bfloat16)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = fn(a.data_ptr(), bf16(a), ptr(a_scale), b.data_ptr(),
+            b_scale.data_ptr(), ptr(bias), bf16(bias), ptr(operand),
+            bf16(operand), out.data_ptr(), bf16(out), m, n, k, code,
+            len(stages), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
+    return out
+
+
+def camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale, *, out_dtype=torch.float32,
+                     epilogue: str = "none", bias=None, operand=None,
+                     dot=dot_i32):
+    """Plain version: exact int32 dot (or ``dot``, e.g. the hybrid
+    decomposition) → flush → stages."""
+    return flush_ref(dot(a_q, b_q), a_scale, b_scale, out_dtype=out_dtype,
+                     epilogue=epilogue, bias=bias, operand=operand)
+
+
+def camp_gemm_i8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
+                 b_scale: torch.Tensor, *, out_dtype=torch.float32,
+                 epilogue: str = "none", bias: Optional[torch.Tensor] = None,
+                 operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 A (M, K), scales (M, 1) f32 × int8 B (K, N), scales (1, N) f32
+    → (M, N) in ``out_dtype`` (bf16 or f32)."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    if a_q.device.type == "cpu":
+        return camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale, **kw)
+    require_cuda(a_q, "camp_gemm_i8")
+    if a_q.ndim != 2 or b_q.ndim != 2:
+        raise ValueError("camp_gemm_i8 takes 2-D a_q and b_q")
+    (m, k), n = a_q.shape, b_q.shape[1]
+    check_tensor("a_q", a_q, (m, k), (torch.int8,), a_q.device)
+    check_tensor("b_q", b_q, (k, n), (torch.int8,), a_q.device)
+    out = launch_gemm("camp_gemm", "camp_gemm_i8", a_q, a_scale, b_q,
+                      b_scale, k, **kw)
+    if out.numel():
+        global launches
+        launches += 1
+    return out

@@ -1,90 +1,96 @@
-"""K1: fused activation-quantize + int8 GEMM + epilogue (w8a8).
+"""K1 and K4: fused activation-quantize + integer GEMM + epilogue.
 
-Port of the reference's ``camp_gemm_fused_w8a8`` (``repro/kernels/
-camp_gemm_fused.py``): bf16/f32 activations are quantized per row inside
-the kernel, multiplied by the int8 weight into an int32 accumulator, and
-flushed as ``acc · (s_a · s_b)`` followed by the epilogue stages, with one
-store of the output (a first bias/residual stage fuses with the scale into
-one multiply-add, as XLA compiles the reference). The activations' int8 payload and scales never exist
-in device memory.
+Port of the reference's ``camp_gemm_fused_w8a8`` / ``_w4a8`` / ``_w4a4``
+(``repro/kernels/camp_gemm_fused.py``): bf16/f32 activations are quantized
+per row inside the kernel (to [-127, 127], or [-7, 7] for w4a4), multiplied
+by the int8 weight (K1) or the packed-int4 weight (K4, (K//2, N), unpacked
+on chip) into an int32 accumulator, and flushed as ``acc · (s_a · s_b)``
+followed by the epilogue stages, with one store of the output (a first
+bias/residual stage fuses with the scale into one multiply-add, as XLA
+compiles the reference). The activations' integer payload and scales never
+exist in device memory.
 
-* :func:`camp_gemm_fused_w8a8_ref` is the plain PyTorch version. The CPU
-  tests use it, and ``chip_smoke.py`` holds the kernel against it.
-* :func:`camp_gemm_fused_w8a8` is the wrapper: a CPU tensor goes to the plain
+* ``camp_gemm_fused_*_ref`` are the plain PyTorch versions. The CPU tests
+  use them, and ``chip_smoke.py`` holds the kernels against them.
+* ``camp_gemm_fused_*`` are the wrappers: a CPU tensor goes to the plain
   version; a CUDA tensor launches ``csrc/camp_gemm_fused.cu`` (or raises).
-  ``launches`` counts kernel launches.
-
-int4 weights (the reference's ``camp_gemm_fused_w4a8``/``_w4a4``) come with
-K4 in a later slice.
+  ``launches`` (w8a8), ``launches_w4a8`` and ``launches_w4a4`` count kernel
+  launches.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.epilogue import (EPILOGUE_STAGES, apply_epilogue,
-                                          validate_epilogue)
-from repro_torch.kernels.ref import dot_i32, quantize_rowwise_ref
+from repro_torch.core.quant import unpack_int4
+from repro_torch.kernels.camp_gemm import (FLOATS, check_tensor, launch_gemm,
+                                           require_cuda)
+from repro_torch.kernels.ref import dot_i32, flush_ref, quantize_rowwise_ref
 
-launches = 0          # kernel launches through the wrapper
+launches = 0          # kernel launches through camp_gemm_fused_w8a8 (K1)
+launches_w4a8 = 0     # through camp_gemm_fused_w4a8 (K4)
+launches_w4a4 = 0     # through camp_gemm_fused_w4a4 (K4)
 
-_FLOATS = (torch.float32, torch.bfloat16)
-_VOID = ctypes.c_void_p
-_INT = ctypes.c_int
+# qmode → (activation bits, weight bits)
+_BITS = {"w8a8": (8, 8), "w4a8": (8, 4), "w4a4": (4, 4)}
 
 
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` with one rounding to f32, as a fused multiply-add.
+def _check_k(qmode, x, b):
+    k = x.shape[-1]
+    rows = k if _BITS[qmode][1] == 8 else k // 2
+    if _BITS[qmode][1] == 4 and k % 2:
+        raise ValueError(f"camp_gemm_fused_{qmode}: K={k} must be even")
+    if b.shape[0] != rows:
+        raise ValueError(f"camp_gemm_fused_{qmode}: x {tuple(x.shape)} needs "
+                         f"W with {rows} rows, got {tuple(b.shape)}")
 
-    The product of two f32 values is exact in float64, so only the sum
-    rounds twice (to float64, then to f32); the two agree with a true FMA
-    except at rare double-rounding ties.
-    """
-    return (a.double() * b.double() + c.double()).float()
+
+def _fused_ref(qmode, x, b, b_scale, *, out_dtype, epilogue, bias, operand,
+               dot):
+    _check_k(qmode, x, b)
+    a_bits, w_bits = _BITS[qmode]
+    b_q = unpack_int4(b, x.shape[-1]) if w_bits == 4 else b
+    a_q, a_s = quantize_rowwise_ref(x, a_bits)
+    return flush_ref(dot(a_q, b_q), a_s, b_scale, out_dtype=out_dtype,
+                     epilogue=epilogue, bias=bias, operand=operand)
 
 
 def camp_gemm_fused_w8a8_ref(x, b_q, b_scale, *, out_dtype=torch.float32,
+                             epilogue: str = "none", bias=None, operand=None,
+                             dot=dot_i32):
+    """Plain version: quantize rowwise (qmax 127) → exact int32 dot (or
+    ``dot``, e.g. the hybrid decomposition) → flush → stages."""
+    return _fused_ref("w8a8", x, b_q, b_scale, out_dtype=out_dtype,
+                      epilogue=epilogue, bias=bias, operand=operand, dot=dot)
+
+
+def camp_gemm_fused_w4a8_ref(x, b_packed, b_scale, *, out_dtype=torch.float32,
+                             epilogue: str = "none", bias=None, operand=None,
+                             dot=dot_i32):
+    """Plain version: unpack W, quantize rowwise (qmax 127), dot, flush."""
+    return _fused_ref("w4a8", x, b_packed, b_scale, out_dtype=out_dtype,
+                      epilogue=epilogue, bias=bias, operand=operand, dot=dot)
+
+
+def camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, *, out_dtype=torch.float32,
                              epilogue: str = "none", bias=None, operand=None):
-    """Plain version: quantize rowwise → exact int32 dot → flush → stages.
-
-    The flush is the reference's as XLA compiles it: ``acc · (s_a · s_b)``,
-    and where the first stage adds (bias, residual) XLA contracts the scale
-    multiply and that add into one fused multiply-add.
-    """
-    stages = validate_epilogue(epilogue, bias, operand)
-    bias = None if bias is None else bias.reshape(1, -1)
-    a_q, a_s = quantize_rowwise_ref(x, 8)
-    y = dot_i32(a_q, b_q).float()
-    scale = a_s * b_scale.reshape(1, -1)
-    if stages and stages[0] in ("bias", "residual"):
-        y = fma_f32(y, scale, bias if stages[0] == "bias" else operand)
-        stages = stages[1:]
-    else:
-        y = y * scale
-    return apply_epilogue(y, stages, bias=bias, operand=operand).to(out_dtype)
+    """Plain version: unpack W, quantize rowwise (qmax 7), dot, flush."""
+    return _fused_ref("w4a4", x, b_packed, b_scale, out_dtype=out_dtype,
+                      epilogue=epilogue, bias=bias, operand=operand,
+                      dot=dot_i32)
 
 
-def _lib():
-    lib = build.load("camp_gemm_fused")
-    fn = lib.camp_gemm_fused_w8a8
-    fn.argtypes = [_VOID, _INT, _VOID, _VOID, _VOID, _INT, _VOID, _INT,
-                   _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
-    fn.restype = _INT
-    return fn
-
-
-def _check(name, t, shape, dtypes, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _fused_cuda(qmode, x, b, b_scale, kw):
+    require_cuda(x, f"camp_gemm_fused_{qmode}")
+    if x.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"camp_gemm_fused_{qmode} takes 2-D x and W")
+    _check_k(qmode, x, b)
+    (m, k), n, dev = x.shape, b.shape[1], x.device
+    check_tensor("x", x, (m, k), FLOATS, dev)
+    check_tensor("W", b, (b.shape[0], n), (torch.int8,), dev)
+    return launch_gemm("camp_gemm_fused", f"camp_gemm_fused_{qmode}", x, None,
+                       b, b_scale, k, **kw)
 
 
 def camp_gemm_fused_w8a8(x: torch.Tensor, b_q: torch.Tensor,
@@ -98,47 +104,48 @@ def camp_gemm_fused_w8a8(x: torch.Tensor, b_q: torch.Tensor,
     ``bias`` (N,) and ``operand`` (M, N) are bf16/f32, as the epilogue
     needs them. Returns (M, N) in ``out_dtype`` (bf16 or f32).
     """
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
     if x.device.type == "cpu":
-        return camp_gemm_fused_w8a8_ref(x, b_q, b_scale, out_dtype=out_dtype,
-                                        epilogue=epilogue, bias=bias,
-                                        operand=operand)
-    if x.device.type != "cuda":
-        raise ValueError(f"camp_gemm_fused_w8a8: no kernel for {x.device}")
-    stages = validate_epilogue(epilogue, bias, operand)
-    if x.ndim != 2 or b_q.ndim != 2:
-        raise ValueError("camp_gemm_fused_w8a8 takes 2-D x and b_q")
-    (m, k), n = x.shape, b_q.shape[1]
-    dev = x.device
-    _check("x", x, (m, k), _FLOATS, dev)
-    _check("b_q", b_q, (k, n), (torch.int8,), dev)
-    _check("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,), dev)
-    if not b_scale.is_contiguous():
-        raise ValueError("b_scale must be contiguous")
-    if bias is not None:
-        _check("bias", bias.reshape(-1), (n,), _FLOATS, dev)
-    if operand is not None:
-        _check("operand", operand, (m, n), _FLOATS, dev)
-    if out_dtype not in _FLOATS:
-        raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
-    code = 0
-    for i, s in enumerate(stages):
-        code |= (EPILOGUE_STAGES.index(s) + 1) << (4 * i)
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    if m == 0 or n == 0:
-        return out
+        return camp_gemm_fused_w8a8_ref(x, b_q, b_scale, **kw)
+    out = _fused_cuda("w8a8", x, b_q, b_scale, kw)
+    if out.numel():
+        global launches
+        launches += 1
+    return out
 
-    def bf16(t):
-        return int(t is not None and t.dtype == torch.bfloat16)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+def camp_gemm_fused_w4a8(x: torch.Tensor, b_packed: torch.Tensor,
+                         b_scale: torch.Tensor, *, out_dtype=torch.float32,
+                         epilogue: str = "none",
+                         bias: Optional[torch.Tensor] = None,
+                         operand: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """w4a8: x (M, K) bf16/f32 (K even) by packed-int4 W (K//2, N)."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    if x.device.type == "cpu":
+        return camp_gemm_fused_w4a8_ref(x, b_packed, b_scale, **kw)
+    out = _fused_cuda("w4a8", x, b_packed, b_scale, kw)
+    if out.numel():
+        global launches_w4a8
+        launches_w4a8 += 1
+    return out
 
-    rc = _lib()(x.data_ptr(), bf16(x), b_q.data_ptr(), b_scale.data_ptr(),
-                ptr(bias), bf16(bias), ptr(operand), bf16(operand),
-                out.data_ptr(), bf16(out), m, n, k, code, len(stages),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"camp_gemm_fused_w8a8 launch failed: cudaError {rc}")
-    global launches
-    launches += 1
+
+def camp_gemm_fused_w4a4(x: torch.Tensor, b_packed: torch.Tensor,
+                         b_scale: torch.Tensor, *, out_dtype=torch.float32,
+                         epilogue: str = "none",
+                         bias: Optional[torch.Tensor] = None,
+                         operand: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """w4a4: x quantized to [-7, 7] in the kernel, by packed W (K//2, N)."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    if x.device.type == "cpu":
+        return camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, **kw)
+    out = _fused_cuda("w4a4", x, b_packed, b_scale, kw)
+    if out.numel():
+        global launches_w4a4
+        launches_w4a4 += 1
     return out

@@ -1,21 +1,45 @@
-"""Dispatch for the CAMP GEMM kernels.
+"""Dispatch for the CAMP GEMM and quantize kernels.
 
-Every op takes ``impl``:
+Port of ``repro/kernels/ops.py``. Every op takes ``impl``:
 
-* ``'auto'``  — the device of the tensor decides: the CUDA kernel for a CUDA
-  tensor, the plain PyTorch version for a CPU tensor;
-* ``'cuda'``  — the CUDA kernel (raises for a CPU tensor);
-* ``'torch'`` — the plain PyTorch version, on any device. Tests and
-  ``chip_smoke.py`` use it to hold the kernels against their plain versions.
+* ``'auto'``   — the device of the tensor decides: the CUDA kernel for a
+  CUDA tensor, the plain PyTorch version for a CPU tensor;
+* ``'cuda'``   — the CUDA kernel (raises for a CPU tensor);
+* ``'torch'``  — the plain PyTorch version, on any device. Tests and
+  ``chip_smoke.py`` use it to hold the kernels against their plain versions;
+* ``'hybrid'`` — the plain version with the integer product built from the
+  paper's §3 hybrid-multiplier decomposition (:mod:`repro_torch.core.
+  hybrid`), on any device; bit-exact with 'torch'. As in the reference,
+  a4w4 has no decomposition and quantize has none to make, so those take
+  the plain version.
+
+A CUDA tensor reaches a plain version only when 'torch' or 'hybrid' is
+asked for: a kernel that fails to build or launch raises.
+
+The ``gemm_*_fused`` family quantizes the activations inside the GEMM (K1,
+K4); ``quantize_rowwise`` (K7) followed by ``gemm_i8`` (K5), ``gemm_w4``
+(K6a) or ``gemm_a4w4`` (K6b) is the unfused composition, equal to the
+fused path bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.camp_gemm_fused import (camp_gemm_fused_w8a8,
+from repro_torch.core import hybrid
+from repro_torch.kernels.camp_gemm import camp_gemm_i8, camp_gemm_i8_ref
+from repro_torch.kernels.camp_gemm_fused import (camp_gemm_fused_w4a4,
+                                                 camp_gemm_fused_w4a4_ref,
+                                                 camp_gemm_fused_w4a8,
+                                                 camp_gemm_fused_w4a8_ref,
+                                                 camp_gemm_fused_w8a8,
                                                  camp_gemm_fused_w8a8_ref)
+from repro_torch.kernels.camp_gemm_w4 import (camp_gemm_a4w4,
+                                              camp_gemm_a4w4_ref,
+                                              camp_gemm_w4, camp_gemm_w4_ref)
+from repro_torch.kernels.quantize import quantize_rowwise_kernel
+from repro_torch.kernels.ref import dot_i32, quantize_rowwise_ref
 
-VALID_IMPLS = ("auto", "cuda", "torch")
+VALID_IMPLS = ("auto", "cuda", "torch", "hybrid")
 
 
 def check_impl(impl: str, x: torch.Tensor) -> str:
@@ -29,11 +53,91 @@ def check_impl(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def _dot(impl: str, hybrid_dot):
+    return hybrid_dot if impl == "hybrid" else dot_i32
+
+
 def gemm_i8_fused(x, b_q, b_scale, *, out_dtype=torch.float32,
                   impl: str = "auto", epilogue: str = "none", bias=None,
                   operand=None):
     """w8a8 with in-kernel activation quantization: (M,K) float × (K,N) int8."""
-    fn = (camp_gemm_fused_w8a8_ref if check_impl(impl, x) == "torch"
-          else camp_gemm_fused_w8a8)
-    return fn(x, b_q, b_scale, out_dtype=out_dtype, epilogue=epilogue,
-              bias=bias, operand=operand)
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    impl = check_impl(impl, x)
+    if impl == "cuda":
+        return camp_gemm_fused_w8a8(x, b_q, b_scale, **kw)
+    return camp_gemm_fused_w8a8_ref(
+        x, b_q, b_scale, dot=_dot(impl, hybrid.hybrid_matmul_i8), **kw)
+
+
+def gemm_w4_fused(x, b_packed, b_scale, *, out_dtype=torch.float32,
+                  impl: str = "auto", epilogue: str = "none", bias=None,
+                  operand=None):
+    """w4a8 with in-kernel activation quantization: (M,K) float ×
+    (K//2,N) packed int4."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    impl = check_impl(impl, x)
+    if impl == "cuda":
+        return camp_gemm_fused_w4a8(x, b_packed, b_scale, **kw)
+    return camp_gemm_fused_w4a8_ref(
+        x, b_packed, b_scale, dot=_dot(impl, hybrid.hybrid_matmul_w4a8), **kw)
+
+
+def gemm_a4w4_fused(x, b_packed, b_scale, *, out_dtype=torch.float32,
+                    impl: str = "auto", epilogue: str = "none", bias=None,
+                    operand=None):
+    """w4a4 with in-kernel int4 activation quantization: the packed int4
+    activations of the unfused path never exist at all."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    if check_impl(impl, x) == "cuda":
+        return camp_gemm_fused_w4a4(x, b_packed, b_scale, **kw)
+    return camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, **kw)
+
+
+def gemm_i8(a_q, b_q, a_scale, b_scale, *, out_dtype=torch.float32,
+            impl: str = "auto", epilogue: str = "none", bias=None,
+            operand=None):
+    """int8 GEMM: (M,K) int8 × (K,N) int8 → (M,N) with the scale flush."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    impl = check_impl(impl, a_q)
+    if impl == "cuda":
+        return camp_gemm_i8(a_q, b_q, a_scale, b_scale, **kw)
+    return camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale,
+                            dot=_dot(impl, hybrid.hybrid_matmul_i8), **kw)
+
+
+def gemm_w4(a_q, b_packed, a_scale, b_scale, *, out_dtype=torch.float32,
+            impl: str = "auto", epilogue: str = "none", bias=None,
+            operand=None):
+    """a8w4 GEMM: int8 activations × packed-int4 weights."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    impl = check_impl(impl, a_q)
+    if impl == "cuda":
+        return camp_gemm_w4(a_q, b_packed, a_scale, b_scale, **kw)
+    return camp_gemm_w4_ref(a_q, b_packed, a_scale, b_scale,
+                            dot=_dot(impl, hybrid.hybrid_matmul_w4a8), **kw)
+
+
+def gemm_a4w4(a_packed, b_packed, k, a_scale, b_scale, *,
+              out_dtype=torch.float32, impl: str = "auto",
+              epilogue: str = "none", bias=None, operand=None):
+    """int4 GEMM: both operands packed two per byte along K (logical K=k)."""
+    if k != 2 * a_packed.shape[-1]:
+        raise ValueError(f"gemm_a4w4: K={k} but A is packed to "
+                         f"{tuple(a_packed.shape)}")
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
+              operand=operand)
+    if check_impl(impl, a_packed) == "cuda":
+        return camp_gemm_a4w4(a_packed, b_packed, a_scale, b_scale, **kw)
+    return camp_gemm_a4w4_ref(a_packed, b_packed, a_scale, b_scale, **kw)
+
+
+def quantize_rowwise(x, *, bits: int = 8, impl: str = "auto"):
+    """Dynamic rowwise quantization: x (M, K) → (int8 q, f32 scale (M, 1))."""
+    if check_impl(impl, x) == "cuda":
+        return quantize_rowwise_kernel(x, bits=bits)
+    return quantize_rowwise_ref(x, bits)

@@ -8,7 +8,10 @@ On the CPU, at the reduced width (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --reduced --device cpu --qmode w8a8 --batch 4 --prompt-len 32 --steps 16
 
-Serving runs on the continuous-batching engine over the paged int8 KV pool.
+``--qmode`` takes every CAMP mode: w8a8 (fused GEMM K1), w4a8 and w4a4
+(packed int4 weights, fused GEMM K4), the weight-only w8a16 and w4a16
+(dequantize, then a float matmul) and none. Serving runs on the
+continuous-batching engine over the paged int8 KV pool.
 """
 from __future__ import annotations
 

@@ -38,7 +38,8 @@ from repro_torch.convert import from_jax_params  # noqa: E402
 from repro_torch.core import camp, quant  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import quantize_params  # noqa: E402
-from torch_parity import jax_to_numpy, to_numpy  # noqa: E402
+from torch_parity import (assert_ulps, jax_to_numpy,  # noqa: E402
+                          pre_activation_epilogue, to_numpy)
 
 SHAPES = [(1, 96, 40), (3, 100, 72), (17, 200, 64)]    # ragged M, K % 32 != 0
 EPILOGUES = ["none", "bias", "silu", "gelu", "residual", "mul", "bias+silu",
@@ -47,24 +48,11 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def assert_ulps(got, want, max_ulps, dtype, scale=None):
-    """|got - want| ≤ max_ulps ULPs of ``dtype`` at the magnitude
-    max(|want|, |scale|) (bf16 values are held in f32)."""
-    mag = np.abs(np.asarray(want, np.float32))
-    if scale is not None:
-        mag = np.maximum(mag, np.abs(np.asarray(scale, np.float32)))
-    ulp = np.spacing(mag) * (2.0 ** 16 if dtype == "bfloat16" else 1.0)
-    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
-    worst = (err / ulp).max(initial=0.0)
-    assert worst <= max_ulps, f"{worst} ULPs"
-
-
 def _pre_activation(jx, wq, jb, epilogue):
     """The reference's f32 output just before the silu/gelu stage."""
-    stages = epilogue.split("+")
-    pre = "+".join(stages[:[s in ("silu", "gelu") for s in stages].index(True)])
+    pre = pre_activation_epilogue(epilogue)
     return to_numpy(jops.gemm_i8_fused(jx, wq.q, wq.scale, impl="xla",
-                                       epilogue=pre or "none",
+                                       epilogue=pre,
                                        bias=jb if "bias" in pre else None))
 
 
@@ -181,11 +169,16 @@ def test_camp_matmul_matches_reference(qmode):
 
 
 def test_int4_qmodes_not_ported():
+    """The int4 qmodes are ported now (their parity is in
+    test_torch_int4.py); what they still refuse is what the reference
+    refuses: a weight with an odd K cannot be packed two per byte."""
     x = torch.zeros(2, 64)
-    with pytest.raises(NotImplementedError, match="K4"):
-        camp.prepare_weight(torch.zeros(64, 8), "w4a8")
-    with pytest.raises(NotImplementedError, match="K4"):
-        camp.camp_matmul(x, None, qmode="w4a4")
+    for qmode in ("w4a8", "w4a4", "w4a16"):
+        w = camp.prepare_weight(torch.zeros(64, 8), qmode)
+        assert (w.bits, tuple(w.q.shape), w.shape) == (4, (32, 8), (64, 8))
+        assert camp.camp_matmul(x, w, qmode=qmode).shape == (2, 8)
+        with pytest.raises(ValueError, match="even"):
+            camp.prepare_weight(torch.zeros(63, 8), qmode)
 
 
 def test_quantize_params_matches_reference_per_leaf():

@@ -59,13 +59,22 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_versions():
+    from repro_torch.core.quant import pack_int4
+    from repro_torch.kernels import camp_gemm as k5
     from repro_torch.kernels import camp_gemm_fused as k1
+    from repro_torch.kernels import camp_gemm_w4 as k6
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as k3
     from repro_torch.kernels import paged_prefill as k2
-    before = (k1.launches, k2.launches, k3.launches)
+    from repro_torch.kernels import quantize as k7
+    counters = ((k1, "launches"), (k1, "launches_w4a8"),
+                (k1, "launches_w4a4"), (k5, "launches"), (k6, "launches_w4"),
+                (k6, "launches_a4w4"), (k7, "launches"), (k2, "launches"),
+                (k3, "launches"))
+    before = [getattr(m, a) for m, a in counters]
     x = torch.randn(3, 64)
     w = torch.randint(-127, 128, (64, 8), dtype=torch.int8)
+    w4 = pack_int4(torch.randint(-7, 8, (64, 8), dtype=torch.int8))
     s = torch.rand(1, 8)
     y = k1.camp_gemm_fused_w8a8(x, w, s)
     torch.testing.assert_close(y, k1.camp_gemm_fused_w8a8_ref(x, w, s),
@@ -75,6 +84,25 @@ def test_cpu_tensors_take_the_plain_versions():
         ops.gemm_i8_fused(x, w, s, impl="cuda")
     with pytest.raises(ValueError, match="impl"):
         ops.gemm_i8_fused(x, w, s, impl="pallas")
+    for fn, ref, b in ((k1.camp_gemm_fused_w4a8, k1.camp_gemm_fused_w4a8_ref,
+                        w4),
+                       (k1.camp_gemm_fused_w4a4, k1.camp_gemm_fused_w4a4_ref,
+                        w4)):
+        assert torch.equal(fn(x, b, s), ref(x, b, s))
+    a_q, a_s = k7.quantize_rowwise_kernel(x)
+    a4, a4_s = k7.quantize_rowwise_kernel(x, bits=4)
+    a_p = pack_int4(a4.T).T.contiguous()
+    assert torch.equal(k5.camp_gemm_i8(a_q, w, a_s, s),
+                       k5.camp_gemm_i8_ref(a_q, w, a_s, s))
+    assert torch.equal(k6.camp_gemm_w4(a_q, w4, a_s, s),
+                       k6.camp_gemm_w4_ref(a_q, w4, a_s, s))
+    assert torch.equal(k6.camp_gemm_a4w4(a_p, w4, a4_s, s),
+                       k6.camp_gemm_a4w4_ref(a_p, w4, a4_s, s))
+    for call in (lambda: ops.gemm_w4_fused(x, w4, s, impl="cuda"),
+                 lambda: ops.gemm_i8(a_q, w, a_s, s, impl="cuda"),
+                 lambda: ops.quantize_rowwise(x, impl="cuda")):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
     pages = torch.randint(-127, 128, (4, 1, 8, 16), dtype=torch.int8)
     scales = torch.rand(4, 1, 8)
     k3.paged_attention_cuda(torch.randn(2, 1, 2, 16), pages, pages, scales,
@@ -84,4 +112,4 @@ def test_cpu_tensors_take_the_plain_versions():
     k2.paged_prefill_cuda(torch.randn(1, 5, 2, 16), pages, pages, scales,
                           scales, torch.tensor([1, 2], dtype=torch.int32),
                           q_start=4)
-    assert (k1.launches, k2.launches, k3.launches) == before
+    assert [getattr(m, a) for m, a in counters] == before

@@ -45,6 +45,28 @@ def to_numpy(x):
     return a
 
 
+def assert_ulps(got, want, max_ulps, dtype, scale=None):
+    """|got - want| ≤ max_ulps ULPs of ``dtype`` ('float32' or 'bfloat16',
+    bf16 values held in f32) at the magnitude max(|want|, |scale|)."""
+    mag = np.abs(np.asarray(want, np.float32))
+    if scale is not None:
+        mag = np.maximum(mag, np.abs(np.asarray(scale, np.float32)))
+    ulp = np.spacing(mag) * (2.0 ** 16 if dtype == "bfloat16" else 1.0)
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    worst = (err / ulp).max(initial=0.0)
+    assert worst <= max_ulps, f"{worst} ULPs"
+
+
+def pre_activation_epilogue(epilogue):
+    """The stages of ``epilogue`` before its first silu/gelu ('none' if it
+    starts with one); None when it has no transcendental stage."""
+    stages = epilogue.split("+")
+    acts = [s in ("silu", "gelu") for s in stages]
+    if not any(acts):
+        return None
+    return "+".join(stages[:acts.index(True)]) or "none"
+
+
 def reduced_qwen_pair():
     """(jax cfg, jax params, port cfg, port params): the reduced qwen2-0.5b
     with the reference's weights, carried to the port on the CPU."""
