@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. Build: compile the five CUDA kernel libraries (one nvcc each, all at
+1. Build: compile the six CUDA kernel libraries (one nvcc each, all at
    once).
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
@@ -24,7 +24,27 @@ Phases (any failure exits non-zero and prints no result):
    the serving shapes (K7, then K5, K6a or K6b), every one of its kernels
    launched, each output equal bit for bit to ``camp_matmul(fused=True)``
    and to the plain versions.
-5. Report: a ``kernels`` JSON line, the card's name and power limit, and as
+5. K8, dense flash attention, through its entry point ``flash_attention``
+   at the qwen2-0.5b shapes (14 heads, hd 64: S 512, 4,096 and 32,768 bf16
+   causal; 4,096 f32 causal and bf16 non-causal), qwen3-0.6b's (16 heads,
+   hd 128, S 4,096), and hd 8, 16 and 32 at an S that leaves a ragged last
+   tile (f32 and bf16, causal and not): every call launches K8; each
+   output within its tolerance of the plain version (f32 2e-5, bf16 one
+   ULP + ``K8_BF16_ATOL``), and in bf16 no farther (root-mean-square
+   distance) from an f64 computation of 64 rows of up to three heads than
+   twice the plain version is; a dropped-kv-tile control that the checks
+   must reject; times beside the plain version, SDPA and the bound.
+6. Dense-slab serving: full-width qwen2-0.5b W8A8, the same 8 prompts of
+   512 tokens and 32 new tokens through ``_generate_dense`` with a bf16
+   slab and with an int8 slab, and through ``generate`` with its default
+   float pages. K1 launches 168 times a forward in every run; K2 and K3
+   never launch on float pages. Every K1 call of the dense prefill (M =
+   4,096 rows) and of one decode step held against its plain version on
+   the same inputs; the dense path's first-step logits through the
+   kernels against the plain versions, and the bf16 slab's against the
+   float-page engine's, each within W8A8's ``LOGIT_TOL``; profiled reruns
+   of the bf16 slab and float pages; then the three runs again in turns.
+7. Report: a ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs the repository's ``src/`` beside it; imports nothing of JAX.
@@ -50,6 +70,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import camp_gemm as k5  # noqa: E402
 from repro_torch.kernels import camp_gemm_fused as k1  # noqa: E402
 from repro_torch.kernels import camp_gemm_w4 as k6  # noqa: E402
+from repro_torch.kernels import flash_attention as k8  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as k3  # noqa: E402
 from repro_torch.kernels import paged_prefill as k2  # noqa: E402
@@ -58,7 +79,10 @@ from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue  # noqa:
 from repro_torch.kernels.ref import quantize_rowwise_ref  # noqa: E402
 from repro_torch.models import init_params, quantize_params  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
-from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
+from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
+                                        _generate_dense, build_decode_step,
+                                        build_prefill_step, generate,
+                                        init_serve_caches)
 from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -117,16 +141,20 @@ KERNELS = {
     "K3": dict(name="paged_attention", route="cuda",
                source="src/repro_torch/csrc/paged_attention.cu",
                replaces="src/repro/kernels/paged_attention.py:178"),
+    "K8": dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:88"),
 }
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"K1": (k1, "launches"), "K4 w4a8": (k1, "launches_w4a8"),
             "K4 w4a4": (k1, "launches_w4a4"), "K5": (k5, "launches"),
             "K6a": (k6, "launches_w4"), "K6b": (k6, "launches_a4w4"),
             "K7": (k7, "launches"), "K2": (k2, "launches"),
-            "K3": (k3, "launches")}
+            "K3": (k3, "launches"), "K8": (k8, "launches")}
 # the kernels each path launches
 PATHS = {"w8a8": ("K1", "K2", "K3"), "w4a8": ("K4 w4a8", "K2", "K3"),
-         "w4a4": ("K4 w4a4", "K2", "K3"), "unfused": ("K7", "K5", "K6a", "K6b")}
+         "w4a4": ("K4 w4a4", "K2", "K3"), "unfused": ("K7", "K5", "K6a", "K6b"),
+         "flash": ("K8",), "dense": ("K1",), "float pages": ("K1",)}
 # qmode → the fused GEMM's key and wrapper name (kernels/camp_gemm_fused.py)
 FUSED = {"w8a8": ("K1", "camp_gemm_fused_w8a8"),
          "w4a8": ("K4 w4a8", "camp_gemm_fused_w4a8"),
@@ -542,7 +570,7 @@ def serve(seed: int, qmode: str):
 
     def engine():
         return ContinuousBatchingEngine(
-            params, cfg, page_size=ps,
+            params, cfg, kv_dtype="int8", page_size=ps,
             capacity_tokens=N_REQ * kvc.round_up(PROMPT_LEN + NEW, ps),
             device="cuda")
 
@@ -601,6 +629,31 @@ def serve_in_turns(engines):
     return tok_s
 
 
+def checked(key, kernel, plain, close, worst, calls):
+    """``kernel`` wrapped so that every call is held against ``plain`` on
+    the very same inputs (``close(got, want, kwargs)``); the largest
+    difference goes to ``worst[key]`` and the calls to ``calls[key]``."""
+    def call(*args, **kw):
+        got = kernel(*args, **kw)
+        kw.pop("pages_per_step", None)
+        want = plain(*args, **kw)
+        if not close(got, want, kw):
+            raise RuntimeError(f"{key} in situ differs from its plain "
+                               f"version by {max_err(got, want):.3g}")
+        worst[key] = max(worst[key], max_err(got, want))
+        calls[key] += 1
+        return got
+    return call
+
+
+def gemm_in_situ(gemm, name, worst, calls):
+    """The fused GEMM ``ops.<name>``, checked call by call (see
+    :func:`checked`): exact, silu within one bf16 ULP."""
+    return checked(gemm, getattr(ops, name), getattr(k1, name + "_ref"),
+                   lambda got, want, kw: gemm_close(
+                       got, want, kw.get("epilogue", "none")), worst, calls)
+
+
 def check_in_situ(engine, prompt, qmode):
     """Every kernel launch of one request (two prefill chunks, two decode
     steps) on the engine, held against its plain version on the very same
@@ -610,32 +663,18 @@ def check_in_situ(engine, prompt, qmode):
     worst = {gemm: 0.0, "K2": 0.0, "K3": 0.0}
     calls = {gemm: 0, "K2": 0, "K3": 0}
 
-    def checked(key, kernel, plain, close):
-        def call(*args, **kw):
-            got = kernel(*args, **kw)
-            kw.pop("pages_per_step", None)
-            want = plain(*args, **kw)
-            if not close(got, want, kw):
-                raise RuntimeError(f"{key} in situ differs from its plain "
-                                   f"version by {max_err(got, want):.3g}")
-            worst[key] = max(worst[key], max_err(got, want))
-            calls[key] += 1
-            return got
-        return call
-
     def att_close(got, want, kw):
         return _att_ok(got.float(), want.float(), got.dtype)
 
     saved = (getattr(ops, name), k2.paged_prefill_cuda,
              k3.paged_attention_cuda)
-    setattr(ops, name, checked(
-        gemm, saved[0], getattr(k1, name + "_ref"),
-        lambda got, want, kw: gemm_close(got, want,
-                                         kw.get("epilogue", "none"))))
+    setattr(ops, name, gemm_in_situ(gemm, name, worst, calls))
     k2.paged_prefill_cuda = checked("K2", saved[1],
-                                    k2.paged_prefill_reference, att_close)
+                                    k2.paged_prefill_reference, att_close,
+                                    worst, calls)
     k3.paged_attention_cuda = checked("K3", saved[2],
-                                      k3.paged_attention_reference, att_close)
+                                      k3.paged_attention_reference, att_close,
+                                      worst, calls)
     try:
         eng = engine()
         eng.submit(prompt, 3)
@@ -651,16 +690,24 @@ def check_in_situ(engine, prompt, qmode):
 
 
 def profile_serving(engine, prompts):
-    """The same workload again under torch.profiler: device busy share of
-    the wall time and the kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    """The same workload again under torch.profiler (see profile_run)."""
     eng = engine()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for p in prompts:
             eng.submit(p, NEW)
         eng.run()
+    return profile_run(run)
+
+
+def profile_run(fn):
+    """``fn()`` under torch.profiler: device busy share of the wall time
+    and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = {}
@@ -699,7 +746,7 @@ def first_step_logits(params, cfg, prompts):
     def run(impl, p=params, prompt=prompts[0]):
         pool = kvc.PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
                             head_dim=cfg.hd, num_pages=len(prompt) // ps + 1,
-                            page_size=ps, device="cuda")
+                            page_size=ps, quantized=True, device="cuda")
         pool.reserve(0, len(prompt))
         for start in range(0, len(prompt), 256):
             logits = paged_chunk_forward(
@@ -797,6 +844,337 @@ def unfused_path(timer, gen):
     return dict(launches=launches, rows=rows)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: K8, dense flash attention
+# ---------------------------------------------------------------------------
+def _k8_shapes():
+    """(label, heads, kv heads, S, D, dtype, causal): the model shapes at
+    batch 1 (BH = the arch's query heads, kv heads repeated), then the
+    reference test's head dims (tests/test_kernels.py:148), which take the
+    kernel's 16- and 32-wide builds, at an S that leaves a ragged last tile
+    (1000 = 15 * 64 + 40; 777 = 12 * 64 + 9)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = []
+    for label, arch, s, dtype, causal in (
+            ("serving prompt", "qwen2-0.5b", 512, bf16, True),
+            ("", "qwen2-0.5b", 4096, bf16, True),
+            ("prefill_32k", "qwen2-0.5b", 32768, bf16, True),
+            ("", "qwen2-0.5b", 4096, f32, True),
+            ("non-causal", "qwen2-0.5b", 4096, bf16, False),
+            ("", "qwen3-0.6b", 4096, bf16, True)):
+        cfg = get_config(arch)
+        shapes.append((f"{arch} {label}".strip(), cfg.n_heads,
+                       cfg.n_kv_heads, s, cfg.hd, dtype, causal))
+    for bh, s, d in ((1, 777, 8), (4, 1000, 16), (2, 1000, 32)):
+        for dtype in (bf16, f32):
+            for causal in (True, False):
+                shapes.append(("ragged", bh, bh, s, d, dtype, causal))
+    return tuple(shapes)
+
+
+K8_SHAPES = _k8_shapes()
+# K8 against its plain version, elementwise.
+# * f32: rtol = atol = 2e-5, the reference's own (tests/test_kernels.py:162).
+# * bf16: one bf16 ULP of the larger magnitude plus K8_BF16_ATOL. Both
+#   outputs are f32 sums rounded to bf16, so most differences are one
+#   rounding flip; beyond it, the kernel's 64-column tiles and the plain
+#   version's blocks give a row different running maxima, so p is rounded
+#   to bf16 at different points, which moves small outputs of the early
+#   rows (65-128 columns seen) by up to ~1e-3. Measured (H100, this seed,
+#   every bf16 shape below, two runs): the one-ULP rule needs at most
+#   1.21e-3 beside it, and the dropped-tile control exceeds it by at least
+#   3.1e-3 (at S = 32,768); 2e-3 lies between. The reference test's 5e-2 is
+#   about the size of a typical output at S = 4,096 (std ~0.026) and would
+#   pass a dropped kv tile.
+# Beside it, at every bf16 shape: 64 rows of up to three heads in f64, and
+# the kernel no farther from them (root-mean-square) than twice the plain
+# version is. A control proves both checks can see a fault: the same rows
+# with one 64-column kv tile dropped for the late rows must fail them.
+K8_F32_TOL = 2e-5
+K8_BF16_ATOL = 2e-3
+
+
+def k8_inputs(gen, heads, kv_heads, s, d, dtype):
+    """q (heads, S, D) and k, v with kv_heads repeated to heads."""
+    def randn(n):
+        return torch.randn(n, s, d, device="cuda", generator=gen)
+    q = randn(heads).to(dtype)
+    k, v = (randn(kv_heads).repeat_interleave(heads // kv_heads, dim=0)
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def k8_close(got, want) -> bool:
+    if got.dtype == torch.float32:
+        return bool(((got - want).abs()
+                     <= K8_F32_TOL + K8_F32_TOL * want.abs()).all())
+    return within_bf16_ulp(got, want, K8_BF16_ATOL)
+
+
+def bf16_ulp_excess(got, want) -> float:
+    """The atol that one bf16 ULP of the larger magnitude needs beside it
+    to cover every |got - want|."""
+    a, b = got.float(), want.float()
+    return ((a - b).abs() - BF16_ULP_REL
+            * torch.maximum(a.abs(), b.abs())).max().clamp(min=0).item()
+
+
+def f64_rows(q, k, v, causal, heads, rows, drop=None):
+    """Attention of the given rows of the given heads, in f64; ``drop``
+    (first column, last row excluded): leave the 64 kv columns from that
+    column out for the rows from S / 2 on, as a kernel that skipped one
+    kv tile would."""
+    scale = q.shape[-1] ** -0.5
+    cols = torch.arange(k.shape[1], device=q.device)
+    mask = torch.zeros(len(rows), k.shape[1], dtype=torch.bool,
+                       device=q.device)
+    if causal:
+        mask |= cols[None, :] > rows[:, None]
+    if drop is not None:
+        mask |= ((rows[:, None] >= k.shape[1] // 2)
+                 & (cols[None, :] >= drop) & (cols[None, :] < drop + 64))
+    out = []
+    for h in heads:
+        s = (q[h, rows].double() @ k[h].double().T) * scale
+        out.append(torch.softmax(s.masked_fill(mask, float("-inf")), dim=-1)
+                   @ v[h].double())
+    return torch.stack(out)
+
+
+def rms(x) -> float:
+    return x.double().pow(2).mean().sqrt().item()
+
+
+def check_k8(gen):
+    """K8 through its entry point at every shape (the launches counted),
+    then each output against the plain version and f64 rows, the
+    dropped-tile control, times, bound, yardstick."""
+    cases = [(label, s, dtype, causal,
+              *k8_inputs(gen, heads, kv, s, d, dtype))
+             for label, heads, kv, s, d, dtype, causal in K8_SHAPES]
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [k8.flash_attention(q, k, v, causal=causal)
+            for _, _, _, causal, q, k, v in cases]
+    torch.cuda.synchronize()
+    launches = {key: n for key, n in read_counts().items() if n}
+    print(f"  kernel launches through flash_attention: {launches}")
+    if launches != {"K8": len(cases)}:
+        raise RuntimeError(f"flash_attention launched {launches}, expected "
+                           f"K8 once per shape ({len(cases)})")
+    rows = []
+    for (label, s, dtype, causal, q, k, v), got in zip(cases, outs):
+        bh, _, d = q.shape
+        long = s > 4096
+        bf16 = dtype == torch.bfloat16
+        want = k8.flash_attention_reference(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        elem_ok = k8_close(got, want)
+        # 64 rows of up to three heads against f64, and the control
+        r = torch.linspace(0, s - 1, 64, device="cuda").long()
+        heads = sorted({0, bh // 2, bh - 1})
+        exact = f64_rows(q, k, v, causal, heads, r)
+        fault = f64_rows(q, k, v, causal, heads, r, drop=64).to(dtype)
+        g_rows, w_rows = got[heads][:, r], want[heads][:, r]
+        f64 = dict(kernel=rms(g_rows.double() - exact),
+                   plain=rms(w_rows.double() - exact),
+                   kernel_max=max_err(g_rows.double(), exact),
+                   plain_max=max_err(w_rows.double(), exact),
+                   control=rms(fault.double() - exact))
+        rms_ok = not bf16 or f64["kernel"] <= 2 * f64["plain"]
+        control = dict(elementwise=k8_close(fault, w_rows),
+                       rms=not bf16 or f64["control"] <= 2 * f64["plain"],
+                       max_abs_err=max_err(fault, w_rows),
+                       ulp_excess=(bf16_ulp_excess(fault, w_rows)
+                                   if bf16 else None))
+        if control["elementwise"] and control["rms"]:
+            raise RuntimeError(f"K8 {label} S={s}: the check passes a "
+                               f"dropped kv tile: {control}")
+        pairs = s * (s + 1) // 2 if causal else s * s
+        b_ms, b_by = bound(4 * nbytes(q), 4.0 * bh * d * pairs,
+                           BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+        q4, k4, v4 = q[None], k[None], v[None]
+        timer = Timer(iters=3 if long else 20)
+        row = dict(kernel="K8", label=label, bh=bh, s=s, d=d,
+                   dtype=str(dtype), causal=causal, max_abs_err=err,
+                   tol=(dict(atol=K8_BF16_ATOL, ulp=1) if bf16
+                        else dict(atol=K8_F32_TOL, rtol=K8_F32_TOL)),
+                   ulp_excess=bf16_ulp_excess(got, want) if bf16 else None,
+                   ok=elem_ok and rms_ok, f64=f64, control=control,
+                   ms=timer(lambda: k8.flash_attention_cuda(
+                       q, k, v, causal=causal)),
+                   plain_ms=Timer(iters=1 if long else 5)(
+                       lambda: k8.flash_attention_reference(
+                           q, k, v, causal=causal)),
+                   library_ms=timer(lambda: F.scaled_dot_product_attention(
+                       q4, k4, v4, is_causal=causal)),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        lim = (f"1 ULP + {K8_BF16_ATOL:g}, needs +{row['ulp_excess']:.3g}"
+               if bf16 else f"{K8_F32_TOL:g}")
+        ctl = (f"control max {control['max_abs_err']:.3g}"
+               + (f" (+{control['ulp_excess']:.3g}), rms {f64['control']:.3g}"
+                  if bf16 else ""))
+        print(f"  K8 BH={bh} S={s} D={d} {str(dtype)[6:]} "
+              f"{'causal' if causal else 'non-causal'} {label}: err={err:.3g}"
+              f" ({lim}) {'ok' if row['ok'] else 'FAIL'}; f64 rms kernel "
+              f"{f64['kernel']:.3g} plain {f64['plain']:.3g}, max kernel "
+              f"{f64['kernel_max']:.3g} plain {f64['plain_max']:.3g}; {ctl} "
+              f"caught; ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+              f"sdpa={row['library_ms']:.4f} bound={b_ms:.4f} ({b_by}), "
+              f"{b_ms / row['ms']:.1%} of the bound")
+        del want
+    return dict(launches=launches, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: dense-slab serving
+# ---------------------------------------------------------------------------
+def dense_serving(seed: int):
+    """Full-width qwen2-0.5b W8A8 through the dense-slab loop (bf16 and int8
+    slabs) and through ``generate``'s default float pages."""
+    cfg = get_config("qwen2-0.5b", qmode="w8a8")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = quantize_params(init_params(cfg, generator=gen, device="cuda"),
+                             cfg, "w8a8")
+    prompts = torch.randint(0, cfg.vocab_size, (N_REQ, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    ps = kvc.DEFAULT_PAGE_SIZE
+    per_forward = 7 * cfg.n_layers           # q, k, v, o, gate, up, down
+
+    def dense(kv_dtype):
+        return lambda: _generate_dense(params, cfg, prompts, steps=NEW,
+                                       kv_dtype=kv_dtype, device="cuda")
+    runs = {"dense bf16 slab": dense(None), "dense int8 slab": dense("int8"),
+            "float pages": lambda: generate(params, cfg, prompts, steps=NEW,
+                                            device="cuda")}
+    dense(None)()                            # first-use costs
+    torch.cuda.synchronize()
+    result = {}
+    for name, run in runs.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        toks = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: n for k, n in read_counts().items() if n}
+        path = "float pages" if name == "float pages" else "dense"
+        print(f"  {name}: {N_REQ} x ({PROMPT_LEN} + {NEW}) tokens in "
+              f"{wall:.3f} s, {N_REQ * NEW / wall:.1f} generated tok/s; "
+              f"kernel launches {launches}")
+        if set(launches) != set(PATHS[path]) or launches["K1"] % per_forward:
+            raise RuntimeError(f"{name} launched {launches}; its path is "
+                               f"{PATHS[path]}, K1 {per_forward} a forward")
+        if path == "dense" and launches["K1"] != per_forward * NEW:
+            raise RuntimeError(f"{name}: {launches['K1']} K1 launches for "
+                               f"{NEW} forwards")
+        if path == "float pages":
+            print("  K2 and K3 were not launched: float pages take the plain "
+                  "attention versions, as in the reference, whose Pallas "
+                  "kernels read int8 pages only")
+        if tuple(toks.shape) != (N_REQ, NEW) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise RuntimeError(f"{name}: tokens of the wrong shape or range")
+        result[name] = dict(launches=launches, wall_s=wall,
+                            gen_tok_s=N_REQ * NEW / wall, tokens=toks.tolist())
+    for name in ("dense bf16 slab", "float pages"):
+        print(f"  profiled rerun, {name}:")
+        result[name]["profile"] = profile_run(runs[name])
+    agree = (torch.tensor(result["dense bf16 slab"]["tokens"])
+             == torch.tensor(result["float pages"]["tokens"])).float().mean()
+    print(f"  greedy tokens equal between the bf16 slab and float pages: "
+          f"{agree.item():.1%}")
+
+    # every K1 call of the dense prefill (M = 4,096 rows) and of one decode
+    # step (M = 8) against K1's plain version on the same inputs; then the
+    # first-step logits: through the kernels vs the plain versions (all 8
+    # prompts), and the bf16 slab vs the float-page engine's chunked
+    # prefill (prompt 0)
+    def dense_first(impl):
+        caches = init_serve_caches(cfg, N_REQ, PROMPT_LEN + NEW,
+                                   device="cuda")
+        last, caches = build_prefill_step(cfg, impl=impl)(params, prompts,
+                                                          caches)
+        build_decode_step(cfg, impl=impl)(
+            params, caches, last.float().argmax(-1)[:, None], PROMPT_LEN)
+        return last.float()
+    worst, calls = {"K1": 0.0}, {"K1": 0}
+    saved = ops.camp_gemm_fused_w8a8
+    ops.camp_gemm_fused_w8a8 = gemm_in_situ("K1", "camp_gemm_fused_w8a8",
+                                            worst, calls)
+    try:
+        got = dense_first("auto")
+    finally:
+        ops.camp_gemm_fused_w8a8 = saved
+    print(f"  in situ, every K1 call of the dense prefill and one decode "
+          f"step vs its plain version on the same inputs: {calls['K1']} "
+          f"calls, max |diff| {worst['K1']:.3g}")
+    if calls["K1"] != 2 * per_forward:
+        raise RuntimeError(f"in situ: {calls['K1']} K1 calls, expected "
+                           f"{2 * per_forward}")
+    want = dense_first("torch")
+    pool = kvc.PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                        head_dim=cfg.hd, num_pages=PROMPT_LEN // ps + 1,
+                        page_size=ps, quantized=False, dtype=torch.bfloat16,
+                        device="cuda")
+    pool.reserve(0, PROMPT_LEN)
+    for start in range(0, PROMPT_LEN, 256):
+        paged = paged_chunk_forward(
+            params, cfg, pool, 0, prompts[0, start:start + 256], start,
+            logits="last" if start + 256 >= PROMPT_LEN else "none")
+    paged = paged[0, -1].float()
+    if not all(torch.isfinite(x).all() for x in (got, want, paged)):
+        raise RuntimeError("non-finite dense-path logits")
+    rel_tol = LOGIT_TOL["w8a8"]
+    gaps = {"kernels vs plain": max_err(got, want) / want.abs().max().item(),
+            "bf16 slab vs float pages": max_err(got[0], paged)
+            / paged.abs().max().item()}
+    print("  first-step logits, as a share of max |logit| (limit "
+          f"{rel_tol:.0%}): " + ", ".join(f"{k} {v:.2%}" for k, v in gaps.items())
+          + f"; argmax equal {(got.argmax(-1) == want.argmax(-1)).sum().item()}"
+          f"/{N_REQ} (kernels vs plain), "
+          f"{int(got[0].argmax() == paged.argmax())}/1 (slab vs pages); "
+          f"kernels vs plain bit for bit: {torch.equal(got, want)}")
+    if max(gaps.values()) > rel_tol:
+        raise RuntimeError(f"dense-path logit gap beyond {rel_tol:.0%}: {gaps}")
+
+    def engine_turn():           # generate()'s engine, stepped for TTFT
+        return run_workload(ContinuousBatchingEngine(
+            params, cfg, kv_dtype=None, page_size=ps,
+            capacity_tokens=N_REQ * kvc.round_up(PROMPT_LEN + NEW, ps),
+            device="cuda"), prompts)
+
+    def dense_turn(kv_dtype):    # TTFT: the batch's prefill, then the loop
+        t0 = time.perf_counter()
+        caches = init_serve_caches(cfg, N_REQ, PROMPT_LEN + NEW,
+                                   kv_dtype=kv_dtype, device="cuda")
+        build_prefill_step(cfg)(params, prompts, caches)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense(kv_dtype)()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, [ttft] * N_REQ
+    turns = {"dense bf16 slab": lambda: dense_turn(None),
+             "dense int8 slab": lambda: dense_turn("int8"),
+             "float pages": lambda: engine_turn()[:2]}
+    in_turns = {k: [] for k in turns}
+    for name in list(turns) + list(reversed(list(turns))):
+        wall, ttft = turns[name]()
+        in_turns[name].append(dict(gen_tok_s=N_REQ * NEW / wall,
+                                   ttft_s=sorted(ttft)))
+        print(f"  in turns, {name}: {N_REQ * NEW / wall:.1f} generated tok/s, "
+              f"TTFT first/median/last {min(ttft):.3f}/"
+              f"{sorted(ttft)[N_REQ // 2]:.3f}/{max(ttft):.3f} s")
+    for r in result.values():
+        del r["tokens"]
+    return dict(runs=result, greedy_agreement=agree.item(), logit_gaps=gaps,
+                logits_equal=torch.equal(got, want), rel_tol=rel_tol,
+                in_situ=dict(calls=calls, max_abs_diff=worst),
+                in_turns=in_turns)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -848,9 +1226,22 @@ def main(argv=None) -> int:
           "serving shapes")
     unfused = unfused_path(timer, gen)
 
+    print("[phase 5] K8 flash attention through flash_attention, at the "
+          "qwen2-0.5b and qwen3-0.6b shapes")
+    flash = check_k8(gen)
+    bad = [r for r in flash["rows"] if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"{len(bad)} K8 checks failed: {bad}")
+    torch.cuda.empty_cache()
+
+    print("[phase 6] full-width qwen2-0.5b W8A8 dense-slab serving and "
+          "float pages")
+    dense = dense_serving(SEED)
+
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
-    # batch, the K2 chunk at q_start 512 in bf16; errors over every case
+    # batch, the K2 chunk at q_start 512 in bf16, K8 at prefill_32k's
+    # length; errors over every case
     def pick(key, **want):
         return next(r for r in rows if r["kernel"] == key
                     and all(r[a] == b for a, b in want.items()))
@@ -865,13 +1256,16 @@ def main(argv=None) -> int:
         "K6b": pick("K6b", **prefill_down),
         "K7": pick("K7", m=256, k=4864, bits=8, dtype=str(torch.bfloat16)),
         "K2": pick("K2", q_start=512, dtype=str(torch.bfloat16)),
-        "K3": pick("K3", dtype=str(torch.bfloat16))}
+        "K3": pick("K3", dtype=str(torch.bfloat16)),
+        "K8": next(r for r in flash["rows"] if r["s"] == 32768)}
+    rows += flash["rows"]
     # the path whose run counts each kernel's launches
     path_of = {"K1": "w8a8", "K2": "w8a8", "K3": "w8a8", "K4 w4a8": "w4a8",
                "K4 w4a4": "w4a4", "K5": "unfused", "K6a": "unfused",
-               "K6b": "unfused", "K7": "unfused"}
+               "K6b": "unfused", "K7": "unfused", "K8": "flash"}
     counts = {q: served[q]["launches"] for q in QMODES}
     counts["unfused"] = unfused["launches"]
+    counts["flash"] = flash["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
@@ -886,7 +1280,7 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=smi, rows=rows, serving=served, in_turns=in_turns,
-                 unfused=unfused, kernels=kernels), indent=1))
+                 unfused=unfused, dense=dense, kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,8 +6,8 @@ into ``csrc/build/<name>-<hash>.so`` (the directory is git-ignored):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o csrc/build/<name>-<hash>.so csrc/<name>.cu
 
-No ``--use_fast_math``: the kernels rely on IEEE division and ``rintf``.
-The hash covers the source and every header in ``csrc/``, so an edited
+No ``--use_fast_math``: the kernels rely on IEEE division, ``rintf`` and
+``expf``. The hash covers the source and every header in ``csrc/``, so an edited
 kernel rebuilds and a stale library is never loaded. A library builds at
 its first use; :func:`build_all` starts one ``nvcc`` per source at once.
 """
@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("camp_gemm_fused", "camp_gemm", "quantize", "paged_prefill",
-           "paged_attention")
+           "paged_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -12,6 +12,11 @@ padded past a sequence's last page); lengths (B,) int32 (≥ 1).
   :mod:`repro_torch.kernels.ops`); :func:`paged_attention_cuda` is the
   wrapper around ``csrc/paged_attention.cu``, whose ``launches`` counts.
 
+Float pages (scales None, the pool's ``quantized=False``) take the plain
+version on every device, as in the reference, whose Pallas kernel runs
+only for int8 pages: the kernel, like the TPU kernel it replaces, reads
+int8 pages with per-token scales.
+
 The head-sharded tensor-parallel wrapper (``paged_attention_tp``) comes
 with tensor parallelism in a later slice.
 """
@@ -36,7 +41,8 @@ _V, _I = ctypes.c_void_p, ctypes.c_int
 
 def paged_attention_reference(q, k_pages, v_pages, k_scale, v_scale, tables,
                               lengths, *, sm_scale: Optional[float] = None):
-    """Gather → dequantize → masked softmax. Returns (B, KV, G, hd)."""
+    """Gather → dequantize (scales None: float pages) → masked softmax.
+    Returns (B, KV, G, hd)."""
     b, kv, g, hd = q.shape
     ps = k_pages.shape[2]
     max_pages = tables.shape[1]
@@ -45,7 +51,8 @@ def paged_attention_reference(q, k_pages, v_pages, k_scale, v_scale, tables,
 
     def gather(pages, scales):
         x = pages[idx].float()                         # (B, mp, KV, ps, hd)
-        x = x * scales[idx][..., None]
+        if scales is not None:
+            x = x * scales[idx][..., None]
         return x.transpose(1, 2).reshape(b, kv, max_pages * ps, hd)
 
     k_all = gather(k_pages, k_scale)
@@ -127,8 +134,15 @@ def paged_attention_cuda(q, k_pages, v_pages, k_scale, v_scale, tables,
 
 def paged_attention(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
                     *, sm_scale: Optional[float] = None, impl: str = "auto"):
-    """Paged decode attention; see :func:`paged_attention_reference`."""
-    fn = (paged_attention_reference if check_impl(impl, q) == "torch"
+    """Paged decode attention; see :func:`paged_attention_reference`.
+    Float pages (``k_scale`` None) take the plain version, as in the
+    reference, whose kernel reads int8 pages only; ``impl='cuda'`` on them
+    raises."""
+    if impl == "cuda" and k_scale is None:
+        raise ValueError("impl='cuda': the kernel reads int8 pages only; "
+                         "float pages take the plain version")
+    fn = (paged_attention_reference
+          if check_impl(impl, q) == "torch" or k_scale is None
           else paged_attention_cuda)
     return fn(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
               sm_scale=sm_scale)

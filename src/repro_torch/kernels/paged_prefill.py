@@ -16,6 +16,9 @@ memory per step; it changes no result.
 * :func:`paged_prefill_attention` — dispatch by ``impl`` (see
   :mod:`repro_torch.kernels.ops`); :func:`paged_prefill_cuda` wraps
   ``csrc/paged_prefill.cu`` and counts ``launches``.
+
+Float pages (scales None) take the plain version on every device, as in
+the reference, whose Pallas kernel runs only for int8 pages.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ _V, _I = ctypes.c_void_p, ctypes.c_int
 
 def paged_prefill_reference(q, k_pages, v_pages, k_scale, v_scale, table, *,
                             q_start: int, sm_scale: Optional[float] = None):
-    """Gather → dequantize → causally-masked softmax. Returns (KV, C, G, hd)."""
+    """Gather → dequantize (scales None: float pages) → causally-masked
+    softmax. Returns (KV, C, G, hd)."""
     kv, c, g, hd = q.shape
     ps = k_pages.shape[2]
     n_pages = -(-(q_start + c) // ps)
@@ -45,7 +49,9 @@ def paged_prefill_reference(q, k_pages, v_pages, k_scale, v_scale, table, *,
     scale = sm_scale if sm_scale is not None else hd ** -0.5
 
     def gather(pages, scales):
-        x = pages[slots].float() * scales[slots][..., None]   # (np,KV,ps,hd)
+        x = pages[slots].float()                               # (np,KV,ps,hd)
+        if scales is not None:
+            x = x * scales[slots][..., None]
         return x.transpose(0, 1).reshape(kv, n_pages * ps, hd)
 
     k_all = gather(k_pages, k_scale)
@@ -105,8 +111,14 @@ def paged_prefill_attention(q, k_pages, v_pages, k_scale, v_scale, table, *,
                             q_start: int, pages_per_step: int = 1,
                             sm_scale: Optional[float] = None,
                             impl: str = "auto"):
-    """Chunked paged prefill attention; see :func:`paged_prefill_reference`."""
-    if check_impl(impl, q) == "torch":
+    """Chunked paged prefill attention; see :func:`paged_prefill_reference`.
+    Float pages (``k_scale`` None) take the plain version, as in the
+    reference, whose kernel reads int8 pages only; ``impl='cuda'`` on them
+    raises."""
+    if impl == "cuda" and k_scale is None:
+        raise ValueError("impl='cuda': the kernel reads int8 pages only; "
+                         "float pages take the plain version")
+    if check_impl(impl, q) == "torch" or k_scale is None:
         return paged_prefill_reference(q, k_pages, v_pages, k_scale, v_scale,
                                        table, q_start=q_start,
                                        sm_scale=sm_scale)

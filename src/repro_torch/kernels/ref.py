@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles for the integer GEMM path.
+"""Plain PyTorch oracles for the integer GEMM path and for attention.
 
 ``quantize_rowwise_ref`` follows the reference GEMM's f32 chain **as XLA
 compiles it**: the reference's fused GEMM fallback is always jitted, and
@@ -91,3 +91,19 @@ def gemm_a4w4_ref(a_packed, b_packed, k, a_scale, b_scale,
     a_q = unpack_int4(a_packed.T, k).T
     b_q = unpack_int4(b_packed, k)
     return gemm_i8_ref(a_q, b_q, a_scale, b_scale, out_dtype)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """Oracle for the flash-attention kernel, naive (small shapes only):
+    q, k, v (B, H, S, D) → softmax(q kᵀ · scale) v in f32, in q.dtype. The
+    causal mask keeps column c for row r when c <= r + (Sk - Sq)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(diagonal=sk - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -54,7 +54,7 @@ def main(argv=None) -> int:
                            generator=gen, device=device)
     t0 = time.perf_counter()
     toks = generate(params, cfg, prompt, steps=args.steps, seed=args.seed,
-                    sample=args.sample, device=device)
+                    sample=args.sample, kv_dtype="int8", device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -1,4 +1,4 @@
 """Decoder LM for the port: config, modules, attention, transformer."""
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (forward, init_params,
-                                            quantize_params)
+from repro_torch.models.transformer import (forward, init_caches,
+                                            init_params, quantize_params)

@@ -1,20 +1,31 @@
-"""GQA attention with rope / qk-norm / qkv-bias over the paged int8 cache.
+"""GQA attention with rope / qk-norm / qkv-bias, the dense KV slab, the
+paged KV pool and q-chunked prefill.
 
-Port of ``repro/models/attention.py``: the full causal branch (no cache)
-and the two paged branches of the serving engine.
+Port of ``repro/models/attention.py``:
 
 * cache None              → full causal self-attention (``_grouped_attn``).
+* DenseKVCache, S > 1     → prefill from position 0: attend, and fill the
+  slab's positions [0, S).
+* DenseKVCache, S = 1     → decode: append at ``cache_pos``, attend over
+  the slab's first ``cache_pos + 1`` positions.
 * PagedPrefillCache       → chunked paged prefill: the chunk's KV is
-  quantized into the sequence's pages, then causal attention over every
-  cached page through the paged-prefill kernel (K2).
+  written into the sequence's pages, then causal attention over every
+  cached page through the paged-prefill kernel (K2; float pages take the
+  plain version).
 * PagedDecodeCache, S = 1 → ragged decode: append one token per sequence,
-  then the paged decode kernel (K3).
+  then the paged decode kernel (K3; float pages take the plain version).
+
+Causal attention without a cache read runs q-chunked when
+``cfg.attn_q_chunk`` is set: each chunk of queries attends to the full KV,
+exact and without online-softmax state; peak memory is proportional to
+chunk × T instead of T × T.
 
 Grouped computation never repeats KV heads: q is viewed as (B, S, KV, G,
-hd). The ``DenseKVCache`` branch and the tensor-parallel wrappers come in
-later slices.
+hd). The tensor-parallel wrappers come in a later slice.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,7 +33,8 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import apply_rope, linear, rms_norm, rope_freqs
-from repro_torch.serving.kv_cache import PagedDecodeCache, PagedPrefillCache
+from repro_torch.serving.kv_cache import (DEFAULT_PAGE_SIZE, DenseKVCache,
+                                          PagedDecodeCache, PagedPrefillCache)
 
 _NEG = -1e30
 
@@ -66,9 +78,11 @@ def _grouped_attn(q, k, v, q_pos, k_pos, *, k_len=None):
 
 
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, cache=None, qmode: str = "none",
+              positions: torch.Tensor, *, cache=None,
+              cache_pos: Optional[int] = None, qmode: str = "none",
               impl: str = "auto"):
-    """x (B, S, D) → (y, new_cache)."""
+    """x (B, S, D) → (y, new_cache); ``cache_pos``: the decode position of
+    a one-token step over a DenseKVCache."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = h // kv
@@ -111,10 +125,41 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                               new_cache.tables, new_cache.lengths, impl=impl)
         return out_proj(ctx.reshape(b, 1, h * hd)), new_cache
 
+    new_cache = None
+    k_all, v_all, k_pos, k_len = k, v, positions[0], None
     if cache is not None:
-        raise NotImplementedError(
-            f"{type(cache).__name__}: the dense KV slab is not ported yet")
+        k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)          # (B,KV,S,hd)
+        if s > 1:       # prefill from position 0
+            new_cache = cache.write_prefill(k_t, v_t)
+        else:           # decode: append at cache_pos, attend over the slab
+            new_cache = cache.append(k_t, v_t, cache_pos)
+            k_all, v_all = new_cache.read(x.dtype)               # (B,T,KV,hd)
+            k_pos = torch.arange(k_all.shape[1], device=x.device)
+            k_len = cache_pos + 1
+
     qg = q.reshape(b, s, kv, g, hd)
-    pos = positions[0]
-    out = _grouped_attn(qg, k, v, pos, pos)
-    return out_proj(out.reshape(b, s, h * hd)), None
+    chunk = cfg.attn_q_chunk
+    if cache is not None and s == 1:
+        q_pos = torch.full((1,), cache_pos, device=x.device)
+        out = _grouped_attn(qg, k_all, v_all, q_pos, k_pos, k_len=k_len)
+    elif chunk and s > chunk:
+        if s % chunk:
+            raise ValueError(f"sequence {s} is not a multiple of "
+                             f"attn_q_chunk {chunk}")
+        out = torch.cat([_grouped_attn(qg[:, i:i + chunk], k_all, v_all,
+                                       k_pos[i:i + chunk], k_pos)
+                         for i in range(0, s, chunk)], dim=1)
+    else:
+        out = _grouped_attn(qg, k_all, v_all, k_pos, k_pos)
+    return out_proj(out.reshape(b, s, h * hd)), new_cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
+               kv_dtype: Optional[str] = None,
+               page_size: Optional[int] = None, device=None) -> DenseKVCache:
+    """Dense slab cache; ``kv_dtype='int8'`` stores KV quantized with
+    per-page dynamic scales (see :mod:`repro_torch.serving.kv_cache`)."""
+    return DenseKVCache.init(
+        batch, cfg.n_kv_heads, max_len, cfg.hd, dtype,
+        quantized=(kv_dtype == "int8"),
+        page_size=page_size or DEFAULT_PAGE_SIZE, device=device)

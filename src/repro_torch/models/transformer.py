@@ -1,8 +1,9 @@
 """Decoder-LM assembly: embeddings → N blocks (attention + gated MLP) → head.
 
 Port of ``repro/models/transformer.py`` for all-attention dense decoders
-(the qwen2 family on the serving path). MoE, SSM and RWKV layers come in
-later slices and raise here. :func:`quantize_params` converts every GEMM
+(the qwen2 family on the serving path), with the dense KV caches of
+:func:`init_caches`. MoE, SSM and RWKV layers come in later slices and
+raise here. :func:`quantize_params` converts every GEMM
 weight to a :class:`~repro_torch.core.quant.QuantizedTensor`; the same
 forward then routes through the CAMP kernels.
 """
@@ -67,11 +68,11 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None
 
 
 def _block(lp: dict, cfg: ModelConfig, h: torch.Tensor,
-           positions: torch.Tensor, cache, qmode: str, impl: str):
+           positions: torch.Tensor, cache, cache_pos, qmode: str, impl: str):
     """One residual block → (h, new_cache)."""
     y, new_cache = attn_mod.attention(
         lp["attn"], cfg, rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
-        cache=cache, qmode=qmode, impl=impl)
+        cache=cache, cache_pos=cache_pos, qmode=qmode, impl=impl)
     h = h + y
     h = h + gated_mlp(rms_norm(h, lp["ln2"], cfg.norm_eps), lp["mlp"],
                       qmode=qmode, impl=impl)
@@ -80,26 +81,32 @@ def _block(lp: dict, cfg: ModelConfig, h: torch.Tensor,
 
 def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None, *,
-            caches: Optional[list] = None, qmode: Optional[str] = None,
-            last_logits_only: bool = False, return_hidden: bool = False,
-            impl: str = "auto"):
+            caches: Optional[list] = None, cache_pos: Optional[int] = None,
+            qmode: Optional[str] = None, last_logits_only: bool = False,
+            return_hidden: bool = False, impl: str = "auto"):
     """inputs: int tokens (B, S) → (logits, new_caches).
 
-    ``caches``: per layer ``{"attn": PagedPrefillCache | PagedDecodeCache}``
-    or None (full causal attention). ``last_logits_only``: the head at the
-    final position only. ``return_hidden``: the final hidden states instead
-    of logits. ``impl`` selects kernels or plain versions (see
+    ``caches``: per layer ``{"attn": DenseKVCache | PagedPrefillCache |
+    PagedDecodeCache}`` or None (full causal attention). ``cache_pos``: the
+    position of a one-token decode step over DenseKVCaches; positions then
+    default to ``cache_pos + arange(S)``. ``last_logits_only``: the head at
+    the final position only. ``return_hidden``: the final hidden states
+    instead of logits. ``impl`` selects kernels or plain versions (see
     :mod:`repro_torch.kernels.ops`).
     """
     qmode = cfg.qmode if qmode is None else qmode
     b, s = inputs.shape[:2]
     if positions is None:
-        positions = torch.arange(s, device=inputs.device).expand(b, s)
+        base = torch.arange(s, device=inputs.device)
+        if cache_pos is not None:
+            base = base + cache_pos
+        positions = base.expand(b, s)
     h = params["embedding"][inputs].to(dtype_of(cfg))
     new_caches = [] if caches is not None else None
     for i, lp in enumerate(params["layers"]):
         cache_i = caches[i]["attn"] if caches is not None else None
-        h, c_new = _block(lp, cfg, h, positions, cache_i, qmode, impl)
+        h, c_new = _block(lp, cfg, h, positions, cache_i, cache_pos, qmode,
+                          impl)
         if new_caches is not None:
             new_caches.append({"attn": c_new})
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -111,6 +118,18 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     logits = linear(h, head, qmode="none" if cfg.tie_embeddings else qmode,
                     impl=impl)
     return logits, new_caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                kv_dtype: Optional[str] = None, device=None) -> list:
+    """Per-layer dense decode caches ``[{"attn": DenseKVCache}, ...]``;
+    ``kv_dtype='int8'`` quantizes the slabs with per-page scales. Recurrent
+    mixers' state caches come with those mixers."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    return [{"attn": attn_mod.init_cache(cfg, batch, max_len, dtype_of(cfg),
+                                         kv_dtype=kv_dtype, device=device)}
+            for _ in range(cfg.n_layers)]
 
 
 # ---------------------------------------------------------------------------

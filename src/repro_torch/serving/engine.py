@@ -1,12 +1,13 @@
-"""Serving engine: continuous batching over the paged int8 KV pool.
+"""Serving engine: continuous batching over the paged KV pool, and the
+dense-slab loop.
 
-Port of ``ContinuousBatchingEngine`` and ``generate`` from
-``repro/serving/engine.py``. Each :meth:`ContinuousBatchingEngine.step`:
+Port of ``repro/serving/engine.py``. Each
+:meth:`ContinuousBatchingEngine.step`:
 
 1. admits the next queued request once the prefill lane is clear, sharing
    the pages of any registered prompt prefix (refcounted, copy-on-write) and
    reserving only the remainder;
-2. advances the head prefill by one **chunk**: the chunk's KV quantizes
+2. advances the head prefill by one **chunk**: the chunk's KV is written
    straight into the sequence's pages and attends over the cached prefix
    through the paged-prefill kernel (K2);
 3. runs **one ragged decode** over every active sequence: per-sequence
@@ -15,11 +16,23 @@ Port of ``ContinuousBatchingEngine`` and ``generate`` from
    weights are quantized;
 4. retires sequences that hit their token budget and decrefs their pages.
 
+Pages are int8 with per-token scales for ``kv_dtype='int8'``, else the
+model dtype; float pages take the plain attention versions, as in the
+reference (K2 and K3 read int8 pages).
+
 A sequence decodes identically alone or inside a changing batch: pages are
 owned exclusively or shared immutably, per-token scales depend only on a
 token's own values, attention is masked per sequence, chunk boundaries
 depend only on the engine's chunk size, and temperature sampling draws each
 token's noise from a generator seeded by (engine seed, seq_id, token index).
+
+**The dense-slab path** (:func:`build_prefill_step`,
+:func:`build_decode_step`, :func:`_generate_dense`) prefills the whole
+batch into a (B, max_len) :class:`~repro_torch.serving.kv_cache.
+DenseKVCache` slab (float, or int8 with per-page scales) and decodes one
+token per step at a shared position. :func:`generate` sends models with
+recurrent mixers or embedding inputs there, as the reference does; those
+mixers come in a later slice, so such models raise for now.
 
 Page size, prefill chunk and pages per kernel step are fixed, documented
 defaults here (the reference takes them from its TPU autotune); a Hopper
@@ -36,12 +49,64 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import dtype_of, forward, init_caches
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import spec_decode as sd
 
 DEFAULT_PREFILL_CHUNK = 256      # prompt tokens per prefill step
 DEFAULT_PAGES_PER_STEP = 1       # pages the prefill kernel stages per step
+
+
+def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
+                      kv_dtype: Optional[str] = None, device=None) -> list:
+    """Dense KV caches; ``kv_dtype='int8'`` stores attention KV quantized
+    with per-page dynamic scales (see :mod:`repro_torch.serving.kv_cache`)."""
+    return init_caches(cfg, batch, max_len, kv_dtype=kv_dtype, device=device)
+
+
+def build_prefill_step(cfg: ModelConfig, *, impl: str = "auto"):
+    """(params, inputs, caches) → (last-position logits (B, V), caches)."""
+
+    def prefill_step(params, inputs, caches):
+        logits, caches = forward(params, cfg, inputs, caches=caches,
+                                 last_logits_only=True, impl=impl)
+        return logits[:, -1], caches
+
+    return prefill_step
+
+
+def _gumbel_argmax(logits: torch.Tensor, temperature: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """One categorical sample per row of ``logits / temperature``
+    (Gumbel-max), the noise drawn from ``generator`` on its own device."""
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).clamp_(min=1e-20)
+    gumbel = -torch.log(-torch.log(u))
+    return (logits / temperature + gumbel.to(logits.device)).argmax(dim=-1)
+
+
+def build_decode_step(cfg: ModelConfig, *, sample: str = "greedy",
+                      temperature: float = 1.0, impl: str = "auto"):
+    """(params, caches, token, pos, generator) → (next token, caches).
+
+    ``token``: (B, 1) long; ``pos``: the current position (int). Temperature
+    sampling needs an explicit ``torch.Generator``; it matches the
+    reference's ``jax.random`` draws in distribution only.
+    """
+    if sample not in ("greedy", "temperature"):
+        raise ValueError(f"sample={sample!r}")
+
+    def decode_step(params, caches, token, pos, generator=None):
+        logits, caches = forward(params, cfg, token, caches=caches,
+                                 cache_pos=pos, impl=impl)
+        last = logits[:, -1].float()
+        if sample == "greedy":
+            nxt = last.argmax(dim=-1)
+        else:
+            nxt = _gumbel_argmax(last, temperature, generator)
+        return nxt[:, None], caches
+
+    return decode_step
 
 
 @dataclasses.dataclass
@@ -63,14 +128,15 @@ class Request:
 
 
 class ContinuousBatchingEngine:
-    """Admit/finish sequences mid-flight over a shared paged int8 KV pool.
+    """Admit/finish sequences mid-flight over a shared paged KV pool.
 
     A request is admitted only when the pool can reserve its worst-case page
     count (prompt + max_new_tokens, minus the prefix pages the trie lookup
     shares), so an admitted sequence never stalls mid-decode. One prefill is
     in flight at a time, so a burst of same-prefix prompts shares the pages
-    the first one writes. ``impl`` selects the kernels or the plain versions
-    (see :mod:`repro_torch.kernels.ops`); ``device`` defaults to the card.
+    the first one writes. Pages are int8 for ``kv_dtype='int8'``, else the
+    model dtype. ``impl`` selects the kernels or the plain versions (see
+    :mod:`repro_torch.kernels.ops`); ``device`` defaults to the card.
     """
 
     def __init__(self, params, cfg: ModelConfig, *,
@@ -92,9 +158,6 @@ class ContinuousBatchingEngine:
         if mixers != {"attn"}:
             raise ValueError(
                 f"continuous batching requires attention mixers, got {mixers}")
-        if kv_dtype != "int8":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: the port serves the int8 paged pool")
         if sample not in ("greedy", "temperature"):
             raise ValueError(f"sample={sample!r}")
         self.device = resolve_device(device)
@@ -111,6 +174,7 @@ class ContinuousBatchingEngine:
         self.pool = kvc.PagePool(
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
             num_pages=-(-capacity_tokens // ps), page_size=ps,
+            quantized=(kv_dtype == "int8"), dtype=dtype_of(cfg),
             retain_pages=retain_pages, device=self.device)
         self.waiting: collections.deque = collections.deque()
         self.prefilling: collections.deque = collections.deque()
@@ -144,10 +208,7 @@ class ContinuousBatchingEngine:
         for row, r in zip(last, reqs):
             gen = torch.Generator().manual_seed(
                 (self.seed * 1_000_003 + r.seq_id) * 1_000_003 + len(r.tokens))
-            u = torch.rand(row.shape[-1], generator=gen).clamp_(min=1e-20)
-            gumbel = -torch.log(-torch.log(u))
-            out.append(int((row / self.temperature
-                            + gumbel.to(row.device)).argmax()))
+            out.append(int(_gumbel_argmax(row, self.temperature, gen)))
         return out
 
     def _finish(self, req: Request) -> None:
@@ -249,16 +310,60 @@ class ContinuousBatchingEngine:
         return {sid: list(r.tokens) for sid, r in self.finished.items()}
 
 
+# ---------------------------------------------------------------------------
+# Batched generation entry points
+# ---------------------------------------------------------------------------
+def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
+                    steps: int, seed: int = 0, sample: str = "greedy",
+                    temperature: float = 1.0, max_len: Optional[int] = None,
+                    kv_dtype: Optional[str] = None, device=None,
+                    impl: str = "auto") -> torch.Tensor:
+    """The dense-slab loop: prompt (B, S) → (B, steps) new tokens (on the
+    CPU). The whole batch prefills at once into (B, max_len) slabs, then
+    decodes one token per step at the shared position S + i. The first
+    token is greedy, as in the reference; decode step i samples with a
+    generator seeded by (seed, i)."""
+    device = resolve_device(device)
+    prompt = torch.as_tensor(prompt).to(device, torch.long)
+    b, s = prompt.shape[:2]
+    caches = init_serve_caches(cfg, b, max_len or (s + steps),
+                               kv_dtype=kv_dtype, device=device)
+    prefill = build_prefill_step(cfg, impl=impl)
+    decode = build_decode_step(cfg, sample=sample, temperature=temperature,
+                               impl=impl)
+    last, caches = prefill(params, prompt, caches)
+    tok = last.float().argmax(dim=-1)[:, None]
+    out = [tok]
+    for i in range(steps - 1):
+        gen = None
+        if sample != "greedy":
+            gen = torch.Generator().manual_seed(seed * 1_000_003 + i)
+        tok, caches = decode(params, caches, tok, s + i, gen)
+        out.append(tok)
+    return torch.cat(out, dim=1).cpu()
+
+
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
              seed: int = 0, sample: str = "greedy", temperature: float = 1.0,
-             kv_dtype: Optional[str] = "int8",
+             max_len: Optional[int] = None, kv_dtype: Optional[str] = None,
              page_size: Optional[int] = None,
              prefill_chunk: Optional[int] = None,
              retain_pages: Optional[int] = None, device=None,
              impl: str = "auto") -> torch.Tensor:
-    """Batched generation on the continuous-batching engine: prompt (B, S)
-    → (B, steps) new tokens (on the CPU)."""
+    """Batched generation: prompt (B, S) → (B, steps) new tokens (on the
+    CPU). All-attention models run on the continuous-batching engine (pages
+    int8 for ``kv_dtype='int8'``, else the model dtype); models with
+    recurrent mixers or embedding inputs take the dense-slab loop, as in
+    the reference (``max_len`` is that loop's slab length). The port has no
+    such layers yet, so for those models the loop raises
+    ``NotImplementedError`` (ROADMAP queue 1 item 8)."""
     b, s = prompt.shape[:2]
+    if (cfg.embedding_inputs
+            or any(cfg.mixer_of(i) != "attn" for i in range(cfg.n_layers))):
+        return _generate_dense(params, cfg, prompt, steps=steps, seed=seed,
+                               sample=sample, temperature=temperature,
+                               max_len=max_len, kv_dtype=kv_dtype,
+                               device=device, impl=impl)
     ps = page_size or kvc.DEFAULT_PAGE_SIZE
     eng = ContinuousBatchingEngine(
         params, cfg, kv_dtype=kv_dtype, page_size=ps,

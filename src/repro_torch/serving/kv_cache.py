@@ -1,6 +1,9 @@
-"""Paged int8 KV cache: write-once token-granular pages in a shared pool.
+"""KV caches: the dense slab, and write-once token-granular pages in a
+shared pool.
 
-Port of ``repro/serving/kv_cache.py`` (the paged pool and its two views).
+Port of ``repro/serving/kv_cache.py``: :class:`DenseKVCache`, the paged
+pool and its two views. Pages and slabs hold int8 with scales, or float in
+the model dtype with no scales.
 
 * **int8 storage with per-token scales**: each (page, kv head, token) row
   carries its own scale, ``max(amax / 127, 1e-8)`` over the head dim. A
@@ -22,10 +25,15 @@ tensors and update them in place (``index_put_``), which saves a copy of
 every layer's pages per step; ``writeback`` only re-binds the view's tensors
 (the same objects) to the pool.
 
+**The dense slab.** :class:`DenseKVCache` is the (B, KV, T, hd) slab of the
+dense serving path (the loop that recurrent mixers need, and the plain
+baseline of the paged engine). int8 slabs carry one scale per (batch, head,
+page); appending a token requantizes its page. It too updates in place.
+
 The int8 conversion divides by 127 and by the scale with correctly rounded
 divisions, as the reference's eagerly-run cache ops do (see
-:func:`repro_torch.core.quant.div_exact`). Float (unquantized) pages, the
-dense ``DenseKVCache`` slab and head-sharded storage come in later slices.
+:func:`repro_torch.core.quant.div_exact`). Head-sharded storage comes with
+tensor parallelism in a later slice.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quant import div_exact
 
@@ -62,6 +71,11 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(q, -INT8_AMAX, INT8_AMAX).to(torch.int8)
 
 
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, dtype
+                    ) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
 def _chunk_to_pages(x: torch.Tensor, n_pages: int, page_size: int
                     ) -> torch.Tensor:
     """(1, KV, S, hd) float → (n_pages, KV, page_size, hd) f32, zero-padded
@@ -78,6 +92,122 @@ def _quantize_page_block(xp: torch.Tensor):
     return quantize_int8(xp, sc[..., None]), sc
 
 
+def _quantize_pages(x: torch.Tensor, page_size: int):
+    """x (..., T, hd), T a page multiple → (int8 (..., T, hd), scales
+    (..., T // page_size)): one scale per (lead..., page)."""
+    lead, (t, hd) = x.shape[:-2], x.shape[-2:]
+    paged = x.reshape(*lead, t // page_size, page_size, hd)
+    scale = int8_scale(paged, dim=(-2, -1))                  # (..., n_pages)
+    q = quantize_int8(paged, scale[..., None, None])
+    return q.reshape(*lead, t, hd), scale
+
+
+# ---------------------------------------------------------------------------
+# Dense slab cache (the dense serving path)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class DenseKVCache:
+    """(B, KV, T, hd) KV slab, updated in place. int8 storage carries
+    per-page scales ``k_scale``/``v_scale`` (B, KV, T // page_size) f32;
+    float storage has None."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+    page_size: int
+
+    @classmethod
+    def init(cls, batch: int, n_kv_heads: int, max_len: int, head_dim: int,
+             dtype, *, quantized: bool = False,
+             page_size: int = DEFAULT_PAGE_SIZE, device=None
+             ) -> "DenseKVCache":
+        """Zero slabs; an int8 slab is padded to whole pages."""
+        if not quantized:
+            shape = (batch, n_kv_heads, max_len, head_dim)
+            return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device),
+                       k_scale=None, v_scale=None, page_size=page_size)
+        t = round_up(max_len, page_size)
+        shape = (batch, n_kv_heads, t, head_dim)
+        sshape = (batch, n_kv_heads, t // page_size)
+
+        def scales():
+            return torch.full(sshape, SCALE_EPS, dtype=torch.float32,
+                              device=device)
+        return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                   v=torch.zeros(shape, dtype=torch.int8, device=device),
+                   k_scale=scales(), v_scale=scales(), page_size=page_size)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    def write_prefill(self, k_t: torch.Tensor, v_t: torch.Tensor
+                      ) -> "DenseKVCache":
+        """Fill positions [0, S) from (B, KV, S, hd) keys/values; an int8
+        slab quantizes whole pages, zero-padded past S."""
+        s = k_t.shape[2]
+        if not self.quantized:
+            self.k[:, :, :s] = k_t
+            self.v[:, :, :s] = v_t
+            return self
+        ps = self.page_size
+        t = round_up(s, ps)
+        for slab, scales, x in ((self.k, self.k_scale, k_t),
+                                (self.v, self.v_scale, v_t)):
+            if t != s:
+                x = F.pad(x.float(), (0, 0, 0, t - s))
+            q, sc = _quantize_pages(x, ps)
+            slab[:, :, :t] = q
+            scales[:, :, :t // ps] = sc
+        return self
+
+    def append(self, k_t: torch.Tensor, v_t: torch.Tensor, pos: int
+               ) -> "DenseKVCache":
+        """Write one token (B, KV, 1, hd) at position ``pos``. An int8 slab
+        dequantizes the token's page, inserts the token (positions past it
+        become zero), and requantizes the page with a new scale."""
+        pos = int(pos)
+        if not self.quantized:
+            self.k[:, :, pos] = k_t[:, :, 0]
+            self.v[:, :, pos] = v_t[:, :, 0]
+            return self
+        ps = self.page_size
+        page = pos // ps
+        start, off = page * ps, pos - page * ps
+        idx = torch.arange(ps, device=self.k.device)
+        keep = (idx < off)[None, None, :, None]
+        ins = (idx == off)[None, None, :, None]
+        for slab, scales, new in ((self.k, self.k_scale, k_t),
+                                  (self.v, self.v_scale, v_t)):
+            pf = slab[:, :, start:start + ps].float() \
+                * scales[:, :, page][..., None, None]        # (B,KV,ps,hd)
+            pf = torch.where(keep, pf, 0.0) + new.float() * ins
+            sc = int8_scale(pf, dim=(2, 3))                   # (B, KV)
+            slab[:, :, start:start + ps] = quantize_int8(pf, sc[..., None, None])
+            scales[:, :, page] = sc
+        return self
+
+    def read(self, out_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Dequantized contents: ((B, T, KV, hd), (B, T, KV, hd))."""
+        if not self.quantized:
+            return (self.k.transpose(1, 2).to(out_dtype),
+                    self.v.transpose(1, 2).to(out_dtype))
+        b, kv, t, hd = self.k.shape
+        ps = self.page_size
+
+        def deq(slab, scales):
+            paged = slab.reshape(b, kv, t // ps, ps, hd)
+            f = dequantize_int8(paged, scales[..., None, None], out_dtype)
+            return f.reshape(b, kv, t, hd).transpose(1, 2)
+
+        return deq(self.k, self.k_scale), deq(self.v, self.v_scale)
+
+
 # ---------------------------------------------------------------------------
 # Per-step views that flow through forward()
 # ---------------------------------------------------------------------------
@@ -85,14 +215,15 @@ def _quantize_page_block(xp: torch.Tensor):
 class PagedDecodeCache:
     """One attention layer's pages for one batched decode step.
 
-    ``k_pages``/``v_pages``: (P, KV, ps, hd) int8; ``k_scale``/``v_scale``:
-    (P, KV, ps) f32; ``tables``: (B, max_pages) int32 (rows padded with slot
-    0 past a sequence's last page); ``lengths``: (B,) int32 tokens cached.
+    ``k_pages``/``v_pages``: (P, KV, ps, hd) int8, or the model dtype;
+    ``k_scale``/``v_scale``: (P, KV, ps) f32, None for float pages;
+    ``tables``: (B, max_pages) int32 (rows padded with slot 0 past a
+    sequence's last page); ``lengths``: (B,) int32 tokens cached.
     """
     k_pages: torch.Tensor
     v_pages: torch.Tensor
-    k_scale: torch.Tensor
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
     tables: torch.Tensor
     lengths: torch.Tensor
 
@@ -111,6 +242,9 @@ class PagedDecodeCache:
         off = lengths % ps
         for pages, scales, new in ((self.k_pages, self.k_scale, k_new),
                                    (self.v_pages, self.v_scale, v_new)):
+            if scales is None:
+                pages[slot, :, off] = new.to(pages.dtype)
+                continue
             sc = int8_scale(new, dim=-1)                           # (B, KV)
             pages[slot, :, off] = quantize_int8(new, sc[..., None])
             scales[slot, :, off] = sc
@@ -121,15 +255,15 @@ class PagedDecodeCache:
 class PagedPrefillCache:
     """One attention layer's pages for one sequence's multi-token chunk.
 
-    ``table``: (max_pages,) int32 — this sequence's block table.
+    Pages and scales as in :class:`PagedDecodeCache`. ``table``: (max_pages,) int32 — this sequence's block table.
     ``q_start``: tokens cached before this chunk. The prefill lane keeps it
     page-aligned; a chunk that resumes mid-page takes the token-scatter
     path. ``pages_per_step``: pages the prefill kernel stages per step.
     """
     k_pages: torch.Tensor
     v_pages: torch.Tensor
-    k_scale: torch.Tensor
-    v_scale: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
     table: torch.Tensor
     q_start: int
     pages_per_step: int = 1
@@ -145,7 +279,8 @@ class PagedPrefillCache:
         Page-aligned starts write whole pages (zero-padded past the chunk,
         as the reference); unaligned starts scatter per token so the earlier
         tokens of a partial page keep their bytes. Each token is quantized
-        once, from its exact values, with its own scale.
+        once, from its exact values, with its own scale; float pages store
+        the values in the page dtype.
         """
         ps = self.page_size
         c = k_t.shape[2]
@@ -156,13 +291,20 @@ class PagedPrefillCache:
                 p0 = self.q_start // ps
                 n_w = -(-c // ps)
                 slots = table[p0:p0 + n_w]
-                xq, sc = _quantize_page_block(_chunk_to_pages(x, n_w, ps))
+                xp = _chunk_to_pages(x, n_w, ps)
+                if scales is None:
+                    pages[slots] = xp.to(pages.dtype)
+                    continue
+                xq, sc = _quantize_page_block(xp)
                 pages[slots] = xq
                 scales[slots] = sc
             else:
                 pos = self.q_start + torch.arange(c, device=table.device)
                 slots, offs = table[pos // ps], pos % ps
                 tok = x[0].transpose(0, 1)                         # (C, KV, hd)
+                if scales is None:
+                    pages[slots, :, offs] = tok.to(pages.dtype)
+                    continue
                 sc = int8_scale(tok, dim=-1)                       # (C, KV)
                 pages[slots, :, offs] = quantize_int8(tok, sc[..., None])
                 scales[slots, :, offs] = sc
@@ -185,8 +327,11 @@ class _PrefixNode:
 # Page pool (host-side allocator shared by all layers of a model)
 # ---------------------------------------------------------------------------
 class PagePool:
-    """Fixed pool of int8 KV pages + refcounted allocation + block tables +
-    a prefix-sharing trie (the reference's ``PagePool`` host logic).
+    """Fixed pool of KV pages + refcounted allocation + block tables + a
+    prefix-sharing trie (the reference's ``PagePool`` host logic).
+
+    Pages are int8 with per-token scales (``quantized=True``), or ``dtype``
+    with no scales.
 
     One page slot spans every layer (each layer keeps its own (P, KV, ps,
     hd) tensors; a sequence's block table indexes all of them). Admission is
@@ -201,33 +346,35 @@ class PagePool:
 
     def __init__(self, *, n_layers: int, n_kv_heads: int, head_dim: int,
                  num_pages: int, page_size: int = DEFAULT_PAGE_SIZE,
-                 quantized: bool = True, retain_pages: Optional[int] = None,
-                 device=None):
-        if not quantized:
-            raise NotImplementedError(
-                "float KV pages are not ported yet; the port serves the int8 "
-                "paged pool (kv_dtype='int8')")
+                 quantized: bool = True, dtype=torch.bfloat16,
+                 retain_pages: Optional[int] = None, device=None):
         self.n_layers = n_layers
         self.n_kv_heads = n_kv_heads
         self.head_dim = head_dim
         self.num_pages = num_pages
         self.page_size = page_size
+        self.quantized = quantized
         self.device = torch.device(device) if device is not None else \
             torch.device("cpu")
         shape = (num_pages, n_kv_heads, page_size, head_dim)
         sshape = (num_pages, n_kv_heads, page_size)
+        page_dtype = torch.int8 if quantized else dtype
 
         def pages():
-            return torch.zeros(shape, dtype=torch.int8, device=self.device)
+            return torch.zeros(shape, dtype=page_dtype, device=self.device)
 
         def scales():
+            if not quantized:
+                return None
             return torch.full(sshape, SCALE_EPS, dtype=torch.float32,
                               device=self.device)
 
         self.k_pages: List[torch.Tensor] = [pages() for _ in range(n_layers)]
         self.v_pages: List[torch.Tensor] = [pages() for _ in range(n_layers)]
-        self.k_scale: List[torch.Tensor] = [scales() for _ in range(n_layers)]
-        self.v_scale: List[torch.Tensor] = [scales() for _ in range(n_layers)]
+        self.k_scale: List[Optional[torch.Tensor]] = [
+            scales() for _ in range(n_layers)]
+        self.v_scale: List[Optional[torch.Tensor]] = [
+            scales() for _ in range(n_layers)]
         self.free: List[int] = list(range(num_pages))
         self.ref: List[int] = [0] * num_pages
         self.tables: Dict[int, List[int]] = {}
@@ -399,7 +546,8 @@ class PagePool:
 
     def ensure_writable(self, seq_id: int, page_idx: int) -> int:
         """COW barrier: make ``tables[seq_id][page_idx]`` exclusively owned,
-        copying a shared page (all layers, k + v + scales) to a fresh slot."""
+        copying a shared page (all layers, k + v + any scales) to a fresh
+        slot."""
         slot = self.tables[seq_id][page_idx]
         if self.ref[slot] == 1:
             self._prefix_forget(slot)
@@ -409,7 +557,8 @@ class PagePool:
         new = self._alloc()
         for arrs in (self.k_pages, self.v_pages, self.k_scale, self.v_scale):
             for layer in range(self.n_layers):
-                arrs[layer][new] = arrs[layer][slot]
+                if arrs[layer] is not None:
+                    arrs[layer][new] = arrs[layer][slot]
         self.ref[slot] -= 1                    # was > 1: never reaches zero
         self.tables[seq_id][page_idx] = new
         return new
@@ -456,8 +605,9 @@ class PagePool:
     # -- data movement ---------------------------------------------------
     def ingest(self, seq_id: int, layer: int, k_t: torch.Tensor,
                v_t: torch.Tensor, start: int = 0) -> None:
-        """Quantize one layer's KV (1, KV, S, hd) into pages [start, start+S);
-        ``start`` page-aligned, the written pages exclusively owned."""
+        """Store one layer's KV (1, KV, S, hd) into pages [start, start+S),
+        quantized or in the page dtype; ``start`` page-aligned, the written
+        pages exclusively owned."""
         ps = self.page_size
         if start % ps:
             raise ValueError(f"ingest start {start} not page-aligned")
@@ -473,8 +623,12 @@ class PagePool:
         slots = torch.tensor(table, dtype=torch.long, device=self.device)
         for pages, scales, x in ((self.k_pages, self.k_scale, k_t),
                                  (self.v_pages, self.v_scale, v_t)):
-            xq, sc = _quantize_page_block(_chunk_to_pages(x, n_pages, ps))
-            scales[layer][slots] = sc
+            xp = _chunk_to_pages(x, n_pages, ps)
+            if self.quantized:
+                xq, sc = _quantize_page_block(xp)
+                scales[layer][slots] = sc
+            else:
+                xq = xp.to(pages[layer].dtype)
             pages[layer][slots] = xq
         self.lens[seq_id] = start + s
 

@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.serving import kv_cache as jkv  # noqa: E402
 from repro_torch.serving import kv_cache as tkv  # noqa: E402
+from torch_parity import to_numpy  # noqa: E402
 
 KV, HD, PS = 2, 8, 4
 NUM_PAGES = 12
@@ -217,6 +218,37 @@ def test_int8_conversion_bit_exact():
 
 
 def test_float_pages_not_ported():
-    with pytest.raises(NotImplementedError):
-        tkv.PagePool(n_layers=1, n_kv_heads=KV, head_dim=HD, num_pages=4,
-                     page_size=PS, quantized=False)
+    """Float pages, once refused here, are ported: the float pool (pages in
+    the model dtype, no scales) holds exactly the reference's pages after
+    the same ingest, aligned and unaligned chunk writes, and batched
+    appends across a copy-on-write fork, in f32 and in bf16."""
+    for dtype in ("float32", "bfloat16"):
+        _check_float_pool(dtype)
+
+
+def _check_float_pool(dtype):
+    nprng = np.random.default_rng(3)
+    kw = dict(n_layers=2, n_kv_heads=KV, head_dim=HD, num_pages=NUM_PAGES,
+              page_size=PS, quantized=False)
+    jp = jkv.PagePool(**kw, dtype=getattr(jnp, dtype))
+    tp = tkv.PagePool(**kw, dtype=getattr(torch, dtype), device="cpu")
+    assert tp.k_scale == [None, None] and tp.k_pages[0].dtype == \
+        getattr(torch, dtype)
+    for sid in range(2):
+        jp.reserve(sid, 3 * PS)
+        tp.reserve(sid, 3 * PS)
+    k, v = _kv(nprng, PS + 1), _kv(nprng, PS + 1)
+    jp.ingest(1, 1, jnp.asarray(k), jnp.asarray(v))
+    tp.ingest(1, 1, torch.from_numpy(k), torch.from_numpy(v))
+    _write(jp, tp, 0, PS + 2, 0, nprng)        # aligned, partial tail page
+    _write(jp, tp, 0, 3, 0, nprng)             # unaligned resume mid-page
+    jp.fork(1, 2)
+    tp.fork(1, 2)
+    _append(jp, tp, [0, 1, 2], 1, nprng)       # seq 2's tail page is COW'd
+    _append(jp, tp, [0, 2], 0, nprng)
+    _assert_same_state(jp, tp)
+    for layer in range(2):
+        assert tp.k_scale[layer] is None and tp.v_scale[layer] is None
+        for jarr, tarr in ((jp.k_pages, tp.k_pages), (jp.v_pages, tp.v_pages)):
+            np.testing.assert_array_equal(to_numpy(tarr[layer]),
+                                          to_numpy(jarr[layer]))

@@ -100,3 +100,39 @@ def test_bf16_queries_keep_dtype():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
                                atol=1e-5)
+
+
+def _float_pages(rng, kv, ps, hd, num_pages):
+    return [rng.standard_normal((num_pages, kv, ps, hd)).astype(np.float32)
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("impl", ["auto", "torch", "cuda"])
+def test_float_pages_take_plain_version(impl):
+    """Float pages (scales None) take the plain versions, as in the
+    reference, whose Pallas kernels read int8 pages only: decode and
+    prefill match the reference's wrappers; ``impl='cuda'`` raises."""
+    rng = np.random.default_rng(11)
+    kv, g, hd, ps = 2, 3, 32, 8
+    kp, vp = _float_pages(rng, kv, ps, hd, 12)
+    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
+    lengths = np.array([29, 8], np.int32)
+    q = rng.standard_normal((2, kv, g, hd)).astype(np.float32)
+    qc = rng.standard_normal((kv, 10, g, hd)).astype(np.float32)
+    j, t = _both(q, kp, vp, tables, lengths, qc)
+    if impl == "cuda":
+        with pytest.raises(ValueError, match="int8 pages only"):
+            pa.paged_attention(t[0], t[1], t[2], None, None, t[3], t[4],
+                               impl=impl)
+        with pytest.raises(ValueError, match="int8 pages only"):
+            pp.paged_prefill_attention(t[5], t[1], t[2], None, None, t[3][0],
+                                       q_start=13, impl=impl)
+        return
+    want = np.asarray(jpa(j[0], j[1], j[2], None, None, j[3], j[4]))
+    got = pa.paged_attention(t[0], t[1], t[2], None, None, t[3], t[4],
+                             impl=impl).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    want = np.asarray(jpp(j[5], j[1], j[2], None, None, j[3][0], q_start=13))
+    got = pp.paged_prefill_attention(t[5], t[1], t[2], None, None, t[3][0],
+                                     q_start=13, impl=impl).numpy()
+    np.testing.assert_allclose(got, want, **TOL)

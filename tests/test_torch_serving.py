@@ -7,7 +7,10 @@ across and ``page_size`` / ``prefill_chunk`` pinned in both engines
 * the mixed trace (requests entering and leaving mid-flight over a pool
   too small for all of them at once) gives the reference's greedy streams,
   and each port stream equals the port's solo run;
-* temperature sampling is deterministic and independent of co-scheduling.
+* temperature sampling is deterministic and independent of co-scheduling;
+* float pages (``kv_dtype=None``, the reference's default in ``generate``):
+  the engine gives the reference's greedy streams and page accounting, and
+  ``generate`` with no ``kv_dtype`` gives the reference's streams.
 
 Greedy streams must be identical. A divergence would be acceptable only
 where the reference's top-2 logit gap at the first differing step is
@@ -23,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.serving.engine import \
     ContinuousBatchingEngine as JaxEngine  # noqa: E402
+from repro.serving.engine import generate as jax_generate  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
                                         generate)
 from torch_parity import (check_streams, random_prompts,  # noqa: E402
@@ -90,6 +94,54 @@ def test_engine_rejects_oversized_request_and_unported_options(model):
     eng.submit(torch.zeros(8, dtype=torch.long), 32)  # 5 pages, pool has 2
     with pytest.raises(RuntimeError):
         eng.run()
-    for kw in ({"mesh": object()}, {"spec": object()}, {"kv_dtype": None}):
+    for kw in ({"mesh": object()}, {"spec": object()}):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+
+
+def test_float_page_engine_matches_reference(model):
+    """kv_dtype=None: bf16 pages, no scales, attention through the plain
+    versions in both packages. Three prompts share a 16-token prefix, two
+    more enter mid-flight; page accounting after every step and the greedy
+    streams must be identical."""
+    jcfg, jp, cfg, tp = model
+    prefix = random_prompts([16], seed=50)[0]
+    prompts = [np.concatenate([prefix, t])
+               for t in random_prompts([4, 9, 6], seed=51)]
+    prompts += random_prompts([7, 12], seed=52)
+    kw = dict(kv_dtype=None, page_size=8, capacity_tokens=160,
+              prefill_chunk=8)
+    jeng = JaxEngine(jp, jcfg, **kw)
+    teng = ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+    assert not teng.pool.quantized
+    assert teng.pool.k_pages[0].dtype == torch.bfloat16
+    for p in prompts:
+        jeng.submit(jnp.asarray(p), 5)
+        teng.submit(torch.from_numpy(p), 5)
+    shared = 0
+    while True:
+        more = teng.step()
+        assert jeng.step() == more
+        assert teng.pool.shared_page_stats() == jeng.pool.shared_page_stats()
+        assert teng.pool.tables == jeng.pool.tables
+        shared = max(shared, teng.pool.shared_page_stats()["shared_slots"])
+        if not more:
+            break
+    assert shared == 2                      # the 16-token prefix, 2 pages
+    got = {s: r.tokens for s, r in teng.finished.items()}
+    want = {s: r.tokens for s, r in jeng.finished.items()}
+    assert sorted(got) == sorted(want)
+    check_streams([got[s] for s in sorted(got)],
+                  [want[s] for s in sorted(want)], jcfg, jp, prompts)
+    assert teng.pool.free == jeng.pool.free
+
+
+def test_generate_default_is_float_pages_like_reference(model):
+    """``generate`` with no ``kv_dtype`` serves float pages in both
+    packages and gives the same greedy streams."""
+    jcfg, jp, cfg, tp = model
+    prompts = random_prompts([12, 12], seed=53)
+    batch = np.stack(prompts)
+    want = jax_generate(jp, jcfg, jnp.asarray(batch), steps=6)
+    got = generate(tp, cfg, torch.from_numpy(batch), steps=6, device="cpu")
+    check_streams(got.tolist(), np.asarray(want).tolist(), jcfg, jp, prompts)
