@@ -5,13 +5,22 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. Build: compile the six CUDA kernel libraries (one nvcc each, all at
-   once).
+   once), and beside them K3's and K2's sources with ``-Xptxas -v``: the
+   registers, stack and spills of each of their device kernels, and the
+   dynamic shared memory of each build.
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
    before every launch), the bound and a PyTorch library yardstick:
    K1 fused w8a8 GEMM; K4 fused w4a8 and w4a4 GEMMs; K5, K6a, K6b unfused
    int8 / w4 / a4w4 GEMMs; K7 rowwise quantize (bits 8 and 4); K3 paged
-   decode attention; K2 paged prefill.
+   decode attention (the serving batch, then the heads of qwen3-0.6b,
+   qwen2-72b and stablelm-12b (hd 128 with G 2 and 8, hd 160 with G 4),
+   page size 8, one 4,096-token sequence and 32 ragged sequences), with
+   its split plan and device kernels per call, and a control that drops
+   one kv tile and must fail the check; K2 paged prefill (C 256 at
+   q_start 0, 512, 517, the same heads, page size 8, and a verify panel
+   of C 5 at a mid-page q_start), and K2's serving chunk at 1 to 12
+   splits.
 3. Serving: full-width qwen2-0.5b with random weights from a seed, in
    W8A8, W4A8 and W4A4, 8 requests of 512 prompt tokens (two sharing a
    256-token prefix) and 32 new tokens each on the continuous-batching
@@ -44,7 +53,11 @@ Phases (any failure exits non-zero and prints no result):
    kernels against the plain versions, and the bf16 slab's against the
    float-page engine's, each within W8A8's ``LOGIT_TOL``; profiled reruns
    of the bf16 slab and float pages; then the three runs again in turns.
-7. Report: a ``kernels`` JSON line, the card's name and power limit, and as
+7. stablelm-12b's attention shape (hd 160, 32 query / 8 kv heads) at full
+   width, depth cut to 4 of its 40 layers, W8A8 on the paged engine over
+   int8 pages: K1, K2 and K3 launched, every call of one request held
+   against its plain version in situ.
+8. Report: a ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs the repository's ``src/`` beside it; imports nothing of JAX.
@@ -53,8 +66,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,7 +80,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import camp  # noqa: E402
-from repro_torch.core.quant import pack_int4, unpack_int4  # noqa: E402
+from repro_torch.core.quant import (QuantizedTensor, pack_int4,  # noqa: E402
+                                    unpack_int4)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import camp_gemm as k5  # noqa: E402
 from repro_torch.kernels import camp_gemm_fused as k1  # noqa: E402
@@ -234,6 +250,76 @@ def gemm_close(got, want, epilogue: str) -> bool:
         return within_bf16_ulp(got, want)
     return bool(((got - want).abs() <= 4 * F32_ULP_REL
                  * torch.maximum(got.abs(), want.abs())).all())
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: the build, and K2/K3's register and shared-memory budgets
+# ---------------------------------------------------------------------------
+PTXAS_SOURCES = {"K3": "paged_attention", "K2": "paged_prefill"}
+
+
+def start_ptxas(tmp):
+    """``nvcc -Xptxas -v`` for K3's and K2's sources, started beside
+    ``build.build_all()`` (whose libraries the kernels load)."""
+    return {key: subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(Path(tmp) / f"{name}.so"), str(build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for key, name in PTXAS_SOURCES.items()}
+
+
+def paged_smem(q: str, dp: int, warps: int) -> int:
+    """Dynamic shared memory of one K2/K3 block (csrc/paged_common.cuh:
+    q rows, for f32 their probabilities, then two int8 K/V tiles of 64
+    tokens with their scales)."""
+    rows = (dp + 8) * 2 if q == "bf16" else (dp + 8 + 65) * 4
+    return 16 * warps * rows + 2 * (2 * 64 * (dp + 16) + 512)
+
+
+def ptxas_report(procs):
+    """Registers, stack and spills of every K2/K3 device kernel, and the
+    dynamic shared memory of each attention build (1 and 4 warps)."""
+    rows = []
+    for key, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for "
+                               f"{PTXAS_SOURCES[key]}.cu:\n{log}")
+        row = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                dp = re.search(r"Li(\d+)E", name)
+                row = dict(kernel=key, name=name,
+                           part="combine" if "combine_kernel" in name
+                           else "attend",
+                           q="f32" if "attend_f32" in name else "bf16",
+                           hd_build=int(dp.group(1)) if dp else None)
+                rows.append(row)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and row is not None:
+                row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and row is not None:
+                row["registers"] = int(m.group(1))
+    for r in sorted(rows, key=lambda r: (r["kernel"], r["part"], r["q"],
+                                         r["hd_build"] or 0)):
+        smem = ""
+        if r["part"] == "attend":
+            r["smem_1_warp"] = paged_smem(r["q"], r["hd_build"], 1)
+            r["smem_4_warps"] = paged_smem(r["q"], r["hd_build"], 4)
+            smem = (f", dynamic shared memory {r['smem_1_warp']:,} B (1 warp)"
+                    f" / {r['smem_4_warps']:,} B (4 warps)")
+        build_of = f" hd<={r['hd_build']}" if r["hd_build"] else ""
+        print(f"  ptxas {r['kernel']} {r['part']} {r['q']}{build_of}: "
+              f"{r.get('registers')} registers, stack {r.get('stack')} B, "
+              f"spill stores/loads {r.get('spill_stores')}/"
+              f"{r.get('spill_loads')} B{smem}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -428,101 +514,209 @@ def _att_ok(got, want, dtype):
     return within_bf16_ulp(got, want, atol=ATT_TOL)
 
 
-def check_k3(timer, gen):
-    b, kv, g, hd, ps = 8, 2, 7, 64, 16
-    lengths = torch.tensor([1, 16, 17, 100, 255, 512, 529, 544],
-                           dtype=torch.int32, device="cuda")
-    max_pages = 34
+def _k3_inputs(gen, b, kv, g, hd, ps, lengths, max_pages, dtype):
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     num_pages = b * max_pages + 8
     kp, vp, ks, vs = _pages(gen, num_pages, kv, ps, hd)
     tables = torch.randperm(num_pages, device="cuda", generator=gen)[
         :b * max_pages].reshape(b, max_pages).int().contiguous()
+    q = torch.randn(b, kv, g, hd, device="cuda", generator=gen).to(dtype)
+    return q, kp, vp, ks, vs, tables, lengths
+
+
+def k3_plan(q, tables, ps):
+    """K3's split of the kv tiles for these inputs (the wrapper's)."""
+    b, kv, g, _ = q.shape
+    return k3.plan_for(q, b * kv, g, -(-tables.shape[1] * ps // 64))
+
+
+def k3_case(timer, args, label):
+    """One K3 call against its plain version: error, the plan and device
+    kernels per call, times beside the plain version and SDPA, bound."""
+    q, kp, vp, ks, vs, tables, lengths = args
+    b, kv, g, hd = q.shape
+    ps, max_pages = kp.shape[2], tables.shape[1]
+    got = k3.paged_attention_cuda(*args)
+    want = k3.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want), _att_ok(got.float(), want.float(), q.dtype)
+    plan = k3_plan(q, tables, ps)
     n_used = ((lengths + ps - 1) // ps).long()
     tokens = lengths.long().sum().item()
-    rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, kv, g, hd, device="cuda",
-                        generator=gen).to(dtype)
-        args = (q, kp, vp, ks, vs, tables, lengths)
-        got = k3.paged_attention_cuda(*args)
-        want = k3.paged_attention_reference(*args)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, want), _att_ok(got.float(), want.float(), dtype)
-        pages_read = n_used.sum().item()
-        n_bytes = (2 * q.numel() * q.element_size()
-                   + pages_read * kv * ps * (2 * hd + 8)
-                   + 4 * (pages_read + b))
-        b_ms, b_by = bound(n_bytes, 4.0 * g * hd * kv * tokens,
-                           BF16_OPS_PER_S)
-        # yardstick: SDPA over the dequantized dense KV (prepared outside)
-        k_d = torch.stack([_dense(kp, ks, tables[i]) for i in range(b)])
-        v_d = torch.stack([_dense(vp, vs, tables[i]) for i in range(b)])
-        mask = (torch.arange(max_pages * ps, device="cuda")[None, :]
-                < lengths[:, None])[:, None, None, :]
-        q_s = q.float().reshape(b, kv * g, 1, hd)
+    pages_read = n_used.sum().item()
+    n_bytes = (2 * q.numel() * q.element_size()
+               + pages_read * kv * ps * (2 * hd + 8) + 4 * (pages_read + b))
+    b_ms, b_by = bound(n_bytes, 4.0 * g * hd * kv * tokens, BF16_OPS_PER_S)
+    # yardstick: SDPA over the dequantized dense KV (prepared outside)
+    k_d = torch.stack([_dense(kp, ks, tables[i]) for i in range(b)])
+    v_d = torch.stack([_dense(vp, vs, tables[i]) for i in range(b)])
+    mask = (torch.arange(max_pages * ps, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    q_s = q.float().reshape(b, kv * g, 1, hd)
 
-        def lib():
-            return F.scaled_dot_product_attention(q_s, k_d, v_d,
-                                                  attn_mask=mask,
-                                                  enable_gqa=True)
-        row = dict(kernel="K3", b=b, dtype=str(dtype), max_abs_err=err, ok=ok,
-                   ms=timer(lambda: k3.paged_attention_cuda(*args)),
-                   plain_ms=timer(lambda: k3.paged_attention_reference(*args)),
-                   library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by)
-        rows.append(row)
-        print(f"  K3 B={b} lengths={lengths.tolist()} {dtype} err={err:.3g} "
-              f"({'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
-              f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
-              f"bound={b_ms:.4f} ({b_by})")
-    return rows
+    def lib():
+        return F.scaled_dot_product_attention(q_s, k_d, v_d, attn_mask=mask,
+                                              enable_gqa=True)
+    row = dict(kernel="K3", label=label, b=b, kv=kv, g=g, hd=hd, ps=ps,
+               dtype=str(q.dtype), plan=list(plan),
+               device_kernels=1 if plan[0] == 1 else 2, max_abs_err=err,
+               ok=ok, ms=timer(lambda: k3.paged_attention_cuda(*args)),
+               plain_ms=timer(lambda: k3.paged_attention_reference(*args)),
+               library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by)
+    del k_d, v_d
+    print(f"  K3 {label}: B={b} KV={kv} G={g} hd={hd} ps={ps} "
+          f"{str(q.dtype)[6:]} splits={plan[0]}x{plan[1]} tiles "
+          f"({row['device_kernels']} kernels) err={err:.3g} "
+          f"({'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
+          f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f} "
+          f"bound={b_ms:.4f} ({b_by})")
+    return row
+
+
+def k3_dropped_tile(args):
+    """Control: the same K3 call with its last kv tile left out (bf16: the
+    last split left out of the merge; f32, one split: the walk stopped a
+    tile early). ``_att_ok`` must reject it."""
+    q, kp, vp, ks, vs, tables, lengths = args
+    n_split, per = k3_plan(q, tables, kp.shape[2])
+    plan = (n_split - 1, per) if n_split > 1 else (1, per - 1)
+    got = k3._run(*args, None, plan)
+    want = k3.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    caught = not _att_ok(got.float(), want.float(), q.dtype)
+    print(f"  K3 control, the last kv tile dropped (plan {plan} for "
+          f"{(n_split, per)}, {str(q.dtype)[6:]}): err="
+          f"{max_err(got, want):.3g}, {'caught' if caught else 'NOT CAUGHT'}")
+    if not caught:
+        raise RuntimeError("K3's check passes a dropped kv tile")
+    return dict(dtype=str(q.dtype), max_abs_err=max_err(got, want))
+
+
+def check_k3(timer, gen):
+    """The serving batch (B 8, lengths 1 to 544; the headline rows) and the
+    dropped-tile control, then K3 at the other registry head shapes, page
+    size 8, one 4,096-token sequence and a ragged batch of 32."""
+    rows, controls = [], []
+    serving = [1, 16, 17, 100, 255, 512, 529, 544]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _k3_inputs(gen, 8, 2, 7, 64, 16, serving, 34, dtype)
+        rows.append(k3_case(timer, args, "serving"))
+        controls.append(k3_dropped_tile(args))
+    ragged = [1, 15, 16, 17, 31, 32, 33, 100, 255, 256, 257, 300, 511, 512,
+              513, 529, 544, 600, 700, 777, 800, 900, 1000, 1023, 1024, 1,
+              16, 48, 64, 65, 128, 129]
+    shapes = (   # label, B, KV, G, hd, ps, lengths, table width in pages
+        ("qwen3-0.6b heads (hd 128, G 2)", 4, 8, 2, 128, 16,
+         [1, 100, 513, 1000], 64),
+        ("qwen2-72b heads (hd 128, G 8)", 4, 8, 8, 128, 16,
+         [1, 100, 513, 1000], 64),
+        ("stablelm-12b heads (hd 160, G 4)", 4, 8, 4, 160, 16,
+         [1, 100, 513, 1000], 64),
+        ("serving, page size 8", 8, 2, 7, 64, 8, serving, 68),
+        ("one sequence of 4,096 tokens", 1, 2, 7, 64, 16, [4096], 256),
+        ("32 ragged sequences", 32, 2, 7, 64, 16, ragged, 64))
+    for label, b, kv, g, hd, ps, lengths, width in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _k3_inputs(gen, b, kv, g, hd, ps, lengths, width, dtype)
+            rows.append(k3_case(timer, args, label))
+    return rows, controls
+
+
+def k2_case(timer, gen, label, kv, g, hd, ps, c, q_start, dtype):
+    """One K2 chunk against its plain version: error, plan, times beside
+    the plain version and SDPA, bound."""
+    n_pages = -(-(q_start + c) // ps)
+    num_pages = n_pages + 16
+    kp, vp, ks, vs = _pages(gen, num_pages, kv, ps, hd)
+    table = torch.randperm(num_pages, device="cuda", generator=gen)[
+        :n_pages + 2].int().contiguous()
+    visible = sum(q_start + i + 1 for i in range(c))
+    q = torch.randn(kv, c, g, hd, device="cuda", generator=gen).to(dtype)
+    args = (q, kp, vp, ks, vs, table)
+    got = k2.paged_prefill_cuda(*args, q_start=q_start)
+    want = k2.paged_prefill_reference(*args, q_start=q_start)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ok = _att_ok(got.float(), want.float(), dtype)
+    plan = k2.plan_for(q, kv, c * g, -(-(q_start + c) // 64))
+    n_bytes = (2 * q.numel() * q.element_size()
+               + n_pages * kv * ps * (2 * hd + 8) + 4 * n_pages)
+    b_ms, b_by = bound(n_bytes, 4.0 * g * hd * kv * visible, BF16_OPS_PER_S)
+    k_d = _dense(kp, ks, table[:n_pages])[None]
+    v_d = _dense(vp, vs, table[:n_pages])[None]
+    t = n_pages * ps
+    mask = (torch.arange(t, device="cuda")[None, :]
+            <= q_start + torch.arange(c, device="cuda")[:, None])
+    q_s = q.float().permute(0, 2, 1, 3).reshape(1, kv * g, c, hd)
+
+    def lib():
+        return F.scaled_dot_product_attention(q_s, k_d, v_d, attn_mask=mask,
+                                              enable_gqa=True)
+    row = dict(kernel="K2", label=label, kv=kv, g=g, hd=hd, ps=ps, c=c,
+               q_start=q_start, dtype=str(dtype), plan=list(plan),
+               device_kernels=1 if plan[0] == 1 else 2, max_abs_err=err,
+               ok=ok, ms=timer(lambda: k2.paged_prefill_cuda(
+                   *args, q_start=q_start)),
+               plain_ms=timer(lambda: k2.paged_prefill_reference(
+                   *args, q_start=q_start)),
+               library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by)
+    print(f"  K2 {label}: C={c} q_start={q_start} KV={kv} G={g} hd={hd} "
+          f"ps={ps} {str(dtype)[6:]} splits={plan[0]}x{plan[1]} tiles "
+          f"err={err:.3g} ({'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
+          f"plain={row['plain_ms']:.4f} sdpa={row['library_ms']:.4f} "
+          f"bound={b_ms:.4f} ({b_by})")
+    return row
+
+
+def k2_split_sweep(timer, gen):
+    """K2 at the serving chunk (C 256, q_start 512, bf16) with its 12 kv
+    tiles cut into 1, 2, 3, 4, 6 and 12 splits, each output checked: the
+    measurement behind split_plan's target of four blocks per SM."""
+    kv, g, hd, ps, c, q_start = 2, 7, 64, 16, 256, 512
+    n_pages = -(-(q_start + c) // ps)
+    kp, vp, ks, vs = _pages(gen, n_pages + 16, kv, ps, hd)
+    table = torch.randperm(n_pages + 16, device="cuda", generator=gen)[
+        :n_pages + 2].int().contiguous()
+    q = torch.randn(kv, c, g, hd, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    args = (q, kp, vp, ks, vs, table)
+    want = k2.paged_prefill_reference(*args, q_start=q_start)
+    tiles = -(-(q_start + c) // 64)
+    times = {}
+    for n in (1, 2, 3, 4, 6, 12):
+        per = -(-tiles // n)
+        plan = (-(-tiles // per), per)
+        got = k2._run(*args, q_start, None, plan)
+        torch.cuda.synchronize()
+        if not _att_ok(got.float(), want.float(), q.dtype):
+            raise RuntimeError(f"K2 with {plan[0]} splits differs from its "
+                               f"plain version by {max_err(got, want):.3g}")
+        times[plan[0]] = timer(lambda: k2._run(*args, q_start, None, plan))
+    print("  K2 C=256 q_start=512 bf16 by number of splits (ms): "
+          + ", ".join(f"{n}: {ms:.4f}" for n, ms in times.items())
+          + f"; the wrapper picks {k2.plan_for(q, kv, c * g, tiles)[0]}")
+    return times
 
 
 def check_k2(timer, gen):
-    kv, g, hd, ps, c = 2, 7, 64, 16, 256
+    """The serving chunk (C 256 at q_start 0, 512 and 517; q_start 512 in
+    bf16 is the headline row), then the other registry head shapes, page
+    size 8, and a speculative verify panel (gamma 4: C 5) at a mid-page
+    q_start."""
     rows = []
     for q_start in (0, 512, 517):
-        n_pages = -(-(q_start + c) // ps)
-        num_pages = n_pages + 16
-        kp, vp, ks, vs = _pages(gen, num_pages, kv, ps, hd)
-        table = torch.randperm(num_pages, device="cuda", generator=gen)[
-            :n_pages + 2].int().contiguous()
-        visible = sum(q_start + i + 1 for i in range(c))
         for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn(kv, c, g, hd, device="cuda",
-                            generator=gen).to(dtype)
-            args = (q, kp, vp, ks, vs, table)
-            got = k2.paged_prefill_cuda(*args, q_start=q_start)
-            want = k2.paged_prefill_reference(*args, q_start=q_start)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            ok = _att_ok(got.float(), want.float(), dtype)
-            n_bytes = (2 * q.numel() * q.element_size()
-                       + n_pages * kv * ps * (2 * hd + 8) + 4 * n_pages)
-            b_ms, b_by = bound(n_bytes, 4.0 * g * hd * kv * visible,
-                               BF16_OPS_PER_S)
-            k_d = _dense(kp, ks, table[:n_pages])[None]
-            v_d = _dense(vp, vs, table[:n_pages])[None]
-            t = n_pages * ps
-            mask = (torch.arange(t, device="cuda")[None, :]
-                    <= q_start + torch.arange(c, device="cuda")[:, None])
-            q_s = q.float().permute(0, 2, 1, 3).reshape(1, kv * g, c, hd)
-
-            def lib():
-                return F.scaled_dot_product_attention(q_s, k_d, v_d,
-                                                      attn_mask=mask,
-                                                      enable_gqa=True)
-            row = dict(kernel="K2", c=c, q_start=q_start, dtype=str(dtype),
-                       max_abs_err=err, ok=ok,
-                       ms=timer(lambda: k2.paged_prefill_cuda(
-                           *args, q_start=q_start)),
-                       plain_ms=timer(lambda: k2.paged_prefill_reference(
-                           *args, q_start=q_start)),
-                       library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by)
-            rows.append(row)
-            print(f"  K2 C={c} q_start={q_start} {dtype} err={err:.3g} "
-                  f"({'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
-                  f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
-                  f"bound={b_ms:.4f} ({b_by})")
+            rows.append(k2_case(timer, gen, "serving", 2, 7, 64, 16, 256,
+                                q_start, dtype))
+    for label, kv, g, hd, ps, c, q_start in (
+            ("qwen3-0.6b heads (hd 128, G 2)", 8, 2, 128, 16, 256, 512),
+            ("qwen2-72b heads (hd 128, G 8)", 8, 8, 128, 16, 256, 512),
+            ("stablelm-12b heads (hd 160, G 4)", 8, 4, 160, 16, 256, 512),
+            ("serving, page size 8", 2, 7, 64, 8, 256, 517),
+            ("verify panel, gamma 4", 2, 7, 64, 16, 5, 517)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(k2_case(timer, gen, label, kv, g, hd, ps, c, q_start,
+                                dtype))
     return rows
 
 
@@ -710,14 +904,23 @@ def profile_run(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel = {}
+    per_kernel, counts = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0)
         if t > 0 and getattr(e, "device_type", None) is not None and \
                 str(e.device_type).endswith("CUDA"):
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
+            counts[e.key] = counts.get(e.key, 0) + e.count
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # K3's and K2's device kernels (the split attention and its merge) by
+    # their tags in csrc/paged_common.cuh
+    paged = {}
+    for key, tag in (("K3", "Decode"), ("K2", "Prefill")):
+        names = [n for n in per_kernel if tag in n
+                 and ("attend_" in n or "combine_kernel" in n)]
+        paged[key] = dict(ms=sum(per_kernel[n] for n in names),
+                          device_kernels=sum(counts[n] for n in names))
     if busy == 0:
         print("  profiler: no device time recorded (not measured)")
     else:
@@ -725,8 +928,11 @@ def profile_run(fn):
               f"{busy:.1f} ms ({busy / (wall * 1e3):.1%}); top kernels (ms):")
         for name, ms in top:
             print(f"    {ms:9.2f}  {name[:100]}")
+        print("  paged attention: " + ", ".join(
+            f"{k} {v['ms']:.2f} ms in {v['device_kernels']} device kernels"
+            for k, v in paged.items()))
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                top=[[n, ms] for n, ms in top])
+                top=[[n, ms] for n, ms in top], paged=paged)
 
 
 def first_step_logits(params, cfg, prompts):
@@ -1175,6 +1381,79 @@ def dense_serving(seed: int):
                 in_turns=in_turns)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: stablelm-12b's attention shape on the paged engine
+# ---------------------------------------------------------------------------
+STABLELM_LAYERS = 4      # of its 40: full width, depth cut to fit the run
+STABLELM_REQ, STABLELM_PROMPT, STABLELM_NEW = 4, 300, 8
+
+
+def int8_weight_bytes(tree) -> int:
+    """Bytes of the quantized weight payloads in a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(int8_weight_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(int8_weight_bytes(v) for v in tree)
+    if isinstance(tree, QuantizedTensor):
+        return tree.q.numel() * tree.q.element_size()
+    return 0
+
+
+def serve_stablelm(seed: int):
+    """stablelm-12b (configs/stablelm_12b.py: hd 160, 32 query / 8 kv heads,
+    d 5120, d_ff 13824, vocab 100352) at full width with its depth cut to
+    ``STABLELM_LAYERS`` of 40 layers, W8A8 on the continuous-batching
+    engine over int8 pages: 4 requests of 300 prompt tokens (chunks of 256
+    and 44) and 8 new tokens each. K1, K2 and K3 must launch, and every
+    kernel call of one request is held against its plain version in
+    situ."""
+    cfg = get_config("stablelm-12b", qmode="w8a8", n_layers=STABLELM_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = quantize_params(init_params(cfg, generator=gen, device="cuda"),
+                             cfg, "w8a8")
+    int8_bytes = int8_weight_bytes(params["layers"])
+    print(f"  stablelm-12b, {cfg.n_layers} of 40 layers at full width: int8 "
+          f"weight bytes {int8_bytes:,} ({int8_bytes / cfg.n_layers:,.0f} "
+          f"a layer)")
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (STABLELM_REQ, STABLELM_PROMPT), generator=gen,
+                            device="cuda")
+    ps = kvc.DEFAULT_PAGE_SIZE
+
+    def engine():
+        return ContinuousBatchingEngine(
+            params, cfg, kv_dtype="int8", page_size=ps,
+            capacity_tokens=STABLELM_REQ * kvc.round_up(
+                STABLELM_PROMPT + STABLELM_NEW, ps),
+            device="cuda")
+
+    warm = engine()
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    torch.cuda.synchronize()
+    reset_counts()
+    eng = engine()
+    t0 = time.perf_counter()
+    sids = [eng.submit(p, STABLELM_NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    out = [eng.finished[s].tokens for s in sids]
+    print(f"  served {STABLELM_REQ} requests x {STABLELM_PROMPT} prompt + "
+          f"{STABLELM_NEW} new tokens in {wall:.3f} s; kernel launches "
+          f"{launches}")
+    if set(launches) != set(PATHS["w8a8"]):
+        raise RuntimeError(f"stablelm-12b launched {launches}; its path is "
+                           f"{PATHS['w8a8']}")
+    if [len(t) for t in out] != [STABLELM_NEW] * STABLELM_REQ or not all(
+            0 <= x < cfg.vocab_size for t in out for x in t):
+        raise RuntimeError("stablelm-12b: tokens of the wrong count or range")
+    in_situ = check_in_situ(engine, prompts[0], "w8a8")
+    return dict(layers=cfg.n_layers, int8_weight_bytes=int8_bytes,
+                launches=launches, wall_s=wall, in_situ=in_situ)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -1192,9 +1471,12 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    build.build_all()
-    print(f"[phase 1] built {', '.join(build.KERNELS)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ptxas = start_ptxas(tmp)
+        build.build_all()
+        print(f"[phase 1] built {', '.join(build.KERNELS)} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        ptxas = ptxas_report(ptxas)
 
     print("[phase 2] kernels vs plain versions at the serving shapes")
     timer, gen = Timer(), torch.Generator(device="cuda").manual_seed(SEED)
@@ -1206,8 +1488,10 @@ def main(argv=None) -> int:
             + check_fused(timer, gen, "w4a8", SERVING_SHAPES, both)
             + check_fused(timer, gen, "w4a4", SERVING_SHAPES, both)
             + check_unfused(timer, gen, "i8") + check_unfused(timer, gen, "w4")
-            + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen)
-            + check_k3(timer, gen) + check_k2(timer, gen))
+            + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen))
+    k3_rows, k3_controls = check_k3(timer, gen)
+    rows += k3_rows + check_k2(timer, gen)
+    k2_splits = k2_split_sweep(timer, gen)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel checks failed: {bad}")
@@ -1237,6 +1521,11 @@ def main(argv=None) -> int:
     print("[phase 6] full-width qwen2-0.5b W8A8 dense-slab serving and "
           "float pages")
     dense = dense_serving(SEED)
+    torch.cuda.empty_cache()
+
+    print(f"[phase 7] stablelm-12b's heads (hd 160, 32/8) at full width, "
+          f"{STABLELM_LAYERS} of 40 layers, W8A8 on the paged engine")
+    stablelm = serve_stablelm(SEED)
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -1255,8 +1544,9 @@ def main(argv=None) -> int:
         "K5": pick("K5", **prefill_down), "K6a": pick("K6a", **prefill_down),
         "K6b": pick("K6b", **prefill_down),
         "K7": pick("K7", m=256, k=4864, bits=8, dtype=str(torch.bfloat16)),
-        "K2": pick("K2", q_start=512, dtype=str(torch.bfloat16)),
-        "K3": pick("K3", dtype=str(torch.bfloat16)),
+        "K2": pick("K2", label="serving", q_start=512,
+                   dtype=str(torch.bfloat16)),
+        "K3": pick("K3", label="serving", dtype=str(torch.bfloat16)),
         "K8": next(r for r in flash["rows"] if r["s"] == 32768)}
     rows += flash["rows"]
     # the path whose run counts each kernel's launches
@@ -1279,8 +1569,10 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, rows=rows, serving=served, in_turns=in_turns,
-                 unfused=unfused, dense=dense, kernels=kernels), indent=1))
+            dict(card=smi, ptxas=ptxas, rows=rows, k3_controls=k3_controls,
+                 k2_splits=k2_splits,
+                 serving=served, in_turns=in_turns, unfused=unfused,
+                 dense=dense, stablelm=stablelm, kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,73 +6,49 @@
 // Computes, for q (B, KV, G, hd) in bf16/f32 (one new token per sequence),
 // attention over the first lengths[b] cached tokens of sequence b: pages
 // (P, KV, ps, hd) int8 with per-token scales (P, KV, ps) f32 through the
-// block table tables (B, max_pages) int32.
+// block table tables (B, max_pages) int32. Slots at or past
+// ceil(lengths[b] / ps) are never read.
 //
-// What bounds it on this card: decode attention reads every cached byte
-// once per step (one int8 byte per element plus a 4-byte scale per token
-// row) and does ~4 * G * hd operations per cached token, so it is bound by
-// bytes. Its design keeps the pages int8 in device memory and dequantizes
-// them in shared memory: the grid is (batch, kv head), and the G = 7 query
-// rows of a kv head share each page load. A block walks ceil(length / ps)
-// pages only, so a padded table slot is never read, and it stages four
-// pages per step to cut synchronisations. Softmax is online. The products
-// run in f32 on CUDA cores; splitting long sequences over several blocks is
-// later work.
+// What bounds it on this card: every cached byte is read once per step and
+// each token costs 4 * G * hd operations, so it is bound by bytes (0.17 us
+// at B 8, KV 2, up to 544 tokens of hd 64). Its time is launch latency plus
+// the depth of the longest serial walk over one sequence's pages, so the
+// design (paged_common.cuh) spreads each sequence over n_split blocks
+// (grid B x KV x n_split, each split a fixed run of 64-token tiles loaded by
+// cp.async into a double-buffered ring), computes only the G real query
+// rows of a head in one 16-row tensor-core tile (one warp for G <= 16), and
+// merges the splits' partials with a second, small kernel. A call launches
+// one kernel when n_split is 1 and two otherwise.
 #include "paged_common.cuh"
 
-namespace {
-
-constexpr int kPagesPerStep = 4;
-
-template <typename T>
-__global__ void __launch_bounds__(paged::THREADS)
-paged_decode_kernel(const T* __restrict__ q, T* __restrict__ out,
-                    const int8_t* __restrict__ kp,
-                    const int8_t* __restrict__ vp,
-                    const float* __restrict__ ks,
-                    const float* __restrict__ vs,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ lengths, int max_pages, int KV,
-                    int G, int hd, int ps, float sm_scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const long off = ((long)b * KV + h) * G * hd;
-  paged::attend<T>(q + off, out + off, G, lengths[b] - 1, 0, G, kp, vp, ks,
-                   vs, tables + (long)b * max_pages, KV, h, ps, hd,
-                   kPagesPerStep, sm_scale, smem);
-}
-
-template <typename T>
-int launch(const void* q, void* out, const void* kp, const void* vp,
-           const void* ks, const void* vs, const void* tables,
-           const void* lengths, int B, int max_pages, int KV, int G, int hd,
-           int ps, float sm_scale, cudaStream_t stream) {
-  const size_t smem =
-      paged::smem_floats(hd, kPagesPerStep * ps) * sizeof(float);
-  cudaError_t err = paged::prepare(paged_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, KV);
-  paged_decode_kernel<T><<<grid, paged::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<T*>(out),
-      static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths),
-      max_pages, KV, G, hd, ps, sm_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int paged_attention(const void* q, void* out, int bf16,
+// q, out: (B, KV, G, hd); part: B * KV * n_split * G * (hd + 2) f32 when
+// n_split > 1. Returns the first failing launch's cudaError_t, or 0.
+extern "C" int paged_attention(const void* q, void* out, void* part, int bf16,
                                const void* kp, const void* vp, const void* ks,
                                const void* vs, const void* tables,
                                const void* lengths, int B, int max_pages,
                                int KV, int G, int hd, int ps, float sm_scale,
+                               int n_split, int tiles_per_split,
                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, out, kp, vp, ks, vs, tables, lengths, B,
-                                 max_pages, KV, G, hd, ps, sm_scale, s);
-  return launch<float>(q, out, kp, vp, ks, vs, tables, lengths, B, max_pages,
-                       KV, G, hd, ps, sm_scale, s);
+  paged::Args a;
+  a.q = q;
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.kp = static_cast<const int8_t*>(kp);
+  a.vp = static_cast<const int8_t*>(vp);
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.tables = static_cast<const int*>(tables);
+  a.lengths = static_cast<const int*>(lengths);
+  a.table_stride = max_pages;
+  a.q_start = 0;
+  a.KV = KV;
+  a.rows = G;
+  a.G = G;
+  a.hd = hd;
+  a.ps = ps;
+  a.sm_scale = sm_scale;
+  a.tiles_per_split = tiles_per_split;
+  return paged::launch<paged::Decode>(a, bf16, B * KV, n_split,
+                       static_cast<cudaStream_t>(stream));
 }

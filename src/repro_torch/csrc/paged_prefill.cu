@@ -7,73 +7,51 @@
 // positions [q_start, q_start + C), over every cached token: q (KV, C, G,
 // hd) in bf16/f32, pages (P, KV, ps, hd) int8 with per-token scales (P, KV,
 // ps) f32, block table (>= ceil((q_start + C) / ps),) int32. Query row r of
-// kv head h (token r / G) sees columns col <= q_start + r / G.
+// kv head h (token r / G) sees columns col <= q_start + r / G. q_start is a
+// runtime argument and may fall mid-page.
 //
-// What bounds it on this card: at the prefill shapes (C = 256, G = 7,
-// hd = 64, a few hundred cached tokens) the work is about 4 * C * G * T * hd
-// f32 operations against a few hundred KB of int8 pages, so it is bound by
-// operations; the pages and q are read once per query tile from L2. The
-// TPU kernel held all C * G query rows in one VMEM block; at C = 256, G = 7
-// its f32 accumulator alone is 458 KB, beyond a block's shared memory, so
-// here the grid is (kv head, tile of 32 query rows) and the accumulator
-// lives in registers. Each tile walks pages only up to the causal bound of
-// its last row (the TPU kernel visits every page; the skipped pages are
-// fully masked, so nothing changes numerically) and never reads a table
-// slot past ceil((q_start + C) / ps). q_start is a runtime argument and may
-// fall mid-page. The score and value products run in f32 on CUDA cores;
-// tensor-core MMA is later work.
+// What bounds it on this card: at the prefill shapes (C 256, G 7, hd 64, a
+// few hundred cached tokens) the work is 4 * C * G * T * hd operations
+// against a few hundred KB of int8 pages: bound by operations (0.59 us at
+// q_start 512 in bf16). The TPU kernel held all C * G query rows in one
+// VMEM block; here (paged_common.cuh) a block takes 64 query rows, 16 per
+// warp, and runs both products on the tensor cores with the softmax in
+// registers, while the next 64-token tile arrives by cp.async. At C 256
+// that is only KV x 28 blocks, so the kv range is split too (grid row
+// tiles x KV x n_split), and a second, small kernel merges the splits. A
+// tile wholly past the causal bound of a block's last row is never loaded,
+// and no slot at or past ceil((q_start + C) / ps) is read. The engine's
+// pages_per_step does not reach the kernel: tiles are 64 tokens whatever
+// the page size.
 #include "paged_common.cuh"
 
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(paged::THREADS)
-paged_prefill_kernel(const T* __restrict__ q, T* __restrict__ out,
-                     const int8_t* __restrict__ kp,
-                     const int8_t* __restrict__ vp,
-                     const float* __restrict__ ks,
-                     const float* __restrict__ vs,
-                     const int* __restrict__ table, int KV, int C, int G,
-                     int hd, int ps, int pp, int q_start, float sm_scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x;
-  const int rows = C * G;
-  const int rg0 = blockIdx.y * paged::BQ;
-  const int n_rows = min(paged::BQ, rows - rg0);
-  const long off = ((long)h * rows + rg0) * hd;
-  paged::attend<T>(q + off, out + off, n_rows, q_start, rg0, G, kp, vp, ks,
-                   vs, table, KV, h, ps, hd, pp, sm_scale, smem);
-}
-
-template <typename T>
-int launch(const void* q, void* out, const void* kp, const void* vp,
-           const void* ks, const void* vs, const void* table, int KV, int C,
-           int G, int hd, int ps, int pp, int q_start, float sm_scale,
-           cudaStream_t stream) {
-  const size_t smem = paged::smem_floats(hd, pp * ps) * sizeof(float);
-  cudaError_t err = paged::prepare(paged_prefill_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(KV, (C * G + paged::BQ - 1) / paged::BQ);
-  paged_prefill_kernel<T><<<grid, paged::THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<T*>(out),
-      static_cast<const int8_t*>(kp), static_cast<const int8_t*>(vp),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(table), KV, C, G, hd, ps, pp, q_start,
-      sm_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" int paged_prefill(const void* q, void* out, int bf16,
+// q, out: (KV, C, G, hd); part: KV * n_split * C * G * (hd + 2) f32 when
+// n_split > 1. Returns the first failing launch's cudaError_t, or 0.
+extern "C" int paged_prefill(const void* q, void* out, void* part, int bf16,
                              const void* kp, const void* vp, const void* ks,
                              const void* vs, const void* table, int KV, int C,
-                             int G, int hd, int ps, int pp, int q_start,
-                             float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch<__nv_bfloat16>(q, out, kp, vp, ks, vs, table, KV, C, G, hd,
-                                 ps, pp, q_start, sm_scale, s);
-  return launch<float>(q, out, kp, vp, ks, vs, table, KV, C, G, hd, ps, pp,
-                       q_start, sm_scale, s);
+                             int G, int hd, int ps, int q_start,
+                             float sm_scale, int n_split, int tiles_per_split,
+                             void* stream) {
+  paged::Args a;
+  a.q = q;
+  a.out = out;
+  a.part = static_cast<float*>(part);
+  a.kp = static_cast<const int8_t*>(kp);
+  a.vp = static_cast<const int8_t*>(vp);
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.tables = static_cast<const int*>(table);
+  a.lengths = nullptr;
+  a.table_stride = 0;
+  a.q_start = q_start;
+  a.KV = KV;
+  a.rows = C * G;
+  a.G = G;
+  a.hd = hd;
+  a.ps = ps;
+  a.sm_scale = sm_scale;
+  a.tiles_per_split = tiles_per_split;
+  return paged::launch<paged::Prefill>(a, bf16, KV, n_split,
+                       static_cast<cudaStream_t>(stream));
 }

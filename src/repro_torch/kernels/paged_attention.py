@@ -17,13 +17,22 @@ version on every device, as in the reference, whose Pallas kernel runs
 only for int8 pages: the kernel, like the TPU kernel it replaces, reads
 int8 pages with per-token scales.
 
+The kernel (``csrc/paged_common.cuh``, shared with K2) takes any head dim
+that is a multiple of 16 up to 256 and any number of query heads per kv
+head. For bf16 q it splits each sequence's kv range over several blocks
+(:func:`split_plan`) and merges the splits' partials in a second launch;
+f32 q takes one block per head, in the plain version's order of
+operations. ``launches`` counts wrapper calls, one per call whatever the
+number of device kernels.
+
 The head-sharded tensor-parallel wrapper (``paged_attention_tp``) comes
 with tensor parallelism in a later slice.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,8 +40,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ops import check_impl
 
 _NEG = -1e30
-MAX_HEAD_DIM = 128
-MAX_GROUP = 32          # query rows of one kv head in one block (BQ)
+MAX_HEAD_DIM = 256
+TILE = 64               # kv tokens per tile (csrc/paged_common.cuh: BK)
+MAX_WARPS = 4           # 16 query rows each (csrc/paged_common.cuh)
 
 launches = 0
 
@@ -67,10 +77,51 @@ def paged_attention_reference(q, k_pages, v_pages, k_scale, v_scale, tables,
 
 def _lib():
     fn = build.load("paged_attention").paged_attention
-    fn.argtypes = [_V, _V, _I, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
-                   _I, ctypes.c_float, _V]
+    fn.argtypes = [_V, _V, _V, _I, _V, _V, _V, _V, _V, _V, _I, _I, _I, _I,
+                   _I, _I, ctypes.c_float, _I, _I, _V]
     fn.restype = _I
     return fn
+
+
+def rows_per_block(rows: int) -> int:
+    """Query rows of one block: 16 per warp, 1-4 warps."""
+    return 16 * min(MAX_WARPS, -(-rows // 16))
+
+
+def split_plan(units: int, max_tiles: int, sms: int) -> Tuple[int, int]:
+    """(n_split, tiles_per_split) for ``units`` blocks of query rows that
+    each walk up to ``max_tiles`` kv tiles: split the tiles into equal runs
+    so that the grid comes to about four blocks per SM, with at least one
+    tile per split."""
+    want = max(1, min(max_tiles, -(-4 * sms // units)))
+    per = -(-max_tiles // want)
+    return -(-max_tiles // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(q, n_bh: int, rows: int, max_tiles: int) -> Tuple[int, int]:
+    """The kernels' split of the kv tiles for ``n_bh`` heads of ``rows``
+    query rows of q's dtype on q's card: :func:`split_plan` for bf16; f32
+    walks the whole sequence in one block, in the plain version's order of
+    operations (``csrc/paged_common.cuh``)."""
+    if q.dtype == torch.float32:
+        return 1, max_tiles
+    units = n_bh * -(-rows // rows_per_block(rows))
+    index = (q.device.index if q.device.index is not None
+             else torch.cuda.current_device())
+    return split_plan(units, max_tiles, _sm_count(index))
+
+
+def scratch(n_bh: int, n_split: int, rows: int, hd: int, device):
+    """The splits' partials, (m, l, acc) in f32; None for one split."""
+    if n_split == 1:
+        return None
+    return torch.empty(n_bh * n_split * rows * (hd + 2), dtype=torch.float32,
+                       device=device)
 
 
 def check_pages(q, k_pages, v_pages, k_scale, v_scale, kv, hd):
@@ -78,8 +129,9 @@ def check_pages(q, k_pages, v_pages, k_scale, v_scale, kv, hd):
     dev = q.device
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q dtype {q.dtype} must be float32 or bfloat16")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
+    if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd}: the kernels take a multiple of 16 "
+                         f"from 16 to {MAX_HEAD_DIM}")
     p, _, ps, _ = k_pages.shape
     for name, t, shape, dt in (
             ("k_pages", k_pages, (p, kv, ps, hd), torch.int8),
@@ -96,6 +148,9 @@ def check_pages(q, k_pages, v_pages, k_scale, v_scale, kv, hd):
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
     return ps
 
 
@@ -109,8 +164,6 @@ def paged_attention_cuda(q, k_pages, v_pages, k_scale, v_scale, tables,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     b, kv, g, hd = q.shape
-    if g > MAX_GROUP:
-        raise ValueError(f"{g} query heads per kv head > {MAX_GROUP}")
     ps = check_pages(q, k_pages, v_pages, k_scale, v_scale, kv, hd)
     for name, t, shape in (("tables", tables, (b, tables.shape[-1])),
                            ("lengths", lengths, (b,))):
@@ -118,12 +171,25 @@ def paged_attention_cuda(q, k_pages, v_pages, k_scale, v_scale, tables,
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 {shape} on "
                              f"{q.device}")
+    max_tiles = -(-tables.shape[1] * ps // TILE)
+    return _run(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
+                sm_scale, plan_for(q, b * kv, g, max_tiles))
+
+
+def _run(q, k_pages, v_pages, k_scale, v_scale, tables, lengths, sm_scale,
+         plan):
+    """Launch K3 with ``plan`` = (n_split, tiles_per_split)."""
+    b, kv, g, hd = q.shape
+    n_split, per = plan
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     out = torch.empty_like(q)
-    rc = _lib()(q.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-                k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-                b, tables.shape[1], kv, g, hd, ps, float(scale),
+    part = scratch(b * kv, n_split, g, hd, q.device)
+    rc = _lib()(q.data_ptr(), out.data_ptr(),
+                0 if part is None else part.data_ptr(),
+                int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), b, tables.shape[1],
+                kv, g, hd, k_pages.shape[2], float(scale), n_split, per,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {rc}")

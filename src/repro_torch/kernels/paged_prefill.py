@@ -9,8 +9,14 @@ ceil((q_start + C) / ps) slots.
 
 ``q_start`` is a runtime integer here (the reference's is static and
 recompiles per chunk); it may fall mid-page, as in speculative verify
-panels. ``pages_per_step`` is how many pages the kernel stages into shared
-memory per step; it changes no result.
+panels. ``pages_per_step`` stays in the signature because the reference
+and ``PagedPrefillCache`` carry it; it changes no result, and the kernel
+does not read it: it stages 64-token tiles whatever the page size. The
+kernel (``csrc/paged_common.cuh``, shared with K3) takes 64 query rows a
+block and, for bf16 q, splits the kv range over several blocks when the
+rows give too few (:func:`repro_torch.kernels.paged_attention.
+split_plan`); ``launches`` counts wrapper calls, one per call whatever
+the number of device kernels.
 
 * :func:`paged_prefill_reference` — the plain PyTorch version.
 * :func:`paged_prefill_attention` — dispatch by ``impl`` (see
@@ -29,7 +35,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import check_impl
-from repro_torch.kernels.paged_attention import check_pages
+from repro_torch.kernels.paged_attention import (TILE, check_pages,
+                                                 plan_for, scratch)
 
 _NEG = -1e30
 
@@ -67,8 +74,8 @@ def paged_prefill_reference(q, k_pages, v_pages, k_scale, v_scale, table, *,
 
 def _lib():
     fn = build.load("paged_prefill").paged_prefill
-    fn.argtypes = [_V, _V, _I, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I, _I,
-                   _I, ctypes.c_float, _V]
+    fn.argtypes = [_V, _V, _V, _I, _V, _V, _V, _V, _V, _I, _I, _I, _I, _I,
+                   _I, ctypes.c_float, _I, _I, _V]
     fn.restype = _I
     return fn
 
@@ -93,12 +100,25 @@ def paged_prefill_cuda(q, k_pages, v_pages, k_scale, v_scale, table, *,
         raise ValueError(f"table of {table.shape[0]} slots, q_start {q_start}, "
                          f"pages_per_step {pages_per_step}: need "
                          f"{n_pages} slots, q_start >= 0, pages_per_step >= 1")
+    max_tiles = -(-(int(q_start) + c) // TILE)
+    return _run(q, k_pages, v_pages, k_scale, v_scale, table, int(q_start),
+                sm_scale, plan_for(q, kv, c * g, max_tiles))
+
+
+def _run(q, k_pages, v_pages, k_scale, v_scale, table, q_start, sm_scale,
+         plan):
+    """Launch K2 with ``plan`` = (n_split, tiles_per_split)."""
+    kv, c, g, hd = q.shape
+    n_split, per = plan
     scale = sm_scale if sm_scale is not None else hd ** -0.5
     out = torch.empty_like(q)
-    rc = _lib()(q.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-                k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), table.data_ptr(), kv, c, g, hd, ps,
-                int(pages_per_step), int(q_start), float(scale),
+    part = scratch(kv, n_split, c * g, hd, q.device)
+    rc = _lib()(q.data_ptr(), out.data_ptr(),
+                0 if part is None else part.data_ptr(),
+                int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
+                v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+                table.data_ptr(), kv, c, g, hd, k_pages.shape[2], q_start,
+                float(scale), n_split, per,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill launch failed: cudaError {rc}")
