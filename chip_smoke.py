@@ -5,9 +5,12 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. Build: compile the six CUDA kernel libraries (one nvcc each, all at
-   once), and beside them K3's and K2's sources with ``-Xptxas -v``: the
-   registers, stack and spills of each of their device kernels, and the
-   dynamic shared memory of each build.
+   once), and beside them K3's, K2's and K8's sources with ``-Xptxas -v``:
+   the registers, stack and spills of each of their device kernels (K8's
+   bf16 builds for hd 64 and 128 must not spill), and the dynamic shared
+   memory of each build; then ``cuobjdump -sass`` of K8's library: the
+   ``HGMMA`` (wgmma) and asynchronous-copy (``UTMALDG``, ``LDGSTS``)
+   instructions of each bf16 build, none of which may lack either.
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
    before every launch), the bound and a PyTorch library yardstick:
@@ -36,13 +39,15 @@ Phases (any failure exits non-zero and prints no result):
 5. K8, dense flash attention, through its entry point ``flash_attention``
    at the qwen2-0.5b shapes (14 heads, hd 64: S 512, 4,096 and 32,768 bf16
    causal; 4,096 f32 causal and bf16 non-causal), qwen3-0.6b's (16 heads,
-   hd 128, S 4,096), and hd 8, 16 and 32 at an S that leaves a ragged last
-   tile (f32 and bf16, causal and not): every call launches K8; each
-   output within its tolerance of the plain version (f32 2e-5, bf16 one
-   ULP + ``K8_BF16_ATOL``), and in bf16 no farther (root-mean-square
-   distance) from an f64 computation of 64 rows of up to three heads than
-   twice the plain version is; a dropped-kv-tile control that the checks
-   must reject; times beside the plain version, SDPA and the bound.
+   hd 128, S 4,096), stablelm-12b's (32 heads over 8 kv heads, hd 160,
+   S 4,096, bf16 and f32 causal), and hd 8, 16, 32 and 256 at an S that
+   leaves a ragged last tile (f32 and bf16, causal and not): every call
+   launches K8; each output within its tolerance of the plain version (f32
+   2e-5, bf16 one ULP + ``K8_BF16_ATOL``), and in bf16 no farther
+   (root-mean-square distance) from an f64 computation of 64 rows of up to
+   three heads than twice the plain version is; a dropped-kv-tile control
+   that the checks must reject; times beside the plain version, SDPA and
+   the bound, with the share of the bound and the factor against SDPA.
 6. Dense-slab serving: full-width qwen2-0.5b W8A8, the same 8 prompts of
    512 tokens and 32 new tokens through ``_generate_dense`` with a bf16
    slab and with an int8 slab, and through ``generate`` with its default
@@ -253,13 +258,17 @@ def gemm_close(got, want, epilogue: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Phase 1: the build, and K2/K3's register and shared-memory budgets
+# Phase 1: the build; K2/K3/K8's register and shared-memory budgets; K8's
+# instructions
 # ---------------------------------------------------------------------------
-PTXAS_SOURCES = {"K3": "paged_attention", "K2": "paged_prefill"}
+PTXAS_SOURCES = {"K3": "paged_attention", "K2": "paged_prefill",
+                 "K8": "flash_attention"}
+K8_NO_SPILL = (64, 128)      # K8 bf16 builds that must not spill
+ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 
 
 def start_ptxas(tmp):
-    """``nvcc -Xptxas -v`` for K3's and K2's sources, started beside
+    """``nvcc -Xptxas -v`` for K3's, K2's and K8's sources, started beside
     ``build.build_all()`` (whose libraries the kernels load)."""
     return {key: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -277,8 +286,9 @@ def paged_smem(q: str, dp: int, warps: int) -> int:
 
 
 def ptxas_report(procs):
-    """Registers, stack and spills of every K2/K3 device kernel, and the
-    dynamic shared memory of each attention build (1 and 4 warps)."""
+    """Registers, stack and spills of every K2/K3/K8 device kernel, and the
+    dynamic shared memory of each attention build (K2/K3: 1 and 4 warps;
+    K8: one block, read from its library)."""
     rows = []
     for key, proc in procs.items():
         log, _ = proc.communicate()
@@ -294,7 +304,8 @@ def ptxas_report(procs):
                 row = dict(kernel=key, name=name,
                            part="combine" if "combine_kernel" in name
                            else "attend",
-                           q="f32" if "attend_f32" in name else "bf16",
+                           q="f32" if ("attend_f32" in name
+                                       or "flash_f32" in name) else "bf16",
                            hd_build=int(dp.group(1)) if dp else None)
                 rows.append(row)
                 continue
@@ -309,7 +320,12 @@ def ptxas_report(procs):
     for r in sorted(rows, key=lambda r: (r["kernel"], r["part"], r["q"],
                                          r["hd_build"] or 0)):
         smem = ""
-        if r["part"] == "attend":
+        if r["kernel"] == "K8":
+            r["smem"] = k8.smem_bytes(
+                torch.bfloat16 if r["q"] == "bf16" else torch.float32,
+                r["hd_build"])
+            smem = f", dynamic shared memory {r['smem']:,} B a block"
+        elif r["part"] == "attend":
             r["smem_1_warp"] = paged_smem(r["q"], r["hd_build"], 1)
             r["smem_4_warps"] = paged_smem(r["q"], r["hd_build"], 4)
             smem = (f", dynamic shared memory {r['smem_1_warp']:,} B (1 warp)"
@@ -319,7 +335,57 @@ def ptxas_report(procs):
               f"{r.get('registers')} registers, stack {r.get('stack')} B, "
               f"spill stores/loads {r.get('spill_stores')}/"
               f"{r.get('spill_loads')} B{smem}")
+    spilled = [r["hd_build"] for r in rows
+               if r["kernel"] == "K8" and r["q"] == "bf16"
+               and r["hd_build"] in K8_NO_SPILL
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spilled:
+        raise RuntimeError(f"K8 bf16 builds spill: hd {spilled}")
     return rows
+
+
+def cuobjdump_path():
+    """The toolkit's cuobjdump beside nvcc, else Triton's copy; None when
+    neither exists."""
+    cand = Path(build.nvcc_path()).parent / "cuobjdump"
+    if cand.exists():
+        return str(cand)
+    try:
+        import triton
+    except ImportError:
+        return None
+    cand = Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump"
+    return str(cand) if cand.exists() else None
+
+
+def k8_sass():
+    """HGMMA and asynchronous-copy instructions of every K8 bf16 build, from
+    ``cuobjdump -sass`` of the built library; raises if a build has none of
+    either. None (and "not measured") without cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        print("  K8 SASS: no cuobjdump beside nvcc or in Triton: not measured")
+        return None
+    lib = build.lib_path("flash_attention")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        if "flash_bf16_kernel" not in name:
+            continue
+        dp = int(re.search(r"Li(\d+)E", name).group(1))
+        counts[dp] = {op: len(re.findall(rf"\b{op}\b", part))
+                      for op in ("HGMMA", *ASYNC_COPIES)}
+    for dp, c in sorted(counts.items()):
+        print(f"  K8 SASS bf16 hd<={dp}: " + ", ".join(
+            f"{op} {n}" for op, n in c.items()))
+    bad = [dp for dp, c in counts.items()
+           if not c["HGMMA"] or not any(c[op] for op in ASYNC_COPIES)]
+    if bad or len(counts) != 6:
+        raise RuntimeError(f"K8 bf16 builds without wgmma or asynchronous "
+                           f"copies: {bad} (of {sorted(counts)})")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1055,9 +1121,10 @@ def unfused_path(timer, gen):
 # ---------------------------------------------------------------------------
 def _k8_shapes():
     """(label, heads, kv heads, S, D, dtype, causal): the model shapes at
-    batch 1 (BH = the arch's query heads, kv heads repeated), then the
-    reference test's head dims (tests/test_kernels.py:148), which take the
-    kernel's 16- and 32-wide builds, at an S that leaves a ragged last tile
+    batch 1 (BH = the arch's query heads, kv heads repeated), stablelm-12b's
+    hd 160 among them; then the reference test's head dims
+    (tests/test_kernels.py:148), which take the kernel's 16- and 32-wide
+    builds, and hd 256, each at an S that leaves a ragged last tile
     (1000 = 15 * 64 + 40; 777 = 12 * 64 + 9)."""
     bf16, f32 = torch.bfloat16, torch.float32
     shapes = []
@@ -1067,11 +1134,14 @@ def _k8_shapes():
             ("prefill_32k", "qwen2-0.5b", 32768, bf16, True),
             ("", "qwen2-0.5b", 4096, f32, True),
             ("non-causal", "qwen2-0.5b", 4096, bf16, False),
-            ("", "qwen3-0.6b", 4096, bf16, True)):
+            ("", "qwen3-0.6b", 4096, bf16, True),
+            ("", "stablelm-12b", 4096, bf16, True),
+            ("", "stablelm-12b", 4096, f32, True)):
         cfg = get_config(arch)
         shapes.append((f"{arch} {label}".strip(), cfg.n_heads,
                        cfg.n_kv_heads, s, cfg.hd, dtype, causal))
-    for bh, s, d in ((1, 777, 8), (4, 1000, 16), (2, 1000, 32)):
+    for bh, s, d in ((1, 777, 8), (4, 1000, 16), (2, 1000, 32),
+                     (2, 1000, 256)):
         for dtype in (bf16, f32):
             for causal in (True, False):
                 shapes.append(("ragged", bh, bh, s, d, dtype, causal))
@@ -1229,7 +1299,8 @@ def check_k8(gen):
               f"{f64['kernel_max']:.3g} plain {f64['plain_max']:.3g}; {ctl} "
               f"caught; ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
               f"sdpa={row['library_ms']:.4f} bound={b_ms:.4f} ({b_by}), "
-              f"{b_ms / row['ms']:.1%} of the bound")
+              f"{b_ms / row['ms']:.1%} of the bound, "
+              f"{row['ms'] / row['library_ms']:.2f}x SDPA")
         del want
     return dict(launches=launches, rows=rows)
 
@@ -1477,6 +1548,7 @@ def main(argv=None) -> int:
         print(f"[phase 1] built {', '.join(build.KERNELS)} in "
               f"{time.perf_counter() - t0:.1f} s")
         ptxas = ptxas_report(ptxas)
+    sass = k8_sass()
 
     print("[phase 2] kernels vs plain versions at the serving shapes")
     timer, gen = Timer(), torch.Generator(device="cuda").manual_seed(SEED)
@@ -1511,7 +1583,8 @@ def main(argv=None) -> int:
     unfused = unfused_path(timer, gen)
 
     print("[phase 5] K8 flash attention through flash_attention, at the "
-          "qwen2-0.5b and qwen3-0.6b shapes")
+          "qwen2-0.5b, qwen3-0.6b and stablelm-12b shapes and hd 8-256 "
+          "ragged")
     flash = check_k8(gen)
     bad = [r for r in flash["rows"] if not r["ok"]]
     if bad:
@@ -1569,8 +1642,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, ptxas=ptxas, rows=rows, k3_controls=k3_controls,
-                 k2_splits=k2_splits,
+            dict(card=smi, ptxas=ptxas, k8_sass=sass, rows=rows,
+                 k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")

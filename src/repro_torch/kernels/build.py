@@ -42,7 +42,7 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(path.read_bytes())
@@ -52,7 +52,7 @@ def _lib_path(name: str) -> Path:
 
 def _start(name: str):
     """Start ``nvcc`` for one kernel; None when the library is up to date."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -92,6 +92,6 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib

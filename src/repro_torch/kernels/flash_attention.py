@@ -21,9 +21,13 @@ holds column 0, so no row ever sees only masked scores.
   see :mod:`repro_torch.kernels.ops`); :func:`flash_attention_cuda` wraps
   ``csrc/flash_attention.cu`` and counts ``launches``.
 
-The CUDA kernel picks its own tiles (64 query rows × 64 kv columns) and
-masks a ragged last tile. ``block_q``/``block_k`` drive the plain version,
-which halves them until they divide S, as the reference does.
+The CUDA kernel picks its own tiles (bf16: 128 query rows × 64 kv
+columns, 128 at hd 128 and 160; f32: 64 × 64) and masks a ragged last
+tile. It takes a head dim that is a multiple of 8 up to
+:data:`MAX_HEAD_DIM` (builds for 16, 32, 64, 128, 160 and 256; a D in
+between takes the next one up, zero-filled); :func:`check_inputs` raises on
+anything else. ``block_q``/``block_k`` drive the plain version, which
+halves them until they divide S, as the reference does.
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ops import check_impl
 
 _NEG = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 launches = 0
 
@@ -93,33 +97,54 @@ def _lib():
     return fn
 
 
+def smem_bytes(dtype, d: int) -> int:
+    """Dynamic shared memory of one block of the kernel build that takes
+    head dim ``d`` in ``dtype`` (read from the built library)."""
+    fn = build.load("flash_attention").flash_attention_smem
+    fn.argtypes = [_I, _I]
+    fn.restype = _I
+    return fn(int(dtype == torch.bfloat16), d)
+
+
+def check_inputs(q, k, v) -> None:
+    """Raise ValueError unless q, k, v are what the kernel takes: float32 or
+    bfloat16, one dtype and device, (BH, S, D) alike, contiguous, 16-byte
+    aligned, D a multiple of 8 up to MAX_HEAD_DIM."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q dtype {q.dtype} must be float32 or bfloat16")
+    if q.ndim != 3:
+        raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
+    bh, s, d = q.shape
+    if d > MAX_HEAD_DIM or d % 8 or d == 0:
+        raise ValueError(f"head dim {d}: the kernel takes a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.device != q.device or t.dtype != q.dtype
+                or tuple(t.shape) != (bh, s, d) or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: {t.device} {t.dtype} {tuple(t.shape)} "
+                             f"contiguous={t.is_contiguous()} at "
+                             f"{t.data_ptr() % 16} mod 16, expected "
+                             f"contiguous 16-byte aligned {q.device} "
+                             f"{q.dtype} {(bh, s, d)}")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Wrapper of the CUDA kernel; a CPU tensor goes to the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q dtype {q.dtype} must be float32 or bfloat16")
-    if q.ndim != 3:
-        raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
+    check_inputs(q, k, v)
     bh, s, d = q.shape
-    if d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"head dim {d}: the kernel takes a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.device != q.device or t.dtype != q.dtype
-                or tuple(t.shape) != (bh, s, d) or not t.is_contiguous()):
-            raise ValueError(f"{name}: {t.device} {t.dtype} {tuple(t.shape)} "
-                             f"contiguous={t.is_contiguous()}, expected "
-                             f"contiguous {q.device} {q.dtype} {(bh, s, d)}")
     out = torch.empty_like(q)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 int(q.dtype == torch.bfloat16), bh, s, d, int(causal),
                 float(d ** -0.5),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash_attention launch failed: error {rc} "
+                           f"(a cudaError_t, or a tensor map's CUresult)")
     global launches
     launches += 1
     return out

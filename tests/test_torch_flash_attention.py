@@ -11,9 +11,13 @@ reference's Pallas kernel in interpret mode, on the same numpy inputs.
 * An S that no block divides: both halve their blocks (S = 48, block 32 →
   16). The CUDA kernel masks a ragged last tile instead; chip_smoke.py
   phase 5 checks that on the card at S = 777 and 1,000, with head dims 8,
-  16 and 32.
+  16, 32 and 256.
 * ``attention_ref`` (the naive oracle) against the reference's.
 * ``impl='cuda'`` on CPU tensors raises and counts no launch.
+* The wrapper's ``check_inputs`` takes head dims that are multiples of 8 up
+  to 256 (stablelm-12b's 160 among them) and refuses 12, 264, a
+  non-contiguous, misaligned, float16 or mixed-dtype input; the plain
+  version at hd 160 and 256 against the reference's kernel, f32 2e-5.
 
 The CUDA kernel itself runs only on the card: ``chip_smoke.py`` phase 5
 holds it against the plain version.
@@ -115,3 +119,48 @@ def test_cuda_impl_on_cpu_raises_and_counts_nothing():
     # the wrapper takes the plain version for a CPU tensor, and counts none
     k8.flash_attention_cuda(q, q, q)
     assert k8.launches == before
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 128, 136, 160, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_check_inputs_takes_head_dims_up_to_256(d, dtype):
+    """Multiples of 8 up to MAX_HEAD_DIM, stablelm-12b's 160 among them."""
+    q = torch.zeros(2, 24, d, dtype=getattr(torch, dtype))
+    k8.check_inputs(q, q.clone(), q.clone())
+    assert k8.MAX_HEAD_DIM == 256
+
+
+@pytest.mark.parametrize("case", ["d12", "d264", "non_contiguous",
+                                  "mixed_dtype", "float16", "misaligned"])
+def test_check_inputs_rejects(case):
+    q = torch.zeros(2, 24, 64)
+    k = v = q.clone()
+    if case == "d12":
+        q = k = v = torch.zeros(2, 24, 12)
+    elif case == "d264":
+        q = k = v = torch.zeros(2, 24, 264)
+    elif case == "non_contiguous":
+        k = torch.zeros(2, 64, 24).transpose(1, 2)
+    elif case == "mixed_dtype":
+        v = v.bfloat16()
+    elif case == "float16":
+        q = k = v = q.half()
+    elif case == "misaligned":
+        k = torch.zeros(2 * 24 * 64 + 2)[2:].view(2, 24, 64)
+    with pytest.raises(ValueError):
+        k8.check_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_interpret_kernel_at_wide_heads(d, causal):
+    """stablelm-12b's hd 160 and the widest build's 256, which the kernel
+    refused before; the plain version against the reference's kernel."""
+    q, k, v = _qkv(np.random.default_rng(d), (2, 64, d))
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal=causal, block_q=32, block_k=32, interpret=True)
+    got = k8.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal, block_q=32,
+                             block_k=32, impl="torch")
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                               rtol=F32_TOL, atol=F32_TOL)
