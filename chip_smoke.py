@@ -5,17 +5,28 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. Build: compile the six CUDA kernel libraries (one nvcc each, all at
-   once), and beside them K3's, K2's and K8's sources with ``-Xptxas -v``:
-   the registers, stack and spills of each of their device kernels (K8's
-   bf16 builds for hd 64 and 128 must not spill), and the dynamic shared
-   memory of each build; then ``cuobjdump -sass`` of K8's library: the
-   ``HGMMA`` (wgmma) and asynchronous-copy (``UTMALDG``, ``LDGSTS``)
-   instructions of each bf16 build, none of which may lack either.
+   once), and beside them K3's, K2's, K8's and K5/K6a's sources with
+   ``-Xptxas -v``: the registers, stack and spills of each of their device
+   kernels (K8's bf16 builds for hd 64 and 128, and every K5/K6a row-tile
+   instance and their flush kernel, must not spill), and the dynamic
+   shared memory of each build; then ``cuobjdump -sass`` of K8's library:
+   the ``HGMMA`` (wgmma) and asynchronous-copy (``UTMALDG``, ``LDGSTS``)
+   instructions of each bf16 build, none of which may lack either; and of
+   K5/K6a's: every instance must hold an int8 tensor-core instruction
+   (``IGMMA``: wgmma s8; or ``IMMA``) and an asynchronous copy, and no
+   dp4a (``IDP.4A``), which K6b's kernel must show (the control that the
+   pattern matches).
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
    before every launch), the bound and a PyTorch library yardstick:
    K1 fused w8a8 GEMM; K4 fused w4a8 and w4a4 GEMMs; K5, K6a, K6b unfused
-   int8 / w4 / a4w4 GEMMs; K7 rowwise quantize (bits 8 and 4); K3 paged
+   int8 / w4 / a4w4 GEMMs (K5 and K6a also at ragged M 1, 3, 17, 100, N
+   200 and 208, K 928, 4,870 and 4,880: byte gathers where rows are not
+   16-byte aligned, TMA's zero fill where they are; each with its split
+   plan and a second yardstick,
+   ``torch._int_mm`` with B K-major, alone and with the flush; and a
+   control that drops the last split and must fail the exact check); K7
+   rowwise quantize (bits 8 and 4); K3 paged
    decode attention (the serving batch, then the heads of qwen3-0.6b,
    qwen2-72b and stablelm-12b (hd 128 with G 2 and 8, hd 160 with G 4),
    page size 8, one 4,096-token sequence and 32 ragged sequences), with
@@ -262,19 +273,88 @@ def gemm_close(got, want, epilogue: str) -> bool:
 # instructions
 # ---------------------------------------------------------------------------
 PTXAS_SOURCES = {"K3": "paged_attention", "K2": "paged_prefill",
-                 "K8": "flash_attention"}
+                 "K8": "flash_attention", "K5/K6a": "camp_gemm"}
 K8_NO_SPILL = (64, 128)      # K8 bf16 builds that must not spill
 ASYNC_COPIES = ("UTMALDG", "LDGSTS")
+# SASS of the tensor cores: wgmma in bf16 (HGMMA) and in int8 (IGMMA),
+# mma.sync in int8 (IMMA); and of __dp4a (IDP.4A on sm_90)
+TENSOR_CORE = ("HGMMA", "IGMMA", "IMMA")
+SASS_OPS = {**{op: rf"\b{op}\b" for op in (*TENSOR_CORE, *ASYNC_COPIES)},
+            "IDP4A": r"\bIDP\.?4A\b"}
+# a tensor-core GEMM instance (csrc/camp_gemm_tc.cuh): W4 (K6a) and MT
+TC_NAME = re.compile(r"camp_gemm_tc_kernelILb([01])ELi(\d+)E")
+TC_INSTANCES = 2 * len(k5.TC_ROW_TILES)
 
 
 def start_ptxas(tmp):
-    """``nvcc -Xptxas -v`` for K3's, K2's and K8's sources, started beside
-    ``build.build_all()`` (whose libraries the kernels load)."""
+    """``nvcc -Xptxas -v`` for K3's, K2's, K8's, and K5/K6a's sources,
+    started beside ``build.build_all()`` (whose libraries the kernels
+    load)."""
     return {key: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(Path(tmp) / f"{name}.so"), str(build.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for key, name in PTXAS_SOURCES.items()}
+
+
+def ptxas_functions(key, proc):
+    """[(entry name, {registers, stack, spill_stores, spill_loads})] from
+    one ``nvcc -Xptxas -v`` log."""
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed for "
+                           f"{PTXAS_SOURCES[key]}.cu:\n{log}")
+    found, info = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            info = {}
+            found.append((m.group(1), info))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m and info is not None:
+            info.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                        spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and info is not None:
+            info["registers"] = int(m.group(1))
+    return found
+
+
+def tc_instance(name):
+    """("K5" or "K6a", MT) of a tensor-core GEMM instance's mangled name;
+    None for any other function."""
+    m = TC_NAME.search(name)
+    return None if m is None else ("K6a" if m.group(1) == "1" else "K5",
+                                   int(m.group(2)))
+
+
+def tc_ptxas_report(proc):
+    """Registers, stack, spills and dynamic shared memory of each K5/K6a
+    product instance (one a row tile) and of their flush kernel; raises if
+    one spills or one is missing."""
+    rows = []
+    for name, info in ptxas_functions("K5/K6a", proc):
+        inst = tc_instance(name)
+        if inst is not None:
+            rows.append(dict(kernel=inst[0], mt=inst[1], **info,
+                             smem=k5.tc_smem_bytes(inst[0] == "K6a",
+                                                   inst[1])))
+        elif "camp_gemm_tc_flush_kernel" in name:
+            rows.append(dict(kernel="K5/K6a flush", mt=None, **info, smem=0))
+    for r in sorted(rows, key=lambda r: (r["kernel"], r["mt"] or 0)):
+        print(f"  ptxas {r['kernel']}" + (f" MT {r['mt']}" if r["mt"] else "")
+              + f": {r.get('registers')} registers, stack {r.get('stack')} "
+              f"B, spill stores/loads {r.get('spill_stores')}/"
+              f"{r.get('spill_loads')} B, dynamic shared memory "
+              f"{r['smem']:,} B a block")
+    spilled = [(r["kernel"], r["mt"]) for r in rows
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled or len(rows) != TC_INSTANCES + 1:
+        raise RuntimeError(f"K5/K6a kernels that spill: {spilled} (of "
+                           f"{len(rows)}, expected {TC_INSTANCES + 1})")
+    return rows
 
 
 def paged_smem(q: str, dp: int, warps: int) -> int:
@@ -291,32 +371,17 @@ def ptxas_report(procs):
     K8: one block, read from its library)."""
     rows = []
     for key, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc -Xptxas -v failed for "
-                               f"{PTXAS_SOURCES[key]}.cu:\n{log}")
-        row = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                name = m.group(1)
-                dp = re.search(r"Li(\d+)E", name)
-                row = dict(kernel=key, name=name,
-                           part="combine" if "combine_kernel" in name
-                           else "attend",
-                           q="f32" if ("attend_f32" in name
-                                       or "flash_f32" in name) else "bf16",
-                           hd_build=int(dp.group(1)) if dp else None)
-                rows.append(row)
-                continue
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", line)
-            if m and row is not None:
-                row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
-                           spill_loads=int(m.group(3)))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and row is not None:
-                row["registers"] = int(m.group(1))
+        if key == "K5/K6a":
+            continue
+        for name, info in ptxas_functions(key, proc):
+            dp = re.search(r"Li(\d+)E", name)
+            rows.append(dict(kernel=key, name=name,
+                             part="combine" if "combine_kernel" in name
+                             else "attend",
+                             q="f32" if ("attend_f32" in name
+                                         or "flash_f32" in name) else "bf16",
+                             hd_build=int(dp.group(1)) if dp else None,
+                             **info))
     for r in sorted(rows, key=lambda r: (r["kernel"], r["part"], r["q"],
                                          r["hd_build"] or 0)):
         smem = ""
@@ -388,6 +453,47 @@ def k8_sass():
     return counts
 
 
+def tc_sass():
+    """Tensor-core (``HGMMA``, ``IGMMA``, ``IMMA``), asynchronous-copy and
+    dp4a (``IDP.4A``) instructions of every K5/K6a instance, and of K6b's
+    dp4a kernel (the control that the dp4a pattern matches), from
+    ``cuobjdump -sass`` of the built library; raises if an instance lacks a
+    tensor-core or an asynchronous-copy instruction or holds a dp4a, or if
+    K6b's kernel shows none. None (and "not measured") without
+    cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        print("  K5/K6a SASS: no cuobjdump beside nvcc or in Triton: not "
+              "measured")
+        return None
+    sass = subprocess.run([tool, "-sass", str(build.lib_path("camp_gemm"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        inst = tc_instance(name)
+        if inst is None and "camp_gemm_kernel" in name:
+            inst = ("K6b", None)
+        if inst is None:
+            continue
+        counts[inst] = {op: len(re.findall(pat, part))
+                        for op, pat in SASS_OPS.items()}
+    for (key, mt), c in sorted(counts.items(), key=lambda kv: str(kv[0])):
+        print(f"  {key} SASS" + (f" MT {mt}" if mt else "") + ": "
+              + ", ".join(f"{op} {n}" for op, n in c.items()))
+    tc = {k: c for k, c in counts.items() if k[0] != "K6b"}
+    bad = [k for k, c in tc.items()
+           if not any(c[op] for op in TENSOR_CORE)
+           or not any(c[op] for op in ASYNC_COPIES) or c["IDP4A"]]
+    if (bad or len(tc) != TC_INSTANCES
+            or not counts.get(("K6b", None), {}).get("IDP4A")):
+        raise RuntimeError(f"K5/K6a instances without tensor-core or "
+                           f"asynchronous-copy instructions, or with IDP4A: "
+                           f"{bad} (of {sorted(tc)}); K6b's IDP4A: "
+                           f"{counts.get(('K6b', None))}")
+    return {f"{k} MT {mt}" if mt else k: c for (k, mt), c in counts.items()}
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -432,8 +538,39 @@ def unfused_library(kind):
     return run
 
 
-def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc):
-    """One GEMM kernel against its plain version: error, times, bound."""
+def kmajor_library(kind):
+    """Second yardstick for K5/K6a: torch._int_mm with B int8 and K-major
+    ("TN", cuBLASLt's preferred layout), as a deployment that stored its
+    weights so would, alone (``flush=False``) and with the elementwise
+    flush. ``prepare`` unpacks and transposes B once, outside the timed
+    region."""
+    def prepare(w):
+        k = w.shape[0] * (1 if kind == "i8" else 2)
+        b_q = w if kind == "i8" else unpack_int4(w, k)
+        return b_q.t().contiguous()
+
+    def run(a, b_t, s_a, s_b, *, flush, out_dtype, epilogue, bias, operand):
+        acc = int_mm(a, b_t.t())
+        if not flush:
+            return acc
+        return library_flush(acc, s_a, s_b, epilogue, bias, operand,
+                             out_dtype)
+    return prepare, run
+
+
+def time_library(timer, key, fn, what):
+    """``timer(fn)``, or None (printed) where cuBLASLt refuses the shape."""
+    try:
+        return timer(fn)
+    except RuntimeError as e:
+        print(f"  {key} {what} unavailable: {e}")
+        return None
+
+
+def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc,
+              kmajor=None):
+    """One GEMM kernel against its plain version: error, times, bound; for
+    K5/K6a (``kmajor``) also the K-major ``_int_mm`` yardsticks."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -442,20 +579,32 @@ def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc):
     m, n = got.shape
     n_bytes = nbytes(*args, kw["bias"], kw["operand"]) + m * n * got.element_size()
     b_ms, b_by = bound(n_bytes, n_ops, INT8_OPS_PER_S)
-    try:
-        lib = timer(lambda: library(*args, **kw))
-    except RuntimeError as e:           # cuBLASLt refused the shape
-        print(f"  {key} library yardstick unavailable: {e}")
-        lib = None
+    lib = time_library(timer, key, lambda: library(*args, **kw),
+                       "library yardstick")
     row = dict(kernel=key, **desc, epilogue=epi, dtype=str(got.dtype),
                max_abs_err=err, ok=ok, ms=timer(lambda: kernel(*args, **kw)),
                plain_ms=timer(lambda: plain(*args, **kw)), library_ms=lib,
                bound_ms=b_ms, bound_by=b_by)
+    extra = ""
+    if kmajor is not None:
+        prepare, run = kmajor
+        a, w, s_a, s_b = args
+        b_t = prepare(w)
+        for flush, col in ((False, "library_kmajor_ms"),
+                           (True, "library_kmajor_flush_ms")):
+            row[col] = time_library(
+                timer, key, lambda: run(a, b_t, s_a, s_b, flush=flush, **kw),
+                "K-major _int_mm" + (" + flush" if flush else ""))
+        row["plan"] = k5.plan_for(a, n, a.shape[1])
+        extra = (f" tn={row['library_kmajor_ms']} "
+                 f"tn+flush={row['library_kmajor_flush_ms']} "
+                 f"plan={row['plan']}")
     tol = "exact" if "silu" not in epi else "1 ULP"
     print(f"  {key:7s} " + " ".join(f"{a}={b}" for a, b in desc.items())
           + f" {epi:4s} {str(got.dtype)[6:]:8s} err={err:.3g} ({tol} "
           f"{'ok' if ok else 'FAIL'}) ms={row['ms']:.4f} "
-          f"plain={row['plain_ms']:.4f} lib={lib} bound={b_ms:.4f} ({b_by})")
+          f"plain={row['plain_ms']:.4f} lib={lib}{extra} bound={b_ms:.4f} "
+          f"({b_by})")
     return row
 
 
@@ -496,32 +645,74 @@ def check_fused(timer, gen, qmode, shapes, dtypes):
     return rows
 
 
+# ragged shapes for K5/K6a (M, K, N): every M the row tiles leave ragged,
+# an N and Ks whose rows are not 16-byte aligned (the byte-gather loads),
+# K 4,870 even for the packed weights; then 16-byte aligned rows with
+# ragged tiles on every edge (TMA's zero fill)
+RAGGED_SHAPES = ((1, 928, 200), (3, 4870, 200), (17, 928, 200),
+                 (100, 4870, 200), (100, 4880, 208))
+UNFUSED = {"i8": ("K5", k5.camp_gemm_i8, k5.camp_gemm_i8_ref),
+           "w4": ("K6a", k6.camp_gemm_w4, k6.camp_gemm_w4_ref),
+           "a4w4": ("K6b", k6.camp_gemm_a4w4, k6.camp_gemm_a4w4_ref)}
+
+
+def _unfused_inputs(gen, kind, m, k, n):
+    w = _weight(gen, k, n, kind != "i8")
+    s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
+    if kind == "a4w4":
+        a = pack_int4(torch.randint(-7, 8, (m, k), dtype=torch.int8,
+                                    device="cuda", generator=gen).T
+                      ).T.contiguous()
+    else:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                          device="cuda", generator=gen)
+    s_a = torch.rand(m, 1, device="cuda", generator=gen) * 0.01 + 1e-4
+    return a, w, s_a, s_b
+
+
 def check_unfused(timer, gen, kind):
-    """K5 (i8), K6a (w4) or K6b (a4w4) at the serving shapes, bf16."""
-    key, kernel, plain = {
-        "i8": ("K5", k5.camp_gemm_i8, k5.camp_gemm_i8_ref),
-        "w4": ("K6a", k6.camp_gemm_w4, k6.camp_gemm_w4_ref),
-        "a4w4": ("K6b", k6.camp_gemm_a4w4, k6.camp_gemm_a4w4_ref)}[kind]
+    """K5 (i8), K6a (w4) or K6b (a4w4) at the serving shapes, bf16; K5 and
+    K6a also at the ragged shapes, with their split plans and the K-major
+    ``_int_mm`` yardsticks."""
+    key, kernel, plain = UNFUSED[kind]
+    tc = kind != "a4w4"
     rows = []
-    for m, k, n in SERVING_SHAPES:
-        w = _weight(gen, k, n, kind != "i8")
-        s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
-        if kind == "a4w4":
-            a = pack_int4(torch.randint(-7, 8, (m, k), dtype=torch.int8,
-                                        device="cuda", generator=gen).T
-                          ).T.contiguous()
-        else:
-            a = torch.randint(-127, 128, (m, k), dtype=torch.int8,
-                              device="cuda", generator=gen)
-        s_a = torch.rand(m, 1, device="cuda", generator=gen) * 0.01 + 1e-4
+    for m, k, n in SERVING_SHAPES + (RAGGED_SHAPES if tc else ()):
+        args = _unfused_inputs(gen, kind, m, k, n)
         for epi in EPILOGUES:
             bias, opd = _extras(gen, m, n, epi, torch.bfloat16)
             kw = dict(out_dtype=torch.bfloat16, epilogue=epi, bias=bias,
                       operand=opd)
             rows.append(gemm_case(timer, key, kernel, plain,
-                                  unfused_library(kind), (a, w, s_a, s_b),
-                                  kw, 2.0 * m * n * k, dict(m=m, k=k, n=n)))
+                                  unfused_library(kind), args, kw,
+                                  2.0 * m * n * k, dict(m=m, k=k, n=n),
+                                  kmajor=kmajor_library(kind) if tc
+                                  else None))
     return rows
+
+
+def k5_dropped_split(gen, kind, shape):
+    """Control: K5 or K6a launched with its plan's last split left out
+    (splits - 1 runs of the same K steps, so the last run's K range is
+    never summed). The exact check must reject it."""
+    key, _, plain = UNFUSED[kind]
+    m, k, n = shape
+    a, w, s_a, s_b = _unfused_inputs(gen, kind, m, k, n)
+    mt, splits, per = k5.plan_for(a, n, k)
+    kw = dict(out_dtype=torch.bfloat16, epilogue="none", bias=None,
+              operand=None)
+    got = k5.launch_gemm("camp_gemm", UNFUSED[kind][1].__name__, a, s_a, w,
+                         s_b, k, plan=(mt, splits - 1, per), **kw)
+    want = plain(a, w, s_a, s_b, **kw)
+    torch.cuda.synchronize()
+    caught = not gemm_close(got, want, "none")
+    print(f"  {key} control, the last of {splits} splits dropped at M={m} "
+          f"K={k} N={n}: err={max_err(got, want):.3g}, "
+          f"{'caught' if caught else 'NOT CAUGHT'}")
+    if splits < 2 or not caught:
+        raise RuntimeError(f"{key}'s exact check passes a dropped split")
+    return dict(kernel=key, m=m, k=k, n=n, splits=splits,
+                max_abs_err=max_err(got, want))
 
 
 def check_k7(timer, gen):
@@ -1543,12 +1734,14 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ptxas = start_ptxas(tmp)
+        procs = start_ptxas(tmp)
         build.build_all()
         print(f"[phase 1] built {', '.join(build.KERNELS)} in "
               f"{time.perf_counter() - t0:.1f} s")
-        ptxas = ptxas_report(ptxas)
+        ptxas = ptxas_report(procs)
+        tc_ptxas = tc_ptxas_report(procs["K5/K6a"])
     sass = k8_sass()
+    gemm_sass = tc_sass()
 
     print("[phase 2] kernels vs plain versions at the serving shapes")
     timer, gen = Timer(), torch.Generator(device="cuda").manual_seed(SEED)
@@ -1561,6 +1754,8 @@ def main(argv=None) -> int:
             + check_fused(timer, gen, "w4a4", SERVING_SHAPES, both)
             + check_unfused(timer, gen, "i8") + check_unfused(timer, gen, "w4")
             + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen))
+    k5_controls = [k5_dropped_split(gen, kind, shape) for kind in ("i8", "w4")
+                   for shape in ((256, 4864, 896), (8, 4864, 896))]
     k3_rows, k3_controls = check_k3(timer, gen)
     rows += k3_rows + check_k2(timer, gen)
     k2_splits = k2_split_sweep(timer, gen)
@@ -1642,7 +1837,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, ptxas=ptxas, k8_sass=sass, rows=rows,
+            dict(card=smi, ptxas=ptxas, tc_ptxas=tc_ptxas, k8_sass=sass,
+                 tc_sass=gemm_sass, k5_controls=k5_controls, rows=rows,
                  k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, kernels=kernels), indent=1))

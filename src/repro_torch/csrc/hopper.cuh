@@ -1,8 +1,9 @@
 // Hopper (sm_90a) helpers shared by the port's kernels: shared-memory
-// addresses, mbarriers, named barriers, TMA tensor maps and tile loads,
-// the special function unit's exp2, swizzled tile layouts and their
-// wgmma descriptors, and the wgmma instructions (bf16 in, f32 accumulate)
-// with their fences, commits and waits.
+// addresses, mbarriers, named barriers, TMA tensor maps (bf16 and bytes)
+// and tile loads, the async-proxy fence, the special function unit's
+// exp2, swizzled tile layouts and their wgmma descriptors, and the wgmma
+// instructions (bf16 in with f32 accumulation; s8 in with s32
+// accumulation) with their fences, commits and waits.
 //
 // Everything here has internal linkage (an anonymous namespace): several
 // kernel libraries may include this header, and a symbol shared between
@@ -76,6 +77,13 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
+// Orders this thread's accesses to shared memory by ordinary loads and
+// stores before accesses by the async proxy (wgmma operands, TMA writes);
+// a block-wide barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Named barriers (ids 1-15; 0 is __syncthreads): sync waits until
 // `threads` threads have arrived at barrier id, counting itself; arrive
 // counts this thread and goes on.
@@ -96,17 +104,20 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Swizzled tiles. A tile of `rows` rows of bf16 is stored as panels of SW
-// bytes a row (SW = 32, 64 or 128; SW / 2 columns a panel): panel p holds
-// columns [p SW / 2, (p + 1) SW / 2) of every row, row r at byte r * SW of
-// the panel, and the panels follow one another (rows * SW bytes each).
-// Inside a panel the hardware's SW-byte swizzle applies: bits [4, 4 + b)
-// of the byte address (the 16-byte chunk) are XORed with bits [7, 7 + b),
-// b = log2(SW / 16). It is address based, so every panel starts at a
-// multiple of 1024 bytes. TMA writes this layout (a box of SW / 2 columns
-// by `rows` rows with the SW-byte swizzle a panel). The same layout serves
-// a K-major operand (the contraction runs along the row: Q and K in QK^T)
-// and an MN-major one (the contraction runs down the rows: V in PV).
+// Swizzled tiles. A tile of `rows` rows is stored as panels of SW bytes a
+// row (SW = 32, 64 or 128; SW / 2 columns a panel in bf16, SW columns in
+// int8): panel p holds bytes [p SW, (p + 1) SW) of every row, row r at
+// byte r * SW of the panel, and the panels follow one another (rows * SW
+// bytes each). Inside a panel the hardware's SW-byte swizzle applies: bits
+// [4, 4 + b) of the byte address (the 16-byte chunk) are XORed with bits
+// [7, 7 + b), b = log2(SW / 16). It is address based, so every panel
+// starts at a multiple of 1024 bytes. With SW = 128, byte c of row r sits
+// at r * 128 + ((c / 16) ^ (r % 8)) * 16 + c % 16 of its panel. TMA writes
+// this layout (a box of one panel's columns by `rows` rows with the SW-byte
+// swizzle); the int8 GEMMs also write it with shared stores. The same
+// layout serves a K-major operand (the contraction runs along the row: Q
+// and K in QK^T, both int8 operands) and an MN-major one (the contraction
+// runs down the rows: V in PV; bf16 only).
 
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units), layout type (1: 128-byte swizzle, 2: 64, 3:
@@ -121,17 +132,24 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
 }
 
 // K-major operand: rows r0 .. r0 + 63 (A) or all rows (B) of a tile of
-// `rows` rows, contraction columns [16 kk, 16 kk + 16). 8-row groups lie
-// 8 SW bytes apart; the leading offset is unused in a swizzled K-major
-// layout, and a step of 16 columns inside a panel moves the start by 32
-// bytes.
+// `rows` rows, the 32 contraction bytes from byte kb of a row on (kb a
+// multiple of 32: one k16 step of bf16, one k32 step of int8). 8-row
+// groups lie 8 SW bytes apart; the leading offset is unused in a swizzled
+// K-major layout, and a step of 32 bytes inside a panel moves the start by
+// 32 bytes (the hardware swizzles the address it forms).
+template <int SW>
+__device__ __forceinline__ uint64_t desc_k_major_bytes(uint32_t tile,
+                                                       int rows, int r0,
+                                                       int kb) {
+  const uint32_t addr = tile + (kb / SW) * rows * SW + r0 * SW + kb % SW;
+  return make_desc<SW>(addr, 16, 8 * SW);
+}
+
+// The same for bf16: contraction columns [16 kk, 16 kk + 16).
 template <int SW>
 __device__ __forceinline__ uint64_t desc_k_major(uint32_t tile, int rows,
                                                  int r0, int kk) {
-  constexpr int PW = SW / 2;
-  const uint32_t addr = tile + (kk * 16 / PW) * rows * SW + r0 * SW
-                        + (kk * 16 % PW) * 2;
-  return make_desc<SW>(addr, 16, 8 * SW);
+  return desc_k_major_bytes<SW>(tile, rows, r0, kk * 32);
 }
 
 // MN-major operand: contraction rows [16 kk, 16 kk + 16) of a tile of
@@ -165,6 +183,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // The instructions, m64nNk16, bf16 in, f32 accumulate; D (+)= A B, the
@@ -380,14 +404,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// Host: a 3-D bf16 tensor map over (n2, n1, n0) contiguous elements
-// (innermost n0), read in boxes of (1, box1, box0) with the SW-byte
-// swizzle; zeros past the bounds. The driver's encoder is fetched through
-// the runtime, so no library beyond the runtime is linked. Returns a
-// CUresult.
-static inline int encode_tma_3d_bf16(CUtensorMap* map, const void* ptr,
-                                     uint64_t n0, uint64_t n1, uint64_t n2,
-                                     uint32_t box0, uint32_t box1, int sw) {
+// The integer instructions, m64nNk32, s8 in, s32 accumulate: D (+)= A B
+// with A (64 x 32 bytes) and B (N x 32 bytes) both K-major in shared
+// memory (8-bit operands have no transposed form). The accumulator layout
+// is the f32 one above: d[4 j + 2 h + e] is row 16 w + g + 8 h, column
+// 8 j + 2 t + e. Integer sums are exact in any order.
+__device__ __forceinline__ void wgmma_s8(int (&d)[4], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[16], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Host: a 3-D tensor map of `elem_bytes`-byte elements over (n2, n1, n0)
+// contiguous elements (innermost n0), read in boxes of (1, box1, box0)
+// with the SW-byte swizzle; zeros past the bounds. The driver's encoder is
+// fetched through the runtime, so no library beyond the runtime is linked.
+// Returns a CUresult.
+static inline int encode_tma_3d(CUtensorMap* map, CUtensorMapDataType type,
+                                int elem_bytes, const void* ptr, uint64_t n0,
+                                uint64_t n1, uint64_t n2, uint32_t box0,
+                                uint32_t box1, int sw) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -410,16 +494,31 @@ static inline int encode_tma_3d_bf16(CUtensorMap* map, const void* ptr,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};    // bytes
+  const cuuint64_t strides[2] = {n0 * elem_bytes, n0 * n1 * elem_bytes};
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      map, type, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// bf16 elements (box0 of them a row), and bytes (int8 or packed int4).
+static inline int encode_tma_3d_bf16(CUtensorMap* map, const void* ptr,
+                                     uint64_t n0, uint64_t n1, uint64_t n2,
+                                     uint32_t box0, uint32_t box1, int sw) {
+  return encode_tma_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, n0, n1,
+                       n2, box0, box1, sw);
+}
+
+static inline int encode_tma_3d_u8(CUtensorMap* map, const void* ptr,
+                                   uint64_t n0, uint64_t n1, uint64_t n2,
+                                   uint32_t box0, uint32_t box1, int sw) {
+  return encode_tma_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, n0, n1,
+                       n2, box0, box1, sw);
 }
 
 }  // namespace

@@ -14,6 +14,7 @@ its first use; :func:`build_all` starts one ``nvcc`` per source at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -95,3 +96,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels' split
+    plans size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

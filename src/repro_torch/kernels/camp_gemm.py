@@ -12,13 +12,17 @@ the fused K1 bit for bit.
 * :func:`camp_gemm_i8` is the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches ``csrc/camp_gemm.cu`` (or raises).
   ``launches`` counts kernel launches.
-* :func:`launch_gemm` binds the one C signature that every GEMM instance of
-  ``csrc/camp_gemm_common.cuh`` shares (K1, K4, K5, K6a, K6b).
+* :func:`launch_gemm` binds the C signature that every GEMM instance of
+  ``csrc/camp_gemm_common.cuh`` shares (K1, K4, K6b) and, given a plan,
+  the one of the tensor-core template ``csrc/camp_gemm_tc.cuh`` (K5, K6a):
+  the same arguments, then an int32 workspace of partial sums, the row tile
+  and the split of K.
+* :func:`split_plan` picks that template's row tile and split of K.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,7 +36,43 @@ FLOATS = (torch.float32, torch.bfloat16)
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT,
              _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
+# the tensor-core template's: the same, then workspace, MT, splits, K steps
+# a split, before the stream
+_ARGTYPES_TC = _ARGTYPES[:-1] + [_VOID, _INT, _INT, _INT, _VOID]
 _fns = {}
+
+TC_BN = 128           # output columns a block of the tensor-core template
+TC_BK = 128           # K a step
+TC_ROW_TILES = (8, 32, 128)
+
+
+def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
+    """(MT, splits, K steps a split) for the tensor-core template
+    (``csrc/camp_gemm_tc.cuh``) at an (M, K) x (K, N) product on a card of
+    ``sms`` SMs: the smallest row tile that holds M (else 128), then the
+    K steps split into equal runs so that the grid comes to about one block
+    an SM, at least one step a split."""
+    mt = next((t for t in TC_ROW_TILES if m <= t), TC_ROW_TILES[-1])
+    tiles = -(-n // TC_BN) * -(-m // mt)
+    steps = max(1, -(-k // TC_BK))
+    want = max(1, min(steps, sms // tiles))
+    per = -(-steps // want)
+    return mt, -(-steps // per), per
+
+
+def tc_smem_bytes(w4: bool, mt: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core instance (K6a
+    for ``w4``, else K5) with row tile ``mt``, read from the built library."""
+    fn = build.load("camp_gemm").camp_gemm_tc_smem
+    fn.argtypes, fn.restype = [_INT, _INT], _INT
+    return fn(int(w4), mt)
+
+
+def plan_for(a: torch.Tensor, n: int, k: int) -> Tuple[int, int, int]:
+    """:func:`split_plan` for ``a``'s rows on ``a``'s card."""
+    index = (a.device.index if a.device.index is not None
+             else torch.cuda.current_device())
+    return split_plan(a.shape[0], n, k, build.sm_count(index))
 
 
 def check_tensor(name, t, shape, dtypes, device):
@@ -54,10 +94,14 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
 
 
 def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
-                out_dtype, epilogue: str, bias, operand) -> torch.Tensor:
+                out_dtype, epilogue: str, bias, operand,
+                plan: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Check the flush's tensors, allocate the (M, N) output and launch
     ``symbol`` of ``csrc/<lib>.cu``. ``a``/``b`` are checked by the caller;
-    ``a_scale`` is None for the fused kernels, which compute it."""
+    ``a_scale`` is None for the fused kernels, which compute it. ``plan``
+    (MT, splits, K steps a split) launches a tensor-core instance (the
+    product, then the flush) with an int32 workspace for each split's
+    partial sums, (splits, M, N)."""
     stages = validate_epilogue(epilogue, bias, operand)
     m, n, dev = a.shape[0], b.shape[1], a.device
     check_tensor("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,),
@@ -81,7 +125,8 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(build.load(lib), symbol)
-        fn.argtypes, fn.restype = _ARGTYPES, _INT
+        fn.argtypes = _ARGTYPES if plan is None else _ARGTYPES_TC
+        fn.restype = _INT
         _fns[symbol] = fn
 
     def bf16(t):
@@ -90,10 +135,15 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = fn(a.data_ptr(), bf16(a), ptr(a_scale), b.data_ptr(),
+    args = [a.data_ptr(), bf16(a), ptr(a_scale), b.data_ptr(),
             b_scale.data_ptr(), ptr(bias), bf16(bias), ptr(operand),
             bf16(operand), out.data_ptr(), bf16(out), m, n, k, code,
-            len(stages), torch.cuda.current_stream(dev).cuda_stream)
+            len(stages)]
+    if plan is not None:
+        mt, splits, per = plan
+        ws = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
+        args += [ws.data_ptr(), mt, splits, per]
+    rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
     return out
@@ -125,7 +175,7 @@ def camp_gemm_i8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     check_tensor("a_q", a_q, (m, k), (torch.int8,), a_q.device)
     check_tensor("b_q", b_q, (k, n), (torch.int8,), a_q.device)
     out = launch_gemm("camp_gemm", "camp_gemm_i8", a_q, a_scale, b_q,
-                      b_scale, k, **kw)
+                      b_scale, k, plan=plan_for(a_q, n, k), **kw)
     if out.numel():
         global launches
         launches += 1

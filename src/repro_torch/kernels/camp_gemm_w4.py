@@ -9,9 +9,10 @@ along K, low nibble = even k, both sign-extended
 * ``camp_gemm_a4w4`` (K6b): packed A (M, K//2) × packed B (K//2, N).
 
 Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages). K is
-even; a tile of the CUDA kernel (``csrc/camp_gemm.cu``, the template of
-``csrc/camp_gemm_common.cuh``) never splits a packed byte, and the nibbles
-are unpacked into int8 in shared memory.
+even, so a K step of either CUDA kernel (``csrc/camp_gemm.cu``) never
+splits a packed byte, and the nibbles are unpacked into int8 in shared
+memory: K6a on K5's tensor-core template (``csrc/camp_gemm_tc.cuh``, with
+K5's split plan), K6b on the template of ``csrc/camp_gemm_common.cuh``.
 
 Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises); ``launches_w4`` and
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels.camp_gemm import (check_tensor, launch_gemm,
-                                           require_cuda)
+                                           plan_for, require_cuda)
 from repro_torch.kernels.ref import dot_i32, flush_ref
 
 launches_w4 = 0       # kernel launches through camp_gemm_w4
@@ -78,7 +79,7 @@ def camp_gemm_w4(a_q: torch.Tensor, b_packed: torch.Tensor,
     check_tensor("a_q", a_q, (m, k), (torch.int8,), dev)
     check_tensor("b_packed", b_packed, (k // 2, n), (torch.int8,), dev)
     out = launch_gemm("camp_gemm", "camp_gemm_w4", a_q, a_scale, b_packed,
-                      b_scale, k, **kw)
+                      b_scale, k, plan=plan_for(a_q, n, k), **kw)
     if out.numel():
         global launches_w4
         launches_w4 += 1

@@ -31,7 +31,6 @@ with tensor parallelism in a later slice.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -98,11 +97,6 @@ def split_plan(units: int, max_tiles: int, sms: int) -> Tuple[int, int]:
     return -(-max_tiles // per), per
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(q, n_bh: int, rows: int, max_tiles: int) -> Tuple[int, int]:
     """The kernels' split of the kv tiles for ``n_bh`` heads of ``rows``
     query rows of q's dtype on q's card: :func:`split_plan` for bf16; f32
@@ -113,7 +107,7 @@ def plan_for(q, n_bh: int, rows: int, max_tiles: int) -> Tuple[int, int]:
     units = n_bh * -(-rows // rows_per_block(rows))
     index = (q.device.index if q.device.index is not None
              else torch.cuda.current_device())
-    return split_plan(units, max_tiles, _sm_count(index))
+    return split_plan(units, max_tiles, build.sm_count(index))
 
 
 def scratch(n_bh: int, n_split: int, rows: int, hd: int, device):

@@ -11,7 +11,11 @@ On the CPU, at the reduced width (plain PyTorch versions of the kernels):
 ``--qmode`` takes every CAMP mode: w8a8 (fused GEMM K1), w4a8 and w4a4
 (packed int4 weights, fused GEMM K4), the weight-only w8a16 and w4a16
 (dequantize, then a float matmul) and none. Serving runs on the
-continuous-batching engine over the paged int8 KV pool.
+continuous-batching engine through ``generate`` with its default KV pages,
+as the reference's ``serve`` does: float pages in the model dtype (the
+fused GEMMs on the card, attention through its plain versions). Int8 pages
+are the speculative path's in the reference and come with the ``--spec-*``
+flags.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ def main(argv=None) -> int:
                            generator=gen, device=device)
     t0 = time.perf_counter()
     toks = generate(params, cfg, prompt, steps=args.steps, seed=args.seed,
-                    sample=args.sample, kv_dtype="int8", device=device)
+                    sample=args.sample, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -356,7 +356,7 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
     recurrent mixers or embedding inputs take the dense-slab loop, as in
     the reference (``max_len`` is that loop's slab length). The port has no
     such layers yet, so for those models the loop raises
-    ``NotImplementedError`` (ROADMAP queue 1 item 8)."""
+    ``NotImplementedError`` (ROADMAP queue 1 item 4)."""
     b, s = prompt.shape[:2]
     if (cfg.embedding_inputs
             or any(cfg.mixer_of(i) != "attn" for i in range(cfg.n_layers))):
