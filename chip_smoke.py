@@ -5,27 +5,31 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. Build: compile the six CUDA kernel libraries (one nvcc each, all at
-   once), and beside them K3's, K2's, K8's and K5/K6a's sources with
-   ``-Xptxas -v``: the registers, stack and spills of each of their device
-   kernels (K8's bf16 builds for hd 64 and 128, and every K5/K6a row-tile
-   instance and their flush kernel, must not spill), and the dynamic
-   shared memory of each build; then ``cuobjdump -sass`` of K8's library:
-   the ``HGMMA`` (wgmma) and asynchronous-copy (``UTMALDG``, ``LDGSTS``)
-   instructions of each bf16 build, none of which may lack either; and of
-   K5/K6a's: every instance must hold an int8 tensor-core instruction
-   (``IGMMA``: wgmma s8; or ``IMMA``) and an asynchronous copy, and no
-   dp4a (``IDP.4A``), which K6b's kernel must show (the control that the
-   pattern matches).
+   once), and beside them K3's, K2's, K8's, K5/K6a's and K1/K4's sources
+   with ``-Xptxas -v``: the registers, stack and spills of each of their
+   device kernels (K8's bf16 builds for hd 64 and 128, and every
+   tensor-core GEMM instance (K5/K6a: a row tile each; K1/K4: a row tile,
+   qmode and x type each) with its scale pass and flush kernels, must not
+   spill), and the dynamic shared memory of each build; then ``cuobjdump
+   -sass`` of K8's library: the ``HGMMA`` (wgmma) and asynchronous-copy
+   (``UTMALDG``, ``LDGSTS``) instructions of each bf16 build, none of
+   which may lack either; and of K5/K6a's and K1/K4's: every tensor-core
+   instance must hold an int8 tensor-core instruction (``IGMMA``: wgmma s8;
+   or ``IMMA``) and an asynchronous copy, and no dp4a (``IDP.4A``), which
+   K6b's kernel must show (the control that the pattern matches).
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
    before every launch), the bound and a PyTorch library yardstick:
    K1 fused w8a8 GEMM; K4 fused w4a8 and w4a4 GEMMs; K5, K6a, K6b unfused
-   int8 / w4 / a4w4 GEMMs (K5 and K6a also at ragged M 1, 3, 17, 100, N
-   200 and 208, K 928, 4,870 and 4,880: byte gathers where rows are not
-   16-byte aligned, TMA's zero fill where they are; each with its split
-   plan and a second yardstick,
-   ``torch._int_mm`` with B K-major, alone and with the flush; and a
-   control that drops the last split and must fail the exact check); K7
+   int8 / w4 / a4w4 GEMMs (K1, K4, K5 and K6a also at ragged M 1, 3, 17,
+   100, N 200 and 208, K 928, 4,870 and 4,880: byte gathers where rows are
+   not 16-byte aligned, TMA's zero fill where they are; each with its
+   split plan, its device kernels a call and a second yardstick,
+   ``torch._int_mm`` with B K-major, alone and with the flush (K1/K4: with
+   the quantize and the flush); a control that drops the last split and,
+   for K1/K4, one that takes each split's row scales from its own K range,
+   which the exact check must each reject; and K1/K4's row scales from the
+   block and from the scale pass, timed side by side); K7
    rowwise quantize (bits 8 and 4); K3 paged
    decode attention (the serving batch, then the heads of qwen3-0.6b,
    qwen2-72b and stablelm-12b (hd 128 with G 2 and 8, hd 160 with G 4),
@@ -43,6 +47,7 @@ Phases (any failure exits non-zero and prints no result):
    call of one request held against its plain version on the same inputs;
    and that request's first-step logits through the kernels against the
    same forward through the plain versions (impl='torch'), in bf16 and f32.
+   The profile sums each run's integer GEMM device kernels.
 4. The unfused path: ``camp_matmul(fused=False)`` in w8a8, w4a8 and w4a4 at
    the serving shapes (K7, then K5, K6a or K6b), every one of its kernels
    launched, each output equal bit for bit to ``camp_matmul(fused=True)``
@@ -273,7 +278,8 @@ def gemm_close(got, want, epilogue: str) -> bool:
 # instructions
 # ---------------------------------------------------------------------------
 PTXAS_SOURCES = {"K3": "paged_attention", "K2": "paged_prefill",
-                 "K8": "flash_attention", "K5/K6a": "camp_gemm"}
+                 "K8": "flash_attention", "K5/K6a": "camp_gemm",
+                 "K1/K4": "camp_gemm_fused"}
 K8_NO_SPILL = (64, 128)      # K8 bf16 builds that must not spill
 ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 # SASS of the tensor cores: wgmma in bf16 (HGMMA) and in int8 (IGMMA),
@@ -281,9 +287,18 @@ ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 TENSOR_CORE = ("HGMMA", "IGMMA", "IMMA")
 SASS_OPS = {**{op: rf"\b{op}\b" for op in (*TENSOR_CORE, *ASYNC_COPIES)},
             "IDP4A": r"\bIDP\.?4A\b"}
-# a tensor-core GEMM instance (csrc/camp_gemm_tc.cuh): W4 (K6a) and MT
-TC_NAME = re.compile(r"camp_gemm_tc_kernelILb([01])ELi(\d+)E")
-TC_INSTANCES = 2 * len(k5.TC_ROW_TILES)
+# a tensor-core GEMM instance (csrc/camp_gemm_tc.cuh): W4, MT, QMAX (0:
+# int8 A) and the bytes of an A element (1: int8; 2, 4: x in bf16, f32)
+TC_NAME = re.compile(r"camp_gemm_tc_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E")
+# the libraries' tensor-core instances: K5/K6a, int8 A; K1/K4, x in bf16 and
+# f32 in three qmodes; then their other device kernels
+TC_INSTANCES = {"camp_gemm": 2 * len(k5.TC_ROW_TILES),
+                "camp_gemm_fused": 3 * 2 * len(k5.TC_ROW_TILES)}
+TC_OTHERS = {"camp_gemm": ("camp_gemm_tc_flush_kernel",),
+             "camp_gemm_fused": ("camp_gemm_tc_flush_kernel",
+                                 "camp_gemm_tc_scale_kernel")}
+TC_KEYS = {("0", "0"): "K5", ("1", "0"): "K6a", ("0", "127"): "K1",
+           ("1", "127"): "K4 w4a8", ("1", "7"): "K4 w4a4"}
 
 
 def start_ptxas(tmp):
@@ -323,37 +338,66 @@ def ptxas_functions(key, proc):
 
 
 def tc_instance(name):
-    """("K5" or "K6a", MT) of a tensor-core GEMM instance's mangled name;
-    None for any other function."""
+    """(kernel key, MT, A element) of a tensor-core GEMM instance's mangled
+    name, e.g. ("K4 w4a8", 128, "bf16"); None for any other function."""
     m = TC_NAME.search(name)
-    return None if m is None else ("K6a" if m.group(1) == "1" else "K5",
-                                   int(m.group(2)))
+    if m is None:
+        return None
+    a = {"1": "int8", "2": "bf16", "4": "f32"}[m.group(4)]
+    return TC_KEYS[m.group(1), m.group(3)], int(m.group(2)), a
 
 
-def tc_ptxas_report(proc):
-    """Registers, stack, spills and dynamic shared memory of each K5/K6a
-    product instance (one a row tile) and of their flush kernel; raises if
+def tc_label(inst):
+    key, mt, a = inst
+    return f"{key} MT {mt}" + ("" if a == "int8" else f" {a}")
+
+
+def other_label(lib_key, name):
+    """The scale pass or flush kernel of a GEMM library (``lib_key``: "K1/K4"
+    or "K5/K6a") by its mangled name, with the scale pass's QMAX and x
+    type."""
+    part = "scale" if "scale_kernel" in name else "flush"
+    q = re.search(r"ILi(\d+)ELi(\d+)E", name)
+    return f"{lib_key} {part}" + (
+        f" QMAX {q.group(1)} {'bf16' if q.group(2) == '2' else 'f32'}"
+        if q else "")
+
+
+def tc_ptxas_report(procs):
+    """Registers, stack, spills and dynamic shared memory of each
+    tensor-core product instance (K5/K6a: a row tile each; K1/K4: a row
+    tile and an x type each) and of their scale and flush kernels; raises if
     one spills or one is missing."""
     rows = []
-    for name, info in ptxas_functions("K5/K6a", proc):
-        inst = tc_instance(name)
-        if inst is not None:
-            rows.append(dict(kernel=inst[0], mt=inst[1], **info,
-                             smem=k5.tc_smem_bytes(inst[0] == "K6a",
-                                                   inst[1])))
-        elif "camp_gemm_tc_flush_kernel" in name:
-            rows.append(dict(kernel="K5/K6a flush", mt=None, **info, smem=0))
-    for r in sorted(rows, key=lambda r: (r["kernel"], r["mt"] or 0)):
-        print(f"  ptxas {r['kernel']}" + (f" MT {r['mt']}" if r["mt"] else "")
-              + f": {r.get('registers')} registers, stack {r.get('stack')} "
-              f"B, spill stores/loads {r.get('spill_stores')}/"
-              f"{r.get('spill_loads')} B, dynamic shared memory "
+    for key in ("K5/K6a", "K1/K4"):
+        lib = PTXAS_SOURCES[key]
+        found = others = 0
+        for name, info in ptxas_functions(key, procs[key]):
+            inst = tc_instance(name)
+            if inst is not None:
+                found += 1
+                rows.append(dict(kernel=tc_label(inst), **info,
+                                 smem=k5.tc_smem_bytes(inst[0] != "K5"
+                                                       and inst[0] != "K1",
+                                                       inst[1])))
+            elif any(o in name for o in TC_OTHERS[lib]):
+                others += 1
+                rows.append(dict(kernel=other_label(key, name), **info,
+                                 smem=0))
+        want_others = 1 if lib == "camp_gemm" else 1 + 4
+        if found != TC_INSTANCES[lib] or others != want_others:
+            raise RuntimeError(f"{lib}: {found} tensor-core instances and "
+                               f"{others} other kernels, expected "
+                               f"{TC_INSTANCES[lib]} and {want_others}")
+    for r in sorted(rows, key=lambda r: r["kernel"]):
+        print(f"  ptxas {r['kernel']}: {r.get('registers')} registers, stack "
+              f"{r.get('stack')} B, spill stores/loads {r.get('spill_stores')}"
+              f"/{r.get('spill_loads')} B, dynamic shared memory "
               f"{r['smem']:,} B a block")
-    spilled = [(r["kernel"], r["mt"]) for r in rows
+    spilled = [r["kernel"] for r in rows
                if r.get("spill_stores") or r.get("spill_loads")]
-    if spilled or len(rows) != TC_INSTANCES + 1:
-        raise RuntimeError(f"K5/K6a kernels that spill: {spilled} (of "
-                           f"{len(rows)}, expected {TC_INSTANCES + 1})")
+    if spilled:
+        raise RuntimeError(f"tensor-core GEMM kernels that spill: {spilled}")
     return rows
 
 
@@ -371,7 +415,7 @@ def ptxas_report(procs):
     K8: one block, read from its library)."""
     rows = []
     for key, proc in procs.items():
-        if key == "K5/K6a":
+        if key in ("K5/K6a", "K1/K4"):
             continue
         for name, info in ptxas_functions(key, proc):
             dp = re.search(r"Li(\d+)E", name)
@@ -455,43 +499,54 @@ def k8_sass():
 
 def tc_sass():
     """Tensor-core (``HGMMA``, ``IGMMA``, ``IMMA``), asynchronous-copy and
-    dp4a (``IDP.4A``) instructions of every K5/K6a instance, and of K6b's
-    dp4a kernel (the control that the dp4a pattern matches), from
-    ``cuobjdump -sass`` of the built library; raises if an instance lacks a
-    tensor-core or an asynchronous-copy instruction or holds a dp4a, or if
-    K6b's kernel shows none. None (and "not measured") without
-    cuobjdump."""
+    dp4a (``IDP.4A``) instructions of every tensor-core instance (K5/K6a in
+    ``camp_gemm``, K1/K4 in ``camp_gemm_fused``), of the fused calls' scale
+    and flush kernels, and of K6b's dp4a kernel (the control that the dp4a
+    pattern matches), from ``cuobjdump -sass`` of the built libraries;
+    raises if an instance lacks a tensor-core or an asynchronous-copy
+    instruction or holds a dp4a, if the fused library holds a dp4a
+    anywhere, or if K6b's kernel shows none. None (and "not measured")
+    without cuobjdump."""
     tool = cuobjdump_path()
     if tool is None:
-        print("  K5/K6a SASS: no cuobjdump beside nvcc or in Triton: not "
+        print("  GEMM SASS: no cuobjdump beside nvcc or in Triton: not "
               "measured")
         return None
-    sass = subprocess.run([tool, "-sass", str(build.lib_path("camp_gemm"))],
-                          capture_output=True, text=True, check=True).stdout
-    counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split()[0]
-        inst = tc_instance(name)
-        if inst is None and "camp_gemm_kernel" in name:
-            inst = ("K6b", None)
-        if inst is None:
-            continue
-        counts[inst] = {op: len(re.findall(pat, part))
-                        for op, pat in SASS_OPS.items()}
-    for (key, mt), c in sorted(counts.items(), key=lambda kv: str(kv[0])):
-        print(f"  {key} SASS" + (f" MT {mt}" if mt else "") + ": "
-              + ", ".join(f"{op} {n}" for op, n in c.items()))
-    tc = {k: c for k, c in counts.items() if k[0] != "K6b"}
-    bad = [k for k, c in tc.items()
-           if not any(c[op] for op in TENSOR_CORE)
-           or not any(c[op] for op in ASYNC_COPIES) or c["IDP4A"]]
-    if (bad or len(tc) != TC_INSTANCES
-            or not counts.get(("K6b", None), {}).get("IDP4A")):
-        raise RuntimeError(f"K5/K6a instances without tensor-core or "
+    counts, bad = {}, []
+    for key, lib in (("K5/K6a", "camp_gemm"), ("K1/K4", "camp_gemm_fused")):
+        sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found = 0
+        for part in sass.split("Function : ")[1:]:
+            name = part.split()[0]
+            inst = tc_instance(name)
+            label = tc_label(inst) if inst else (
+                "K6b" if "camp_gemm_a4w4_kernel" in name
+                else other_label(key, name)
+                if any(o in name for o in TC_OTHERS[lib])
+                else f"{lib} {name[:60]}")
+            c = {op: len(re.findall(pat, part))
+                 for op, pat in SASS_OPS.items()}
+            counts[label] = c
+            if inst is not None:
+                found += 1
+                if (not any(c[op] for op in TENSOR_CORE)
+                        or not any(c[op] for op in ASYNC_COPIES)
+                        or c["IDP4A"]):
+                    bad.append(label)
+            elif lib == "camp_gemm_fused" and c["IDP4A"]:
+                bad.append(label)
+        if found != TC_INSTANCES[lib]:
+            bad.append(f"{lib}: {found} instances")
+    for label, c in sorted(counts.items()):
+        print(f"  {label} SASS: " + ", ".join(f"{op} {n}"
+                                              for op, n in c.items()))
+    if bad or not counts.get("K6b", {}).get("IDP4A"):
+        raise RuntimeError(f"tensor-core instances without tensor-core or "
                            f"asynchronous-copy instructions, or with IDP4A: "
-                           f"{bad} (of {sorted(tc)}); K6b's IDP4A: "
-                           f"{counts.get(('K6b', None))}")
-    return {f"{k} MT {mt}" if mt else k: c for (k, mt), c in counts.items()}
+                           f"{bad}; K6b's IDP4A: {counts.get('K6b')}")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -538,23 +593,49 @@ def unfused_library(kind):
     return run
 
 
-def kmajor_library(kind):
-    """Second yardstick for K5/K6a: torch._int_mm with B int8 and K-major
-    ("TN", cuBLASLt's preferred layout), as a deployment that stored its
-    weights so would, alone (``flush=False``) and with the elementwise
-    flush. ``prepare`` unpacks and transposes B once, outside the timed
-    region."""
-    def prepare(w):
-        k = w.shape[0] * (1 if kind == "i8" else 2)
-        b_q = w if kind == "i8" else unpack_int4(w, k)
-        return b_q.t().contiguous()
+def kmajor_b(w, kind):
+    """B int8 and K-major (unpacked for int4), as a deployment that stored
+    its weights for cuBLASLt's preferred "TN" layout would."""
+    k = w.shape[0] * (1 if kind == "i8" else 2)
+    return (w if kind == "i8" else unpack_int4(w, k)).t().contiguous()
 
-    def run(a, b_t, s_a, s_b, *, flush, out_dtype, epilogue, bias, operand):
+
+def kmajor_library(kind):
+    """Second yardstick for K5/K6a: torch._int_mm on K-major B, alone
+    (``flush=False``) and with the elementwise flush. ``prepare`` unpacks
+    and transposes B once, outside the timed region."""
+    def prepare(a, w, s_a, s_b):
+        return kmajor_b(w, kind)
+
+    def run(b_t, a, w, s_a, s_b, *, flush, out_dtype, epilogue, bias,
+            operand):
         acc = int_mm(a, b_t.t())
         if not flush:
             return acc
         return library_flush(acc, s_a, s_b, epilogue, bias, operand,
                              out_dtype)
+    return prepare, run
+
+
+def fused_kmajor(qmode):
+    """Second yardstick for K1/K4: torch._int_mm on K-major B, alone on the
+    activations quantized beforehand (``flush=False``), and with the
+    rowwise quantize and the elementwise flush, the whole function.
+    ``prepare`` quantizes once and unpacks and transposes B once, outside
+    the timed region."""
+    a_bits = 4 if qmode == "w4a4" else 8
+
+    def prepare(x, w, s_b):
+        return quantize_rowwise_ref(x, a_bits)[0], kmajor_b(
+            w, "i8" if qmode == "w8a8" else "w4")
+
+    def run(state, x, w, s_b, *, flush, out_dtype, epilogue, bias, operand):
+        a_q, b_t = state
+        if not flush:
+            return int_mm(a_q, b_t.t())
+        a_q, a_s = quantize_rowwise_ref(x, a_bits)
+        return library_flush(int_mm(a_q, b_t.t()), a_s, s_b, epilogue, bias,
+                             operand, out_dtype)
     return prepare, run
 
 
@@ -570,7 +651,9 @@ def time_library(timer, key, fn, what):
 def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc,
               kmajor=None):
     """One GEMM kernel against its plain version: error, times, bound; for
-    K5/K6a (``kmajor``) also the K-major ``_int_mm`` yardsticks."""
+    the tensor-core kernels (``kmajor``: K1, K4, K5, K6a) also the K-major
+    ``_int_mm`` yardsticks, the split plan and the device kernels a call
+    launches."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -588,17 +671,19 @@ def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc,
     extra = ""
     if kmajor is not None:
         prepare, run = kmajor
-        a, w, s_a, s_b = args
-        b_t = prepare(w)
+        state = prepare(*args)
         for flush, col in ((False, "library_kmajor_ms"),
                            (True, "library_kmajor_flush_ms")):
             row[col] = time_library(
-                timer, key, lambda: run(a, b_t, s_a, s_b, flush=flush, **kw),
+                timer, key, lambda: run(state, *args, flush=flush, **kw),
                 "K-major _int_mm" + (" + flush" if flush else ""))
+        a = args[0]
         row["plan"] = k5.plan_for(a, n, a.shape[1])
+        row["device_kernels"] = k5.device_kernels(k5.tc_flags(
+            m, n, row["plan"], k5.sms_of(a), len(args) == 3))
         extra = (f" tn={row['library_kmajor_ms']} "
                  f"tn+flush={row['library_kmajor_flush_ms']} "
-                 f"plan={row['plan']}")
+                 f"plan={row['plan']} kernels={row['device_kernels']}")
     tol = "exact" if "silu" not in epi else "1 ULP"
     print(f"  {key:7s} " + " ".join(f"{a}={b}" for a, b in desc.items())
           + f" {epi:4s} {str(got.dtype)[6:]:8s} err={err:.3g} ({tol} "
@@ -641,7 +726,84 @@ def check_fused(timer, gen, qmode, shapes, dtypes):
                           operand=opd)
                 rows.append(gemm_case(timer, key, kernel, plain,
                                       fused_library(qmode), (x, w, s_b), kw,
-                                      2.0 * m * n * k, dict(m=m, k=k, n=n)))
+                                      2.0 * m * n * k, dict(m=m, k=k, n=n),
+                                      kmajor=fused_kmajor(qmode)))
+    return rows
+
+
+def fused_scale_modes(timer, gen):
+    """K1 and K4 (w4a8) at the serving shapes and at row tile 32, with the
+    row scales from the block's own warps and from the scale pass kernel:
+    both exact, their times beside each other (kernels/camp_gemm.py's
+    ``SCALE_KERNEL_ROW_TILES`` keeps the faster per row tile)."""
+    rows = []
+    for qmode in ("w8a8", "w4a8"):
+        name = FUSED[qmode][1]
+        for m, k, n in SERVING_SHAPES + ((32, 896, 4864), (32, 4864, 896)):
+            w = _weight(gen, k, n, qmode != "w8a8")
+            s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
+            x = torch.randn(m, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            kw = dict(out_dtype=torch.bfloat16, epilogue="none", bias=None,
+                      operand=None)
+            plan = k5.plan_for(x, n, k)
+            flags = k5.tc_flags(m, n, plan, k5.sms_of(x), True)
+            want = getattr(k1, name + "_ref")(x, w, s_b, **kw)
+            times = {}
+            for mode, fl in (("block", flags & ~k5.SCALE_KERNEL),
+                             ("scale pass", flags | k5.SCALE_KERNEL)):
+                def call():
+                    return k5.launch_gemm("camp_gemm_fused", name, x, None, w,
+                                          s_b, k, plan=plan, flags=fl, **kw)
+                if not torch.equal(call(), want):
+                    raise RuntimeError(f"{qmode} {(m, k, n)} with the scales "
+                                       f"from the {mode} differs")
+                times[mode] = timer(call)
+            chosen = "scale pass" if flags & k5.SCALE_KERNEL else "block"
+            print(f"  {FUSED[qmode][0]:7s} m={m} k={k} n={n} plan={plan} "
+                  f"scales from the block {times['block']:.4f} ms, from the "
+                  f"scale pass {times['scale pass']:.4f} ms; the wrapper "
+                  f"takes the {chosen}")
+            rows.append(dict(kernel=FUSED[qmode][0], m=m, k=k, n=n,
+                             plan=plan, chosen=chosen,
+                             block_ms=times["block"],
+                             scale_pass_ms=times["scale pass"]))
+    return rows
+
+
+def fused_controls(gen):
+    """Controls for K1 and K4 at M 8 and M 256, K 4,864, N 896: the kernel
+    launched with each split's row scales taken from its own K range only
+    (``SPLIT_SCALES``), and with its plan's last split dropped. The exact
+    check must reject both."""
+    rows = []
+    for qmode in QMODES:
+        key, name = FUSED[qmode]
+        for m, k, n in ((8, 4864, 896), (256, 4864, 896)):
+            w = _weight(gen, k, n, qmode != "w8a8")
+            s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
+            x = torch.randn(m, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            kw = dict(out_dtype=torch.bfloat16, epilogue="none", bias=None,
+                      operand=None)
+            mt, splits, per = plan = k5.plan_for(x, n, k)
+            want = getattr(k1, name + "_ref")(x, w, s_b, **kw)
+            got = {"split-local scales": k5.launch_gemm(
+                       "camp_gemm_fused", name, x, None, w, s_b, k, plan=plan,
+                       flags=k5.SPLIT_SCALES, **kw),
+                   "last split dropped": k5.launch_gemm(
+                       "camp_gemm_fused", name, x, None, w, s_b, k,
+                       plan=(mt, splits - 1, per), **kw)}
+            torch.cuda.synchronize()
+            for what, y in got.items():
+                caught = not gemm_close(y, want, "none")
+                print(f"  {key} control, {what}, M={m} K={k} N={n} (plan "
+                      f"{plan}): err={max_err(y, want):.3g}, "
+                      f"{'caught' if caught else 'NOT CAUGHT'}")
+                if splits < 2 or not caught:
+                    raise RuntimeError(f"{key}'s exact check passes {what}")
+                rows.append(dict(kernel=key, control=what, m=m, k=k, n=n,
+                                 splits=splits, max_abs_err=max_err(y, want)))
     return rows
 
 
@@ -1151,9 +1313,23 @@ def profile_serving(engine, prompts):
     return profile_run(run)
 
 
+def union_ms(spans):
+    """Milliseconds covered by the union of (start, end) µs intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def profile_run(fn):
     """``fn()`` under torch.profiler: device busy share of the wall time
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time. Busy time is the union
+    of the device kernels' intervals: a programmatic dependent launch (the
+    GEMMs' flush kernel) starts before its predecessor ends and waits
+    inside it, so the sum of kernel times ("summed") counts that overlap
+    twice."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1168,7 +1344,11 @@ def profile_run(fn):
                 str(e.device_type).endswith("CUDA"):
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
             counts[e.key] = counts.get(e.key, 0) + e.count
-    busy = sum(per_kernel.values())
+    summed = sum(per_kernel.values())
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = union_ms([(a, b) for a, b, _ in spans])
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     # K3's and K2's device kernels (the split attention and its merge) by
     # their tags in csrc/paged_common.cuh
@@ -1178,18 +1358,30 @@ def profile_run(fn):
                  and ("attend_" in n or "combine_kernel" in n)]
         paged[key] = dict(ms=sum(per_kernel[n] for n in names),
                           device_kernels=sum(counts[n] for n in names))
+    # the integer GEMMs' device kernels (csrc/camp_gemm_tc.cuh: product,
+    # scale pass, flush; K6b's dp4a kernel)
+    names = [n for n in per_kernel if "camp_gemm" in n]
+    gemm = dict(ms=union_ms([(a, b) for a, b, n in spans
+                             if "camp_gemm" in n]),
+                summed_ms=sum(per_kernel[n] for n in names),
+                device_kernels=sum(counts[n] for n in names))
     if busy == 0:
         print("  profiler: no device time recorded (not measured)")
     else:
         print(f"  profiled rerun: wall {wall * 1e3:.1f} ms, device busy "
-              f"{busy:.1f} ms ({busy / (wall * 1e3):.1%}); top kernels (ms):")
+              f"{busy:.1f} ms ({busy / (wall * 1e3):.1%}; kernel times "
+              f"summed {summed:.1f} ms); top kernels (ms):")
         for name, ms in top:
             print(f"    {ms:9.2f}  {name[:100]}")
         print("  paged attention: " + ", ".join(
             f"{k} {v['ms']:.2f} ms in {v['device_kernels']} device kernels"
             for k, v in paged.items()))
+        print(f"  integer GEMMs: {gemm['ms']:.2f} ms busy (summed "
+              f"{gemm['summed_ms']:.2f} ms) in {gemm['device_kernels']} "
+              f"device kernels")
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                top=[[n, ms] for n, ms in top], paged=paged)
+                device_summed_ms=summed,
+                top=[[n, ms] for n, ms in top], paged=paged, gemm=gemm)
 
 
 def first_step_logits(params, cfg, prompts):
@@ -1739,7 +1931,7 @@ def main(argv=None) -> int:
         print(f"[phase 1] built {', '.join(build.KERNELS)} in "
               f"{time.perf_counter() - t0:.1f} s")
         ptxas = ptxas_report(procs)
-        tc_ptxas = tc_ptxas_report(procs["K5/K6a"])
+        tc_ptxas = tc_ptxas_report(procs)
     sass = k8_sass()
     gemm_sass = tc_sass()
 
@@ -1750,12 +1942,17 @@ def main(argv=None) -> int:
                               (4864, 896))]
     both = (torch.bfloat16, torch.float32)
     rows = (check_fused(timer, gen, "w8a8", k1_shapes, (torch.bfloat16,))
-            + check_fused(timer, gen, "w4a8", SERVING_SHAPES, both)
-            + check_fused(timer, gen, "w4a4", SERVING_SHAPES, both)
+            + check_fused(timer, gen, "w8a8", RAGGED_SHAPES, both)
+            + check_fused(timer, gen, "w4a8", SERVING_SHAPES + RAGGED_SHAPES,
+                          both)
+            + check_fused(timer, gen, "w4a4", SERVING_SHAPES + RAGGED_SHAPES,
+                          both)
             + check_unfused(timer, gen, "i8") + check_unfused(timer, gen, "w4")
             + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen))
     k5_controls = [k5_dropped_split(gen, kind, shape) for kind in ("i8", "w4")
                    for shape in ((256, 4864, 896), (8, 4864, 896))]
+    k1_controls = fused_controls(gen)
+    scale_modes = fused_scale_modes(timer, gen)
     k3_rows, k3_controls = check_k3(timer, gen)
     rows += k3_rows + check_k2(timer, gen)
     k2_splits = k2_split_sweep(timer, gen)
@@ -1838,7 +2035,8 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=smi, ptxas=ptxas, tc_ptxas=tc_ptxas, k8_sass=sass,
-                 tc_sass=gemm_sass, k5_controls=k5_controls, rows=rows,
+                 tc_sass=gemm_sass, k5_controls=k5_controls,
+                 k1_controls=k1_controls, scale_modes=scale_modes, rows=rows,
                  k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, kernels=kernels), indent=1))

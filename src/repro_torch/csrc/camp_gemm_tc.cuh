@@ -1,36 +1,71 @@
-// The tensor-core template of the CAMP integer GEMMs of pre-quantized
-// activations (K5: int8 B; K6a: int4 B packed two per byte along K), for
-// Hopper (sm_90a). camp_gemm.cu says what each instance replaces.
+// The tensor-core template of the CAMP integer GEMMs, for Hopper (sm_90a):
+// K5 (int8 A x int8 B) and K6a (int8 A x int4 B packed two per byte along
+// K), whose activations arrive quantized (camp_gemm.cu), and K1 and K4
+// (the same two B kinds), whose float activations are quantized inside the
+// kernel (camp_gemm_fused.cu). Those files say what each instance
+// replaces. An instance is <W4, MT, QMAX, XB>: B packed int4 (W4), the row
+// tile MT (8, 32 or 128), and how A arrives: XB = 1, int8 with its row
+// scales (QMAX 0); XB = 2 or 4, x in bf16 or f32, quantized per row to
+// [-QMAX, QMAX] (127, or 7 for w4a4).
 //
 // Orientation. The block computes a tile of C^T = B^T A^T: wgmma's
 // 64-row operand is B^T (BN = 128 output columns n, two warpgroups of 64),
-// its N operand is A (MT output rows m: 8, 32 or 128), both K-major in
-// shared memory, as wgmma requires of 8-bit operands. So a decode batch of
-// 8 rows is an m64n8k32 product with no rows of zeros, and the K-major A
-// rows arrive from memory as they are.
+// its N operand is A (MT output rows m), both K-major in shared memory, as
+// wgmma requires of 8-bit operands. So a decode batch of 8 rows is an
+// m64n8k32 product with no rows of zeros, and the K-major A rows arrive
+// from memory as they are.
 //
-// K pipeline. K runs in steps of BK = 128 bytes (one 128-byte swizzle
-// panel a row). A ring of STAGES slots (5 at MT 128, else 8) each holds
-// A's MT x 128 tile and B's 128 x 128 tile as stored (K5: 128 k rows of
-// 128 n bytes; K6a: 64 packed rows), both in the 128-byte swizzle,
-// written by TMA (two boxes a step, issued by one thread, completing on
-// the slot's mbarrier) STAGES - 2 K steps ahead of their use; TMA fills
-// zeros past M, N and K. Where a row's pitch is not a multiple of 16
-// bytes (K for A, N for B), which TMA cannot address, every thread
-// gathers the same tiles a byte at a time instead. No operand is padded
-// in memory.
+// K pipeline. K runs in steps of BK = 128 (one 128-byte swizzle panel of
+// int8 a row). A ring of STAGES slots (5 at MT 128, else 8) each holds A's
+// MT x 128 int8 tile and B's tile as stored (int8: 128 k rows of 128 n
+// bytes; int4: 64 packed rows), both in the 128-byte swizzle. TMA writes
+// B's tile (and int8 A's) STAGES - 2 K steps ahead of its use, one thread
+// issuing the boxes, which complete on the slot's mbarrier; TMA fills zeros
+// past M, N and K. Where a row's pitch is not a multiple of 16 bytes (K for
+// int8 A, N for B), which TMA cannot address, every thread gathers the
+// same tiles a byte at a time instead. No operand is padded in memory.
+//
+// The fused quantize (XB 2 or 4). The quantized activations never reach
+// device memory. Each row's scale comes from its whole K row, before any
+// of its tiles is quantized, by the reference's f32 chain as XLA compiles
+// it:
+//   s[m] = absmax_k |x[m, k]| * f32(1/QMAX)        (1 where absmax is 0)
+//   q[m, k] = clamp(rint(x[m, k] / s[m]), -QMAX, QMAX)
+// (an IEEE quotient, rounded half to even; no fast-math). A block cannot
+// take the scale from its own split of K, so the scales come either from
+// the block itself, each warp reducing whole rows of x (read from L2; the
+// choice at MT 8, where a tile has few rows), or from
+// camp_gemm_tc_scale_kernel, which writes the M scales into the call's
+// workspace before the product (MT 32 and 128, where the blocks of a row
+// tile would each read the same rows again): the product kernel is its
+// programmatic dependent launch, issues its first B loads and x's first
+// step, then waits (griddepcontrol.wait) and reads the scales.
+// kernels/camp_gemm.py picks one by row tile (tc_flags). Either way the M
+// scales land in the workspace for the flush. x arrives in 16-byte groups
+// (8 bf16 or 4 f32 values; element loads where K * XB is not a multiple
+// of 16), one K step ahead in registers: step i + 1's groups are quantized
+// and stored as int8 into the A slot at swz_off after step i's products
+// are issued, and step i + 2's groups are loaded; rows past M and columns
+// past K come out zero. The quotient is not divided out: the exact product
+// with the row's rounded reciprocal, rounded to an integer by an fma with
+// 1.5 * 2^23, provably gives the reference's integer unless it lies within
+// 2^-14 of a half-integer, and those rare groups (about one in 1,000) are
+// redone by the division (quantize_group says why). Every n-tile block
+// quantizes its rows again: at M 256 that arithmetic, not the bytes, sets
+// the time (PERF.md).
 //
 // B^T. Each stage of B is rewritten K-major into one of two B^T buffers
 // (128 n rows x 128 k bytes, swizzled): a thread takes a 4 k x 4 n block
-// (K5: one word from each of 4 k rows; K6a: one word from each of 2 packed
-// rows, i.e. 4 k) and makes the 4 words of 4 consecutive k of each column
-// with __byte_perm (K6a: the nibbles sign-extended on the way). A warp's
-// lanes take 4 k-quads and 8 n-quads chosen for the swizzle (n_quad), each
-// lane starting at its own column of the four: both the reads of the
-// staging tile and the writes of B^T hit 32 distinct banks. Then the
-// products of the stage: 4 wgmma.m64nMTk32.s32.s8.s8 a warpgroup, left in
-// flight while the next stage is converted (the wait after each step
-// keeps one group in flight).
+// (int8: one word from each of 4 k rows; int4: one word from each of 2
+// packed rows, i.e. 4 k) and makes the 4 words of 4 consecutive k of each
+// column with __byte_perm (int4: the nibbles sign-extended on the way). A
+// warp's lanes take 4 k-quads and 8 n-quads chosen for the swizzle
+// (n_quad), each lane starting at its own column of the four: both the
+// reads of the staging tile and the writes of B^T hit 32 distinct banks.
+// Then the products of the stage: 4 wgmma.m64nMTk32.s32.s8.s8 a
+// warpgroup. ptxas waits for each before the next (WARPGROUP.DEPBAR after
+// every IGMMA in the SASS), so the wait that would keep a group in flight
+// finds none.
 //
 // Split-K. int32 partial sums are exact in any order, so the K steps are
 // split across gridDim.z blocks of kps steps each, to bring the grid to
@@ -38,20 +73,19 @@
 // stores its partial sums, coalesced, in its own plane of an int32
 // (splits, M, N) workspace: no atomics, no zeroing, no counters.
 //
-// The flush is a second kernel, camp_gemm_tc_flush_kernel, over all SMs:
-// one output a thread, its partial sums added in split order, then
-// camp::flush_one, the same as camp_gemm_kernel's and the fused kernels'
-// (acc -> f32, the scale product first, a first bias or residual fused
-// into one fmaf, then the other stages), once per output. In the product
-// kernel the flush ran on 8 warps an SM, 64 outputs a thread, and took
-// longer on the H100 than the K loop at the serving shapes (flush_one's
-// branches leave little to overlap); spread over the whole card it is one
-// output a thread. The sums pass through shared memory so that the
-// partial stores run along rows. The flush is a programmatic dependent
+// The flush is camp::flush_one (acc -> f32, the scale product first, a
+// first bias or residual fused into one fmaf, then the other stages), once
+// per output. With one split on a grid that fills the card (the dense
+// prefill, M 4,096) the product block flushes its own sums from shared
+// memory (kFlushInBlock: no plane). Otherwise it is a second kernel,
+// camp_gemm_tc_flush_kernel, over all SMs: one output a thread, its
+// partial sums added in split order. It is a programmatic dependent
 // launch: the product kernel lets it be scheduled once every product block
-// has started, and its blocks wait (griddepcontrol.wait) until the
-// product grid has finished and its stores are visible, so the second
-// launch's latency hides behind the product.
+// has started, and its blocks wait (griddepcontrol.wait) until the product
+// grid has finished and its stores are visible, so the second launch's
+// latency hides behind the product. A call launches one to three device
+// kernels: the scale pass (fused, MT 32 and 128), the product, the flush
+// kernel (unless the product block flushes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,8 +99,18 @@ namespace camp_tc {
 namespace {
 
 constexpr int BN = 128;          // output columns a block (wgmma rows)
-constexpr int BK = 128;          // K bytes a stage: one swizzle panel a row
+constexpr int BK = 128;          // K a step: one swizzle panel of int8 a row
 constexpr int THREADS = 256;     // two warpgroups
+
+// How a call runs (kernels/camp_gemm.py::tc_flags).
+enum Flags {
+  kFlushInBlock = 1,   // one split: the product block flushes its sums
+  kScaleKernel = 2,    // fused: row scales from camp_gemm_tc_scale_kernel
+  // fused, scales in the block: each from its own split's K range only.
+  // Wrong on purpose: chip_smoke.py launches it to show that the exact
+  // check rejects a scale that did not see the whole row.
+  kSplitScales = 4,
+};
 
 template <bool W4, int MT>
 struct Tile {
@@ -82,18 +126,22 @@ struct Tile {
   static_assert(MT * CS * 4 <= STAGES * SLOT_BYTES,
                 "the staged sums fit in the ring");
   // 1024 to align the base; two B^T buffers; the ring; a TMA barrier a
-  // slot
+  // slot; the tile's MT row scales and their reciprocals
   static constexpr int BAR_OFF = 2 * BT_BYTES + STAGES * SLOT_BYTES;
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * STAGES;
+  static constexpr int SA_OFF = BAR_OFF + 8 * STAGES;
+  static constexpr int SMEM = 1024 + SA_OFF + 8 * MT;
 };
 
 struct TcArgs {
-  CUtensorMap a_map;  // A (M, K) in boxes of MT rows x 128 bytes (tma)
+  CUtensorMap a_map;  // int8 A (M, K) in boxes of MT rows x 128 bytes (tma)
   CUtensorMap b_map;  // B as stored, boxes of RAW_ROWS rows x 128 bytes
-  camp::GemmArgs g;
+  camp::GemmArgs g;   // g.a: int8 A, or x (fused); g.sa: A's row scales
+  float* sa_out;      // fused: where the M row scales go (== g.sa)
   int32_t* ws;        // (splits, M, N) int32 partial sums
   int kps;            // K steps a split
-  int tma;            // rows of A and B 16-byte aligned: TMA, else gathers
+  int tma;            // rows of B (and int8 A) 16-byte aligned: TMA
+  int xvec;           // fused: x's rows 16-byte aligned: vector loads
+  int flags;          // Flags
 };
 
 // Byte c of row r of a tile with 128-byte rows, in the 128-byte swizzle
@@ -127,6 +175,133 @@ __device__ __forceinline__ void gather_chunk(uint32_t dst,
   st_shared_v4(dst, w);
 }
 
+// -- the fused quantize -----------------------------------------------------
+// Value e of a 16-byte group of x (XB 2: bf16, 8 values; XB 4: f32, 4).
+template <int XB>
+__device__ __forceinline__ float group_value(const uint32_t (&w)[4], int e) {
+  if constexpr (XB == 2)
+    return __uint_as_float((e & 1) ? (w[e >> 1] & 0xFFFF0000u)
+                                   : (w[e >> 1] << 16));
+  else
+    return __uint_as_float(w[e]);
+}
+
+// The first `left` values of a group whose row is not 16-byte aligned,
+// loaded one at a time; zeros after them.
+template <int XB>
+__device__ __forceinline__ uint4 gather_x(const uint8_t* src, int left) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 16 / XB; ++e) {
+    if (e >= left) break;
+    if constexpr (XB == 2)
+      w[e >> 1] |= (uint32_t)reinterpret_cast<const uint16_t*>(src)[e]
+                   << (16 * (e & 1));
+    else
+      w[e] = reinterpret_cast<const uint32_t*>(src)[e];
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// A row's scale from x[m, lo:hi) (the whole row but in the control), by
+// one warp: the absmax, then s = absmax * f32(1/QMAX), 1 where it is 0.
+// With xvec, lo and hi * XB are multiples of 16 bytes.
+template <int QMAX, int XB>
+__device__ __forceinline__ float row_scale(const uint8_t* x, long m, int K,
+                                           int lo, int hi, int xvec,
+                                           int lane) {
+  const uint8_t* row = x + m * K * XB;
+  float amax = 0.f;
+  if (xvec) {
+    const uint4* v = reinterpret_cast<const uint4*>(row);
+#pragma unroll 4
+    for (int g = lo * XB / 16 + lane; g < hi * XB / 16; g += 32) {
+      const uint4 u = __ldg(v + g);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 16 / XB; ++e)
+        amax = fmaxf(amax, fabsf(group_value<XB>(w, e)));
+    }
+  } else {
+    for (int k = lo + lane; k < hi; k += 32) {
+      const float v =
+          XB == 2 ? __bfloat162float(
+                        reinterpret_cast<const __nv_bfloat16*>(row)[k])
+                  : reinterpret_cast<const float*>(row)[k];
+      amax = fmaxf(amax, fabsf(v));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  return amax == 0.f ? 1.f : __fmul_rn(amax, 1.0f / (float)QMAX);
+}
+
+// A quotient that rounds this close to a half-integer (1/2 - 2^-14) is
+// decided by the division itself (quantize_group).
+constexpr float kNearHalf = 0.49993896484375f;
+constexpr float kRoundMagic = 12582912.f;        // 1.5 * 2^23
+
+// The low bytes of four words, in order.
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
+                                                   uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// The reference's chain for one value: clamp(rint(__fdiv_rn(v, s))) as an
+// int8 bit pattern in the low byte.
+template <int QMAX>
+__device__ __forceinline__ uint32_t quantize_exact(float v, float s) {
+  return (uint32_t)(int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -(float)QMAX),
+                              (float)QMAX);
+}
+
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
+// A group of x quantized with row scale s's reciprocal r (1/s, rounded),
+// as int8 bytes in q[0] (and q[1] for bf16's 8 values); false where the
+// group must take the reference's chain instead (store_a's fix-up).
+// The result is the reference's
+//   clamp(rint(fl(v / s)), -QMAX, QMAX)
+// with fl(v / s) the IEEE quotient, computed without a division or a
+// conversion where that provably gives the same integer. The exact product
+// p = v * r lies within 2^-24 |v / s| of v / s (r rounds once), and so
+// does fl(v / s): within 2^-16 of each other, since |v| <= absmax gives
+// |v / s| <= QMAX (1 + 2^-22). One fma rounds p to the integer n, half to
+// even, by adding 1.5 * 2^23, whose float holds n in its low mantissa bits
+// (its low byte is the int8); a second one gives p - n. If
+// |p - n| <= 1/2 - 2^-14, fl(v / s) rounds to n too, and |n| <= QMAX
+// leaves the clamp nothing to do. A group with a value near a
+// half-integer (about one in 1,000 groups) or not finite returns false.
+template <int QMAX, int XB>
+__device__ __forceinline__ bool quantize_group(const uint4& u, float r,
+                                               uint32_t (&q)[2]) {
+  constexpr int NV = 16 / XB;
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t b[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  float near[8];
+#pragma unroll
+  for (int e = 0; e < NV; ++e) {
+    const float v = group_value<XB>(w, e);
+    const float tr = __fmaf_rn(v, r, kRoundMagic);
+    near[e] = fabsf(__fmaf_rn(v, r, __fsub_rn(kRoundMagic, tr)));
+    b[e] = __float_as_uint(tr);
+  }
+#pragma unroll
+  for (int h = NV / 2; h > 0; h /= 2)
+#pragma unroll
+    for (int e = 0; e < h; ++e) near[e] = fmax_nan(near[e], near[e + h]);
+  q[0] = pack_low_bytes(b[0], b[1], b[2], b[3]);
+  q[1] = pack_low_bytes(b[4], b[5], b[6], b[7]);
+  return near[0] <= kNearHalf;
+}
+
+// -- B^T --------------------------------------------------------------------
 // Column c (0..3) of four k rows' words w0..w3: byte i of the result is
 // byte c of w_i (k = 4q + i).
 __device__ __forceinline__ uint32_t column_i8(uint32_t w0, uint32_t w1,
@@ -200,10 +375,20 @@ __device__ __forceinline__ void convert_b(const uint8_t* raw, uint8_t* bt) {
   }
 }
 
-template <bool W4, int MT>
+__device__ __forceinline__ void store_out(const camp::GemmArgs& p, long o,
+                                          float y) {
+  if (p.out_bf16)
+    static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(y);
+  else
+    static_cast<float*>(p.out)[o] = y;
+}
+
+// -- the kernels ------------------------------------------------------------
+template <bool W4, int MT, int QMAX, int XB>
 __global__ void __launch_bounds__(THREADS, 1)
 camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   using T = Tile<W4, MT>;
+  constexpr bool FUSED = XB != 1;
   extern __shared__ uint8_t smem_tc[];
   const uint32_t smem0 = hopper::smem_u32(smem_tc);
   const uint32_t base = (smem0 + 1023) & ~1023u;
@@ -217,6 +402,8 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   auto phase = [](int i) {
     return static_cast<uint32_t>((i / T::STAGES) & 1);
   };
+  float* sa_s = reinterpret_cast<float*>(smem_tc + (base - smem0) + T::SA_OFF);
+  float* sr_s = sa_s + MT;                 // fused: 1 / sa_s, rounded
 
   const camp::GemmArgs& p = t.g;
   const int M = p.M, N = p.N, K = p.K;
@@ -225,7 +412,9 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   const int kt0 = blockIdx.z * t.kps;
   const int nk = max(0, min(nkt, kt0 + t.kps) - kt0);
   const int8_t* a = static_cast<const int8_t*>(p.a);
+  const uint8_t* x = static_cast<const uint8_t*>(p.a);
   const long b_rows = W4 ? K / 2 : K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   if (t.tma && threadIdx.x == 0) {
     for (int i = 0; i < T::STAGES; ++i) hopper::mbar_init(full(i), 1);
@@ -233,24 +422,27 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   }
   __syncthreads();
 
-  // K step i of this split into ring slot i % STAGES: two TMA boxes issued
-  // by one thread (past the edges TMA fills zeros), or else every thread
-  // gathers its chunks.
+  // K step i of this split into ring slot i % STAGES: B's box (and int8
+  // A's) issued by one thread (past the edges TMA fills zeros), or else
+  // every thread gathers its chunks. The fused A comes from store_a.
   auto load = [&](int i) {
     if (i >= nk) return;
     const int k0 = (kt0 + i) * BK;
     const int r0 = (kt0 + i) * T::RAW_ROWS;
     if (t.tma) {
       if (threadIdx.x == 0) {
-        hopper::mbar_expect_tx(full(i), T::SLOT_BYTES);
-        hopper::tma_load_3d(slot_a(i), &t.a_map, full(i), k0, m0, 0);
+        hopper::mbar_expect_tx(full(i), FUSED ? T::RAW_BYTES : T::SLOT_BYTES);
+        if constexpr (!FUSED)
+          hopper::tma_load_3d(slot_a(i), &t.a_map, full(i), k0, m0, 0);
         hopper::tma_load_3d(slot_raw(i), &t.b_map, full(i), n0, r0, 0);
       }
       return;
     }
-    for (int c = threadIdx.x; c < MT * 8; c += THREADS) {
-      const int r = c >> 3, col = (c & 7) * 16;
-      gather_chunk(slot_a(i) + swz_off(r, col), a, m0 + r, k0 + col, M, K);
+    if constexpr (!FUSED) {
+      for (int c = threadIdx.x; c < MT * 8; c += THREADS) {
+        const int r = c >> 3, col = (c & 7) * 16;
+        gather_chunk(slot_a(i) + swz_off(r, col), a, m0 + r, k0 + col, M, K);
+      }
     }
     for (int c = threadIdx.x; c < T::RAW_ROWS * 8; c += THREADS) {
       const int r = c >> 3, col = (c & 7) * 16;
@@ -263,34 +455,175 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   // to finish (griddepcontrol.wait), so its launch overlaps the product
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
+  // Fused: the A tile of step i is MT rows of 128 int8 from x's 16-byte
+  // groups (KPG values, GPR a row); group g = threadIdx.x + THREADS j of
+  // the tile is this thread's xr[j].
+  constexpr int KPG = 16 / XB;
+  constexpr int GPR = BK / KPG;
+  constexpr int GROUPS = MT * GPR;
+  constexpr int GPT = FUSED ? (GROUPS + THREADS - 1) / THREADS : 1;
+  uint4 xr[GPT];
+  auto fetch_x = [&](int i) {
+    if constexpr (FUSED) {
+      const int k0 = (kt0 + i) * BK;
+#pragma unroll
+      for (int j = 0; j < GPT; ++j) {
+        const int g = threadIdx.x + THREADS * j;
+        const int m = m0 + g / GPR, k = k0 + (g % GPR) * KPG;
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (g < GROUPS && m < M && k < K) {
+          const uint8_t* src = x + ((long)m * K + k) * XB;
+          u = t.xvec ? __ldg(reinterpret_cast<const uint4*>(src))
+                     : gather_x<XB>(src, K - k);
+        }
+        xr[j] = u;
+      }
+    }
+  };
+  // ... quantized into A's slot of step i, in the swizzle TMA would write
+  // (8 bytes a bf16 group, 4 an f32 one: inside one 16-byte chunk). The
+  // rare groups that need the division are stored again afterwards, so
+  // that the loop over the groups has no branch.
+  auto store_group = [&](uint32_t dst, uint32_t q0, uint32_t q1) {
+    uint8_t* p = smem_tc + (dst - smem0);
+    if constexpr (XB == 2)
+      *reinterpret_cast<uint2*>(p) = make_uint2(q0, q1);
+    else
+      *reinterpret_cast<uint32_t*>(p) = q0;
+  };
+  // this thread's groups keep their rows in every step: their reciprocal
+  // scales live in registers (set once the scales are known)
+  float xr_r[GPT];
+  // groups that always take the division: those of rows whose reciprocal
+  // is 0 or infinite, and every group in the split-scale control (its
+  // scales do not bound the row, so the clamp may act)
+  uint32_t exact_groups = 0;
+  auto store_a = [&](int i) {
+    if constexpr (FUSED) {
+      uint32_t redo = exact_groups;
+#pragma unroll
+      for (int j = 0; j < GPT; ++j) {
+        const int g = threadIdx.x + THREADS * j;
+        if (g < GROUPS) {
+          uint32_t q[2];
+          if (!quantize_group<QMAX, XB>(xr[j], xr_r[j], q)) redo |= 1u << j;
+          store_group(slot_a(i) + swz_off(g / GPR, (g % GPR) * KPG), q[0],
+                      q[1]);
+        }
+      }
+      // The groups that need the division (about one in 1,000: a warp meets
+      // one every few steps), from their registers picked by unrolled
+      // selects: one copy of the division in the code, no call, no load.
+#pragma unroll 1
+      for (int j = 0; redo != 0; ++j, redo >>= 1) {
+        if (!(redo & 1)) continue;
+        uint4 u = xr[0];
+#pragma unroll
+        for (int jj = 1; jj < GPT; ++jj)
+          if (jj == j) u = xr[jj];
+        const int g = threadIdx.x + THREADS * j, r = g / GPR;
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+        uint32_t b[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int e = 0; e < KPG; ++e)
+          b[e] = quantize_exact<QMAX>(group_value<XB>(w, e), sa_s[r]);
+        store_group(slot_a(i) + swz_off(r, (g % GPR) * KPG),
+                    pack_low_bytes(b[0], b[1], b[2], b[3]),
+                    pack_low_bytes(b[4], b[5], b[6], b[7]));
+      }
+    }
+  };
+  // step 0's x is loaded before the scales are known (x is final: the
+  // scale pass was launched after its producer)
+  if constexpr (FUSED) {
+    if (nk > 0) fetch_x(0);
+  }
+  // The tile's row scales and their reciprocals (shared memory): fused,
+  // from the scale kernel or from whole rows of x (one warp a row; the
+  // first block of the row tile also writes them for the flush kernel);
+  // int8 A, given (read only where the block flushes).
+  if constexpr (FUSED) {
+    if (t.flags & kScaleKernel) {
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      for (int r = threadIdx.x; r < MT; r += THREADS) {
+        const float s = m0 + r < M ? t.sa_out[m0 + r] : 1.f;
+        sa_s[r] = s;
+        sr_s[r] = __frcp_rn(s);
+      }
+    } else {
+      const bool local = t.flags & kSplitScales;
+      const int lo = local ? kt0 * BK : 0;
+      const int hi = local ? min(K, (kt0 + nk) * BK) : K;
+      for (int r = warp; r < MT; r += THREADS / 32) {
+        const int m = m0 + r;
+        const float s =
+            m < M ? row_scale<QMAX, XB>(x, m, K, lo, hi, t.xvec, lane) : 1.f;
+        if (lane == 0) {
+          sa_s[r] = s;
+          sr_s[r] = __frcp_rn(s);
+          if (m < M && blockIdx.x == 0 && blockIdx.z == 0) t.sa_out[m] = s;
+        }
+      }
+    }
+  } else if (t.flags & kFlushInBlock) {
+    for (int r = threadIdx.x; r < MT; r += THREADS)
+      sa_s[r] = m0 + r < M ? p.sa[m0 + r] : 1.f;
+  }
+  __syncthreads();
+  if constexpr (FUSED) {
+#pragma unroll
+    for (int j = 0; j < GPT; ++j) {
+      const int g = threadIdx.x + THREADS * j;
+      xr_r[j] = g < GROUPS ? sr_s[g / GPR] : 1.f;
+      if (g < GROUPS && ((t.flags & kSplitScales) ||
+                         !(xr_r[j] > 0.f && xr_r[j] <= 3.4028234663852886e38f)))
+        exact_groups |= 1u << j;
+    }
+  }
+
   const int wg = threadIdx.x >> 7;
   int d[MT / 2];
 #pragma unroll
   for (int i = 0; i < MT / 2; ++i) d[i] = 0;
 
-  for (int i = 0; i < nk; ++i) {
-    if (t.tma) hopper::mbar_wait(full(i), phase(i));   // step i landed
-    hopper::fence_proxy_async();
-    // step i has landed (the gathers: every thread's stores), and every
-    // warpgroup has waited for step i - 2's products: its ring slot and
-    // its B^T buffer are free
-    __syncthreads();
-    load(i + T::STAGES - 2);
-    convert_b<W4>(smem_tc + (slot_raw(i) - smem0),
-                  smem_tc + (bt(i) - smem0));
-    hopper::fence_proxy_async();
-    __syncthreads();
-    hopper::fence_regs(d);
-    hopper::wgmma_fence();
+  // Step -1 only stores step 0's A, so that store_a has one copy in the
+  // code (the loop is not unrolled).
+#pragma unroll 1
+  for (int i = FUSED ? -1 : 0; i < nk; ++i) {
+    if (i >= 0) {
+      if (t.tma) hopper::mbar_wait(full(i), phase(i));   // step i landed
+      hopper::fence_proxy_async();
+      // step i has landed (the gathers and step i's A: every thread's
+      // stores), and every warpgroup has waited for step i - 2's products:
+      // its ring slot and its B^T buffer are free
+      __syncthreads();
+      load(i + T::STAGES - 2);
+      convert_b<W4>(smem_tc + (slot_raw(i) - smem0),
+                    smem_tc + (bt(i) - smem0));
+      hopper::fence_proxy_async();
+      __syncthreads();
+      hopper::fence_regs(d);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int kb = 0; kb < BK; kb += 32)
-      hopper::wgmma_s8(d,
-                       hopper::desc_k_major_bytes<128>(bt(i), BN, 64 * wg, kb),
-                       hopper::desc_k_major_bytes<128>(slot_a(i), MT, 0, kb),
-                       1);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<1>();               // step i - 1's products
-    hopper::fence_regs(d);
+      for (int kb = 0; kb < BK; kb += 32)
+        hopper::wgmma_s8(
+            d, hopper::desc_k_major_bytes<128>(bt(i), BN, 64 * wg, kb),
+            hopper::desc_k_major_bytes<128>(slot_a(i), MT, 0, kb), 1);
+      hopper::wgmma_commit();
+    }
+    if constexpr (FUSED) {
+      // after step i's products are issued: step i + 1's A into its slot
+      // (its last reader, step i + 1 - STAGES, is done), step i + 2's x
+      // loaded
+      if (i + 1 < nk) {
+        store_a(i + 1);
+        if (i + 2 < nk) fetch_x(i + 2);
+      }
+    }
+    if (i >= 0) {
+      hopper::wgmma_wait<1>();               // step i - 1's products
+      hopper::fence_regs(d);
+    }
   }
   hopper::wgmma_wait<0>();
   hopper::fence_regs(d);
@@ -302,8 +635,8 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   __syncthreads();
   int32_t* cs = reinterpret_cast<int32_t*>(smem_tc + (slot_a(0) - smem0));
   {
-    const int warp = (threadIdx.x & 127) >> 5, lane = threadIdx.x & 31;
-    const int c0 = 64 * wg + 16 * warp + (lane >> 2), r0 = 2 * (lane & 3);
+    const int c0 = 64 * wg + 16 * (warp & 3) + (lane >> 2),
+              r0 = 2 * (lane & 3);
 #pragma unroll
     for (int i = 0; i < MT / 2; ++i)
       cs[(r0 + 8 * (i >> 2) + (i & 1)) * T::CS + c0 + 8 * ((i >> 1) & 1)] =
@@ -312,16 +645,45 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   __syncthreads();
 
   // Then thread t takes column c = t % BN and rows t / BN + 2 j, so that
-  // a warp stores 32 consecutive columns of a row: this split's partial
-  // sums, plane blockIdx.z of the workspace.
-  int32_t* part = t.ws + (long)blockIdx.z * M * N;
+  // a warp works along 32 consecutive columns of a row: the flush of the
+  // whole sums (one split), or this split's partial sums into plane
+  // blockIdx.z of the workspace.
   const int c = threadIdx.x % BN, rb = threadIdx.x / BN, n = n0 + c;
   if (n >= N) return;
+  if (t.flags & kFlushInBlock) {
+#pragma unroll 4
+    for (int j = 0; j < MT / 2; ++j) {
+      const int r = rb + 2 * j, m = m0 + r;
+      if (m < M)
+        store_out(p, (long)m * N + n,
+                  camp::flush_one(p, m, n, cs[r * T::CS + c], sa_s[r]));
+    }
+    return;
+  }
+  int32_t* part = t.ws + (long)blockIdx.z * M * N;
 #pragma unroll 4
   for (int j = 0; j < MT / 2; ++j) {
     const int r = rb + 2 * j, m = m0 + r;
     if (m < M) part[(long)m * N + n] = cs[r * T::CS + c];
   }
+}
+
+// The fused calls' scale pass: warp w of block b takes row 8 b + w and
+// writes its scale (row_scale over the whole row) to sa.
+constexpr int SCALE_THREADS = 256;
+
+template <int QMAX, int XB>
+__global__ void __launch_bounds__(SCALE_THREADS)
+camp_gemm_tc_scale_kernel(const void* __restrict__ x, float* __restrict__ sa,
+                          int M, int K, int xvec) {
+  // the product kernel may start now and issue its B loads; it waits
+  // (griddepcontrol.wait) for this grid before it reads the scales
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int m = blockIdx.x * (SCALE_THREADS / 32) + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const float s = row_scale<QMAX, XB>(static_cast<const uint8_t*>(x), m, K,
+                                      0, K, xvec, threadIdx.x & 31);
+  if ((threadIdx.x & 31) == 0) sa[m] = s;
 }
 
 // The flush: thread i takes output i (a warp, 32 consecutive columns of a
@@ -342,60 +704,97 @@ camp_gemm_tc_flush_kernel(const camp::GemmArgs p,
 #pragma unroll 4
     for (int z = 0; z < splits; ++z) acc += ws[z * total + o];
     const int m = static_cast<int>(o / p.N), n = static_cast<int>(o % p.N);
-    const float y = camp::flush_one(p, m, n, acc, p.sa[m]);
-    if (p.out_bf16)
-      static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16_rn(y);
-    else
-      static_cast<float*>(p.out)[o] = y;
+    store_out(p, o, camp::flush_one(p, m, n, acc, p.sa[m]));
   }
 }
 
-template <bool W4, int MT>
+// A launch configuration, with the programmatic dependent launch attribute
+// when `pdl` (the kernel may start before the previous one on the stream
+// finishes, and waits for it with griddepcontrol.wait). Used in place: cfg
+// points into the object.
+struct Launch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  Launch(dim3 grid, int threads, int smem, cudaStream_t stream, bool pdl) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 1 : 0;
+  }
+};
+
+template <bool W4, int MT, int QMAX, int XB>
 int launch_instance(TcArgs& t, int splits, cudaStream_t stream) {
   using T = Tile<W4, MT>;
+  constexpr bool FUSED = XB != 1;
+  const camp::GemmArgs& g = t.g;
   if (t.tma) {
-    const camp::GemmArgs& g = t.g;
-    const int rc[2] = {
-        hopper::encode_tma_3d_u8(&t.a_map, g.a, g.K, g.M, 1, BK, MT, 128),
-        hopper::encode_tma_3d_u8(&t.b_map, g.w, g.N, W4 ? g.K / 2 : g.K, 1,
-                                 BN, T::RAW_ROWS, 128)};
-    for (int e : rc)
-      if (e != 0) return e;
+    if constexpr (!FUSED) {
+      const int rc =
+          hopper::encode_tma_3d_u8(&t.a_map, g.a, g.K, g.M, 1, BK, MT, 128);
+      if (rc != 0) return rc;
+    }
+    const int rc = hopper::encode_tma_3d_u8(
+        &t.b_map, g.w, g.N, W4 ? g.K / 2 : g.K, 1, BN, T::RAW_ROWS, 128);
+    if (rc != 0) return rc;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      camp_gemm_tc_kernel<W4, MT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  const auto kernel = camp_gemm_tc_kernel<W4, MT, QMAX, XB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t.g.N + BN - 1) / BN, (t.g.M + MT - 1) / MT, splits);
-  camp_gemm_tc_kernel<W4, MT><<<grid, THREADS, T::SMEM, stream>>>(t);
-  const cudaError_t launched = cudaGetLastError();
-  if (launched != cudaSuccess) return static_cast<int>(launched);
-  const long total = (long)t.g.M * t.g.N;
+  const bool scale_pass = FUSED && (t.flags & kScaleKernel);
+  if constexpr (FUSED) {
+    if (scale_pass) {
+      constexpr int rows = SCALE_THREADS / 32;
+      camp_gemm_tc_scale_kernel<QMAX, XB>
+          <<<(g.M + rows - 1) / rows, SCALE_THREADS, 0, stream>>>(
+              g.a, t.sa_out, g.M, g.K, t.xvec);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  {
+    Launch l(dim3((g.N + BN - 1) / BN, (g.M + MT - 1) / MT, splits), THREADS,
+             T::SMEM, stream, scale_pass);
+    err = cudaLaunchKernelEx(&l.cfg, kernel, t);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (t.flags & kFlushInBlock) return 0;
+  const long total = (long)g.M * g.N;
   const long need = (total + FLUSH_THREADS - 1) / FLUSH_THREADS;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(need < 8192 ? need : 8192));
-  cfg.blockDim = dim3(FLUSH_THREADS);
-  cfg.stream = stream;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
+  Launch l(dim3(static_cast<unsigned>(need < 8192 ? need : 8192)),
+           FLUSH_THREADS, 0, stream, true);
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, camp_gemm_tc_flush_kernel, t.g,
+      &l.cfg, camp_gemm_tc_flush_kernel, t.g,
       static_cast<const int32_t*>(t.ws), splits));
 }
 
-template <bool W4>
-int launch_tc(TcArgs& t, int mt, int splits, cudaStream_t stream) {
-  if (mt == 8) return launch_instance<W4, 8>(t, splits, stream);
-  if (mt == 32) return launch_instance<W4, 32>(t, splits, stream);
-  if (mt == 128) return launch_instance<W4, 128>(t, splits, stream);
+template <bool W4, int QMAX, int XB>
+int launch_row_tile(TcArgs& t, int mt, int splits, cudaStream_t stream) {
+  if (mt == 8) return launch_instance<W4, 8, QMAX, XB>(t, splits, stream);
+  if (mt == 32) return launch_instance<W4, 32, QMAX, XB>(t, splits, stream);
+  if (mt == 128) return launch_instance<W4, 128, QMAX, XB>(t, splits, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Dynamic shared memory of one block of instance (W4, MT); 0 for no such
-// instance.
+// QMAX 0: int8 A; else x in bf16 (a_bf16) or f32.
+template <bool W4, int QMAX>
+int launch_tc(TcArgs& t, int mt, int splits, int a_bf16,
+              cudaStream_t stream) {
+  if constexpr (QMAX == 0)
+    return launch_row_tile<W4, 0, 1>(t, mt, splits, stream);
+  else if (a_bf16)
+    return launch_row_tile<W4, QMAX, 2>(t, mt, splits, stream);
+  else
+    return launch_row_tile<W4, QMAX, 4>(t, mt, splits, stream);
+}
+
+// Dynamic shared memory of one product block with B kind w4 and row tile
+// mt (the same for int8 and float A); 0 for no such instance.
 inline int smem_bytes(bool w4, int mt) {
   if (mt == 8) return w4 ? Tile<true, 8>::SMEM : Tile<false, 8>::SMEM;
   if (mt == 32) return w4 ? Tile<true, 32>::SMEM : Tile<false, 32>::SMEM;
@@ -406,17 +805,19 @@ inline int smem_bytes(bool w4, int mt) {
 }  // namespace
 }  // namespace camp_tc
 
-// One C entry point per instance: camp_gemm_common.cuh's signature, then
-// the int32 workspace of splits x M x N partial sums, the row tile MT (8,
-// 32 or 128), the number of splits and the K steps a split
-// (kernels/camp_gemm.py binds it). It launches the product, then the flush.
-#define CAMP_GEMM_TC_ENTRY(NAME, W4)                                          \
-  extern "C" int NAME(const void* a, int a_bf16, const void* sa,             \
-                      const void* w, const void* sb, const void* bias,       \
-                      int bias_bf16, const void* opd, int opd_bf16,          \
-                      void* out, int out_bf16, int M, int N, int K,          \
-                      int stages, int n_stages, void* ws, int mt,            \
-                      int splits, int kps, void* stream) {                   \
+// One C entry point per (B kind, A kind): the flush's arguments
+// (camp_gemm_common.cuh's GemmArgs), then the int32 workspace of splits x
+// M x N partial sums (NULL where the block flushes), the row tile MT (8,
+// 32 or 128), the number of splits, the K steps a split and the Flags
+// (kernels/camp_gemm.py::launch_gemm binds it). `sa` holds the row scales
+// of int8 A (QMAX 0), or receives those of x (M f32 in the workspace).
+#define CAMP_GEMM_TC_ENTRY(NAME, W4, QMAX)                                    \
+  extern "C" int NAME(const void* a, int a_bf16, void* sa, const void* w,    \
+                      const void* sb, const void* bias, int bias_bf16,       \
+                      const void* opd, int opd_bf16, void* out,              \
+                      int out_bf16, int M, int N, int K, int stages,         \
+                      int n_stages, void* ws, int mt, int splits, int kps,   \
+                      int flags, void* stream) {                             \
     const camp::GemmArgs g{a,         a_bf16,                                \
                            static_cast<const float*>(sa),                    \
                            static_cast<const int8_t*>(w),                    \
@@ -424,15 +825,21 @@ inline int smem_bytes(bool w4, int mt) {
                            bias,      bias_bf16, opd, opd_bf16, out,         \
                            out_bf16,  M,         N,   K,        stages,      \
                            n_stages};                                        \
-    if (ws == nullptr || splits < 1)                                         \
+    const bool in_block = (flags & camp_tc::kFlushInBlock) != 0;             \
+    if (splits < 1 || (in_block && splits != 1) ||                           \
+        (!in_block && ws == nullptr) || sa == nullptr)                       \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     camp_tc::TcArgs t{};                                                     \
     t.g = g;                                                                 \
+    t.sa_out = QMAX != 0 ? static_cast<float*>(sa) : nullptr;                \
     t.ws = static_cast<int32_t*>(ws);                                        \
     t.kps = kps;                                                             \
-    t.tma = K > 0 && K % 16 == 0 && N % 16 == 0 &&                           \
-            reinterpret_cast<uintptr_t>(a) % 16 == 0 &&                      \
-            reinterpret_cast<uintptr_t>(w) % 16 == 0;                        \
-    return camp_tc::launch_tc<W4>(t, mt, splits,                             \
-                                  static_cast<cudaStream_t>(stream));        \
+    t.flags = flags;                                                         \
+    const bool b_tma =                                                       \
+        N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;             \
+    const bool a16 = reinterpret_cast<uintptr_t>(a) % 16 == 0;               \
+    t.tma = QMAX != 0 ? b_tma : b_tma && K > 0 && K % 16 == 0 && a16;        \
+    t.xvec = QMAX != 0 && a16 && (long)K * (a_bf16 ? 2 : 4) % 16 == 0;       \
+    return camp_tc::launch_tc<W4, QMAX>(t, mt, splits, a_bf16,               \
+                                        static_cast<cudaStream_t>(stream));  \
   }

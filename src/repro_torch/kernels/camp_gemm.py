@@ -12,12 +12,15 @@ the fused K1 bit for bit.
 * :func:`camp_gemm_i8` is the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches ``csrc/camp_gemm.cu`` (or raises).
   ``launches`` counts kernel launches.
-* :func:`launch_gemm` binds the C signature that every GEMM instance of
-  ``csrc/camp_gemm_common.cuh`` shares (K1, K4, K6b) and, given a plan,
-  the one of the tensor-core template ``csrc/camp_gemm_tc.cuh`` (K5, K6a):
-  the same arguments, then an int32 workspace of partial sums, the row tile
-  and the split of K.
-* :func:`split_plan` picks that template's row tile and split of K.
+* :func:`launch_gemm` binds the C signature of K6b's dp4a kernel (the
+  flush's arguments, ``csrc/camp_gemm_common.cuh``'s ``GemmArgs``) and,
+  given a plan, the one of the tensor-core template
+  ``csrc/camp_gemm_tc.cuh`` (K1, K4, K5, K6a): the same arguments, then an
+  int32 workspace (the fused kernels' row scales, then the partial sums),
+  the row tile, the split of K and the flags of :func:`tc_flags`.
+* :func:`split_plan` picks that template's row tile and split of K;
+  :func:`tc_flags` how the call flushes and where the fused kernels' row
+  scales come from.
 """
 from __future__ import annotations
 
@@ -37,13 +40,22 @@ _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT,
              _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
 # the tensor-core template's: the same, then workspace, MT, splits, K steps
-# a split, before the stream
-_ARGTYPES_TC = _ARGTYPES[:-1] + [_VOID, _INT, _INT, _INT, _VOID]
+# a split, flags, before the stream
+_ARGTYPES_TC = _ARGTYPES[:-1] + [_VOID, _INT, _INT, _INT, _INT, _VOID]
 _fns = {}
 
 TC_BN = 128           # output columns a block of the tensor-core template
 TC_BK = 128           # K a step
 TC_ROW_TILES = (8, 32, 128)
+# csrc/camp_gemm_tc.cuh's Flags
+FLUSH_IN_BLOCK = 1    # one split: the product block flushes its own sums
+SCALE_KERNEL = 2      # fused: row scales from a scale pass kernel
+SPLIT_SCALES = 4      # fused: each block's scales from its own K range
+                      # (wrong on purpose: chip_smoke.py's control)
+# the fused kernels' row tiles whose scales come from the scale pass (at
+# the others each block reduces its own rows of x): the faster choice per
+# row tile at the serving shapes (PERF.md)
+SCALE_KERNEL_ROW_TILES = (32, 128)
 
 
 def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
@@ -60,19 +72,49 @@ def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
     return mt, -(-steps // per), per
 
 
+def tc_flags(m: int, n: int, plan: Tuple[int, int, int], sms: int,
+             fused: bool) -> int:
+    """The tensor-core template's flags for an (M, N) output under
+    ``plan`` on a card of ``sms`` SMs: the product block flushes its own
+    sums where there is one split and the grid fills the card (with fewer
+    blocks than SMs, a flush kernel over the whole card is faster: silu
+    and mul at M 256, N 4,864); the fused kernels take their row scales
+    from the scale pass at the row tiles of ``SCALE_KERNEL_ROW_TILES``."""
+    mt, splits, _ = plan
+    flags = 0
+    if splits == 1 and -(-n // TC_BN) * -(-m // mt) >= sms:
+        flags |= FLUSH_IN_BLOCK
+    if fused and mt in SCALE_KERNEL_ROW_TILES:
+        flags |= SCALE_KERNEL
+    return flags
+
+
+def device_kernels(flags: int) -> int:
+    """Device kernels one tensor-core call launches under ``flags``: the
+    scale pass, the product, the flush kernel."""
+    return (1 + bool(flags & SCALE_KERNEL)
+            + (not flags & FLUSH_IN_BLOCK))
+
+
 def tc_smem_bytes(w4: bool, mt: int) -> int:
-    """Dynamic shared memory of one block of the tensor-core instance (K6a
-    for ``w4``, else K5) with row tile ``mt``, read from the built library."""
+    """Dynamic shared memory of one product block of the tensor-core
+    template with packed-int4 B (``w4``: K4, K6a) or int8 B (K1, K5) and
+    row tile ``mt``, read from the built library."""
     fn = build.load("camp_gemm").camp_gemm_tc_smem
     fn.argtypes, fn.restype = [_INT, _INT], _INT
     return fn(int(w4), mt)
 
 
-def plan_for(a: torch.Tensor, n: int, k: int) -> Tuple[int, int, int]:
-    """:func:`split_plan` for ``a``'s rows on ``a``'s card."""
+def sms_of(a: torch.Tensor) -> int:
+    """SMs of the card that ``a`` lies on."""
     index = (a.device.index if a.device.index is not None
              else torch.cuda.current_device())
-    return split_plan(a.shape[0], n, k, build.sm_count(index))
+    return build.sm_count(index)
+
+
+def plan_for(a: torch.Tensor, n: int, k: int) -> Tuple[int, int, int]:
+    """:func:`split_plan` for ``a``'s rows on ``a``'s card."""
+    return split_plan(a.shape[0], n, k, sms_of(a))
 
 
 def check_tensor(name, t, shape, dtypes, device):
@@ -95,13 +137,15 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
 
 def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
                 out_dtype, epilogue: str, bias, operand,
-                plan: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+                plan: Optional[Tuple[int, int, int]] = None,
+                flags: Optional[int] = None) -> torch.Tensor:
     """Check the flush's tensors, allocate the (M, N) output and launch
     ``symbol`` of ``csrc/<lib>.cu``. ``a``/``b`` are checked by the caller;
     ``a_scale`` is None for the fused kernels, which compute it. ``plan``
-    (MT, splits, K steps a split) launches a tensor-core instance (the
-    product, then the flush) with an int32 workspace for each split's
-    partial sums, (splits, M, N)."""
+    (MT, splits, K steps a split) launches a tensor-core instance under
+    ``flags`` (default :func:`tc_flags`), with one int32 workspace: the
+    fused kernels' M row scales (f32), then each split's partial sums,
+    (splits, M, N), unless the product block flushes."""
     stages = validate_epilogue(epilogue, bias, operand)
     m, n, dev = a.shape[0], b.shape[1], a.device
     check_tensor("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,),
@@ -141,8 +185,16 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
             len(stages)]
     if plan is not None:
         mt, splits, per = plan
-        ws = torch.empty(splits * m * n, dtype=torch.int32, device=dev)
-        args += [ws.data_ptr(), mt, splits, per]
+        fused = a_scale is None
+        if flags is None:
+            flags = tc_flags(m, n, plan, sms_of(a), fused)
+        rows = -(-m // 4) * 4 if fused else 0    # planes 16-byte aligned
+        planes = 0 if flags & FLUSH_IN_BLOCK else splits * m * n
+        ws = torch.empty(rows + planes, dtype=torch.int32, device=dev)
+        if fused:
+            args[2] = ws.data_ptr()
+        args += [ws.data_ptr() + 4 * rows if planes else None, mt, splits,
+                 per, flags]
     rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")

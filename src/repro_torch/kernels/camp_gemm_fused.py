@@ -7,15 +7,18 @@ by the int8 weight (K1) or the packed-int4 weight (K4, (K//2, N), unpacked
 on chip) into an int32 accumulator, and flushed as ``acc · (s_a · s_b)``
 followed by the epilogue stages, with one store of the output (a first
 bias/residual stage fuses with the scale into one multiply-add, as XLA
-compiles the reference). The activations' integer payload and scales never
-exist in device memory.
+compiles the reference). The activations' integer payload never exists
+in device memory; only their M row scales do, in the call's workspace,
+for the flush.
 
 * ``camp_gemm_fused_*_ref`` are the plain PyTorch versions. The CPU tests
   use them, and ``chip_smoke.py`` holds the kernels against them.
 * ``camp_gemm_fused_*`` are the wrappers: a CPU tensor goes to the plain
-  version; a CUDA tensor launches ``csrc/camp_gemm_fused.cu`` (or raises).
-  ``launches`` (w8a8), ``launches_w4a8`` and ``launches_w4a4`` count kernel
-  launches.
+  version; a CUDA tensor launches ``csrc/camp_gemm_fused.cu`` (or raises):
+  the tensor-core template of K5/K6a with x quantized on chip, under K5's
+  split plan (``camp_gemm.plan_for``), one to three device kernels a call
+  (``camp_gemm.device_kernels``). ``launches`` (w8a8), ``launches_w4a8``
+  and ``launches_w4a4`` count calls that launch.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels.camp_gemm import (FLOATS, check_tensor, launch_gemm,
-                                           require_cuda)
+                                           plan_for, require_cuda)
 from repro_torch.kernels.ref import dot_i32, flush_ref, quantize_rowwise_ref
 
 launches = 0          # kernel launches through camp_gemm_fused_w8a8 (K1)
@@ -90,7 +93,7 @@ def _fused_cuda(qmode, x, b, b_scale, kw):
     check_tensor("x", x, (m, k), FLOATS, dev)
     check_tensor("W", b, (b.shape[0], n), (torch.int8,), dev)
     return launch_gemm("camp_gemm_fused", f"camp_gemm_fused_{qmode}", x, None,
-                       b, b_scale, k, **kw)
+                       b, b_scale, k, plan=plan_for(x, n, k), **kw)
 
 
 def camp_gemm_fused_w8a8(x: torch.Tensor, b_q: torch.Tensor,

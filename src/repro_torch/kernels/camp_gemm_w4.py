@@ -12,7 +12,7 @@ Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages). K is
 even, so a K step of either CUDA kernel (``csrc/camp_gemm.cu``) never
 splits a packed byte, and the nibbles are unpacked into int8 in shared
 memory: K6a on K5's tensor-core template (``csrc/camp_gemm_tc.cuh``, with
-K5's split plan), K6b on the template of ``csrc/camp_gemm_common.cuh``.
+K5's split plan), K6b on the dp4a kernel of ``csrc/camp_gemm.cu``.
 
 Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises); ``launches_w4`` and

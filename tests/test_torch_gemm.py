@@ -168,10 +168,10 @@ def test_camp_matmul_matches_reference(qmode):
     assert_ulps(got, want, 1, "bfloat16")
 
 
-def test_int4_qmodes_not_ported():
-    """The int4 qmodes are ported now (their parity is in
-    test_torch_int4.py); what they still refuse is what the reference
-    refuses: a weight with an odd K cannot be packed two per byte."""
+def test_int4_qmodes_refuse_odd_k():
+    """The int4 qmodes (their parity is in test_torch_int4.py) prepare and
+    multiply a weight of even K, and refuse what the reference refuses: a
+    weight with an odd K cannot be packed two per byte."""
     x = torch.zeros(2, 64)
     for qmode in ("w4a8", "w4a4", "w4a16"):
         w = camp.prepare_weight(torch.zeros(64, 8), qmode)
