@@ -5,32 +5,35 @@
 Phases (any failure exits non-zero and prints no result):
 
 1. Build: compile the six CUDA kernel libraries (one nvcc each, all at
-   once), and beside them K3's, K2's, K8's, K5/K6a's and K1/K4's sources
-   with ``-Xptxas -v``: the registers, stack and spills of each of their
-   device kernels (K8's bf16 builds for hd 64 and 128, and every
-   tensor-core GEMM instance (K5/K6a: a row tile each; K1/K4: a row tile,
-   qmode and x type each) with its scale pass and flush kernels, must not
-   spill), and the dynamic shared memory of each build; then ``cuobjdump
-   -sass`` of K8's library: the ``HGMMA`` (wgmma) and asynchronous-copy
-   (``UTMALDG``, ``LDGSTS``) instructions of each bf16 build, none of
-   which may lack either; and of K5/K6a's and K1/K4's: every tensor-core
-   instance must hold an int8 tensor-core instruction (``IGMMA``: wgmma s8;
-   or ``IMMA``) and an asynchronous copy, and no dp4a (``IDP.4A``), which
-   K6b's kernel must show (the control that the pattern matches).
+   once), and beside them K3's, K2's, K8's, K5/K6a/K6b's, K1/K4's and K7's
+   sources with ``-Xptxas -v``: the registers, stack and spills of each of
+   their device kernels (K8's bf16 builds for hd 64 and 128, every
+   tensor-core GEMM instance (K5/K6a/K6b: a row tile each; K1/K4: a row
+   tile, qmode and x type each) with its scale pass and flush kernels, and
+   every K7 instance must not spill), and the dynamic shared memory of
+   each build; then ``cuobjdump -sass`` of K8's library: the ``HGMMA``
+   (wgmma) and asynchronous-copy (``UTMALDG``, ``LDGSTS``) instructions of
+   each bf16 build, none of which may lack either; and of K5/K6a/K6b's and
+   K1/K4's: every tensor-core instance must hold an int8 tensor-core
+   instruction (``IGMMA``: wgmma s8; or ``IMMA``) and an asynchronous copy,
+   and neither library any dp4a (``IDP.4A``); each pattern is first held
+   against a literal SASS line it must match (``SASS_LINES``).
 2. Kernels vs their plain PyTorch versions on the card, at the serving
    path's full-width qwen2-0.5b shapes, with times (CUDA events, L2 flushed
    before every launch), the bound and a PyTorch library yardstick:
    K1 fused w8a8 GEMM; K4 fused w4a8 and w4a4 GEMMs; K5, K6a, K6b unfused
-   int8 / w4 / a4w4 GEMMs (K1, K4, K5 and K6a also at ragged M 1, 3, 17,
-   100, N 200 and 208, K 928, 4,870 and 4,880: byte gathers where rows are
-   not 16-byte aligned, TMA's zero fill where they are; each with its
-   split plan, its device kernels a call and a second yardstick,
-   ``torch._int_mm`` with B K-major, alone and with the flush (K1/K4: with
-   the quantize and the flush); a control that drops the last split and,
-   for K1/K4, one that takes each split's row scales from its own K range,
-   which the exact check must each reject; and K1/K4's row scales from the
-   block and from the scale pass, timed side by side); K7
-   rowwise quantize (bits 8 and 4); K3 paged
+   int8 / w4 / a4w4 GEMMs (all also at ragged M 1, 3, 17, 100, N 200 and
+   208, K 928, 4,870 and 4,880: byte gathers where rows are not 16-byte
+   aligned, TMA's zero fill where they are; each with its split plan, its
+   device kernels a call and a second yardstick, ``torch._int_mm`` with B
+   K-major, alone and with the flush (K1/K4: with the quantize and the
+   flush; K6b: with A's unpack and the flush); a control that drops the
+   last split and, for K1/K4, one that takes each split's row scales from
+   its own K range, which the exact check must each reject; and K1/K4's
+   row scales from the block and from the scale pass, timed side by
+   side); K7 rowwise quantize (bits 8 and 4, bf16 and f32, with a zero
+   row; M 1 to 4,096, K 896 to 29,568, and K 4,870, whose rows take
+   element loads), its threads a row and blocks; K3 paged
    decode attention (the serving batch, then the heads of qwen3-0.6b,
    qwen2-72b and stablelm-12b (hd 128 with G 2 and 8, hd 160 with G 4),
    page size 8, one 4,096-token sequence and 32 ragged sequences), with
@@ -278,8 +281,9 @@ def gemm_close(got, want, epilogue: str) -> bool:
 # instructions
 # ---------------------------------------------------------------------------
 PTXAS_SOURCES = {"K3": "paged_attention", "K2": "paged_prefill",
-                 "K8": "flash_attention", "K5/K6a": "camp_gemm",
-                 "K1/K4": "camp_gemm_fused"}
+                 "K8": "flash_attention", "K5/K6": "camp_gemm",
+                 "K1/K4": "camp_gemm_fused", "K7": "quantize"}
+GEMM_SOURCES = ("K5/K6", "K1/K4")
 K8_NO_SPILL = (64, 128)      # K8 bf16 builds that must not spill
 ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 # SASS of the tensor cores: wgmma in bf16 (HGMMA) and in int8 (IGMMA),
@@ -287,24 +291,36 @@ ASYNC_COPIES = ("UTMALDG", "LDGSTS")
 TENSOR_CORE = ("HGMMA", "IGMMA", "IMMA")
 SASS_OPS = {**{op: rf"\b{op}\b" for op in (*TENSOR_CORE, *ASYNC_COPIES)},
             "IDP4A": r"\bIDP\.?4A\b"}
+# a line of cuobjdump -sass (CUDA 12.8, sm_90a) that each pattern must
+# match: IGMMA from K6b's MT 8 instance in camp_gemm, IDP.4A from the dp4a
+# kernel that K6b was before it joined the tensor-core template
+SASS_LINES = {
+    "IGMMA": "        /*4e30*/                   IGMMA.64x8x32.S8.S8 R24, "
+             "gdesc[UR20], R24 ;",
+    "IDP4A": "        /*2790*/                   IDP.4A.S8.S8 R30, R8, R25, "
+             "R30 ;",
+}
 # a tensor-core GEMM instance (csrc/camp_gemm_tc.cuh): W4, MT, QMAX (0:
-# int8 A) and the bytes of an A element (1: int8; 2, 4: x in bf16, f32)
+# int8 or packed A) and how A arrives (0: packed int4; 1: int8; 2, 4: x in
+# bf16, f32)
 TC_NAME = re.compile(r"camp_gemm_tc_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E")
-# the libraries' tensor-core instances: K5/K6a, int8 A; K1/K4, x in bf16 and
-# f32 in three qmodes; then their other device kernels
-TC_INSTANCES = {"camp_gemm": 2 * len(k5.TC_ROW_TILES),
+TC_A = {"0": "int4", "1": "int8", "2": "bf16", "4": "f32"}
+# the libraries' tensor-core instances: K5/K6a, int8 A, and K6b, packed A;
+# K1/K4, x in bf16 and f32 in three qmodes; then their other device kernels
+TC_INSTANCES = {"camp_gemm": 3 * len(k5.TC_ROW_TILES),
                 "camp_gemm_fused": 3 * 2 * len(k5.TC_ROW_TILES)}
 TC_OTHERS = {"camp_gemm": ("camp_gemm_tc_flush_kernel",),
              "camp_gemm_fused": ("camp_gemm_tc_flush_kernel",
                                  "camp_gemm_tc_scale_kernel")}
-TC_KEYS = {("0", "0"): "K5", ("1", "0"): "K6a", ("0", "127"): "K1",
-           ("1", "127"): "K4 w4a8", ("1", "7"): "K4 w4a4"}
+# (W4, QMAX, A) → kernel; x in bf16 or f32 counts as "x"
+TC_KEYS = {("0", "0", "int8"): "K5", ("1", "0", "int8"): "K6a",
+           ("1", "0", "int4"): "K6b", ("0", "127", "x"): "K1",
+           ("1", "127", "x"): "K4 w4a8", ("1", "7", "x"): "K4 w4a4"}
 
 
 def start_ptxas(tmp):
-    """``nvcc -Xptxas -v`` for K3's, K2's, K8's, and K5/K6a's sources,
-    started beside ``build.build_all()`` (whose libraries the kernels
-    load)."""
+    """``nvcc -Xptxas -v`` for ``PTXAS_SOURCES``, started beside
+    ``build.build_all()`` (whose libraries the kernels load)."""
     return {key: subprocess.Popen(
         [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(Path(tmp) / f"{name}.so"), str(build.CSRC / f"{name}.cu")],
@@ -343,18 +359,20 @@ def tc_instance(name):
     m = TC_NAME.search(name)
     if m is None:
         return None
-    a = {"1": "int8", "2": "bf16", "4": "f32"}[m.group(4)]
-    return TC_KEYS[m.group(1), m.group(3)], int(m.group(2)), a
+    a = TC_A[m.group(4)]
+    key = TC_KEYS[m.group(1), m.group(3),
+                  a if a in ("int4", "int8") else "x"]
+    return key, int(m.group(2)), a
 
 
 def tc_label(inst):
     key, mt, a = inst
-    return f"{key} MT {mt}" + ("" if a == "int8" else f" {a}")
+    return f"{key} MT {mt}" + ("" if a in ("int4", "int8") else f" {a}")
 
 
 def other_label(lib_key, name):
     """The scale pass or flush kernel of a GEMM library (``lib_key``: "K1/K4"
-    or "K5/K6a") by its mangled name, with the scale pass's QMAX and x
+    or "K5/K6") by its mangled name, with the scale pass's QMAX and x
     type."""
     part = "scale" if "scale_kernel" in name else "flush"
     q = re.search(r"ILi(\d+)ELi(\d+)E", name)
@@ -365,11 +383,11 @@ def other_label(lib_key, name):
 
 def tc_ptxas_report(procs):
     """Registers, stack, spills and dynamic shared memory of each
-    tensor-core product instance (K5/K6a: a row tile each; K1/K4: a row
+    tensor-core product instance (K5/K6a/K6b: a row tile each; K1/K4: a row
     tile and an x type each) and of their scale and flush kernels; raises if
     one spills or one is missing."""
     rows = []
-    for key in ("K5/K6a", "K1/K4"):
+    for key in GEMM_SOURCES:
         lib = PTXAS_SOURCES[key]
         found = others = 0
         for name, info in ptxas_functions(key, procs[key]):
@@ -415,7 +433,7 @@ def ptxas_report(procs):
     K8: one block, read from its library)."""
     rows = []
     for key, proc in procs.items():
-        if key in ("K5/K6a", "K1/K4"):
+        if key in (*GEMM_SOURCES, "K7"):
             continue
         for name, info in ptxas_functions(key, proc):
             dp = re.search(r"Li(\d+)E", name)
@@ -450,6 +468,28 @@ def ptxas_report(procs):
                and (r.get("spill_stores") or r.get("spill_loads"))]
     if spilled:
         raise RuntimeError(f"K8 bf16 builds spill: hd {spilled}")
+    return rows
+
+
+def k7_ptxas_report(procs):
+    """Registers, stack and spills of every K7 instance (bits and x type);
+    raises if one spills or the four are not all there."""
+    rows = []
+    for name, info in ptxas_functions("K7", procs["K7"]):
+        q = re.search(r"quantize_rowwise_kernelILi(\d+)ELi(\d+)E", name)
+        if q is None:
+            continue
+        rows.append(dict(kernel=f"K7 QMAX {q.group(1)} "
+                         f"{'bf16' if q.group(2) == '2' else 'f32'}", **info))
+    for r in sorted(rows, key=lambda r: r["kernel"]):
+        print(f"  ptxas {r['kernel']}: {r.get('registers')} registers, stack "
+              f"{r.get('stack')} B, spill stores/loads {r.get('spill_stores')}"
+              f"/{r.get('spill_loads')} B")
+    spilled = [r["kernel"] for r in rows
+               if r.get("spill_stores") or r.get("spill_loads")]
+    if spilled or len(rows) != 4:
+        raise RuntimeError(f"K7 instances: {[r['kernel'] for r in rows]}; "
+                           f"spilled: {spilled}")
     return rows
 
 
@@ -497,23 +537,33 @@ def k8_sass():
     return counts
 
 
+def sass_patterns_match():
+    """Raise unless each pattern of ``SASS_LINES`` matches its literal line
+    and no other pattern does (the control that a count of 0 means the
+    instruction is absent, not that the pattern is wrong)."""
+    for op, line in SASS_LINES.items():
+        hits = [o for o, pat in SASS_OPS.items() if re.search(pat, line)]
+        if hits != [op]:
+            raise RuntimeError(f"the SASS patterns {hits} match {line!r}; "
+                               f"expected only {op}")
+
+
 def tc_sass():
     """Tensor-core (``HGMMA``, ``IGMMA``, ``IMMA``), asynchronous-copy and
-    dp4a (``IDP.4A``) instructions of every tensor-core instance (K5/K6a in
-    ``camp_gemm``, K1/K4 in ``camp_gemm_fused``), of the fused calls' scale
-    and flush kernels, and of K6b's dp4a kernel (the control that the dp4a
-    pattern matches), from ``cuobjdump -sass`` of the built libraries;
-    raises if an instance lacks a tensor-core or an asynchronous-copy
-    instruction or holds a dp4a, if the fused library holds a dp4a
-    anywhere, or if K6b's kernel shows none. None (and "not measured")
+    dp4a (``IDP.4A``) instructions of every tensor-core instance (K5/K6a/K6b
+    in ``camp_gemm``, K1/K4 in ``camp_gemm_fused``) and of the scale and
+    flush kernels, from ``cuobjdump -sass`` of the built libraries; raises
+    if an instance lacks a tensor-core or an asynchronous-copy instruction,
+    or if either library holds a dp4a anywhere. None (and "not measured")
     without cuobjdump."""
+    sass_patterns_match()
     tool = cuobjdump_path()
     if tool is None:
         print("  GEMM SASS: no cuobjdump beside nvcc or in Triton: not "
               "measured")
         return None
     counts, bad = {}, []
-    for key, lib in (("K5/K6a", "camp_gemm"), ("K1/K4", "camp_gemm_fused")):
+    for key, lib in zip(GEMM_SOURCES, ("camp_gemm", "camp_gemm_fused")):
         sass = subprocess.run([tool, "-sass", str(build.lib_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -522,30 +572,28 @@ def tc_sass():
             name = part.split()[0]
             inst = tc_instance(name)
             label = tc_label(inst) if inst else (
-                "K6b" if "camp_gemm_a4w4_kernel" in name
-                else other_label(key, name)
+                other_label(key, name)
                 if any(o in name for o in TC_OTHERS[lib])
                 else f"{lib} {name[:60]}")
             c = {op: len(re.findall(pat, part))
                  for op, pat in SASS_OPS.items()}
             counts[label] = c
+            if c["IDP4A"]:
+                bad.append(label)
             if inst is not None:
                 found += 1
                 if (not any(c[op] for op in TENSOR_CORE)
-                        or not any(c[op] for op in ASYNC_COPIES)
-                        or c["IDP4A"]):
+                        or not any(c[op] for op in ASYNC_COPIES)):
                     bad.append(label)
-            elif lib == "camp_gemm_fused" and c["IDP4A"]:
-                bad.append(label)
         if found != TC_INSTANCES[lib]:
             bad.append(f"{lib}: {found} instances")
     for label, c in sorted(counts.items()):
         print(f"  {label} SASS: " + ", ".join(f"{op} {n}"
                                               for op, n in c.items()))
-    if bad or not counts.get("K6b", {}).get("IDP4A"):
+    if bad:
         raise RuntimeError(f"tensor-core instances without tensor-core or "
-                           f"asynchronous-copy instructions, or with IDP4A: "
-                           f"{bad}; K6b's IDP4A: {counts.get('K6b')}")
+                           f"asynchronous-copy instructions, or kernels "
+                           f"with IDP4A: {bad}")
     return counts
 
 
@@ -601,19 +649,25 @@ def kmajor_b(w, kind):
 
 
 def kmajor_library(kind):
-    """Second yardstick for K5/K6a: torch._int_mm on K-major B, alone
-    (``flush=False``) and with the elementwise flush. ``prepare`` unpacks
-    and transposes B once, outside the timed region."""
-    def prepare(a, w, s_a, s_b):
-        return kmajor_b(w, kind)
+    """Second yardstick for K5/K6: torch._int_mm on K-major B, alone
+    (``flush=False``) and with the elementwise flush (K6b: with A's unpack
+    too). ``prepare`` unpacks and transposes B once, and unpacks A once for
+    the product alone, outside the timed region."""
+    def unpack_a(a, w):
+        return unpack_int4(a.T, 2 * w.shape[0]).T.contiguous()
 
-    def run(b_t, a, w, s_a, s_b, *, flush, out_dtype, epilogue, bias,
+    def prepare(a, w, s_a, s_b):
+        return (unpack_a(a, w) if kind == "a4w4" else a), kmajor_b(w, kind)
+
+    def run(state, a, w, s_a, s_b, *, flush, out_dtype, epilogue, bias,
             operand):
-        acc = int_mm(a, b_t.t())
+        a_q, b_t = state
         if not flush:
-            return acc
-        return library_flush(acc, s_a, s_b, epilogue, bias, operand,
-                             out_dtype)
+            return int_mm(a_q, b_t.t())
+        if kind == "a4w4":
+            a_q = unpack_a(a, w)
+        return library_flush(int_mm(a_q, b_t.t()), s_a, s_b, epilogue, bias,
+                             operand, out_dtype)
     return prepare, run
 
 
@@ -650,10 +704,9 @@ def time_library(timer, key, fn, what):
 
 def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc,
               kmajor=None):
-    """One GEMM kernel against its plain version: error, times, bound; for
-    the tensor-core kernels (``kmajor``: K1, K4, K5, K6a) also the K-major
-    ``_int_mm`` yardsticks, the split plan and the device kernels a call
-    launches."""
+    """One GEMM kernel against its plain version: error, times, bound; with
+    ``kmajor`` (every tensor-core kernel) also the K-major ``_int_mm``
+    yardsticks, the split plan and the device kernels a call launches."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -678,7 +731,7 @@ def gemm_case(timer, key, kernel, plain, library, args, kw, n_ops, desc,
                 timer, key, lambda: run(state, *args, flush=flush, **kw),
                 "K-major _int_mm" + (" + flush" if flush else ""))
         a = args[0]
-        row["plan"] = k5.plan_for(a, n, a.shape[1])
+        row["plan"] = k5.plan_for(a, n, desc["k"])
         row["device_kernels"] = k5.device_kernels(k5.tc_flags(
             m, n, row["plan"], k5.sms_of(a), len(args) == 3))
         extra = (f" tn={row['library_kmajor_ms']} "
@@ -807,9 +860,10 @@ def fused_controls(gen):
     return rows
 
 
-# ragged shapes for K5/K6a (M, K, N): every M the row tiles leave ragged,
-# an N and Ks whose rows are not 16-byte aligned (the byte-gather loads),
-# K 4,870 even for the packed weights; then 16-byte aligned rows with
+# ragged shapes for the tensor-core GEMMs (M, K, N): every M the row tiles
+# leave ragged, an N and Ks whose rows are not 16-byte aligned (the
+# byte-gather loads; K6b's packed rows of 2,435 and 2,440 bytes too), K
+# 4,870 even for the packed operands; then 16-byte aligned rows with
 # ragged tiles on every edge (TMA's zero fill)
 RAGGED_SHAPES = ((1, 928, 200), (3, 4870, 200), (17, 928, 200),
                  (100, 4870, 200), (100, 4880, 208))
@@ -833,13 +887,12 @@ def _unfused_inputs(gen, kind, m, k, n):
 
 
 def check_unfused(timer, gen, kind):
-    """K5 (i8), K6a (w4) or K6b (a4w4) at the serving shapes, bf16; K5 and
-    K6a also at the ragged shapes, with their split plans and the K-major
-    ``_int_mm`` yardsticks."""
+    """K5 (i8), K6a (w4) or K6b (a4w4) at the serving and the ragged
+    shapes, bf16, with their split plans and the K-major ``_int_mm``
+    yardsticks."""
     key, kernel, plain = UNFUSED[kind]
-    tc = kind != "a4w4"
     rows = []
-    for m, k, n in SERVING_SHAPES + (RAGGED_SHAPES if tc else ()):
+    for m, k, n in SERVING_SHAPES + RAGGED_SHAPES:
         args = _unfused_inputs(gen, kind, m, k, n)
         for epi in EPILOGUES:
             bias, opd = _extras(gen, m, n, epi, torch.bfloat16)
@@ -848,13 +901,12 @@ def check_unfused(timer, gen, kind):
             rows.append(gemm_case(timer, key, kernel, plain,
                                   unfused_library(kind), args, kw,
                                   2.0 * m * n * k, dict(m=m, k=k, n=n),
-                                  kmajor=kmajor_library(kind) if tc
-                                  else None))
+                                  kmajor=kmajor_library(kind)))
     return rows
 
 
 def k5_dropped_split(gen, kind, shape):
-    """Control: K5 or K6a launched with its plan's last split left out
+    """Control: K5, K6a or K6b launched with its plan's last split left out
     (splits - 1 runs of the same K steps, so the last run's K range is
     never summed). The exact check must reject it."""
     key, _, plain = UNFUSED[kind]
@@ -877,14 +929,26 @@ def k5_dropped_split(gen, kind, shape):
                 max_abs_err=max_err(got, want))
 
 
+# K7's shapes (M, K): the serving activations' (decode 8, prefill 256, the
+# dense prefill 4,096; d 896 and d_ff 4,864), one row, K 4,870 (rows not
+# 16-byte aligned: element loads) and qwen2-72b's d_ff 29,568
+K7_SHAPES = ((1, 896), (8, 896), (256, 896), (4096, 896), (8, 4864),
+             (256, 4864), (256, 4870), (8, 29568), (256, 29568))
+
+
 def check_k7(timer, gen):
-    """K7 at the serving activations' shapes, bits 8 and 4, bf16 and f32.
-    No single PyTorch call computes it, so there is no library yardstick."""
+    """K7 at ``K7_SHAPES``, bits 8 and 4, bf16 and f32, a zero row in each
+    (but M 1), with its threads a row (``team_size``). No single PyTorch
+    call computes it, so there is no library yardstick; beside it is timed
+    one that moves the same bytes, ``x.to(torch.int8)`` (reads x, writes
+    M x K int8), the floor this timer gives a one-pass kernel of them."""
     rows = []
-    for m, k in ((8, 896), (256, 896), (256, 4864)):
+    for m, k in K7_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
-            x[m // 2] = 0.0                             # a zero row → (0, 1)
+            if m > 1:
+                x[m // 2] = 0.0                         # a zero row → (0, 1)
+            team = k7.team_size(m, k, x.element_size(), k5.sms_of(x))
             for bits in (8, 4):
                 q, s = k7.quantize_rowwise_kernel(x, bits=bits)
                 q_r, s_r = quantize_rowwise_ref(x, bits)
@@ -895,17 +959,22 @@ def check_k7(timer, gen):
                 b_ms, b_by = bound(nbytes(x, q, s), 3.0 * m * k,
                                    F32_OPS_PER_S)
                 row = dict(kernel="K7", m=m, k=k, bits=bits,
-                           dtype=str(dtype), max_abs_err=err, ok=ok,
+                           dtype=str(dtype), team=team, max_abs_err=err,
+                           ok=ok,
                            ms=timer(lambda: k7.quantize_rowwise_kernel(
                                x, bits=bits)),
                            plain_ms=timer(lambda: quantize_rowwise_ref(
                                x, bits)),
-                           library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                           library_ms=None,
+                           same_bytes_ms=timer(lambda: x.to(torch.int8)),
+                           bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
                 print(f"  K7      m={m} k={k} bits={bits} {str(dtype)[6:]:8s}"
-                      f" err={err:.3g} (exact {'ok' if ok else 'FAIL'}) "
+                      f" team={team} err={err:.3g} "
+                      f"(exact {'ok' if ok else 'FAIL'}) "
                       f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
-                      f"lib=None bound={b_ms:.4f} ({b_by})")
+                      f"lib=None x.to(int8)={row['same_bytes_ms']:.4f} "
+                      f"bound={b_ms:.4f} ({b_by})")
     return rows
 
 
@@ -1359,7 +1428,7 @@ def profile_run(fn):
         paged[key] = dict(ms=sum(per_kernel[n] for n in names),
                           device_kernels=sum(counts[n] for n in names))
     # the integer GEMMs' device kernels (csrc/camp_gemm_tc.cuh: product,
-    # scale pass, flush; K6b's dp4a kernel)
+    # scale pass, flush)
     names = [n for n in per_kernel if "camp_gemm" in n]
     gemm = dict(ms=union_ms([(a, b) for a, b, n in spans
                              if "camp_gemm" in n]),
@@ -1932,6 +2001,7 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s")
         ptxas = ptxas_report(procs)
         tc_ptxas = tc_ptxas_report(procs)
+        k7_ptxas = k7_ptxas_report(procs)
     sass = k8_sass()
     gemm_sass = tc_sass()
 
@@ -1949,7 +2019,8 @@ def main(argv=None) -> int:
                           both)
             + check_unfused(timer, gen, "i8") + check_unfused(timer, gen, "w4")
             + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen))
-    k5_controls = [k5_dropped_split(gen, kind, shape) for kind in ("i8", "w4")
+    k5_controls = [k5_dropped_split(gen, kind, shape)
+                   for kind in ("i8", "w4", "a4w4")
                    for shape in ((256, 4864, 896), (8, 4864, 896))]
     k1_controls = fused_controls(gen)
     scale_modes = fused_scale_modes(timer, gen)
@@ -2034,7 +2105,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, ptxas=ptxas, tc_ptxas=tc_ptxas, k8_sass=sass,
+            dict(card=smi, ptxas=ptxas, tc_ptxas=tc_ptxas,
+                 k7_ptxas=k7_ptxas, k8_sass=sass,
                  tc_sass=gemm_sass, k5_controls=k5_controls,
                  k1_controls=k1_controls, scale_modes=scale_modes, rows=rows,
                  k3_controls=k3_controls, k2_splits=k2_splits,

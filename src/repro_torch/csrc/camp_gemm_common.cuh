@@ -1,7 +1,6 @@
-// Shared device code of the CAMP integer GEMMs (K1, K4, K5 and K6a on the
-// tensor-core template camp_gemm_tc.cuh; K6b's dp4a kernel in
-// camp_gemm.cu) and of K7 (quantize.cu, which reads x with load_f): the
-// arguments of a GEMM and its flush.
+// Shared device code of the CAMP integer GEMMs (K1, K4, K5, K6a and K6b,
+// all on the tensor-core template camp_gemm_tc.cuh): the arguments of a
+// GEMM and its flush.
 //
 // The flush, once per output:
 //   y[m, n] = (float) acc[m, n] * (s_a[m] * s_b[n])

@@ -34,6 +34,6 @@
 // the scales and the epilogue once per output.
 #include "camp_gemm_tc.cuh"
 
-CAMP_GEMM_TC_ENTRY(camp_gemm_fused_w8a8, false, 127)
-CAMP_GEMM_TC_ENTRY(camp_gemm_fused_w4a8, true, 127)
-CAMP_GEMM_TC_ENTRY(camp_gemm_fused_w4a4, true, 7)
+CAMP_GEMM_TC_ENTRY(camp_gemm_fused_w8a8, false, 127, false)
+CAMP_GEMM_TC_ENTRY(camp_gemm_fused_w4a8, true, 127, false)
+CAMP_GEMM_TC_ENTRY(camp_gemm_fused_w4a4, true, 7, false)

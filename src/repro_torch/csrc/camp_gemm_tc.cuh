@@ -1,12 +1,14 @@
 // The tensor-core template of the CAMP integer GEMMs, for Hopper (sm_90a):
-// K5 (int8 A x int8 B) and K6a (int8 A x int4 B packed two per byte along
-// K), whose activations arrive quantized (camp_gemm.cu), and K1 and K4
-// (the same two B kinds), whose float activations are quantized inside the
-// kernel (camp_gemm_fused.cu). Those files say what each instance
-// replaces. An instance is <W4, MT, QMAX, XB>: B packed int4 (W4), the row
-// tile MT (8, 32 or 128), and how A arrives: XB = 1, int8 with its row
-// scales (QMAX 0); XB = 2 or 4, x in bf16 or f32, quantized per row to
-// [-QMAX, QMAX] (127, or 7 for w4a4).
+// K5 (int8 A x int8 B), K6a (int8 A x int4 B packed two per byte along K)
+// and K6b (packed int4 A x packed int4 B), whose activations arrive
+// quantized (camp_gemm.cu), and K1 and K4 (int8 or packed int4 B), whose
+// float activations are quantized inside the kernel (camp_gemm_fused.cu).
+// Those files say what each instance replaces. An instance is
+// <W4, MT, QMAX, XB>: B packed int4 (W4), the row tile MT (8, 32 or 128),
+// and how A arrives: XB = 1, int8 with its row scales (QMAX 0); XB = 0,
+// int4 packed two per byte along K, (M, K/2), with its row scales (QMAX
+// 0); XB = 2 or 4, x in bf16 or f32, quantized per row to [-QMAX, QMAX]
+// (127, or 7 for w4a4).
 //
 // Orientation. The block computes a tile of C^T = B^T A^T: wgmma's
 // 64-row operand is B^T (BN = 128 output columns n, two warpgroups of 64),
@@ -28,10 +30,7 @@
 // The fused quantize (XB 2 or 4). The quantized activations never reach
 // device memory. Each row's scale comes from its whole K row, before any
 // of its tiles is quantized, by the reference's f32 chain as XLA compiles
-// it:
-//   s[m] = absmax_k |x[m, k]| * f32(1/QMAX)        (1 where absmax is 0)
-//   q[m, k] = clamp(rint(x[m, k] / s[m]), -QMAX, QMAX)
-// (an IEEE quotient, rounded half to even; no fast-math). A block cannot
+// it (camp_quant.cuh, which K7 shares). A block cannot
 // take the scale from its own split of K, so the scales come either from
 // the block itself, each warp reducing whole rows of x (read from L2; the
 // choice at MT 8, where a tile has few rows), or from
@@ -53,6 +52,13 @@
 // redone by the division (quantize_group says why). Every n-tile block
 // quantizes its rows again: at M 256 that arithmetic, not the bytes, sets
 // the time (PERF.md).
+//
+// Packed int4 A (XB 0, K6b) takes the same register path with no scale
+// work: a 16-byte group of packed A holds 32 k of one row; it is loaded one
+// K step ahead (byte gathers where K/2 is not a multiple of 16) and its
+// nibbles, low first, sign-extended, become two 16-byte int8 chunks of the
+// A slot at swz_off. K is even, so a step never splits a byte; rows past M
+// and bytes past K/2 come out zero.
 //
 // B^T. Each stage of B is rewritten K-major into one of two B^T buffers
 // (128 n rows x 128 k bytes, swizzled): a thread takes a 4 k x 4 n block
@@ -93,10 +99,17 @@
 #include <stdint.h>
 
 #include "camp_gemm_common.cuh"
+#include "camp_quant.cuh"
 #include "hopper.cuh"
 
 namespace camp_tc {
 namespace {
+
+using camp_quant::exact_only;
+using camp_quant::gather_x;
+using camp_quant::quantize_group;
+using camp_quant::quantize_group_exact;
+using camp_quant::row_scale;
 
 constexpr int BN = 128;          // output columns a block (wgmma rows)
 constexpr int BK = 128;          // K a step: one swizzle panel of int8 a row
@@ -135,12 +148,14 @@ struct Tile {
 struct TcArgs {
   CUtensorMap a_map;  // int8 A (M, K) in boxes of MT rows x 128 bytes (tma)
   CUtensorMap b_map;  // B as stored, boxes of RAW_ROWS rows x 128 bytes
-  camp::GemmArgs g;   // g.a: int8 A, or x (fused); g.sa: A's row scales
+  camp::GemmArgs g;   // g.a: int8 A, packed A or x (fused); g.sa: A's
+                      // row scales
   float* sa_out;      // fused: where the M row scales go (== g.sa)
   int32_t* ws;        // (splits, M, N) int32 partial sums
   int kps;            // K steps a split
   int tma;            // rows of B (and int8 A) 16-byte aligned: TMA
-  int xvec;           // fused: x's rows 16-byte aligned: vector loads
+  int xvec;           // x's or packed A's rows 16-byte aligned: vector
+                      // loads
   int flags;          // Flags
 };
 
@@ -158,12 +173,12 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr,
                : "memory");
 }
 
-// 16 bytes of row `row` from byte `col` on, of a row-major int8 matrix
+// 16 bytes of row `row` from byte `col` on, of a row-major byte matrix
 // (rows x pitch) whose rows are not 16-byte aligned, gathered a byte at a
-// time to shared memory at dst; zeros past the edges.
-__device__ __forceinline__ void gather_chunk(uint32_t dst,
-                                             const int8_t* base, long row,
-                                             int col, long rows, int pitch) {
+// time; zeros past the edges.
+__device__ __forceinline__ uint4 gather_bytes(const int8_t* base, long row,
+                                              int col, long rows,
+                                              int pitch) {
   uint32_t w[4] = {0u, 0u, 0u, 0u};
   if (row < rows) {
     const int8_t* src = base + row * pitch;
@@ -172,133 +187,25 @@ __device__ __forceinline__ void gather_chunk(uint32_t dst,
       if (col + j < pitch)
         w[j >> 2] |= (uint32_t)(uint8_t)src[col + j] << (8 * (j & 3));
   }
-  st_shared_v4(dst, w);
-}
-
-// -- the fused quantize -----------------------------------------------------
-// Value e of a 16-byte group of x (XB 2: bf16, 8 values; XB 4: f32, 4).
-template <int XB>
-__device__ __forceinline__ float group_value(const uint32_t (&w)[4], int e) {
-  if constexpr (XB == 2)
-    return __uint_as_float((e & 1) ? (w[e >> 1] & 0xFFFF0000u)
-                                   : (w[e >> 1] << 16));
-  else
-    return __uint_as_float(w[e]);
-}
-
-// The first `left` values of a group whose row is not 16-byte aligned,
-// loaded one at a time; zeros after them.
-template <int XB>
-__device__ __forceinline__ uint4 gather_x(const uint8_t* src, int left) {
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 16 / XB; ++e) {
-    if (e >= left) break;
-    if constexpr (XB == 2)
-      w[e >> 1] |= (uint32_t)reinterpret_cast<const uint16_t*>(src)[e]
-                   << (16 * (e & 1));
-    else
-      w[e] = reinterpret_cast<const uint32_t*>(src)[e];
-  }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// A row's scale from x[m, lo:hi) (the whole row but in the control), by
-// one warp: the absmax, then s = absmax * f32(1/QMAX), 1 where it is 0.
-// With xvec, lo and hi * XB are multiples of 16 bytes.
-template <int QMAX, int XB>
-__device__ __forceinline__ float row_scale(const uint8_t* x, long m, int K,
-                                           int lo, int hi, int xvec,
-                                           int lane) {
-  const uint8_t* row = x + m * K * XB;
-  float amax = 0.f;
-  if (xvec) {
-    const uint4* v = reinterpret_cast<const uint4*>(row);
-#pragma unroll 4
-    for (int g = lo * XB / 16 + lane; g < hi * XB / 16; g += 32) {
-      const uint4 u = __ldg(v + g);
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int e = 0; e < 16 / XB; ++e)
-        amax = fmaxf(amax, fabsf(group_value<XB>(w, e)));
-    }
-  } else {
-    for (int k = lo + lane; k < hi; k += 32) {
-      const float v =
-          XB == 2 ? __bfloat162float(
-                        reinterpret_cast<const __nv_bfloat16*>(row)[k])
-                  : reinterpret_cast<const float*>(row)[k];
-      amax = fmaxf(amax, fabsf(v));
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  return amax == 0.f ? 1.f : __fmul_rn(amax, 1.0f / (float)QMAX);
-}
-
-// A quotient that rounds this close to a half-integer (1/2 - 2^-14) is
-// decided by the division itself (quantize_group).
-constexpr float kNearHalf = 0.49993896484375f;
-constexpr float kRoundMagic = 12582912.f;        // 1.5 * 2^23
-
-// The low bytes of four words, in order.
-__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b,
-                                                   uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
-                     0x5410);
-}
-
-// The reference's chain for one value: clamp(rint(__fdiv_rn(v, s))) as an
-// int8 bit pattern in the low byte.
-template <int QMAX>
-__device__ __forceinline__ uint32_t quantize_exact(float v, float s) {
-  return (uint32_t)(int)fminf(fmaxf(rintf(__fdiv_rn(v, s)), -(float)QMAX),
-                              (float)QMAX);
-}
-
-__device__ __forceinline__ float fmax_nan(float a, float b) {
-  float y;
-  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(y) : "f"(a), "f"(b));
-  return y;
-}
-
-// A group of x quantized with row scale s's reciprocal r (1/s, rounded),
-// as int8 bytes in q[0] (and q[1] for bf16's 8 values); false where the
-// group must take the reference's chain instead (store_a's fix-up).
-// The result is the reference's
-//   clamp(rint(fl(v / s)), -QMAX, QMAX)
-// with fl(v / s) the IEEE quotient, computed without a division or a
-// conversion where that provably gives the same integer. The exact product
-// p = v * r lies within 2^-24 |v / s| of v / s (r rounds once), and so
-// does fl(v / s): within 2^-16 of each other, since |v| <= absmax gives
-// |v / s| <= QMAX (1 + 2^-22). One fma rounds p to the integer n, half to
-// even, by adding 1.5 * 2^23, whose float holds n in its low mantissa bits
-// (its low byte is the int8); a second one gives p - n. If
-// |p - n| <= 1/2 - 2^-14, fl(v / s) rounds to n too, and |n| <= QMAX
-// leaves the clamp nothing to do. A group with a value near a
-// half-integer (about one in 1,000 groups) or not finite returns false.
-template <int QMAX, int XB>
-__device__ __forceinline__ bool quantize_group(const uint4& u, float r,
-                                               uint32_t (&q)[2]) {
-  constexpr int NV = 16 / XB;
+// ... and stored to shared memory at dst.
+__device__ __forceinline__ void gather_chunk(uint32_t dst,
+                                             const int8_t* base, long row,
+                                             int col, long rows, int pitch) {
+  const uint4 u = gather_bytes(base, row, col, rows, pitch);
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  uint32_t b[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-  float near[8];
-#pragma unroll
-  for (int e = 0; e < NV; ++e) {
-    const float v = group_value<XB>(w, e);
-    const float tr = __fmaf_rn(v, r, kRoundMagic);
-    near[e] = fabsf(__fmaf_rn(v, r, __fsub_rn(kRoundMagic, tr)));
-    b[e] = __float_as_uint(tr);
-  }
-#pragma unroll
-  for (int h = NV / 2; h > 0; h /= 2)
-#pragma unroll
-    for (int e = 0; e < h; ++e) near[e] = fmax_nan(near[e], near[e + h]);
-  q[0] = pack_low_bytes(b[0], b[1], b[2], b[3]);
-  q[1] = pack_low_bytes(b[4], b[5], b[6], b[7]);
-  return near[0] <= kNearHalf;
+  st_shared_v4(dst, w);
+}
+
+// The nibbles of t that its bytes' positions pick (the low one in bytes 0
+// and 2, the high one in bytes 1 and 3), each sign-extended to its byte.
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t t) {
+  // each byte's nibble into the byte's high half, then an arithmetic
+  // shift right by 4 within each byte
+  const uint32_t u = (t & 0xF000F000u) | ((t << 4) & 0x00F000F0u);
+  return ((u >> 4) & 0x0F0F0F0Fu) | (((u >> 7) & 0x01010101u) * 0xF0u);
 }
 
 // -- B^T --------------------------------------------------------------------
@@ -316,12 +223,8 @@ __device__ __forceinline__ uint32_t column_i8(uint32_t w0, uint32_t w1,
 // (k = 4q + 2, 4q + 3): the four nibbles, low first, each sign-extended.
 __device__ __forceinline__ uint32_t column_w4(uint32_t w0, uint32_t w1,
                                               int c) {
-  const uint32_t t =
-      __byte_perm(w0, w1, c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12));
-  // each byte's nibble into the byte's high half, then an arithmetic
-  // shift right by 4 within each byte
-  const uint32_t u = (t & 0xF000F000u) | ((t << 4) & 0x00F000F0u);
-  return ((u >> 4) & 0x0F0F0F0Fu) | (((u >> 7) & 0x01010101u) * 0xF0u);
+  return sext_nibbles(
+      __byte_perm(w0, w1, c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12)));
 }
 
 // The n-quad of lane `lane` in round x of convert_b: its low two bits are
@@ -388,7 +291,9 @@ template <bool W4, int MT, int QMAX, int XB>
 __global__ void __launch_bounds__(THREADS, 1)
 camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   using T = Tile<W4, MT>;
-  constexpr bool FUSED = XB != 1;
+  constexpr bool FUSED = XB == 2 || XB == 4;   // x, quantized here
+  constexpr bool A4 = XB == 0;                 // packed int4 A
+  constexpr bool REG_A = FUSED || A4;          // A through registers
   extern __shared__ uint8_t smem_tc[];
   const uint32_t smem0 = hopper::smem_u32(smem_tc);
   const uint32_t base = (smem0 + 1023) & ~1023u;
@@ -424,21 +329,22 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
 
   // K step i of this split into ring slot i % STAGES: B's box (and int8
   // A's) issued by one thread (past the edges TMA fills zeros), or else
-  // every thread gathers its chunks. The fused A comes from store_a.
+  // every thread gathers its chunks. The fused and packed A come from
+  // store_a.
   auto load = [&](int i) {
     if (i >= nk) return;
     const int k0 = (kt0 + i) * BK;
     const int r0 = (kt0 + i) * T::RAW_ROWS;
     if (t.tma) {
       if (threadIdx.x == 0) {
-        hopper::mbar_expect_tx(full(i), FUSED ? T::RAW_BYTES : T::SLOT_BYTES);
-        if constexpr (!FUSED)
+        hopper::mbar_expect_tx(full(i), REG_A ? T::RAW_BYTES : T::SLOT_BYTES);
+        if constexpr (!REG_A)
           hopper::tma_load_3d(slot_a(i), &t.a_map, full(i), k0, m0, 0);
         hopper::tma_load_3d(slot_raw(i), &t.b_map, full(i), n0, r0, 0);
       }
       return;
     }
-    if constexpr (!FUSED) {
+    if constexpr (!REG_A) {
       for (int c = threadIdx.x; c < MT * 8; c += THREADS) {
         const int r = c >> 3, col = (c & 7) * 16;
         gather_chunk(slot_a(i) + swz_off(r, col), a, m0 + r, k0 + col, M, K);
@@ -455,16 +361,17 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   // to finish (griddepcontrol.wait), so its launch overlaps the product
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
-  // Fused: the A tile of step i is MT rows of 128 int8 from x's 16-byte
-  // groups (KPG values, GPR a row); group g = threadIdx.x + THREADS j of
-  // the tile is this thread's xr[j].
-  constexpr int KPG = 16 / XB;
+  // Fused or packed A: the A tile of step i is MT rows of 128 int8 from
+  // 16-byte groups of x (KPG values) or of packed A (KPG = 32 k), GPR a
+  // row; group g = threadIdx.x + THREADS j of the tile is this thread's
+  // xr[j].
+  constexpr int KPG = A4 ? 32 : 16 / (A4 ? 1 : XB);
   constexpr int GPR = BK / KPG;
   constexpr int GROUPS = MT * GPR;
-  constexpr int GPT = FUSED ? (GROUPS + THREADS - 1) / THREADS : 1;
+  constexpr int GPT = REG_A ? (GROUPS + THREADS - 1) / THREADS : 1;
   uint4 xr[GPT];
   auto fetch_x = [&](int i) {
-    if constexpr (FUSED) {
+    if constexpr (REG_A) {
       const int k0 = (kt0 + i) * BK;
 #pragma unroll
       for (int j = 0; j < GPT; ++j) {
@@ -472,9 +379,15 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
         const int m = m0 + g / GPR, k = k0 + (g % GPR) * KPG;
         uint4 u = make_uint4(0u, 0u, 0u, 0u);
         if (g < GROUPS && m < M && k < K) {
-          const uint8_t* src = x + ((long)m * K + k) * XB;
-          u = t.xvec ? __ldg(reinterpret_cast<const uint4*>(src))
-                     : gather_x<XB>(src, K - k);
+          if constexpr (A4) {
+            u = t.xvec ? __ldg(reinterpret_cast<const uint4*>(
+                             a + (long)m * (K / 2) + k / 2))
+                       : gather_bytes(a, m, k / 2, M, K / 2);
+          } else {
+            const uint8_t* src = x + ((long)m * K + k) * XB;
+            u = t.xvec ? __ldg(reinterpret_cast<const uint4*>(src))
+                       : gather_x<XB>(src, K - k);
+          }
         }
         xr[j] = u;
       }
@@ -499,7 +412,30 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   // scales do not bound the row, so the clamp may act)
   uint32_t exact_groups = 0;
   auto store_a = [&](int i) {
-    if constexpr (FUSED) {
+    if constexpr (A4) {
+      // each packed word (8 k) into two int8 words: a group's 32 k are two
+      // 16-byte chunks of the slot
+#pragma unroll
+      for (int j = 0; j < GPT; ++j) {
+        const int g = threadIdx.x + THREADS * j;
+        if (g < GROUPS) {
+          const uint4 u = xr[j];
+          const uint32_t lo[4] = {
+              sext_nibbles(__byte_perm(u.x, 0u, 0x1100)),
+              sext_nibbles(__byte_perm(u.x, 0u, 0x3322)),
+              sext_nibbles(__byte_perm(u.y, 0u, 0x1100)),
+              sext_nibbles(__byte_perm(u.y, 0u, 0x3322))};
+          const uint32_t hi[4] = {
+              sext_nibbles(__byte_perm(u.z, 0u, 0x1100)),
+              sext_nibbles(__byte_perm(u.z, 0u, 0x3322)),
+              sext_nibbles(__byte_perm(u.w, 0u, 0x1100)),
+              sext_nibbles(__byte_perm(u.w, 0u, 0x3322))};
+          const int r = g / GPR, c = (g % GPR) * KPG;
+          st_shared_v4(slot_a(i) + swz_off(r, c), lo);
+          st_shared_v4(slot_a(i) + swz_off(r, c + 16), hi);
+        }
+      }
+    } else if constexpr (FUSED) {
       uint32_t redo = exact_groups;
 #pragma unroll
       for (int j = 0; j < GPT; ++j) {
@@ -522,26 +458,21 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
         for (int jj = 1; jj < GPT; ++jj)
           if (jj == j) u = xr[jj];
         const int g = threadIdx.x + THREADS * j, r = g / GPR;
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-        uint32_t b[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int e = 0; e < KPG; ++e)
-          b[e] = quantize_exact<QMAX>(group_value<XB>(w, e), sa_s[r]);
-        store_group(slot_a(i) + swz_off(r, (g % GPR) * KPG),
-                    pack_low_bytes(b[0], b[1], b[2], b[3]),
-                    pack_low_bytes(b[4], b[5], b[6], b[7]));
+        uint32_t q[2];
+        quantize_group_exact<QMAX, XB>(u, sa_s[r], q);
+        store_group(slot_a(i) + swz_off(r, (g % GPR) * KPG), q[0], q[1]);
       }
     }
   };
-  // step 0's x is loaded before the scales are known (x is final: the
-  // scale pass was launched after its producer)
-  if constexpr (FUSED) {
+  // step 0's x (or packed A) is loaded before the scales are known (x is
+  // final: the scale pass was launched after its producer)
+  if constexpr (REG_A) {
     if (nk > 0) fetch_x(0);
   }
   // The tile's row scales and their reciprocals (shared memory): fused,
   // from the scale kernel or from whole rows of x (one warp a row; the
   // first block of the row tile also writes them for the flush kernel);
-  // int8 A, given (read only where the block flushes).
+  // int8 or packed A, given (read only where the block flushes).
   if constexpr (FUSED) {
     if (t.flags & kScaleKernel) {
       asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -575,8 +506,7 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
     for (int j = 0; j < GPT; ++j) {
       const int g = threadIdx.x + THREADS * j;
       xr_r[j] = g < GROUPS ? sr_s[g / GPR] : 1.f;
-      if (g < GROUPS && ((t.flags & kSplitScales) ||
-                         !(xr_r[j] > 0.f && xr_r[j] <= 3.4028234663852886e38f)))
+      if (g < GROUPS && ((t.flags & kSplitScales) || exact_only(xr_r[j])))
         exact_groups |= 1u << j;
     }
   }
@@ -589,7 +519,7 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
   // Step -1 only stores step 0's A, so that store_a has one copy in the
   // code (the loop is not unrolled).
 #pragma unroll 1
-  for (int i = FUSED ? -1 : 0; i < nk; ++i) {
+  for (int i = REG_A ? -1 : 0; i < nk; ++i) {
     if (i >= 0) {
       if (t.tma) hopper::mbar_wait(full(i), phase(i));   // step i landed
       hopper::fence_proxy_async();
@@ -611,10 +541,10 @@ camp_gemm_tc_kernel(const __grid_constant__ TcArgs t) {
             hopper::desc_k_major_bytes<128>(slot_a(i), MT, 0, kb), 1);
       hopper::wgmma_commit();
     }
-    if constexpr (FUSED) {
+    if constexpr (REG_A) {
       // after step i's products are issued: step i + 1's A into its slot
       // (its last reader, step i + 1 - STAGES, is done), step i + 2's x
-      // loaded
+      // (or packed A) loaded
       if (i + 1 < nk) {
         store_a(i + 1);
         if (i + 2 < nk) fetch_x(i + 2);
@@ -730,10 +660,10 @@ struct Launch {
 template <bool W4, int MT, int QMAX, int XB>
 int launch_instance(TcArgs& t, int splits, cudaStream_t stream) {
   using T = Tile<W4, MT>;
-  constexpr bool FUSED = XB != 1;
+  constexpr bool FUSED = XB == 2 || XB == 4;
   const camp::GemmArgs& g = t.g;
   if (t.tma) {
-    if constexpr (!FUSED) {
+    if constexpr (XB == 1) {
       const int rc =
           hopper::encode_tma_3d_u8(&t.a_map, g.a, g.K, g.M, 1, BK, MT, 128);
       if (rc != 0) return rc;
@@ -781,12 +711,12 @@ int launch_row_tile(TcArgs& t, int mt, int splits, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// QMAX 0: int8 A; else x in bf16 (a_bf16) or f32.
-template <bool W4, int QMAX>
+// QMAX 0: int8 A, or packed int4 A (A4); else x in bf16 (a_bf16) or f32.
+template <bool W4, int QMAX, bool A4>
 int launch_tc(TcArgs& t, int mt, int splits, int a_bf16,
               cudaStream_t stream) {
   if constexpr (QMAX == 0)
-    return launch_row_tile<W4, 0, 1>(t, mt, splits, stream);
+    return launch_row_tile<W4, 0, A4 ? 0 : 1>(t, mt, splits, stream);
   else if (a_bf16)
     return launch_row_tile<W4, QMAX, 2>(t, mt, splits, stream);
   else
@@ -794,7 +724,7 @@ int launch_tc(TcArgs& t, int mt, int splits, int a_bf16,
 }
 
 // Dynamic shared memory of one product block with B kind w4 and row tile
-// mt (the same for int8 and float A); 0 for no such instance.
+// mt (the same for every A kind); 0 for no such instance.
 inline int smem_bytes(bool w4, int mt) {
   if (mt == 8) return w4 ? Tile<true, 8>::SMEM : Tile<false, 8>::SMEM;
   if (mt == 32) return w4 ? Tile<true, 32>::SMEM : Tile<false, 32>::SMEM;
@@ -805,13 +735,15 @@ inline int smem_bytes(bool w4, int mt) {
 }  // namespace
 }  // namespace camp_tc
 
-// One C entry point per (B kind, A kind): the flush's arguments
-// (camp_gemm_common.cuh's GemmArgs), then the int32 workspace of splits x
-// M x N partial sums (NULL where the block flushes), the row tile MT (8,
-// 32 or 128), the number of splits, the K steps a split and the Flags
+// One C entry point per (B kind, A kind): B packed int4 (W4); A int8
+// (QMAX 0), packed int4 (QMAX 0, A4) or x quantized to [-QMAX, QMAX]. Its
+// arguments: the flush's (camp_gemm_common.cuh's GemmArgs; K is the
+// logical K), then the int32 workspace of splits x M x N partial sums
+// (NULL where the block flushes), the row tile MT (8, 32 or 128), the
+// number of splits, the K steps a split and the Flags
 // (kernels/camp_gemm.py::launch_gemm binds it). `sa` holds the row scales
-// of int8 A (QMAX 0), or receives those of x (M f32 in the workspace).
-#define CAMP_GEMM_TC_ENTRY(NAME, W4, QMAX)                                    \
+// of int8 or packed A, or receives those of x (M f32 in the workspace).
+#define CAMP_GEMM_TC_ENTRY(NAME, W4, QMAX, A4)                                \
   extern "C" int NAME(const void* a, int a_bf16, void* sa, const void* w,    \
                       const void* sb, const void* bias, int bias_bf16,       \
                       const void* opd, int opd_bf16, void* out,              \
@@ -827,7 +759,7 @@ inline int smem_bytes(bool w4, int mt) {
                            n_stages};                                        \
     const bool in_block = (flags & camp_tc::kFlushInBlock) != 0;             \
     if (splits < 1 || (in_block && splits != 1) ||                           \
-        (!in_block && ws == nullptr) || sa == nullptr)                       \
+        (!in_block && ws == nullptr) || sa == nullptr || (A4 && K % 2))      \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     camp_tc::TcArgs t{};                                                     \
     t.g = g;                                                                 \
@@ -838,8 +770,10 @@ inline int smem_bytes(bool w4, int mt) {
     const bool b_tma =                                                       \
         N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;             \
     const bool a16 = reinterpret_cast<uintptr_t>(a) % 16 == 0;               \
-    t.tma = QMAX != 0 ? b_tma : b_tma && K > 0 && K % 16 == 0 && a16;        \
-    t.xvec = QMAX != 0 && a16 && (long)K * (a_bf16 ? 2 : 4) % 16 == 0;       \
-    return camp_tc::launch_tc<W4, QMAX>(t, mt, splits, a_bf16,               \
-                                        static_cast<cudaStream_t>(stream));  \
+    t.tma = QMAX != 0 || A4 ? b_tma                                          \
+                            : b_tma && K > 0 && K % 16 == 0 && a16;          \
+    t.xvec = a16 && (QMAX != 0 ? (long)K * (a_bf16 ? 2 : 4) % 16 == 0        \
+                               : A4 && (K / 2) % 16 == 0);                   \
+    return camp_tc::launch_tc<W4, QMAX, A4>(                                 \
+        t, mt, splits, a_bf16, static_cast<cudaStream_t>(stream));           \
   }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) helpers shared by the port's kernels: shared-memory
-// addresses, mbarriers, named barriers, TMA tensor maps (bf16 and bytes)
+// addresses, mbarriers, named barriers, the cluster barrier and
+// distributed shared memory, TMA tensor maps (bf16 and bytes)
 // and tile loads, the async-proxy fence, the special function unit's
 // exp2, swizzled tile layouts and their wgmma descriptors, and the wgmma
 // instructions (bf16 in with f32 accumulation; s8 in with s32
@@ -93,6 +94,29 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Thread block clusters: the cluster's barrier, in two halves (every
+// thread of every block of the cluster arrives, releasing its writes to
+// shared memory, then waits, acquiring the others'), and a load of an f32
+// from the shared memory of block `rank` of the cluster, at the address
+// that `addr` has in this block.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // 2^x by the special function unit (ex2.approx.ftz: the instruction exp2f

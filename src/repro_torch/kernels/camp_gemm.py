@@ -12,12 +12,11 @@ the fused K1 bit for bit.
 * :func:`camp_gemm_i8` is the wrapper: a CPU tensor goes to the plain
   version; a CUDA tensor launches ``csrc/camp_gemm.cu`` (or raises).
   ``launches`` counts kernel launches.
-* :func:`launch_gemm` binds the C signature of K6b's dp4a kernel (the
-  flush's arguments, ``csrc/camp_gemm_common.cuh``'s ``GemmArgs``) and,
-  given a plan, the one of the tensor-core template
-  ``csrc/camp_gemm_tc.cuh`` (K1, K4, K5, K6a): the same arguments, then an
-  int32 workspace (the fused kernels' row scales, then the partial sums),
-  the row tile, the split of K and the flags of :func:`tc_flags`.
+* :func:`launch_gemm` binds the C signature of the tensor-core template
+  ``csrc/camp_gemm_tc.cuh`` (K1, K4, K5, K6a, K6b): the flush's arguments
+  (``csrc/camp_gemm_common.cuh``'s ``GemmArgs``), then an int32 workspace
+  (the fused kernels' row scales, then the partial sums), the row tile,
+  the split of K and the flags of :func:`tc_flags`.
 * :func:`split_plan` picks that template's row tile and split of K;
   :func:`tc_flags` how the call flushes and where the fused kernels' row
   scales come from.
@@ -37,11 +36,11 @@ launches = 0          # kernel launches through the wrapper
 
 FLOATS = (torch.float32, torch.bfloat16)
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
+# the flush's arguments, then workspace, MT, splits, K steps a split,
+# flags, the stream
 _ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT,
-             _VOID, _INT, _INT, _INT, _INT, _INT, _INT, _VOID]
-# the tensor-core template's: the same, then workspace, MT, splits, K steps
-# a split, flags, before the stream
-_ARGTYPES_TC = _ARGTYPES[:-1] + [_VOID, _INT, _INT, _INT, _INT, _VOID]
+             _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
+             _VOID, _INT, _INT, _INT, _INT, _VOID]
 _fns = {}
 
 TC_BN = 128           # output columns a block of the tensor-core template
@@ -137,15 +136,16 @@ def require_cuda(t: torch.Tensor, what: str) -> None:
 
 def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
                 out_dtype, epilogue: str, bias, operand,
-                plan: Optional[Tuple[int, int, int]] = None,
+                plan: Tuple[int, int, int],
                 flags: Optional[int] = None) -> torch.Tensor:
-    """Check the flush's tensors, allocate the (M, N) output and launch
-    ``symbol`` of ``csrc/<lib>.cu``. ``a``/``b`` are checked by the caller;
-    ``a_scale`` is None for the fused kernels, which compute it. ``plan``
-    (MT, splits, K steps a split) launches a tensor-core instance under
-    ``flags`` (default :func:`tc_flags`), with one int32 workspace: the
-    fused kernels' M row scales (f32), then each split's partial sums,
-    (splits, M, N), unless the product block flushes."""
+    """Check the flush's tensors, allocate the (M, N) output and launch the
+    tensor-core instance ``symbol`` of ``csrc/<lib>.cu`` for the logical K
+    ``k``. ``a``/``b`` are checked by the caller; ``a_scale`` is None for
+    the fused kernels, which compute it. ``plan`` (MT, splits, K steps a
+    split) and ``flags`` (default :func:`tc_flags`) shape the launch, with
+    one int32 workspace: the fused kernels' M row scales (f32), then each
+    split's partial sums, (splits, M, N), unless the product block
+    flushes."""
     stages = validate_epilogue(epilogue, bias, operand)
     m, n, dev = a.shape[0], b.shape[1], a.device
     check_tensor("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,),
@@ -169,7 +169,7 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(build.load(lib), symbol)
-        fn.argtypes = _ARGTYPES if plan is None else _ARGTYPES_TC
+        fn.argtypes = _ARGTYPES
         fn.restype = _INT
         _fns[symbol] = fn
 
@@ -183,18 +183,17 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
             b_scale.data_ptr(), ptr(bias), bf16(bias), ptr(operand),
             bf16(operand), out.data_ptr(), bf16(out), m, n, k, code,
             len(stages)]
-    if plan is not None:
-        mt, splits, per = plan
-        fused = a_scale is None
-        if flags is None:
-            flags = tc_flags(m, n, plan, sms_of(a), fused)
-        rows = -(-m // 4) * 4 if fused else 0    # planes 16-byte aligned
-        planes = 0 if flags & FLUSH_IN_BLOCK else splits * m * n
-        ws = torch.empty(rows + planes, dtype=torch.int32, device=dev)
-        if fused:
-            args[2] = ws.data_ptr()
-        args += [ws.data_ptr() + 4 * rows if planes else None, mt, splits,
-                 per, flags]
+    mt, splits, per = plan
+    fused = a_scale is None
+    if flags is None:
+        flags = tc_flags(m, n, plan, sms_of(a), fused)
+    rows = -(-m // 4) * 4 if fused else 0    # planes 16-byte aligned
+    planes = 0 if flags & FLUSH_IN_BLOCK else splits * m * n
+    ws = torch.empty(rows + planes, dtype=torch.int32, device=dev)
+    if fused:
+        args[2] = ws.data_ptr()
+    args += [ws.data_ptr() + 4 * rows if planes else None, mt, splits, per,
+             flags]
     rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")

@@ -8,11 +8,12 @@ along K, low nibble = even k, both sign-extended
 * ``camp_gemm_w4`` (K6a): int8 A (M, K) × packed B (K//2, N);
 * ``camp_gemm_a4w4`` (K6b): packed A (M, K//2) × packed B (K//2, N).
 
-Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages). K is
-even, so a K step of either CUDA kernel (``csrc/camp_gemm.cu``) never
-splits a packed byte, and the nibbles are unpacked into int8 in shared
-memory: K6a on K5's tensor-core template (``csrc/camp_gemm_tc.cuh``, with
-K5's split plan), K6b on the dp4a kernel of ``csrc/camp_gemm.cu``.
+Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages). Both
+CUDA kernels (``csrc/camp_gemm.cu``) are instances of K5's tensor-core
+template (``csrc/camp_gemm_tc.cuh``) under K5's split plan: K is even, so
+a K step never splits a packed byte, and the nibbles are unpacked into
+int8 in shared memory (B from its TMA-loaded stage; K6b's packed A from
+registers, one K step ahead).
 
 Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises); ``launches_w4`` and
@@ -104,7 +105,8 @@ def camp_gemm_a4w4(a_packed: torch.Tensor, b_packed: torch.Tensor,
     check_tensor("a_packed", a_packed, (m, k2), (torch.int8,), dev)
     check_tensor("b_packed", b_packed, (k2, n), (torch.int8,), dev)
     out = launch_gemm("camp_gemm", "camp_gemm_a4w4", a_packed, a_scale,
-                      b_packed, b_scale, 2 * k2, **kw)
+                      b_packed, b_scale, 2 * k2,
+                      plan=plan_for(a_packed, n, 2 * k2), **kw)
     if out.numel():
         global launches_a4w4
         launches_a4w4 += 1

@@ -9,7 +9,8 @@ so the unfused quantize → GEMM path equals the fused kernels bit for bit.
 
 :func:`quantize_rowwise_kernel` takes the plain version for a CPU tensor
 and launches ``csrc/quantize.cu`` for a CUDA tensor (or raises);
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. :func:`team_size` picks how many of
+the kernel's threads take one row.
 """
 from __future__ import annotations
 
@@ -19,17 +20,41 @@ import torch
 
 from repro_torch.core.quant import _qmax
 from repro_torch.kernels import build
-from repro_torch.kernels.camp_gemm import FLOATS, check_tensor, require_cuda
+from repro_torch.kernels.camp_gemm import (FLOATS, check_tensor,
+                                           require_cuda, sms_of)
 from repro_torch.kernels.ref import quantize_rowwise_ref
 
 launches = 0          # kernel launches through the wrapper
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
+BLOCK = 256           # threads a block of csrc/quantize.cu
+MAX_TEAM = 8 * BLOCK  # a row's threads at most: a cluster of 8 blocks
+REG_GROUPS = 4        # 16-byte groups of x a thread holds in registers
+GROUPS_A_THREAD = 8   # ... and at most that many, the rest read from L2
+
+
+def team_size(m: int, k: int, x_bytes: int, sms: int) -> int:
+    """Threads of ``csrc/quantize.cu`` that take one row of an (M, K) x of
+    ``x_bytes`` a value on a card of ``sms`` SMs: a power of two from 32
+    (a warp; 8 rows a block) to ``MAX_TEAM`` (a cluster of 8 blocks). The
+    smallest that leaves each thread at most ``GROUPS_A_THREAD`` 16-byte
+    groups of the row; doubled while the grid has fewer blocks than SMs
+    and a thread has a group to spare, inside a block, or into a cluster
+    while a thread's groups exceed its registers (the fastest choices on
+    the card at the shapes of ``chip_smoke.py``'s K7, ``PERF.md``)."""
+    groups = -(-k * x_bytes // 16)
+    team = 32
+    while team < MAX_TEAM and (
+            team * GROUPS_A_THREAD < groups
+            or (-(-m * team // BLOCK) < sms and team < groups
+                and (team < BLOCK or team * REG_GROUPS < groups))):
+        team *= 2
+    return team
 
 
 def _lib():
     fn = build.load("quantize").quantize_rowwise
-    fn.argtypes = [_VOID, _INT, _VOID, _VOID, _INT, _INT, _INT, _VOID]
+    fn.argtypes = [_VOID, _INT, _VOID, _VOID, _INT, _INT, _INT, _INT, _VOID]
     fn.restype = _INT
     return fn
 
@@ -48,8 +73,9 @@ def quantize_rowwise_kernel(x: torch.Tensor, *, bits: int = 8):
     s = torch.empty((m, 1), dtype=torch.float32, device=dev)
     if m == 0:
         return q, s
+    team = team_size(m, k, x.element_size(), sms_of(x))
     rc = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
-                s.data_ptr(), m, k, bits,
+                s.data_ptr(), m, k, bits, team,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quantize_rowwise launch failed: cudaError {rc}")

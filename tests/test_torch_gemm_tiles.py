@@ -1,8 +1,8 @@
-"""A CPU model of the arithmetic of K5's and K6a's tensor-core kernel
-(``src/repro_torch/csrc/camp_gemm_tc.cuh``), held exactly against the
-jitted reference (``repro.kernels.ops.gemm_i8`` / ``gemm_w4`` with
-``impl='xla'`` under ``jax.jit``, as ``tests/test_torch_unfused.py`` runs
-it).
+"""A CPU model of the arithmetic of K5's, K6a's and K6b's tensor-core
+kernel (``src/repro_torch/csrc/camp_gemm_tc.cuh``), held exactly against
+the jitted reference (``repro.kernels.ops.gemm_i8`` / ``gemm_w4`` /
+``gemm_a4w4`` with ``impl='xla'`` under ``jax.jit``, as
+``tests/test_torch_unfused.py`` runs it).
 
 The kernel cannot run here, so this model does, in PyTorch, what it does on
 the card, in its order:
@@ -10,9 +10,13 @@ the card, in its order:
 * the split plan (``kernels/camp_gemm.py::split_plan``): row tile MT, and
   the K steps of 128 bytes split into runs of ``per``;
 * each K step's tiles as TMA (or the byte gathers) leave them in shared
-  memory: A's MT rows and B's rows as stored (K5: 128 k rows; K6a: 64
+  memory: A's MT rows and B's rows as stored (K5: 128 k rows; K6a, K6b: 64
   packed rows) of 128 columns, zero-filled past M, N and K, each byte at
   the address of the 128-byte swizzle (``swz_off``);
+* K6b's packed A instead: each thread's 16-byte groups (32 k of a row,
+  zero past M and K/2) unpacked by the kernel's ``__byte_perm`` selectors
+  and nibble sign extension into two 16-byte int8 chunks, stored at
+  ``swz_off``;
 * B rewritten K-major by the kernel's threads: each lane's 4 k x 4 n block
   read as words from the staging tile, turned into 4 words of 4
   consecutive k by the kernel's ``__byte_perm`` selectors (K5) or its
@@ -20,7 +24,7 @@ the card, in its order:
 * the wgmma operands read back through the descriptor's view (start
   address + 32 bytes a k32 step, 128 bytes a row, 1024 an 8-row group,
   then the hardware's 128-byte swizzle of the address), which must give
-  every (row, k) its byte: A as it is, B transposed;
+  every (row, k) its byte: A as it is (K6b: unpacked), B transposed;
 * int32 partial sums per split, one plane each, summed across splits in
   split order by the flush kernel, then the flush
   (``kernels/ref.py::flush_ref``, the plain version's, which phase 2 of
@@ -31,6 +35,9 @@ shapes and at ragged ones; a control that leaves one split's partial sums
 out must not.
 """
 import functools
+import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -49,6 +56,8 @@ from torch_parity import to_numpy  # noqa: E402
 
 SMS = 132                # the H100's SMs
 BN, BK = TC_BN, TC_BK    # output columns a block; K bytes a step
+# kernel → (B packed int4, A packed int4)
+KINDS = {"k5": (False, False), "k6a": (True, False), "k6b": (True, True)}
 SERVING_SHAPES = ((8, 896, 4864), (8, 896, 896), (8, 896, 128),
                   (8, 4864, 896), (256, 896, 4864), (256, 4864, 896))
 RAGGED_SHAPES = ((1, 928, 200), (3, 4870, 200), (17, 928, 200),
@@ -108,10 +117,16 @@ def column_i8(w, c):
                      torch.full_like(c, 0x5410))
 
 
-def column_w4(w, c):
-    t = byte_perm(w[0], w[1], c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12))
+def sext_nibbles(t):
+    """The nibbles of t that its bytes' positions pick (low in bytes 0 and
+    2, high in 1 and 3), each sign-extended to its byte."""
     u = (t & 0xF000F000) | ((t << 4) & 0x00F000F0)
     return ((u >> 4) & 0x0F0F0F0F) | (((u >> 7) & 0x01010101) * 0xF0)
+
+
+def column_w4(w, c):
+    return sext_nibbles(
+        byte_perm(w[0], w[1], c | (c << 4) | ((c + 4) << 8) | ((c + 4) << 12)))
 
 
 def words(img, addr):
@@ -157,22 +172,61 @@ def as_int8(x):
     return ((x & 0xFF) ^ 0x80) - 0x80
 
 
-def model(a, b, m, k, n, w4, plan=None):
-    """The kernel's int32 sums (M, N) for int8 a (M, K) and b (K, N) int8
-    or (K/2, N) packed, under ``plan`` (default: split_plan's)."""
+def store_a4(packed, mt):
+    """K6b's A slot images (T, mt * 128) from packed A's step tiles
+    (T, mt, 64 bytes, zero past M and K/2), as the kernel's threads store
+    them: group g (thread g % 256, its j = g / 256) is row g / 4, packed bytes 16 (g % 4)
+    on; each of its words (8 k) becomes two int8 words (k 0-3 and 4-7 of
+    the word), the group's 32 k two 16-byte chunks at swz_off(row, 32 (g %
+    4)) and 16 bytes on."""
+    g = torch.arange(mt * 4)
+    r, col = g // 4, 16 * (g % 4)
+    w = words(packed.reshape(packed.shape[0], -1),
+              (r * 64 + col)[:, None] + 4 * torch.arange(4))
+    out = []
+    for sel in (0x1100, 0x3322):
+        out.append(sext_nibbles(byte_perm(w, torch.zeros_like(w),
+                                          torch.full_like(w, sel))))
+    # word i of the 8: packed word i // 2, low (0x1100) or high half
+    out = torch.stack(out, -1).reshape(*w.shape[:2], 8)
+    img = torch.full((packed.shape[0], mt * BK), -1, dtype=torch.int64)
+    stores = []
+    for half in range(2):
+        for i in range(4):
+            addr = swz_off(r, 2 * col + 16 * half + 4 * i)
+            stores.append(addr)
+            v = out[:, :, 4 * half + i]
+            for e in range(4):
+                img[:, addr + e] = (v >> (8 * e)) & 0xFF
+    stores = torch.stack(stores).reshape(-1)
+    assert stores.unique().numel() == stores.numel() == mt * BK // 4
+    return img
+
+
+def model(a, b, m, k, n, w4, plan=None, a4=False):
+    """The kernel's int32 sums (M, N) for a (M, K) int8 or (M, K/2) packed
+    (``a4``) and b (K, N) int8 or (K/2, N) packed, under ``plan`` (default:
+    split_plan's)."""
     mt, splits, per = plan or split_plan(m, n, k, SMS)
     steps = -(-k // BK)
     rows_b = BK // 2 if w4 else BK
     mtiles, ntiles = -(-m // mt), -(-n // BN)
     # what cp.async leaves in shared memory: tiles zero-filled past M, N, K
     ap = torch.zeros(mtiles * mt, steps * BK, dtype=torch.int64)
-    ap[:m, :k] = a.long() & 0xFF
+    ap[:m, :k] = (unpacked(a.T, k, True).T if a4 else a).long() & 0xFF
     bp = torch.zeros(steps * rows_b, ntiles * BN, dtype=torch.int64)
     bp[:b.shape[0], :n] = b.long() & 0xFF
     a_tiles = ap.reshape(mtiles, mt, steps, BK).permute(0, 2, 1, 3)
     b_tiles = bp.reshape(steps, rows_b, ntiles, BN).permute(2, 0, 1, 3)
     r, c = torch.meshgrid(torch.arange(mt), torch.arange(BK), indexing="ij")
-    a_img = scatter(a_tiles.reshape(-1, mt, BK), swz_off(r, c), mt * BK)
+    if a4:
+        # the registers' packed groups: zero past M and past K/2
+        pp = torch.zeros(mtiles * mt, steps * BK // 2, dtype=torch.int64)
+        pp[:m, :a.shape[1]] = a.long() & 0xFF
+        a_img = store_a4(pp.reshape(mtiles, mt, steps, BK // 2).permute(
+            0, 2, 1, 3).reshape(-1, mt, BK // 2), mt)
+    else:
+        a_img = scatter(a_tiles.reshape(-1, mt, BK), swz_off(r, c), mt * BK)
     r, c = torch.meshgrid(torch.arange(rows_b), torch.arange(BN),
                           indexing="ij")
     raw = scatter(b_tiles.reshape(-1, rows_b, BN), swz_off(r, c),
@@ -203,9 +257,14 @@ def unpacked(b, k, w4):
     return torch.stack([lo, hi], 1).reshape(-1, b.shape[1])[:k]
 
 
-def inputs(m, k, n, w4, seed):
+def inputs(m, k, n, kind, seed):
+    w4, a4 = KINDS[kind]
     rng = np.random.default_rng(seed)
-    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    a_max = 7 if a4 else 127
+    a = rng.integers(-a_max, a_max + 1, (m, k)).astype(np.int8)
+    if a4:
+        a[0, :3] = -8          # the nibble 0x8, which no quantize emits
+        a = np.asarray(jquant.pack_int4(jnp.asarray(a).T).T)
     b_max = 7 if w4 else 127
     b = rng.integers(-b_max, b_max + 1, (k, n)).astype(np.int8)
     if w4:
@@ -216,12 +275,17 @@ def inputs(m, k, n, w4, seed):
     return a, b, sa, sb, bias
 
 
-def reference(a, b, sa, sb, bias, w4, epilogue):
-    fn = jops.gemm_w4 if w4 else jops.gemm_i8
+def reference(a, b, sa, sb, bias, kind, epilogue, k):
     jb = jnp.asarray(bias, jnp.bfloat16) if epilogue == "bias" else None
-    run = jax.jit(functools.partial(fn, impl="xla", out_dtype=jnp.bfloat16,
-                                    epilogue=epilogue))
-    return to_numpy(run(a, b, sa, sb, bias=jb))
+    kw = dict(impl="xla", out_dtype=jnp.bfloat16, epilogue=epilogue)
+    if kind == "k6b":
+        run = jax.jit(lambda a, b, sa, sb, bias: jops.gemm_a4w4(
+            a, b, k, sa, sb, bias=bias, **kw))
+    else:
+        fn = jops.gemm_w4 if kind == "k6a" else jops.gemm_i8
+        run = jax.jit(lambda a, b, sa, sb, bias: fn(a, b, sa, sb, bias=bias,
+                                                    **kw))
+    return to_numpy(run(a, b, sa, sb, jb))
 
 
 def flushed(acc, sa, sb, bias, epilogue):
@@ -232,42 +296,47 @@ def flushed(acc, sa, sb, bias, epilogue):
                               bias=tb))
 
 
-@pytest.mark.parametrize("w4", [False, True], ids=["k5", "k6a"])
+@pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("shape", SERVING_SHAPES + RAGGED_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
-def test_model_equals_jitted_reference(shape, w4):
+def test_model_equals_jitted_reference(shape, kind):
     m, k, n = shape
-    a, b, sa, sb, bias = inputs(m, k, n, w4, seed=m + k + n + w4)
-    acc, b_op = model(torch.from_numpy(a), torch.from_numpy(b), m, k, n, w4)
+    w4, a4 = KINDS[kind]
+    a, b, sa, sb, bias = inputs(m, k, n, kind, seed=m + k + n + w4 + a4)
+    acc, b_op = model(torch.from_numpy(a), torch.from_numpy(b), m, k, n, w4,
+                      a4=a4)
     # B^T as wgmma reads it: B transposed, unpacked, zero past K
     want_b = torch.zeros(b_op.shape[0] * BN, b_op.shape[1] * BK,
                          dtype=torch.int64)
     want_b[:n, :k] = unpacked(torch.from_numpy(b), k, w4).T.long()
     got_b = b_op.permute(0, 2, 1, 3).reshape(want_b.shape)
     assert torch.equal(got_b, want_b)
-    exact = torch.from_numpy(a).double() @ unpacked(
-        torch.from_numpy(b), k, w4).double()
+    a_q = torch.from_numpy(a)
+    if a4:
+        a_q = unpacked(a_q.T, k, True).T
+    exact = a_q.double() @ unpacked(torch.from_numpy(b), k, w4).double()
     assert torch.equal(acc, exact.to(torch.int32))
     epi = EPILOGUE.get(shape, "none")
     np.testing.assert_array_equal(flushed(acc, sa, sb, bias, epi),
-                                  reference(a, b, sa, sb, bias, w4, epi))
+                                  reference(a, b, sa, sb, bias, kind, epi, k))
 
 
-@pytest.mark.parametrize("w4", [False, True], ids=["k5", "k6a"])
+@pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("shape", [(256, 4864, 896), (8, 4864, 896)],
                          ids=lambda s: "x".join(map(str, s)))
-def test_dropped_split_control_fails(shape, w4):
+def test_dropped_split_control_fails(shape, kind):
     """The same model with its last split left out (splits - 1 runs of the
     plan's length, as chip_smoke's control launches the kernel) misses
     the reference."""
     m, k, n = shape
+    w4, a4 = KINDS[kind]
     mt, splits, per = split_plan(m, n, k, SMS)
     assert splits > 1
-    a, b, sa, sb, bias = inputs(m, k, n, w4, seed=7)
+    a, b, sa, sb, bias = inputs(m, k, n, kind, seed=7)
     acc, _ = model(torch.from_numpy(a), torch.from_numpy(b), m, k, n, w4,
-                   plan=(mt, splits - 1, per))
+                   plan=(mt, splits - 1, per), a4=a4)
     got = flushed(acc, sa, sb, bias, "none")
-    want = reference(a, b, sa, sb, bias, w4, "none")
+    want = reference(a, b, sa, sb, bias, kind, "none", k)
     assert not np.array_equal(got, want)
 
 
@@ -312,3 +381,18 @@ def test_descriptor_view_is_the_writers_layout(mt):
         r, c = torch.meshgrid(torch.arange(rows), torch.arange(BK),
                               indexing="ij")
         assert torch.equal(desc_view(rows), swz_off(r, c))
+
+
+@pytest.mark.parametrize("op", ["IGMMA", "IDP4A"])
+def test_sass_patterns_match_literal_lines(op):
+    """chip_smoke.py's SASS patterns, which phase 1 counts in the GEMM
+    libraries (an IGMMA in every tensor-core instance, no IDP.4A anywhere):
+    each matches its literal line of cuobjdump output and no other pattern
+    does, so a count of 0 means the instruction is absent."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    line = chip_smoke.SASS_LINES[op]
+    assert re.search(chip_smoke.SASS_OPS[op], line)
+    assert not re.search(chip_smoke.SASS_OPS[op], line.replace(
+        "IGMMA" if op == "IGMMA" else "IDP.4A", "IMAD"))
+    chip_smoke.sass_patterns_match()
