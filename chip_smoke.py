@@ -39,9 +39,10 @@ Phases (any failure exits non-zero and prints no result):
    page size 8, one 4,096-token sequence and 32 ragged sequences), with
    its split plan and device kernels per call, and a control that drops
    one kv tile and must fail the check; K2 paged prefill (C 256 at
-   q_start 0, 512, 517, the same heads, page size 8, and a verify panel
-   of C 5 at a mid-page q_start), and K2's serving chunk at 1 to 12
-   splits.
+   q_start 0, 512, 517, the same heads, page size 8, a verify panel of
+   C 5 at a mid-page and a page-aligned q_start, a one-token feed, and the
+   reduced draft's heads (hd 16, G 4) at C 1 and 13), and K2's serving
+   chunk at 1 to 12 splits.
 3. Serving: full-width qwen2-0.5b with random weights from a seed, in
    W8A8, W4A8 and W4A4, 8 requests of 512 prompt tokens (two sharing a
    256-token prefix) and 32 new tokens each on the continuous-batching
@@ -81,7 +82,25 @@ Phases (any failure exits non-zero and prints no result):
    width, depth cut to 4 of its 40 layers, W8A8 on the paged engine over
    int8 pages: K1, K2 and K3 launched, every call of one request held
    against its plain version in situ.
-8. Report: a ``kernels`` JSON line, the card's name and power limit, and as
+8. Speculative decoding: full-width qwen2-0.5b on the paged engine over
+   int8 pages, the kernels only: (a) n-gram, gamma 4, batch 1, an 8-token
+   pattern tiled 8x and 48 new tokens (the reference benchmark's shape);
+   (b) n-gram, gamma 4, phase 3's mix with prompts of repeated 64-token
+   spans; (c) a draft model with the target's own weights; (d) the serve
+   CLI's default draft (the reduced qwen2-0.5b, weights from the seed + 1),
+   gamma 'auto', its pool sized so every sequence drafts; (e) (a) in W4A8
+   and W4A4 (K4); (f) (a) at temperature 0.9, twice with one seed, which
+   must give one stream. Each greedy stream equals the plain engine's or
+   first differs where the speculative token lies within one bf16 ULP of
+   the plain row's maximum (a near-tie, ``SPEC_FLIP_ULPS``); an accept-all
+   control with the reduced draft must fail that check. Every run launches K1 (K4) 7 times
+   and K2 once a layer of every forward, target's and draft's, and K3
+   never; every pool is free after it, its invariants holding; gamma
+   'auto' re-picks at least once. Every K1 and K2 call of one request
+   (verify panels at C 5 from mid-page q_starts, the draft's C 1 feeds)
+   held against its plain version in situ; (a) and (b) plain and
+   speculative in turns; (b) under the profiler.
+9. Report: a ``kernels`` JSON line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Needs the repository's ``src/`` beside it; imports nothing of JAX.
@@ -90,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -99,6 +119,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -123,6 +144,7 @@ from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
                                         _generate_dense, build_decode_step,
                                         build_prefill_step, generate,
                                         init_serve_caches)
+from repro_torch.serving import spec_decode as sd  # noqa: E402
 from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -1189,8 +1211,9 @@ def k2_split_sweep(timer, gen):
 def check_k2(timer, gen):
     """The serving chunk (C 256 at q_start 0, 512 and 517; q_start 512 in
     bf16 is the headline row), then the other registry head shapes, page
-    size 8, and a speculative verify panel (gamma 4: C 5) at a mid-page
-    q_start."""
+    size 8, a speculative verify panel (gamma 4: C 5) at a mid-page and a
+    page-aligned q_start, a one-token feed, and the reduced draft's heads
+    (hd 16, G 4) as a feed and a ragged catch-up chunk."""
     rows = []
     for q_start in (0, 512, 517):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1201,7 +1224,11 @@ def check_k2(timer, gen):
             ("qwen2-72b heads (hd 128, G 8)", 8, 8, 128, 16, 256, 512),
             ("stablelm-12b heads (hd 160, G 4)", 8, 4, 160, 16, 256, 512),
             ("serving, page size 8", 2, 7, 64, 8, 256, 517),
-            ("verify panel, gamma 4", 2, 7, 64, 16, 5, 517)):
+            ("verify panel, gamma 4", 2, 7, 64, 16, 5, 517),
+            ("verify panel, page-aligned", 2, 7, 64, 16, 5, 512),
+            ("one-token feed", 2, 7, 64, 16, 1, 517),
+            ("reduced draft heads (hd 16, G 4), feed", 1, 4, 16, 16, 1, 77),
+            ("reduced draft heads, catch-up", 1, 4, 16, 16, 13, 83)):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(k2_case(timer, gen, label, kv, g, hd, ps, c, q_start,
                                 dtype))
@@ -1392,16 +1419,19 @@ def union_ms(spans):
     return total / 1e3
 
 
-def profile_run(fn):
+def profile_run(fn, host_ops: bool = True):
     """``fn()`` under torch.profiler: device busy share of the wall time
     and the kernels that take the most device time. Busy time is the union
     of the device kernels' intervals: a programmatic dependent launch (the
     GEMMs' flush kernel) starts before its predecessor ends and waits
     inside it, so the sum of kernel times ("summed") counts that overlap
-    twice."""
+    twice. ``host_ops=False`` records the device's activity alone, which
+    keeps a long run's trace small."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1977,6 +2007,422 @@ def serve_stablelm(seed: int):
                 launches=launches, wall_s=wall, in_situ=in_situ)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: speculative decoding on the paged engine
+# ---------------------------------------------------------------------------
+SPEC_GAMMA = 4
+# (a): the reference benchmark's speculative shape (benchmarks/
+# decode_serving.py): an 8-token pattern tiled 8x, 48 new tokens
+SPEC_PATTERN, SPEC_REPEATS, SPEC_NEW = 8, 8, 48
+# (b): phase 3's mix, each prompt a 64-token span repeated
+SPEC_SPAN = 64
+SPEC_TEMPERATURE = 0.9
+SITU_NEW = 8             # new tokens of the in-situ request
+SPEC_PROFILE_STEPS = 4   # engine steps of (b) profiled, after its prefill
+# Greedy parity between the speculative and the plain engine. A verify
+# panel reads K2 where plain decoding reads K3, and their float orders
+# differ, so one context's logits differ a little between the two engines,
+# and a near-tie can flip an argmax. At the first position where two
+# streams differ, the speculative token's logit in the plain engine's row
+# must lie within one bf16 ULP of that row's maximum, |max| * 2^-7 (its
+# top-2 gap is then within it too): the logits are bf16, so that is the
+# least by which two roundings can differ. Measured (H100, this seed, runs
+# (a)-(e)): the two engines' rows of one context agree bit for bit (K2 and
+# K3 are one template, csrc/paged_common.cuh), while the accept-all
+# control's first speculative token lies 2.198 below its row's maximum.
+SPEC_FLIP_ULPS = 1
+
+
+def spec_prompts(gen, vocab):
+    """(a)'s prompt (1, 64) and (b)'s (8, 512), two of them sharing a
+    256-token prefix."""
+    a = torch.randint(0, vocab, (SPEC_PATTERN,), generator=gen,
+                      device="cuda").repeat(SPEC_REPEATS)[None]
+    spans = torch.randint(0, vocab, (N_REQ, SPEC_SPAN), generator=gen,
+                          device="cuda")
+    b = spans.repeat(1, PROMPT_LEN // SPEC_SPAN)
+    b[1, :PREFIX_LEN] = b[0, :PREFIX_LEN]
+    return a, b
+
+
+def spec_engine(params, cfg, prompts, new, spec=None, **kw):
+    n, s = prompts.shape
+    ps = kvc.DEFAULT_PAGE_SIZE
+    return ContinuousBatchingEngine(
+        params, cfg, kv_dtype="int8", page_size=ps, prefill_chunk=256,
+        capacity_tokens=n * kvc.round_up(s + new, ps), spec=spec,
+        device="cuda", **kw)
+
+
+def record_rows(eng):
+    """Keep, on the host, the logits row that chose each token of ``eng``:
+    rows[(seq_id, token index)] (V,) f32. A verify step writes every row
+    of its panel; a row whose context holds a rejected draft is written
+    over by the step that emits that index."""
+    rows = {}
+    sample, verify = eng._sample_tokens, eng._spec_verify
+
+    def sample_tokens(logits, reqs):
+        for row, r in zip(logits.float().cpu().numpy(), reqs):
+            rows[(r.seq_id, len(r.tokens))] = row
+        return sample(logits, reqs)
+
+    def spec_verify(req, draft):
+        out = verify(req, draft)
+        for i, row in enumerate(out):
+            rows[(req.seq_id, len(req.tokens) + i)] = row
+        return out
+    eng._sample_tokens, eng._spec_verify = sample_tokens, spec_verify
+    return rows
+
+
+def check_pools(eng):
+    """Every page of the target's pool and the draft's free again, the
+    allocator's invariants holding."""
+    pools = [eng.pool]
+    if getattr(eng.drafter, "pool", None) is not None:
+        pools.append(eng.drafter.pool)
+    for pool in pools:
+        pool.check_invariants()
+        if pool.num_free != pool.num_pages or pool.tables:
+            raise RuntimeError(f"pool holds {pool.num_pages - pool.num_free} "
+                               f"pages after the run")
+
+
+def spec_run(make, prompts, new, rows=False):
+    """Serve ``prompts`` on a fresh engine from ``make()``; every forward's
+    layers are counted so the kernels' launches can be held to them.
+    → dict(streams, wall_s, launches, forward_layers, rows, summary)."""
+    eng = make()
+    recorded = record_rows(eng) if rows else None
+    layers = {"n": 0}
+    inner = sd.paged_chunk_forward
+
+    def counted(params, cfg, *a, **kw):
+        layers["n"] += cfg.n_layers
+        return inner(params, cfg, *a, **kw)
+    sd.paged_chunk_forward = counted
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        sids = [eng.submit(p, new) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sd.paged_chunk_forward = inner
+    launches = {k: v for k, v in read_counts().items() if v}
+    check_pools(eng)
+    streams = [eng.finished[s].tokens for s in sids]
+    if [len(t) for t in streams] != [new] * len(prompts):
+        raise RuntimeError("generated tokens of the wrong count")
+    return dict(streams=streams, wall_s=wall, launches=launches,
+                forward_layers=layers["n"], rows=recorded,
+                summary=eng.spec_summary() if eng.drafter else None,
+                engine=eng)
+
+
+def check_spec_launches(label, run, gemm):
+    """A speculative run launches the qmode's GEMM 7 times and K2 once a
+    layer of every forward (target and draft alike, so no call took a plain
+    version), and K3 never."""
+    n, got = run["forward_layers"], run["launches"]
+    want = {gemm: 7 * n, "K2": n}
+    print(f"  {label}: kernel launches {got} (forward layers {n})")
+    if got != want:
+        raise RuntimeError(f"{label} launched {got}; expected {want} and no "
+                           f"K3")
+
+
+def greedy_parity(label, spec, base, ulps=SPEC_FLIP_ULPS):
+    """First divergence of each speculative stream from the plain one: its
+    index, the plain row's top-2 gap and the speculative token's deficit
+    (the plain row's max minus its logit there), held to ``ulps`` bf16
+    ULPs of the row's max; and the largest |diff| of the two engines' rows
+    of one context (indices up to the first divergence).
+    → (divergences, row max |diff|, ok)."""
+    divs, row_diff = [], 0.0
+    for i, (s, b) in enumerate(zip(spec["streams"], base["streams"])):
+        n = next((t for t, (x, y) in enumerate(zip(s, b)) if x != y), None)
+        for t in range(len(s) if n is None else n + 1):
+            row_diff = max(row_diff, float(np.abs(
+                spec["rows"][(i, t)] - base["rows"][(i, t)]).max()))
+        if n is not None:
+            row = base["rows"][(i, n)]
+            top2 = np.sort(row)[-2:]
+            divs.append(dict(request=i, index=n,
+                             gap=float(top2[1] - top2[0]),
+                             deficit=float(row.max() - row[s[n]]),
+                             limit=ulps * BF16_ULP_REL * abs(float(top2[1]))))
+    ok = all(d["deficit"] <= d["limit"] for d in divs)
+    print(f"  {label}: greedy parity {'holds' if ok else 'FAILS'}: "
+          f"{len(divs)} of {len(spec['streams'])} streams differ "
+          + "".join(f"[request {d['request']} at {d['index']}: top-2 gap "
+                    f"{d['gap']:.4g}, token {d['deficit']:.4g} below the "
+                    f"max, limit {d['limit']:.4g}] " for d in divs)
+          + f"; rows of one context differ by at most {row_diff:.4g}")
+    return divs, row_diff, ok
+
+
+def spec_in_situ(params, cfg, spec, prompt):
+    """Every K1 and K2 call of one speculative request (verify panels at
+    C = gamma + 1 from any q_start, the draft's catch-up chunks and C = 1
+    feeds) held against its plain version on the same inputs."""
+    gemm, name = FUSED[cfg.qmode]
+    worst = {gemm: 0.0, "K2": 0.0}
+    calls = {gemm: 0, "K2": 0}
+    shapes = []
+    saved = (getattr(ops, name), k2.paged_prefill_cuda)
+
+    def k2_recorded(q, *a, **kw):
+        shapes.append((q.shape[1], kw["q_start"]))
+        return saved[1](q, *a, **kw)
+
+    def att_close(got, want, kw):
+        return _att_ok(got.float(), want.float(), got.dtype)
+    setattr(ops, name, gemm_in_situ(gemm, name, worst, calls))
+    k2.paged_prefill_cuda = checked("K2", k2_recorded,
+                                    k2.paged_prefill_reference, att_close,
+                                    worst, calls)
+    try:
+        run = spec_run(lambda: spec_engine(params, cfg, prompt, SITU_NEW,
+                                           spec), prompt, SITU_NEW)
+    finally:
+        setattr(ops, name, saved[0])
+        k2.paged_prefill_cuda = saved[1]
+    ps = kvc.DEFAULT_PAGE_SIZE
+    panels = [(c, q) for c, q in shapes if c == SPEC_GAMMA + 1 and q % ps]
+    feeds = [(c, q) for c, q in shapes if c == 1]
+    print(f"  in situ, one speculative request: calls {calls}, max |diff| "
+          f"{worst}; K2 shapes: {len(panels)} verify panels of C "
+          f"{SPEC_GAMMA + 1} at a mid-page q_start, {len(feeds)} C = 1 "
+          f"feeds, C {sorted({c for c, _ in shapes})}")
+    if not panels or not feeds or not all(calls.values()):
+        raise RuntimeError("in-situ check missed a verify panel or a draft "
+                           "feed")
+    return dict(calls=calls, max_abs_diff=worst, panels=len(panels),
+                feeds=len(feeds), k2_c=sorted({c for c, _ in shapes}),
+                summary=run["summary"]["per_request"])
+
+
+def accept_all(rows, draft, draft_q, **kw):
+    """The control's acceptance: every draft kept, the last row's argmax
+    as the bonus."""
+    return len(draft), list(draft) + [int(rows[len(draft)].argmax())]
+
+
+def speculative(seed: int):
+    """Phase 8: speculative serving of full-width qwen2-0.5b (W8A8, and
+    W4A8/W4A4 for (a)) over int8 pages (page 16, chunk 256), the kernels
+    only: (a) n-gram, gamma 4, batch 1, the reference benchmark's shape;
+    (b) n-gram, gamma 4, phase 3's mix of repeated spans; (c) a draft
+    model with the target's own weights; (d) the serve CLI's default draft
+    (reduced qwen2-0.5b, weights from seed + 1), gamma 'auto'; (e) (a) in
+    W4A8 and W4A4; (f) (a) at temperature 0.9, twice with one seed. Greedy
+    parity with the plain engine (the near-tie rule, and an accept-all
+    control that must fail it), launches held to the forwards, pools free
+    after every run, every K1/K2 call of one request in situ, (a) and (b)
+    in turns, (b) profiled."""
+    from repro_torch.core import autotune
+    tmp = tempfile.TemporaryDirectory()
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(Path(tmp.name)
+                                                   / "autotune.json")
+    autotune.clear_cache()
+    cfg = get_config("qwen2-0.5b", qmode="w8a8")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = quantize_params(init_params(cfg, generator=gen, device="cuda"),
+                             cfg, "w8a8")
+    dcfg = get_config("qwen2-0.5b", reduced=True, qmode="w8a8")
+    dparams = quantize_params(init_params(
+        dcfg, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+        device="cuda"), dcfg, "w8a8")
+    pa, pb = spec_prompts(gen, cfg.vocab_size)
+    ngram = sd.SpecConfig(method="ngram", gamma=SPEC_GAMMA)
+    strong = sd.SpecConfig(method="draft", gamma=SPEC_GAMMA, draft_cfg=cfg,
+                           draft_params=params)
+    ps = kvc.DEFAULT_PAGE_SIZE
+    # every sequence of (b) holds its reservation in the draft's pool:
+    # request + max(SPEC_GAMMAS) + 1 tokens
+    reduced = sd.SpecConfig(
+        method="draft", gamma="auto", draft_cfg=dcfg, draft_params=dparams,
+        draft_capacity_tokens=N_REQ * kvc.round_up(
+            PROMPT_LEN + NEW + max(autotune.SPEC_GAMMAS) + 1, ps))
+
+    def make(prompts, new, spec=None, p=params, c=cfg, **kw):
+        return lambda: spec_engine(p, c, prompts, new, spec, **kw)
+
+    out, laps, t_lap = {}, {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    def report(label, run, base, retunes=0):
+        """Launches, greedy parity against ``base`` and the spec counts of
+        one speculative run; every sequence must have drafted."""
+        check_spec_launches(label, run, FUSED[run["engine"].cfg.qmode][0])
+        divs, row_diff, ok = greedy_parity(label, run, base)
+        if not ok:
+            raise RuntimeError(f"{label}: greedy parity fails")
+        s = run["summary"]
+        drafted = sum(1 for r in s["per_request"].values() if r["proposed"])
+        print(f"  {label}: {s['spec_steps']} verify steps, proposed "
+              f"{s['proposed']}, accepted {s['accepted']} "
+              f"({s['acceptance_rate']:.3f}), "
+              f"{s['mean_tokens_per_step']:.3f} tokens a step, gamma "
+              f"{s['gamma']}, {drafted} of {len(run['streams'])} sequences "
+              f"drafted, {retunes} gamma re-picks, wall with logit rows "
+              f"recorded {run['wall_s']:.3f} s")
+        if drafted != len(run["streams"]):
+            raise RuntimeError(f"{label}: only {drafted} sequences drafted")
+        out[label] = dict(
+            launches=run["launches"], wall_rows_recorded_s=run["wall_s"],
+            divergences=divs, row_max_abs_diff=row_diff, retunes=retunes,
+            summary={k: v for k, v in s.items() if k != "per_request"})
+
+    lap("weights")
+    spec_run(make(pa[:, :40], 6, ngram), pa[:, :40], 6)     # first use
+    spec_run(make(pa[:, :40], 6, reduced), pa[:, :40], 6)
+    lap("first use")
+
+    # (a) and (b): one untimed run of each kind keeps its logit rows for
+    # the parity check; then plain and speculative in turns (plain, spec,
+    # spec, plain; times recorded, not claimed), nothing recorded, each
+    # giving the stream of its recorded run
+    base, turns = {}, {}
+    for label, prompts, new in (("(a) n-gram", pa, SPEC_NEW),
+                                ("(b) n-gram", pb, NEW)):
+        recorded = {kind: spec_run(make(prompts, new, spec), prompts, new,
+                                   rows=True)
+                    for kind, spec in (("plain", None), ("spec", ngram))}
+        tok_s = {"plain": [], "spec": []}
+        for kind in ("plain", "spec", "spec", "plain"):
+            run = spec_run(make(prompts, new, ngram if kind == "spec"
+                                else None), prompts, new)
+            if run["streams"] != recorded[kind]["streams"]:
+                raise RuntimeError(f"{label}: a timed {kind} run gave "
+                                   f"another stream")
+            tok_s[kind].append(len(prompts) * new / run["wall_s"])
+        print(f"  in turns, {label}: generated tok/s plain "
+              f"{tok_s['plain'][0]:.1f}, spec {tok_s['spec'][0]:.1f}, spec "
+              f"{tok_s['spec'][1]:.1f}, plain {tok_s['plain'][1]:.1f}")
+        report(label, recorded["spec"], recorded["plain"])
+        base[label[:3]], turns[label] = recorded["plain"], tok_s
+        lap(label)
+    out["in_turns"] = turns
+
+    retunes = {"n": 0}
+    pick = autotune.get_spec_gamma
+
+    def counted_pick(*a, **kw):
+        retunes["n"] += 1
+        return pick(*a, **kw)
+    autotune.get_spec_gamma = counted_pick
+    try:
+        for label, mk, prompts, new, b in (
+                ("(c) self-draft", make(pa, SPEC_NEW, strong), pa, SPEC_NEW,
+                 base["(a)"]),
+                ("(d) reduced draft, gamma auto", make(pb, NEW, reduced), pb,
+                 NEW, base["(b)"])):
+            retunes["n"] = 0
+            report(label, spec_run(mk, prompts, new, rows=True), b,
+                   retunes["n"])
+            lap(label)
+    finally:
+        autotune.get_spec_gamma = pick
+    if out["(d) reduced draft, gamma auto"]["retunes"] < 1:
+        raise RuntimeError("gamma='auto' never re-picked the window")
+    base_a = base["(a)"]
+
+    # the accept-all control: the reduced draft's every token kept must
+    # fail the parity check
+    inner = sd.accept_speculative
+    sd.accept_speculative = accept_all
+    try:
+        control = spec_run(make(pa, SPEC_NEW, sd.SpecConfig(
+            method="draft", gamma=SPEC_GAMMA, draft_cfg=dcfg,
+            draft_params=dparams)), pa, SPEC_NEW, rows=True)
+    finally:
+        sd.accept_speculative = inner
+    divs, _, ok = greedy_parity("accept-all control", control, base_a)
+    if ok:
+        raise RuntimeError("the accept-all control passed the parity check")
+    out["accept-all control"] = dict(divergences=divs)
+    lap("accept-all control")
+
+    # (e) the int4 modes through K4
+    for qmode in ("w4a8", "w4a4"):
+        qcfg = get_config("qwen2-0.5b", qmode=qmode)
+        qparams = quantize_params(init_params(
+            qcfg, generator=torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda"), qcfg, qmode)
+        label = f"(e) {qmode.upper()} n-gram"
+        plain = spec_run(make(pa, SPEC_NEW, None, qparams, qcfg), pa,
+                         SPEC_NEW, rows=True)
+        report(label, spec_run(make(pa, SPEC_NEW, ngram, qparams, qcfg), pa,
+                               SPEC_NEW, rows=True), plain)
+        del qparams
+        lap(label)
+
+    # (f) temperature: one seed, one stream; with the self-draft too, whose
+    # proposals are sampled from the q they return
+    for label, spec in (("n-gram", ngram), ("self-draft", strong)):
+        t1, t2 = (spec_run(make(pa, SPEC_NEW, spec, sample="temperature",
+                                temperature=SPEC_TEMPERATURE, seed=seed + 5),
+                           pa, SPEC_NEW) for _ in range(2))
+        same = t1["streams"] == t2["streams"]
+        s1 = t1["summary"]
+        print(f"  (f) temperature {SPEC_TEMPERATURE}, {label}: "
+              f"{s1['spec_steps']} verify steps, accepted {s1['accepted']} "
+              f"of {s1['proposed']}; the same seed gives the same stream: "
+              f"{same}")
+        if not same:
+            raise RuntimeError(f"temperature, {label}: one seed gave two "
+                               f"streams")
+        out[f"(f) temperature, {label}"] = dict(
+            same_stream=same,
+            summary={k: v for k, v in s1.items() if k != "per_request"})
+    lap("(f) temperature")
+
+    out["in situ"] = spec_in_situ(params, cfg, sd.SpecConfig(
+        method="draft", gamma=SPEC_GAMMA, draft_cfg=dcfg,
+        draft_params=dparams), pa)
+    lap("in situ")
+
+    # (b) under the profiler: a window of SPEC_PROFILE_STEPS engine steps
+    # once every prompt is prefilled (the whole run's trace takes the
+    # profiler minutes to parse)
+    eng = make(pb, NEW, ngram)()
+    for p in pb:
+        eng.submit(p, NEW)
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    before = eng.spec_summary()["spec_steps"]
+
+    def profiled():
+        for _ in range(SPEC_PROFILE_STEPS):
+            eng.step()
+    print(f"  (b) n-gram under the profiler (device activity only), "
+          f"{SPEC_PROFILE_STEPS} engine steps after the prefill:")
+    out["profile_b"] = profile_run(profiled, host_ops=False)
+    out["profile_b"]["verify_forwards"] = verifies = (
+        eng.spec_summary()["spec_steps"] - before)
+    print(f"  the window held {verifies} verify forwards of "
+          f"{len(eng.active)} sequences still active after it")
+    if not verifies:
+        raise RuntimeError("the profiled window of (b) held no verify step")
+    eng.run()
+    check_pools(eng)
+    lap("(b) profiled")
+    print("  phase 8 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in laps.items()))
+    out["seconds"] = laps
+    autotune.clear_cache()
+    tmp.cleanup()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -2062,6 +2508,11 @@ def main(argv=None) -> int:
     print(f"[phase 7] stablelm-12b's heads (hd 160, 32/8) at full width, "
           f"{STABLELM_LAYERS} of 40 layers, W8A8 on the paged engine")
     stablelm = serve_stablelm(SEED)
+    torch.cuda.empty_cache()
+
+    print("[phase 8] speculative decoding: full-width qwen2-0.5b on the "
+          "paged engine, n-gram and draft-model drafters")
+    spec = speculative(SEED)
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -2111,7 +2562,8 @@ def main(argv=None) -> int:
                  k1_controls=k1_controls, scale_modes=scale_modes, rows=rows,
                  k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
-                 dense=dense, stablelm=stablelm, kernels=kernels), indent=1))
+                 dense=dense, stablelm=stablelm, spec=spec,
+                 kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,9 +13,20 @@ On the CPU, at the reduced width (plain PyTorch versions of the kernels):
 (dequantize, then a float matmul) and none. Serving runs on the
 continuous-batching engine through ``generate`` with its default KV pages,
 as the reference's ``serve`` does: float pages in the model dtype (the
-fused GEMMs on the card, attention through its plain versions). Int8 pages
-are the speculative path's in the reference and come with the ``--spec-*``
-flags.
+fused GEMMs on the card, attention through its plain versions).
+
+Speculative decoding (draft–verify over the paged int8 cache, K1/K4 and K2
+at the verify panels' shapes):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --qmode w8a8 --batch 1 --steps 32 --spec-method ngram --spec-gamma 4
+
+``--spec-method draft`` drives a small draft LM (``--spec-draft-config``,
+always built with the reduced shapes, its weights from the seed + 1 and
+quantized to ``--qmode``) over its own paged pool; ``--spec-gamma auto``
+picks the window from the measured acceptance rate
+(:mod:`repro_torch.core.autotune`). With a spec method the CLI drives the
+engine itself over int8 pages, as the reference does, and prints the
+acceptance summary.
 """
 from __future__ import annotations
 
@@ -28,7 +39,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.camp import QMODES
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params, quantize_params
-from repro_torch.serving.engine import generate
+from repro_torch.serving.engine import ContinuousBatchingEngine, generate
+from repro_torch.serving.kv_cache import round_up
+from repro_torch.serving.spec_decode import SpecConfig
 
 
 def main(argv=None) -> int:
@@ -44,6 +57,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--spec-method", default="off",
+                    choices=["off", "ngram", "draft"],
+                    help="speculative decoding: model-free n-gram lookup "
+                         "or a small draft model")
+    ap.add_argument("--spec-gamma", default="4",
+                    help="speculation window (draft tokens/step), or 'auto' "
+                         "to pick from the measured acceptance rate")
+    ap.add_argument("--spec-draft-config", default="qwen2-0.5b",
+                    help="draft model arch for --spec-method draft "
+                         "(always built with --reduced shapes)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -54,11 +77,48 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         params = quantize_params(params, cfg, args.qmode)
         print(f"[serve] PTQ to {args.qmode} in {time.perf_counter()-t0:.2f}s")
+
+    spec = None
+    if args.spec_method != "off":
+        gamma = args.spec_gamma if args.spec_gamma == "auto" \
+            else int(args.spec_gamma)
+        draft_cfg = draft_params = None
+        if args.spec_method == "draft":
+            draft_cfg = get_config(args.spec_draft_config, reduced=True,
+                                   qmode=args.qmode)
+            draft_params = init_params(
+                draft_cfg, device=device, generator=torch.Generator(
+                    device=device).manual_seed(args.seed + 1))
+            if args.qmode != "none":
+                draft_params = quantize_params(draft_params, draft_cfg,
+                                               args.qmode)
+        spec = SpecConfig(method=args.spec_method, gamma=gamma,
+                          draft_cfg=draft_cfg, draft_params=draft_params)
+        print(f"[serve] speculative decoding: {args.spec_method}, "
+              f"gamma={gamma}")
+
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     t0 = time.perf_counter()
-    toks = generate(params, cfg, prompt, steps=args.steps, seed=args.seed,
-                    sample=args.sample, device=device)
+    if spec is None:
+        toks = generate(params, cfg, prompt, steps=args.steps,
+                        seed=args.seed, sample=args.sample, device=device)
+    else:
+        # drive the engine directly so the acceptance stats are reportable
+        eng = ContinuousBatchingEngine(
+            params, cfg, kv_dtype="int8",
+            capacity_tokens=args.batch * round_up(
+                args.prompt_len + args.steps, 128),
+            sample=args.sample, seed=args.seed, spec=spec, device=device)
+        sids = [eng.submit(prompt[i], args.steps)
+                for i in range(args.batch)]
+        outs = eng.run()
+        toks = torch.tensor([outs[s] for s in sids], dtype=torch.long)
+        s = eng.spec_summary()
+        print(f"[serve] spec: {s['spec_steps']} verify steps, acceptance "
+              f"{s['acceptance_rate']:.2f}, "
+              f"{s['mean_tokens_per_step']:.2f} tokens/step "
+              f"(gamma={s['gamma']})")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -101,7 +101,11 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
         if cache_pos is not None:
             base = base + cache_pos
         positions = base.expand(b, s)
-    h = params["embedding"][inputs].to(dtype_of(cfg))
+    # token ids past the vocabulary take its last row, as the reference's
+    # gather clamps them (a narrow-vocabulary draft model reads the
+    # target's tokens)
+    h = params["embedding"][inputs.clamp(max=cfg.vocab_size - 1)
+                            ].to(dtype_of(cfg))
     new_caches = [] if caches is not None else None
     for i, lp in enumerate(params["layers"]):
         cache_i = caches[i]["attn"] if caches is not None else None

@@ -1,5 +1,5 @@
 """Serving: the KV caches (dense slab, paged pool), the continuous-batching
-engine and the dense-slab loop.
+engine, speculative decoding and the dense-slab loop.
 
 Engine symbols are re-exported lazily (PEP 562), as in the reference:
 ``repro_torch.models.attention`` imports :mod:`repro_torch.serving.kv_cache`
@@ -12,6 +12,13 @@ from repro_torch.serving.kv_cache import (  # noqa: F401
     PagedDecodeCache,
     PagedPrefillCache,
     PagePool,
+)
+from repro_torch.serving.spec_decode import (  # noqa: F401
+    DraftModelDrafter,
+    NGramDrafter,
+    SpecConfig,
+    SpecStats,
+    accept_speculative,
 )
 
 _ENGINE_EXPORTS = (

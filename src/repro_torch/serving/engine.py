@@ -34,10 +34,25 @@ token per step at a shared position. :func:`generate` sends models with
 recurrent mixers or embedding inputs there, as the reference does; those
 mixers come in a later slice, so such models raise for now.
 
+**Speculative decoding** (``spec=``, a
+:class:`~repro_torch.serving.spec_decode.SpecConfig` with method 'ngram'
+or 'draft'): the decode lane runs draft–verify steps instead of the ragged
+decode. Per active sequence the drafter proposes up to γ tokens, the panel
+[last token, drafts] is written into the sequence's pages (each touched
+page crossing the COW barrier) and scored by ONE forward through the
+chunked paged-prefill path (K2 at C = γ+1, any ``q_start``; K1/K4 at
+M = γ+1), exact acceptance keeps the agreed prefix and
+:meth:`~repro_torch.serving.kv_cache.PagePool.truncate` rolls the rest
+back. Greedy speculative streams equal non-speculative ones; temperature
+streams keep the target distribution. The verify forwards run one
+sequence at a time, as in the reference. ``gamma='auto'`` re-picks the
+window from the measured acceptance rate every ``SPEC_RETUNE_EVERY``
+steps (:mod:`repro_torch.core.autotune`).
+
 Page size, prefill chunk and pages per kernel step are fixed, documented
 defaults here (the reference takes them from its TPU autotune); a Hopper
-autotune is later work. Tensor parallelism (``mesh=``) and speculative
-decoding (``spec=``) come in later slices and raise.
+autotune is later work. Tensor parallelism (``mesh=``) comes in a later
+slice and raises.
 """
 from __future__ import annotations
 
@@ -45,8 +60,10 @@ import collections
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core import autotune
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import dtype_of, forward, init_caches
@@ -117,6 +134,7 @@ class Request:
     max_new_tokens: int
     tokens: List[int] = dataclasses.field(default_factory=list)
     pos: int = 0                         # prompt tokens cached so far
+    spec: sd.SpecStats = dataclasses.field(default_factory=sd.SpecStats)
 
     def __post_init__(self):
         # host-side token tuple: prefix-trie keys without device round-trips
@@ -137,7 +155,11 @@ class ContinuousBatchingEngine:
     the first one writes. Pages are int8 for ``kv_dtype='int8'``, else the
     model dtype. ``impl`` selects the kernels or the plain versions (see
     :mod:`repro_torch.kernels.ops`); ``device`` defaults to the card.
+    ``spec`` turns on speculative decoding (module docstring); a draft
+    model runs on the engine's device with the engine's ``impl``.
     """
+
+    SPEC_RETUNE_EVERY = 16               # spec steps between auto-γ re-picks
 
     def __init__(self, params, cfg: ModelConfig, *,
                  kv_dtype: Optional[str] = "int8",
@@ -147,13 +169,11 @@ class ContinuousBatchingEngine:
                  pages_per_step: Optional[int] = None,
                  sample: str = "greedy", temperature: float = 1.0,
                  seed: int = 0, retain_pages: Optional[int] = None,
-                 mesh=None, spec=None, device=None, impl: str = "auto"):
+                 mesh=None, spec: Optional[sd.SpecConfig] = None,
+                 device=None, impl: str = "auto"):
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet")
-        if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding (spec=) is not ported yet")
         mixers = {cfg.mixer_of(i) for i in range(cfg.n_layers)}
         if mixers != {"attn"}:
             raise ValueError(
@@ -181,6 +201,22 @@ class ContinuousBatchingEngine:
         self.active: List[Request] = []
         self.finished: Dict[int, Request] = {}
         self._next_id = 0
+        # -- speculative decoding ---------------------------------------
+        self.spec_cfg = spec if spec is not None and spec.method != "off" \
+            else None
+        self.drafter = None
+        self.spec_totals = sd.SpecStats()
+        if self.spec_cfg is not None:
+            self.drafter = sd.make_drafter(
+                self.spec_cfg, sample=sample, temperature=temperature,
+                seed=seed * 1_000_003 + sd.DRAFT_SEED_SALT,
+                device=self.device, impl=impl)
+            self._spec_auto = self.spec_cfg.gamma == "auto"
+            self._spec_last_tune = 0
+            self.spec_gamma = (autotune.DEFAULT_SPEC_GAMMA if self._spec_auto
+                               else int(self.spec_cfg.gamma))
+            if self.spec_gamma < 1:
+                raise ValueError(f"spec gamma {self.spec_gamma} < 1")
 
     # -- request lifecycle ----------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> int:
@@ -213,6 +249,8 @@ class ContinuousBatchingEngine:
 
     def _finish(self, req: Request) -> None:
         self.pool.release(req.seq_id)
+        if self.drafter is not None:
+            self.drafter.release(req.seq_id)
         self.finished[req.seq_id] = req
 
     def _admit(self) -> None:
@@ -292,15 +330,97 @@ class ContinuousBatchingEngine:
             else:
                 self.active.append(r)
 
+    # -- speculative decode lane -----------------------------------------
+    def _spec_verify(self, req: Request, draft: List[int]) -> np.ndarray:
+        """Score [last_sampled] + draft in one forward over the paged cache.
+
+        The panel's KV is written into the sequence's pages first (each
+        touched page crosses the COW barrier), then the γ+1-token query
+        attends over the whole cached prefix through the chunked
+        paged-prefill path, from wherever decode left off, page-aligned or
+        not. Returns the (γ+1, V) f32 logit rows on the host (the step's one
+        copy); the caller rolls the rejected suffix back with
+        ``pool.truncate``.
+        """
+        L = self.pool.lens[req.seq_id]
+        m = 1 + len(draft)
+        ps = self.pool.page_size
+        for pidx in range(L // ps, (L + m - 1) // ps + 1):
+            self.pool.ensure_writable(req.seq_id, pidx)
+        logits = sd.paged_chunk_forward(
+            self.params, self.cfg, self.pool, req.seq_id,
+            [req.tokens[-1]] + draft, L,
+            pages_per_step=self.pages_per_step, logits="all", impl=self.impl)
+        return logits[0].float().cpu().numpy()
+
+    def _spec_one(self, req: Request) -> None:
+        """One draft–verify–rollback step for one active sequence."""
+        remaining = req.max_new_tokens - len(req.tokens)
+        gamma = min(self.spec_gamma, remaining - 1)
+        draft, draft_q = ([], None)
+        if gamma > 0:
+            # the draft reservation covers the largest window auto-tuning
+            # could pick
+            gamma_cap = max(self.spec_gamma, max(autotune.SPEC_GAMMAS))
+            draft, draft_q = self.drafter.propose(
+                req.seq_id, list(req.prompt_tokens) + req.tokens, gamma,
+                reserve_tokens=req.reserve_tokens + gamma_cap + 1)
+        L = self.pool.lens[req.seq_id]
+        rows = self._spec_verify(req, draft)
+        n_acc, emitted = sd.accept_speculative(
+            rows, draft, draft_q, sample=self.sample,
+            temperature=self.temperature, seed=self.seed, seq_id=req.seq_id,
+            start_index=len(req.tokens))
+        # the cache must hold everything but the last emitted token
+        self.pool.truncate(req.seq_id, L + n_acc + 1)
+        req.tokens.extend(emitted)
+        req.spec.add(len(draft), n_acc, len(emitted))
+        self.spec_totals.add(len(draft), n_acc, len(emitted))
+        if len(req.tokens) >= req.max_new_tokens:
+            self._finish(req)
+        else:
+            self.active.append(req)
+
+    def _spec_step(self) -> None:
+        """Draft–verify every active sequence (replaces the ragged decode)."""
+        reqs = list(self.active)
+        self.active = []
+        for r in reqs:
+            self._spec_one(r)
+        if (self._spec_auto and self.spec_totals.steps
+                - self._spec_last_tune >= self.SPEC_RETUNE_EVERY):
+            self._spec_last_tune = self.spec_totals.steps
+            self.spec_gamma = autotune.get_spec_gamma(
+                self.spec_totals.acceptance_rate,
+                draft_cost=self.drafter.cost_ratio)
+
+    def spec_summary(self) -> Dict:
+        """Aggregate + per-request draft/verify stats (finished, active,
+        prefilling and waiting requests, so mid-serve polling sees every
+        sequence the aggregate counters cover)."""
+        reqs = list(self.finished.values()) + self.active \
+            + list(self.prefilling) + list(self.waiting)
+        per = {r.seq_id: r.spec.summary()
+               for r in sorted(reqs, key=lambda r: r.seq_id)}
+        out = self.spec_totals.summary()
+        out.update(enabled=self.drafter is not None,
+                   gamma=self.spec_gamma if self.drafter is not None else 0,
+                   per_request=per)
+        return out
+
     # -- driving ---------------------------------------------------------
     def step(self) -> bool:
-        """Admit what fits, one prefill chunk, one ragged decode step.
+        """Admit what fits, one prefill chunk, one ragged decode step (or,
+        with a drafter, one draft–verify step per active sequence).
         Returns True while work remains."""
         self._admit()
         if self.prefilling:
             self._prefill_step()
         if self.active:
-            self._decode()
+            if self.drafter is not None:
+                self._spec_step()
+            else:
+                self._decode()
         return bool(self.active or self.waiting or self.prefilling)
 
     def run(self) -> Dict[int, List[int]]:
@@ -348,15 +468,18 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
              max_len: Optional[int] = None, kv_dtype: Optional[str] = None,
              page_size: Optional[int] = None,
              prefill_chunk: Optional[int] = None,
-             retain_pages: Optional[int] = None, device=None,
+             retain_pages: Optional[int] = None,
+             spec: Optional[sd.SpecConfig] = None, device=None,
              impl: str = "auto") -> torch.Tensor:
     """Batched generation: prompt (B, S) → (B, steps) new tokens (on the
     CPU). All-attention models run on the continuous-batching engine (pages
-    int8 for ``kv_dtype='int8'``, else the model dtype); models with
-    recurrent mixers or embedding inputs take the dense-slab loop, as in
-    the reference (``max_len`` is that loop's slab length). The port has no
-    such layers yet, so for those models the loop raises
-    ``NotImplementedError`` (ROADMAP queue 1 item 4)."""
+    int8 for ``kv_dtype='int8'``, else the model dtype; ``spec`` turns on
+    speculative decoding); models with recurrent mixers or embedding inputs
+    take the dense-slab loop, as in the reference (``max_len`` is that
+    loop's slab length; ``spec`` is ignored there, since speculation needs
+    the paged cache's rollback). The port has no such layers yet, so for
+    those models the loop raises ``NotImplementedError`` (ROADMAP queue 1
+    item 4)."""
     b, s = prompt.shape[:2]
     if (cfg.embedding_inputs
             or any(cfg.mixer_of(i) != "attn" for i in range(cfg.n_layers))):
@@ -369,7 +492,8 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
         params, cfg, kv_dtype=kv_dtype, page_size=ps,
         capacity_tokens=b * kvc.round_up(s + steps, ps),
         prefill_chunk=prefill_chunk, sample=sample, temperature=temperature,
-        seed=seed, retain_pages=retain_pages, device=device, impl=impl)
+        seed=seed, retain_pages=retain_pages, spec=spec, device=device,
+        impl=impl)
     sids = [eng.submit(prompt[i], steps) for i in range(b)]
     outs = eng.run()
     return torch.tensor([outs[sid] for sid in sids], dtype=torch.long)

@@ -5,6 +5,11 @@ reduced width, with ``generate`` replaced in each module by a stub that
 records its keyword arguments and returns tokens of the right shape. The
 KV page type each passes (``kv_dtype``, absent meaning the default: float
 pages) must be the same, and so must the request's shape.
+
+With ``--spec-*`` flags both drive the engine themselves: the engine class
+is stubbed the same way, and its ``kv_dtype``, ``capacity_tokens``, the
+``SpecConfig`` fields and the draft config must be the same. Then the
+port's command runs unstubbed with each spec method (the CPU smoke).
 """
 import sys
 
@@ -45,3 +50,85 @@ def test_serve_passes_the_reference_kv_dtype(monkeypatch, qmode):
     assert port["prompt_shape"] == ref["prompt_shape"] == (BATCH, PROMPT_LEN)
     assert port["steps"] == ref["steps"] == STEPS
     assert port["sample"] == ref["sample"]
+
+
+class _StubEngine:
+    """Answers ``submit``/``run``/``spec_summary`` with tokens of the right
+    count."""
+
+    def __init__(self):
+        self.steps = []
+
+    def submit(self, prompt, steps):
+        self.steps.append(steps)
+        return len(self.steps) - 1
+
+    def run(self):
+        return {i: [0] * n for i, n in enumerate(self.steps)}
+
+    def spec_summary(self):
+        return {"spec_steps": 0, "acceptance_rate": 0.0,
+                "mean_tokens_per_step": 0.0, "gamma": 0}
+
+
+def _engine_recorder(calls):
+    """Stands in for ``ContinuousBatchingEngine``: records its keyword
+    arguments."""
+    def engine(params, cfg, **kw):
+        calls.append(kw)
+        return _StubEngine()
+    return engine
+
+
+SPEC_FLAGS = [["--spec-method", "ngram", "--spec-gamma", "4"],
+              ["--spec-method", "draft", "--spec-gamma", "auto"]]
+
+
+@pytest.mark.parametrize("flags", SPEC_FLAGS, ids=["ngram", "draft"])
+def test_serve_spec_flags_match_reference(monkeypatch, flags):
+    import repro.serving.engine as jax_engine
+    from repro.serving.spec_decode import SpecConfig as JaxSpecConfig
+    args = ["--arch", "qwen2-0.5b", "--reduced", "--qmode", "w8a8",
+            "--batch", str(BATCH), "--prompt-len", str(PROMPT_LEN),
+            "--steps", str(STEPS), *flags]
+    ref_calls, port_calls = [], []
+    monkeypatch.setattr(jax_engine, "ContinuousBatchingEngine",
+                        _engine_recorder(ref_calls))
+    monkeypatch.setattr(jax_serve, "warm_gemm_autotune",
+                        lambda *a, **kw: None)       # a TPU-block warmup
+    monkeypatch.setattr(torch_serve, "ContinuousBatchingEngine",
+                        _engine_recorder(port_calls))
+    for mod in (jax_serve, torch_serve):
+        monkeypatch.setattr(mod, "generate", _recorder([], lambda a: a))
+    monkeypatch.setattr(sys, "argv", ["serve", *args])
+    assert jax_serve.main() == 0
+    assert torch_serve.main(args + ["--device", "cpu"]) == 0
+    assert len(ref_calls) == len(port_calls) == 1
+    ref, port = ref_calls[0], port_calls[0]
+    assert port["kv_dtype"] == ref["kv_dtype"] == "int8"
+    assert port["capacity_tokens"] == ref["capacity_tokens"]
+    assert port["sample"] == ref["sample"]
+    rs, ps = ref["spec"], port["spec"]
+    assert isinstance(rs, JaxSpecConfig)
+    for f in ("method", "gamma", "ngram_max", "ngram_min", "ngram_window",
+              "draft_page_size", "draft_capacity_tokens"):
+        assert getattr(ps, f) == getattr(rs, f), f
+    if flags[1] == "draft":
+        for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                  "head_dim", "d_ff", "vocab_size", "max_seq_len", "qmode"):
+            assert getattr(ps.draft_cfg, f) == getattr(rs.draft_cfg, f), f
+        assert ps.draft_cfg.name.endswith("-smoke")      # reduced=True
+        assert ps.draft_params is not None
+    else:
+        assert ps.draft_cfg is rs.draft_cfg is None
+
+
+@pytest.mark.parametrize("flags", SPEC_FLAGS, ids=["ngram", "draft"])
+def test_serve_spec_cpu_smoke(capsys, flags):
+    assert torch_serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
+                             "cpu", "--qmode", "w8a8", "--batch", "2",
+                             "--prompt-len", "20", "--steps", "6",
+                             *flags]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] spec: " in out and "verify steps" in out
+    assert "generated (2, 6)" in out

@@ -29,6 +29,7 @@ from repro.serving.engine import \
 from repro.serving.engine import generate as jax_generate  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
                                         generate)
+from repro_torch.serving.spec_decode import SpecConfig  # noqa: E402
 from torch_parity import (check_streams, random_prompts,  # noqa: E402
                           reduced_qwen_pair)
 
@@ -94,9 +95,12 @@ def test_engine_rejects_oversized_request_and_unported_options(model):
     eng.submit(torch.zeros(8, dtype=torch.long), 32)  # 5 pages, pool has 2
     with pytest.raises(RuntimeError):
         eng.run()
-    for kw in ({"mesh": object()}, {"spec": object()}):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatchingEngine(tp, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        ContinuousBatchingEngine(tp, cfg, device="cpu", mesh=object())
+    # speculative decoding is ported: a window below 1 is refused
+    with pytest.raises(ValueError, match="gamma"):
+        ContinuousBatchingEngine(tp, cfg, device="cpu",
+                                 spec=SpecConfig(method="ngram", gamma=0))
 
 
 def test_float_page_engine_matches_reference(model):
