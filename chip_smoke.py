@@ -42,7 +42,10 @@ Phases (any failure exits non-zero and prints no result):
    q_start 0, 512, 517, the same heads, page size 8, a verify panel of
    C 5 at a mid-page and a page-aligned q_start, a one-token feed, and the
    reduced draft's heads (hd 16, G 4) at C 1 and 13), and K2's serving
-   chunk at 1 to 12 splits.
+   chunk at 1 to 12 splits. For the MoE path: K1 at moonshot-v1-16b-a3b's
+   expert GEMMs (M 8 and 32 × (K 2,048, N 1,408) and (1,408, 2,048), f32
+   out, no epilogue) and its untied head (M 1 and 8 × 2,048 × 163,840);
+   K3 and K2 at its heads (hd 128, G 1).
 3. Serving: full-width qwen2-0.5b with random weights from a seed, in
    W8A8, W4A8 and W4A4, 8 requests of 512 prompt tokens (two sharing a
    256-token prefix) and 32 new tokens each on the continuous-batching
@@ -100,14 +103,31 @@ Phases (any failure exits non-zero and prints no result):
    (verify panels at C 5 from mid-page q_starts, the draft's C 1 feeds)
    held against its plain version in situ; (a) and (b) plain and
    speculative in turns; (b) under the profiler.
-9. Report: a ``kernels`` JSON line, the card's name and power limit, and as
-   the last line ``{"ok": true, "device": {...}}``.
+9. MoE serving: moonshot-v1-16b-a3b (48 layers, d 2,048, 16/16 heads of
+   128, 64 experts top-6 of d_ff 1,408, vocab 163,840) at full width and
+   depth in W8A8, random weights from a seed built and quantized one layer
+   at a time; phase 3's 8 prompts with 16 new tokens each on the paged
+   engine over int8 pages. Every forward launches K1 9,409 times (48 × (4
+   + 64 × 3) + the head; a non-final prefill chunk computes no logits:
+   9,408), K2 48 times (prefill) or K3 48 times (decode), and nothing
+   else. Every K1, K2 and K3 call of one request held against its plain
+   version in situ; its first-step logits through the kernels against the
+   plain versions within ``LOGIT_TOL``, with the share of (token, layer)
+   pairs whose top-6 expert set differs and the picks each layer drops
+   over capacity in a 256-token chunk; one decode forward profiled. Then
+   W4A8 and W4A4 at full width, 8 of 48 layers, one request of 256 + 4
+   tokens each: K4 1,569 times a forward, in situ.
+10. Report: a ``kernels`` JSON line (each kernel's launches on every path
+   that ran it), the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Needs the repository's ``src/`` beside it; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -139,6 +159,9 @@ from repro_torch.kernels import quantize as k7  # noqa: E402
 from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue  # noqa: E402
 from repro_torch.kernels.ref import quantize_rowwise_ref  # noqa: E402
 from repro_torch.models import init_params, quantize_params  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.transformer import init_layer  # noqa: E402
+from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
                                         _generate_dense, build_decode_step,
@@ -785,8 +808,11 @@ def _extras(gen, m, n, epi, dtype):
     return bias, opd
 
 
-def check_fused(timer, gen, qmode, shapes, dtypes):
-    """K1 (w8a8) or K4 (w4a8, w4a4) at ``shapes`` for every epilogue."""
+def check_fused(timer, gen, qmode, shapes, dtypes, out_dtype=None,
+                epilogues=EPILOGUES):
+    """K1 (w8a8) or K4 (w4a8, w4a4) at ``shapes`` for every epilogue of
+    ``epilogues``, x in each of ``dtypes``, out in x's dtype or
+    ``out_dtype``."""
     key, name = FUSED[qmode]
     kernel, plain = getattr(k1, name), getattr(k1, name + "_ref")
     rows = []
@@ -795,10 +821,10 @@ def check_fused(timer, gen, qmode, shapes, dtypes):
         s_b = torch.rand(1, n, device="cuda", generator=gen) * 0.01 + 1e-4
         for dtype in dtypes:
             x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
-            for epi in EPILOGUES:
+            for epi in epilogues:
                 bias, opd = _extras(gen, m, n, epi, dtype)
-                kw = dict(out_dtype=dtype, epilogue=epi, bias=bias,
-                          operand=opd)
+                kw = dict(out_dtype=out_dtype or dtype, epilogue=epi,
+                          bias=bias, operand=opd)
                 rows.append(gemm_case(timer, key, kernel, plain,
                                       fused_library(qmode), (x, w, s_b), kw,
                                       2.0 * m * n * k, dict(m=m, k=k, n=n),
@@ -1122,6 +1148,8 @@ def check_k3(timer, gen):
          [1, 100, 513, 1000], 64),
         ("stablelm-12b heads (hd 160, G 4)", 4, 8, 4, 160, 16,
          [1, 100, 513, 1000], 64),
+        ("moonshot-v1-16b-a3b heads (hd 128, G 1)", 8, 16, 1, 128, 16,
+         serving, 34),
         ("serving, page size 8", 8, 2, 7, 64, 8, serving, 68),
         ("one sequence of 4,096 tokens", 1, 2, 7, 64, 16, [4096], 256),
         ("32 ragged sequences", 32, 2, 7, 64, 16, ragged, 64))
@@ -1223,6 +1251,8 @@ def check_k2(timer, gen):
             ("qwen3-0.6b heads (hd 128, G 2)", 8, 2, 128, 16, 256, 512),
             ("qwen2-72b heads (hd 128, G 8)", 8, 8, 128, 16, 256, 512),
             ("stablelm-12b heads (hd 160, G 4)", 8, 4, 160, 16, 256, 512),
+            ("moonshot-v1-16b-a3b heads (hd 128, G 1)", 16, 1, 128, 16,
+             256, 256),
             ("serving, page size 8", 2, 7, 64, 8, 256, 517),
             ("verify panel, gamma 4", 2, 7, 64, 16, 5, 517),
             ("verify panel, page-aligned", 2, 7, 64, 16, 5, 512),
@@ -1241,11 +1271,11 @@ def check_k2(timer, gen):
 N_REQ, PROMPT_LEN, PREFIX_LEN, NEW = 8, 512, 256, 32
 
 
-def run_workload(eng, prompts):
-    """The request mix on engine ``eng`` → (wall s, TTFTs, pages shared,
-    streams)."""
+def run_workload(eng, prompts, new=NEW):
+    """The request mix on engine ``eng``, ``new`` tokens a request →
+    (wall s, TTFTs, pages shared, streams)."""
     t0 = time.perf_counter()
-    sids = [eng.submit(p, NEW) for p in prompts]
+    sids = [eng.submit(p, new) for p in prompts]
     ttft, shared = {}, 0
     while eng.step():
         now = time.perf_counter() - t0
@@ -1483,6 +1513,22 @@ def profile_run(fn, host_ops: bool = True):
                 top=[[n, ms] for n, ms in top], paged=paged, gemm=gemm)
 
 
+def prefill_last_logits(params, cfg, prompt, impl):
+    """``prompt`` prefilled in chunks of 256 over a fresh int8 pool →
+    its last position's logits (f32)."""
+    ps = kvc.DEFAULT_PAGE_SIZE
+    pool = kvc.PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                        head_dim=cfg.hd, num_pages=len(prompt) // ps + 1,
+                        page_size=ps, quantized=True, device="cuda")
+    pool.reserve(0, len(prompt))
+    for start in range(0, len(prompt), 256):
+        logits = paged_chunk_forward(
+            params, cfg, pool, 0, prompt[start:start + 256], start,
+            logits="last" if start + 256 >= len(prompt) else "none",
+            impl=impl)
+    return logits[0, -1].float()
+
+
 def first_step_logits(params, cfg, prompts):
     """The first request's first-step logits (its prompt prefilled in two
     chunks of 256) through the kernels and through the plain versions, on
@@ -1494,20 +1540,10 @@ def first_step_logits(params, cfg, prompts):
     GEMMs by about one ULP (how far the model itself amplifies last-bit
     differences), and an unrelated prompt (how far apart a wrong result
     would be)."""
-    ps = kvc.DEFAULT_PAGE_SIZE
     rel_tol = LOGIT_TOL[cfg.qmode]
 
     def run(impl, p=params, prompt=prompts[0]):
-        pool = kvc.PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
-                            head_dim=cfg.hd, num_pages=len(prompt) // ps + 1,
-                            page_size=ps, quantized=True, device="cuda")
-        pool.reserve(0, len(prompt))
-        for start in range(0, len(prompt), 256):
-            logits = paged_chunk_forward(
-                p, cfg, pool, 0, prompt[start:start + 256], start,
-                logits="last" if start + 256 >= len(prompt) else "none",
-                impl=impl)
-        return logits[0, -1].float()
+        return prefill_last_logits(p, cfg, prompt, impl)
 
     got, want = run("auto"), run("torch")
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
@@ -2423,6 +2459,311 @@ def speculative(seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: MoE serving, moonshot-v1-16b-a3b at full width and depth
+# ---------------------------------------------------------------------------
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_NEW = 16             # new tokens a request, phase 3's 8 prompts of 512
+MOE_CUT_LAYERS = 8       # W4A8 / W4A4: full width, 8 of 48 layers
+MOE_CUT_PROMPT, MOE_CUT_NEW = 256, 4
+# K1 as moe._expert_matmul calls it (f32 out, no epilogue): M is the
+# expert capacity, 8 for a decode batch of 8 and 32 for a 256-token chunk;
+# gate/up (K d 2,048, N expert d_ff 1,408) and down (1,408, 2,048). Then
+# the untied lm head (bf16 out) at a chunk's last row and a decode batch.
+MOE_EXPERT_SHAPES = ((8, 2048, 1408), (8, 1408, 2048), (32, 2048, 1408),
+                     (32, 1408, 2048))
+MOE_HEAD_SHAPES = ((1, 2048, 163840), (8, 2048, 163840))
+
+
+def gemms_per_forward(cfg) -> int:
+    """Fused GEMM calls of one forward that computes logits: q, k, v and o
+    a layer; gate, up and down of every expert of an MoE layer, each at
+    capacity M whether or not a token routed to it (three for a dense
+    FFN); the untied head."""
+    ffn = sum(3 * cfg.moe_experts if cfg.ffn_of(i) == "moe" else 3
+              for i in range(cfg.n_layers))
+    return 4 * cfg.n_layers + ffn + (0 if cfg.tie_embeddings else 1)
+
+
+def build_layerwise(cfg, qmode: str, seed: int, device="cuda") -> dict:
+    """``quantize_params(init_params(cfg, generator=seeded))`` built one
+    layer at a time: the same draws from one generator in the same order
+    (embedding, head, then each layer), each layer quantized before the
+    next is drawn, so at most one layer is ever held in bf16 (full-width
+    moonshot's bf16 experts alone are 53 GB)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = quantize_params(init_params(
+        dataclasses.replace(cfg, n_layers=0), generator=gen, device=device),
+        cfg, qmode)
+    params["layers"] = [quantize_params(init_layer(cfg, i, gen, device), cfg,
+                                        qmode)
+                        for i in range(cfg.n_layers)]
+    return params
+
+
+@contextlib.contextmanager
+def forward_launches():
+    """Record the kernel launches of every forward an engine runs: its
+    prefill chunks go through ``sd.paged_chunk_forward``, its ragged decode
+    through the engine module's ``forward``. Yields a list of
+    dict(lane, logits, launches), one a forward."""
+    recs = []
+    saved = sd.paged_chunk_forward, engine_mod.forward
+
+    def wrap(inner, lane):
+        def call(*a, **kw):
+            before = read_counts()
+            out = inner(*a, **kw)
+            after = read_counts()
+            recs.append(dict(
+                lane=lane, logits=kw.get("logits", "all") != "none",
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}))
+            return out
+        return call
+    sd.paged_chunk_forward = wrap(saved[0], "prefill")
+    engine_mod.forward = wrap(saved[1], "decode")
+    try:
+        yield recs
+    finally:
+        sd.paged_chunk_forward, engine_mod.forward = saved
+
+
+def check_forward_launches(label, recs, cfg, gemm):
+    """Every forward launched the mode's GEMM ``gemms_per_forward`` times
+    (one fewer on a prefill chunk that computes no logits: no head), K2
+    once a layer of a prefill chunk, K3 once a layer of a decode step, and
+    nothing else: no call took a plain version."""
+    per = gemms_per_forward(cfg)
+    bad = []
+    for r in recs:
+        attn = "K2" if r["lane"] == "prefill" else "K3"
+        want = {gemm: per - (0 if r["logits"] else 1), attn: cfg.n_layers}
+        if r["launches"] != want:
+            bad.append(dict(r, want=want))
+    lanes = {lane: sum(r["lane"] == lane for r in recs)
+             for lane in ("prefill", "decode")}
+    print(f"  {label}: {len(recs)} forwards ({lanes['prefill']} prefill "
+          f"chunks, {lanes['decode']} decode steps): {gemm} {per} a forward "
+          f"({per - 1} on a chunk without logits), K2 or K3 "
+          f"{cfg.n_layers}; mismatches {len(bad)}")
+    if bad or not all(lanes.values()):
+        raise RuntimeError(f"{label}: forwards launched other than "
+                           f"expected: {bad[:2]}")
+    return dict(forwards=len(recs), lanes=lanes, gemm_per_forward=per)
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Record every MoE routing call (``moe._route``): each token's top-k
+    expert set, the picks that overflowed an expert's capacity, and the
+    picks of the busiest expert."""
+    recs = []
+    inner = moe_mod._route
+
+    def call(gates, k, cap):
+        slots, weights = inner(gates, k, cap)
+        top = torch.sort(gates, dim=-1, descending=True, stable=True
+                         ).indices[..., :k].sort(dim=-1).values
+        load = torch.bincount(top.reshape(-1), minlength=gates.shape[-1])
+        recs.append(dict(top=top, tokens=gates.shape[0] * gates.shape[1],
+                         dropped=int((slots == gates.shape[-1] * cap).sum()),
+                         busiest=int(load.max())))
+        return slots, weights
+    moe_mod._route = call
+    try:
+        yield recs
+    finally:
+        moe_mod._route = inner
+
+
+def moe_first_step(params, cfg, prompt):
+    """The request's first-step logits (two chunks of 256) through the
+    kernels and through the plain versions (impl='torch'), within
+    ``LOGIT_TOL[cfg.qmode]`` of max |logit|; with both forwards' routing:
+    the share of (token, layer) pairs whose top-k expert set differs, and
+    the picks dropped over capacity in each layer of the first chunk."""
+    with record_routes() as kern:
+        got = prefill_last_logits(params, cfg, prompt, "auto")
+    with record_routes() as plain:
+        want = prefill_last_logits(params, cfg, prompt, "torch")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError("non-finite MoE logits")
+    n_chunks = -(-len(prompt) // 256)
+    if len(kern) != len(plain) or len(kern) != n_chunks * cfg.n_layers:
+        raise RuntimeError(f"routing calls {len(kern)} / {len(plain)}; "
+                           f"expected {n_chunks * cfg.n_layers}")
+    differ = [int((a["top"] != b["top"]).any(dim=-1).sum())
+              for a, b in zip(kern, plain)]
+    pairs = sum(r["tokens"] for r in kern)
+    # routing calls run chunk by chunk, layer by layer
+    first = kern[:cfg.n_layers]
+    dropped = [r["dropped"] for r in first]
+    busiest = [r["busiest"] for r in first]
+    scale = want.abs().max().item()
+    err = max_err(got, want)
+    rel_tol = LOGIT_TOL[cfg.qmode]
+    print(f"  first-step logits ({cfg.qmode}), kernels vs plain: max |diff| "
+          f"{err:.4g} = {err / scale:.2%} of max |logit| {scale:.4g} (limit "
+          f"{rel_tol:.0%}); argmax {got.argmax().item()} vs "
+          f"{want.argmax().item()}; top-{cfg.moe_top_k} expert sets differ "
+          f"in {sum(differ)} of {pairs} (token, layer) pairs "
+          f"({sum(differ) / pairs:.3%}); in the first chunk, layer by layer: "
+          f"{differ[:cfg.n_layers]}")
+    print(f"  the first 256-token chunk, layer by layer (cap "
+          f"{moe_mod.expert_capacity(256, cfg)} of {256 * cfg.moe_top_k} "
+          f"picks over {cfg.moe_experts} experts): picks dropped over "
+          f"capacity {dropped} (sum {sum(dropped)}); picks of the busiest "
+          f"expert {busiest}")
+    if err > rel_tol * scale:
+        raise RuntimeError(f"MoE {cfg.qmode} kernel logits differ from the "
+                           f"plain versions by more than {rel_tol:.0%} of "
+                           f"max |logit|")
+    return dict(max_abs_diff=err, max_abs_logit=scale, rel_tol=rel_tol,
+                topk_sets_differ=differ, token_layer_pairs=pairs,
+                dropped_first_chunk=dropped, busiest_first_chunk=busiest)
+
+
+def profile_moe_decode(engine, prompts):
+    """One ragged decode forward of all requests under the profiler: the
+    prompts prefilled on a fresh engine first, then one engine step with
+    nothing left to prefill. A forward of full-width moonshot launches
+    9,409 K1 calls; a longer window's trace takes the profiler minutes to
+    parse."""
+    eng = engine()
+    for p in prompts:
+        eng.submit(p, MOE_NEW)
+    while eng.waiting or eng.prefilling:
+        eng.step()
+    if len(eng.active) != len(prompts):
+        raise RuntimeError(f"{len(eng.active)} of {len(prompts)} requests "
+                           f"active after the prefill")
+    print(f"  one decode forward of {len(eng.active)} requests under the "
+          f"profiler (device activity only):")
+    with forward_launches() as recs:
+        prof = profile_run(eng.step, host_ops=False)
+    if [r["lane"] for r in recs] != ["decode"]:
+        raise RuntimeError(f"the profiled step ran {recs}")
+    eng.run()
+    check_pools(eng)
+    prof["launches"] = recs[0]["launches"]
+    if prof["device_busy_ms"]:
+        print(f"  K1 busy {prof['gemm']['ms']:.2f} ms of the device's "
+              f"{prof['device_busy_ms']:.2f} ms busy in a {prof['wall_ms']:.1f}"
+              f" ms forward ({prof['device_busy_ms'] / prof['wall_ms']:.1%})")
+    return prof
+
+
+def moe_engine(params, cfg, n_req, prompt_len, new):
+    """A factory of engines over int8 pages sized for the request mix."""
+    ps = kvc.DEFAULT_PAGE_SIZE
+
+    def engine():
+        return ContinuousBatchingEngine(
+            params, cfg, kv_dtype="int8", page_size=ps,
+            capacity_tokens=n_req * kvc.round_up(prompt_len + new, ps),
+            device="cuda")
+    return engine
+
+
+def serve_moe_w8a8(seed: int, smi: str):
+    """Full-width, full-depth moonshot-v1-16b-a3b in W8A8 on the paged
+    engine: phase 3's request mix with ``MOE_NEW`` new tokens, every
+    forward's launches held to the model; in situ; first-step logits and
+    routing; one profiled decode forward."""
+    cfg = get_config(MOE_ARCH, qmode="w8a8")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = build_layerwise(cfg, "w8a8", seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    on_card = torch.cuda.memory_allocated()
+    experts = int8_weight_bytes([lp["moe"] for lp in params["layers"]])
+    print(f"  {MOE_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+          f"{cfg.moe_experts} experts top-{cfg.moe_top_k} of d_ff "
+          f"{cfg.expert_ff}, vocab {cfg.vocab_size}, W8A8, built and "
+          f"quantized one layer at a time in {build_s:.1f} s: {on_card:,} "
+          f"bytes on the card ({experts:,} of int8 experts), peak "
+          f"{torch.cuda.max_memory_allocated():,}; {smi}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (N_REQ, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    prompts[1, :PREFIX_LEN] = prompts[0, :PREFIX_LEN]   # a shared prefix
+    engine = moe_engine(params, cfg, N_REQ, PROMPT_LEN, MOE_NEW)
+    warm = engine()
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    torch.cuda.synchronize()
+    reset_counts()
+    with forward_launches() as recs:
+        wall, ttft, shared, out = run_workload(engine(), prompts, MOE_NEW)
+    launches = {k: v for k, v in read_counts().items() if v}
+    steps = sum(len(t) for t in out)
+    print(f"  served {N_REQ} requests x {PROMPT_LEN} prompt + {MOE_NEW} new "
+          f"tokens in {wall:.3f} s: {steps / wall:.2f} generated tok/s; "
+          f"time to first token: first {ttft[0]:.3f} s, median "
+          f"{ttft[N_REQ // 2]:.3f} s, last {ttft[-1]:.3f} s; pages shared "
+          f"{shared}; kernel launches {launches}")
+    per_forward = check_forward_launches("W8A8", recs, cfg, "K1")
+    if [len(t) for t in out] != [MOE_NEW] * N_REQ or not all(
+            0 <= x < cfg.vocab_size for t in out for x in t):
+        raise RuntimeError("MoE: generated tokens of the wrong count or range")
+    if shared != PREFIX_LEN // kvc.DEFAULT_PAGE_SIZE:
+        raise RuntimeError(f"MoE: {shared} shared pages")
+    in_situ = check_in_situ(engine, prompts[0], "w8a8")
+    logits = moe_first_step(params, cfg, prompts[0])
+    profile = profile_moe_decode(engine, prompts)
+    return dict(build_s=build_s, bytes_on_card=on_card,
+                int8_expert_bytes=experts, launches=launches,
+                per_forward=per_forward, wall_s=wall,
+                gen_tok_s=steps / wall, ttft_s=ttft, shared_pages=shared,
+                in_situ=in_situ, logits=logits, profile=profile)
+
+
+def serve_moe_cut(seed: int, qmode: str):
+    """W4A8 or W4A4 at full width, depth cut to ``MOE_CUT_LAYERS``: one
+    request of ``MOE_CUT_PROMPT`` + ``MOE_CUT_NEW`` tokens, every
+    forward's launches held to the model (K4), then in situ."""
+    cfg = get_config(MOE_ARCH, qmode=qmode, n_layers=MOE_CUT_LAYERS)
+    gemm = FUSED[qmode][0]
+    params = build_layerwise(cfg, qmode, seed)
+    prompt = torch.randint(0, cfg.vocab_size, (MOE_CUT_PROMPT,),
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(seed + 1),
+                           device="cuda")
+    engine = moe_engine(params, cfg, 1, MOE_CUT_PROMPT, MOE_CUT_NEW)
+    reset_counts()
+    with forward_launches() as recs:
+        eng = engine()
+        sid = eng.submit(prompt, MOE_CUT_NEW)
+        out = eng.run()[sid]
+    launches = {k: v for k, v in read_counts().items() if v}
+    print(f"  {qmode.upper()}, {cfg.n_layers} of 48 layers: one request of "
+          f"{MOE_CUT_PROMPT} + {MOE_CUT_NEW} tokens, kernel launches "
+          f"{launches}")
+    per_forward = check_forward_launches(qmode.upper(), recs, cfg, gemm)
+    if len(out) != MOE_CUT_NEW:
+        raise RuntimeError(f"MoE {qmode}: {len(out)} tokens")
+    in_situ = check_in_situ(engine, prompt, qmode)
+    return dict(layers=cfg.n_layers, launches=launches,
+                per_forward=per_forward, in_situ=in_situ)
+
+
+def moe_serving(seed: int, smi: str):
+    """Phase 9: W8A8 at full depth, then W4A8 and W4A4 cut to
+    ``MOE_CUT_LAYERS`` layers; the phase's seconds."""
+    t0 = time.perf_counter()
+    out = {"w8a8": serve_moe_w8a8(seed, smi)}
+    torch.cuda.empty_cache()
+    for qmode in ("w4a8", "w4a4"):
+        out[qmode] = serve_moe_cut(seed, qmode)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 9 seconds: {out['seconds']:.1f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -2464,7 +2805,12 @@ def main(argv=None) -> int:
             + check_fused(timer, gen, "w4a4", SERVING_SHAPES + RAGGED_SHAPES,
                           both)
             + check_unfused(timer, gen, "i8") + check_unfused(timer, gen, "w4")
-            + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen))
+            + check_unfused(timer, gen, "a4w4") + check_k7(timer, gen)
+            + check_fused(timer, gen, "w8a8", MOE_EXPERT_SHAPES,
+                          (torch.bfloat16,), out_dtype=torch.float32,
+                          epilogues=("none",))
+            + check_fused(timer, gen, "w8a8", MOE_HEAD_SHAPES,
+                          (torch.bfloat16,), epilogues=("none",)))
     k5_controls = [k5_dropped_split(gen, kind, shape)
                    for kind in ("i8", "w4", "a4w4")
                    for shape in ((256, 4864, 896), (8, 4864, 896))]
@@ -2513,6 +2859,12 @@ def main(argv=None) -> int:
     print("[phase 8] speculative decoding: full-width qwen2-0.5b on the "
           "paged engine, n-gram and draft-model drafters")
     spec = speculative(SEED)
+    torch.cuda.empty_cache()
+
+    print(f"[phase 9] MoE serving: {MOE_ARCH} at full width, W8A8 at full "
+          f"depth, W4A8 and W4A4 at {MOE_CUT_LAYERS} of 48 layers, on the "
+          f"paged engine")
+    moe = moe_serving(SEED, smi)
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -2543,6 +2895,8 @@ def main(argv=None) -> int:
     counts = {q: served[q]["launches"] for q in QMODES}
     counts["unfused"] = unfused["launches"]
     counts["flash"] = flash["launches"]
+    for q in QMODES:
+        counts["moe " + q] = moe[q]["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
@@ -2552,7 +2906,9 @@ def main(argv=None) -> int:
                             if r["kernel"] == key),
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"],
-            path=path_of[key]))
+            path=path_of[key],
+            launches_by_path={path: n[key] for path, n in counts.items()
+                              if n.get(key)}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -2562,7 +2918,7 @@ def main(argv=None) -> int:
                  k1_controls=k1_controls, scale_modes=scale_modes, rows=rows,
                  k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
-                 dense=dense, stablelm=stablelm, spec=spec,
+                 dense=dense, stablelm=stablelm, spec=spec, moe=moe,
                  kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -45,7 +45,10 @@ class QuantizedTensor:
     """A quantized weight: int8 or packed-int4 payload + f32 column scales.
 
     ``q``: (K, N) int8, or (K//2, N) packed int4 when ``bits`` is 4;
-    ``scale``: (1, N) f32; ``shape``: the logical (K, N).
+    ``scale``: (1, N) f32; ``shape``: the logical (K, N). A stack of MoE
+    expert weights carries a leading expert axis on all three: q (E, K, N)
+    or (E, K//2, N), scale (E, 1, N), shape (E, K, N), each expert packed
+    along its own K.
     """
 
     q: torch.Tensor
@@ -55,15 +58,22 @@ class QuantizedTensor:
 
     def __post_init__(self):
         _qmax(self.bits)
-        k, n = self.shape
+        if len(self.shape) not in (2, 3):
+            raise ValueError(f"a quantized weight is (K, N) or (E, K, N); "
+                             f"got {self.shape}")
+        *lead, k, n = self.shape
         rows = k // 2 if self.bits == 4 else k
-        if tuple(self.q.shape) != (rows, n):
+        if tuple(self.q.shape) != (*lead, rows, n):
             raise ValueError(f"{self.bits}-bit payload of a {self.shape} "
-                             f"weight must be ({rows}, {n}); got "
+                             f"weight must be {(*lead, rows, n)}; got "
                              f"{tuple(self.q.shape)}")
 
     def dequantize(self) -> torch.Tensor:
-        w = unpack_int4(self.q, self.shape[0]) if self.bits == 4 else self.q
+        w = self.q
+        if self.bits == 4:
+            k = self.shape[-2]
+            w = (unpack_int4(w, k) if w.ndim == 2
+                 else torch.stack([unpack_int4(m, k) for m in w]))
         return w.to(self.scale.dtype) * self.scale
 
 

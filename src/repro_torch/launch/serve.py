@@ -8,6 +8,10 @@ On the CPU, at the reduced width (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --reduced --device cpu --qmode w8a8 --batch 4 --prompt-len 32 --steps 16
 
+``--arch`` takes the registry's attention decoders, the mixture-of-experts
+ones too (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b; full-width
+llama4 does not fit one card).
+
 ``--qmode`` takes every CAMP mode: w8a8 (fused GEMM K1), w4a8 and w4a4
 (packed int4 weights, fused GEMM K4), the weight-only w8a16 and w4a16
 (dequantize, then a float matmul) and none. Serving runs on the

@@ -1,0 +1,188 @@
+"""Mixture-of-Experts FFN: top-k router with capacity, slot dispatch,
+per-expert CAMP GEMMs.
+
+Port of ``repro/models/moe.py``. Dispatch is **slot-indexed**: routing
+builds an (expert, slot) → token index map with a cumsum and a scatter,
+dispatch and combine are gathers, and every GEMM FLOP is expert compute
+at M = the expert capacity.
+
+* Routing runs per group of ``routing_group_size(T)`` tokens. Within a
+  group, slot priority follows token order, one top-k rank j at a time;
+  a token past an expert's capacity goes to the sentinel slot ``E·cap``,
+  which reads a zero row. The output therefore depends on the batch
+  (which tokens share a group), as in the reference.
+* The router is f32 (``x.f32 @ router``, softmax in f32). Top-k is a
+  stable descending sort, so ties go to the lower expert index, as
+  ``jax.lax.top_k`` gives them; a CUDA router refuses TF32.
+* The integer modes launch the fused CAMP GEMM (K1 for int8 weights, K4
+  for packed int4) once per expert and projection, every expert at
+  capacity M whether or not a token routed to it, with f32 output and no
+  fused epilogue, then round to the activation dtype: the reference's
+  design and roundings. The float and weight-only modes take an einsum
+  over the (dequantized) weights.
+
+The reference's sharding annotations (``logical(...)``) are no-ops on one
+device and are left out; they return with tensor-parallel serving.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quant import (QuantizedTensor, pack_int4,
+                                    quantize_colwise)
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+MOE_MIN_CAPACITY = 8
+MOE_GROUP_SIZE = 4096  # tokens per routing group
+
+
+def routing_group_size(n_tokens: int) -> int:
+    """Largest group size ≤ MOE_GROUP_SIZE that divides ``n_tokens``
+    (halving from the cap)."""
+    sg = min(MOE_GROUP_SIZE, n_tokens)
+    while n_tokens % sg:
+        sg //= 2
+    return sg
+
+
+def expert_capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
+    """Expert slot count for one routing group: the capacity factor's
+    share, at least MOE_MIN_CAPACITY, rounded up to a multiple of 4 and
+    at most every top-k pick of the group."""
+    cap = max(MOE_MIN_CAPACITY,
+              int((tokens_per_group * cfg.moe_top_k * cfg.moe_capacity_factor)
+                  / cfg.moe_experts))
+    return min(-(-cap // 4) * 4, tokens_per_group * cfg.moe_top_k)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
+    """Router (D, E) f32 and expert weights (E, D, F), (E, F, D) with the
+    reference's scales, drawn from ``gen``."""
+    d, e, f = cfg.d_model, cfg.moe_experts, cfg.expert_ff
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    sc = d ** -0.5
+    return {
+        "router": normal((d, e), sc).float(),
+        "experts": {"w_gate": normal((e, d, f), sc).to(dtype),
+                    "w_up": normal((e, d, f), sc).to(dtype),
+                    "w_down": normal((e, f, d), f ** -0.5).to(dtype)},
+    }
+
+
+def quantize_expert_weight(w: torch.Tensor, bits: int) -> QuantizedTensor:
+    """(E, K, N) → per-expert per-output-channel quantization, 4-bit
+    payloads packed along each expert's K."""
+    qs, scales = zip(*(quantize_colwise(m, bits) for m in w))
+    if bits == 4:
+        qs = [pack_int4(q) for q in qs]
+    return QuantizedTensor(q=torch.stack(qs), scale=torch.stack(scales),
+                           bits=bits, shape=tuple(w.shape))
+
+
+def _dequant_expert(w: QuantizedTensor) -> torch.Tensor:
+    return w.dequantize()
+
+
+def _expert_matmul(xe: torch.Tensor, w, qmode: str,
+                   impl: str = "auto") -> torch.Tensor:
+    """Batched per-expert GEMM: (..., E, C, K) × (E, K, N) → (..., E, C, N).
+
+    The integer modes launch one fused CAMP GEMM per expert (rows: every
+    group's C slots of that expert), f32 out, rounded to xe's dtype after.
+    """
+    if not isinstance(w, QuantizedTensor):
+        return torch.einsum("...eck,ekn->...ecn", xe, w.to(xe.dtype))
+    if qmode in ("w8a16", "w4a16", "none"):
+        return torch.einsum("...eck,ekn->...ecn", xe,
+                            _dequant_expert(w).to(xe.dtype))
+    lead = xe.shape[:-3]
+    e, c, kk = xe.shape[-3:]
+    x2 = xe.reshape(-1, e, c, kk).transpose(0, 1).reshape(e, -1, kk)
+    x2 = x2.contiguous()                                          # (E,L*C,K)
+    if w.bits == 8:
+        gemm = ops.gemm_i8_fused
+    elif qmode == "w4a4":
+        gemm = ops.gemm_a4w4_fused
+    else:
+        gemm = ops.gemm_w4_fused
+    acc = torch.stack([gemm(x2[ei], w.q[ei], w.scale[ei],
+                            out_dtype=torch.float32, impl=impl)
+                       for ei in range(e)])                       # (E,L*C,N)
+    n = acc.shape[-1]
+    acc = acc.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+    return acc.to(xe.dtype)
+
+
+def _route(gates: torch.Tensor, k: int, cap: int):
+    """gates: (G, S, E) f32 → (slots (G, S, k) long in [0, E·cap],
+    weights (G, S, k) f32). Slot E·cap is the overflow sentinel."""
+    g, s, e = gates.shape
+    order = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = order.values[..., :k], order.indices[..., :k]
+    topv = topv / topv.sum(-1, keepdim=True).clamp(min=1e-9)
+    counts = torch.zeros((g, e), dtype=torch.int32, device=gates.device)
+    slots = []
+    for j in range(k):
+        oh = F.one_hot(topi[:, :, j], e).to(torch.int32)          # (G,S,E)
+        pos_all = torch.cumsum(oh, dim=1, dtype=torch.int32) - 1 \
+            + counts[:, None]
+        pos = torch.gather(pos_all, -1, topi[:, :, j:j + 1])[..., 0]
+        counts = counts + oh.sum(dim=1, dtype=torch.int32)
+        slots.append(torch.where(pos < cap, topi[:, :, j] * cap + pos,
+                                 e * cap))
+    return torch.stack(slots, dim=-1), topv
+
+
+def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+            qmode: str = "none", impl: str = "auto"):
+    """x: (B, S, D) → (y (B, S, D), Switch load-balance aux loss)."""
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    t = b * s
+    sg = routing_group_size(t)
+    g = t // sg
+    cap = expert_capacity(sg, cfg)
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the MoE router is f32; TF32 matmuls "
+                           "(torch.backends.cuda.matmul.allow_tf32) would "
+                           "change its routing")
+
+    xg = x.reshape(g, sg, d)
+    gates = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
+    slots, weights = _route(gates, k, cap)                        # (G,S,k)
+
+    # slot → token map; the sentinel token index sg reads a zero row
+    tok_for_slot = torch.full((g, e * cap + 1), sg, dtype=torch.long,
+                              device=x.device)
+    tok_ids = torch.arange(sg, device=x.device)[None, :, None].expand(
+        g, sg, k)
+    tok_for_slot.scatter_(1, slots.reshape(g, -1), tok_ids.reshape(g, -1))
+
+    # dispatch: gather tokens into (G, E, C, D)
+    xpad = torch.cat([xg, x.new_zeros(g, 1, d)], dim=1)
+    idx = tok_for_slot[:, :e * cap, None].expand(g, e * cap, d)
+    xe = torch.gather(xpad, 1, idx).reshape(g, e, cap, d)
+
+    gate = _expert_matmul(xe, p["experts"]["w_gate"], qmode, impl)
+    up = _expert_matmul(xe, p["experts"]["w_up"], qmode, impl)
+    h = F.silu(gate.float()).to(x.dtype) * up
+    ye = _expert_matmul(h, p["experts"]["w_down"], qmode, impl)
+
+    # combine: gather each token's k expert outputs, weight, sum in f32
+    ye_pad = torch.cat([ye.reshape(g, e * cap, d), ye.new_zeros(g, 1, d)],
+                       dim=1)
+    picked = torch.gather(ye_pad, 1, slots.reshape(g, sg * k, 1)
+                          .expand(g, sg * k, d))
+    picked = picked.reshape(g, sg, k, d).float()
+    y = torch.einsum("gskd,gsk->gsd", picked, weights).to(x.dtype)
+
+    # load-balance aux (Switch): E · Σ_e fraction_e · mean_gate_e
+    top1 = F.one_hot(gates.argmax(dim=-1), e).float()
+    aux = e * torch.sum(top1.reshape(t, e).mean(dim=0)
+                        * gates.reshape(t, e).mean(dim=0))
+    return y.reshape(b, s, d), aux

@@ -85,8 +85,8 @@ def build_prefill_step(cfg: ModelConfig, *, impl: str = "auto"):
     """(params, inputs, caches) → (last-position logits (B, V), caches)."""
 
     def prefill_step(params, inputs, caches):
-        logits, caches = forward(params, cfg, inputs, caches=caches,
-                                 last_logits_only=True, impl=impl)
+        logits, caches, _ = forward(params, cfg, inputs, caches=caches,
+                                    last_logits_only=True, impl=impl)
         return logits[:, -1], caches
 
     return prefill_step
@@ -114,8 +114,8 @@ def build_decode_step(cfg: ModelConfig, *, sample: str = "greedy",
         raise ValueError(f"sample={sample!r}")
 
     def decode_step(params, caches, token, pos, generator=None):
-        logits, caches = forward(params, cfg, token, caches=caches,
-                                 cache_pos=pos, impl=impl)
+        logits, caches, _ = forward(params, cfg, token, caches=caches,
+                                    cache_pos=pos, impl=impl)
         last = logits[:, -1].float()
         if sample == "greedy":
             nxt = last.argmax(dim=-1)
@@ -314,9 +314,9 @@ class ContinuousBatchingEngine:
         tables, lengths = self.pool.batch_tables([r.seq_id for r in reqs])
         caches = [{"attn": self.pool.layer_cache(i, tables, lengths)}
                   for i in range(self.cfg.n_layers)]
-        logits, new_caches = forward(self.params, self.cfg, tokens,
-                                     positions=lengths[:, None].long(),
-                                     caches=caches, impl=self.impl)
+        logits, new_caches, _ = forward(self.params, self.cfg, tokens,
+                                        positions=lengths[:, None].long(),
+                                        caches=caches, impl=self.impl)
         for i, layer in enumerate(new_caches):
             self.pool.writeback(i, layer["attn"])
         for r in reqs:

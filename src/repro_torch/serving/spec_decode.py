@@ -130,8 +130,8 @@ def paged_chunk_forward(params, cfg, pool, seq_id: int, tokens, start: int, *,
               for i in range(cfg.n_layers)]
     kw = {"last_logits_only": True} if logits == "last" else \
         {"return_hidden": True} if logits == "none" else {}
-    out, new_caches = forward(params, cfg, toks, positions=positions,
-                              caches=caches, impl=impl, **kw)
+    out, new_caches, _ = forward(params, cfg, toks, positions=positions,
+                                 caches=caches, impl=impl, **kw)
     for i, layer in enumerate(new_caches):
         pool.writeback(i, layer["attn"])
     pool.lens[seq_id] = start + int(c)

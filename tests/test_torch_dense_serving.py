@@ -43,6 +43,7 @@ from repro_torch.serving import engine as teng  # noqa: E402
 from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from torch_parity import (check_streams, jax_to_numpy,  # noqa: E402
                           random_prompts, to_numpy)
+from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 KV, HD, PS = 2, 16, 8
 REL_TOL = 1e-2
@@ -169,10 +170,10 @@ def test_q_chunked_forward_matches_reference_and_unchunked():
     jcfg, jp, cfg, tp = _pair(attn_q_chunk=8)
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32))
     want, _, _ = jax_forward(jp, jcfg, jnp.asarray(toks))
-    got, _ = forward(tp, cfg, torch.from_numpy(toks))
+    got, _, _ = forward(tp, cfg, torch.from_numpy(toks))
     assert_logits_close(got, want, "q-chunked vs reference")
     plain_cfg = get_config("qwen2-0.5b", reduced=True)
-    unchunked, _ = forward(tp, plain_cfg, torch.from_numpy(toks))
+    unchunked, _, _ = forward(tp, plain_cfg, torch.from_numpy(toks))
     assert_logits_close(got, unchunked, "q-chunked vs unchunked")
     with pytest.raises(ValueError):
         forward(tp, cfg, torch.from_numpy(toks[:, :12]))   # 12 % 8 != 0
@@ -183,8 +184,8 @@ def test_q_chunked_forward_f32_equals_unchunked():
     only the row batching of the score product differs."""
     _, _, cfg, tp = _pair(attn_q_chunk=8, dtype="float32")
     toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (1, 24))
-    got, _ = forward(tp, cfg, torch.from_numpy(toks))
-    want, _ = forward(tp, get_config("qwen2-0.5b", reduced=True,
+    got, _, _ = forward(tp, cfg, torch.from_numpy(toks))
+    want, _, _ = forward(tp, get_config("qwen2-0.5b", reduced=True,
                                      dtype="float32"), torch.from_numpy(toks))
     np.testing.assert_allclose(to_numpy(got), to_numpy(want), rtol=1e-5,
                                atol=1e-5 * np.abs(to_numpy(want)).max())
@@ -223,7 +224,7 @@ def test_prefill_last_logits_match_full_forward(model):
     _, _, cfg, tp = model
     toks = torch.from_numpy(
         np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 12)))
-    full, _ = forward(tp, cfg, toks)
+    full, _, _ = forward(tp, cfg, toks)
     last, _ = teng.build_prefill_step(cfg)(
         tp, toks, teng.init_serve_caches(cfg, 2, 16, device="cpu"))
     np.testing.assert_allclose(to_numpy(last), to_numpy(full[:, -1]),
@@ -257,8 +258,8 @@ def test_paged_int8_decode_parity_vs_f32_dense(n_kv):
 
     tok = last.float().argmax(-1)[:, None]
     for step in range(steps):
-        logits_d, caches = forward(tp, cfg, tok, caches=caches,
-                                   cache_pos=s + step)
+        logits_d, caches, _ = forward(tp, cfg, tok, caches=caches,
+                                      cache_pos=s + step)
         want, jcaches, _ = jax_forward(jp, jcfg, jnp.asarray(tok.numpy()),
                                        caches=jcaches,
                                        cache_pos=jnp.int32(s + step))
@@ -266,8 +267,9 @@ def test_paged_int8_decode_parity_vs_f32_dense(n_kv):
         tables, lengths = pool.batch_tables(list(range(b)))
         pcaches = [{"attn": pool.layer_cache(i, tables, lengths)}
                    for i in range(cfg.n_layers)]
-        logits_p, new_p = forward(tp, cfg, tok, positions=lengths[:, None].long(),
-                                  caches=pcaches)
+        logits_p, new_p, _ = forward(tp, cfg, tok,
+                                     positions=lengths[:, None].long(),
+                                     caches=pcaches)
         for i, layer in enumerate(new_p):
             pool.writeback(i, layer["attn"])
         for row in range(b):

@@ -28,6 +28,7 @@ from repro_torch.models import forward, quantize_params  # noqa: E402
 from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
 from torch_parity import (check_streams, jax_to_numpy,  # noqa: E402
                           random_prompts, reduced_qwen_pair, to_numpy)
+from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 INT4_MODES = ["w4a8", "w4a4"]
 
@@ -73,7 +74,7 @@ def test_forward_logits_match_eager_reference(models, qmode):
     jcfg, jq, cfg, tq, _ = models[qmode]
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24))
     want, _, _ = jax_forward(jq, jcfg, jnp.asarray(toks))
-    got, _ = forward(tq, cfg, torch.from_numpy(toks))
+    got, _, _ = forward(tq, cfg, torch.from_numpy(toks))
     got, want = to_numpy(got), to_numpy(want)
     assert got.shape == want.shape
     err, tol = np.abs(got - want).max(), 1e-2 * np.abs(want).max()

@@ -9,7 +9,8 @@ pages) must be the same, and so must the request's shape.
 With ``--spec-*`` flags both drive the engine themselves: the engine class
 is stubbed the same way, and its ``kv_dtype``, ``capacity_tokens``, the
 ``SpecConfig`` fields and the draft config must be the same. Then the
-port's command runs unstubbed with each spec method (the CPU smoke).
+port's command runs unstubbed with each spec method, and with each MoE
+architecture (the CPU smokes).
 """
 import sys
 
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro.launch import serve as jax_serve  # noqa: E402
 from repro_torch.launch import serve as torch_serve  # noqa: E402
+from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 BATCH, PROMPT_LEN, STEPS = 2, 8, 3
 
@@ -132,3 +134,15 @@ def test_serve_spec_cpu_smoke(capsys, flags):
     out = capsys.readouterr().out
     assert "[serve] spec: " in out and "verify steps" in out
     assert "generated (2, 6)" in out
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "llama4-maverick-400b-a17b"])
+def test_serve_moe_cpu_smoke(capsys, arch):
+    """The MoE architectures serve through the CLI at the reduced width,
+    quantized experts included."""
+    assert torch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--qmode", "w8a8", "--batch", "2",
+                             "--prompt-len", "12", "--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] PTQ to w8a8" in out and "generated (2, 4)" in out

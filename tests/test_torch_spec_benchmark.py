@@ -31,6 +31,7 @@ from repro_torch.convert import from_jax_params  # noqa: E402
 from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
 from repro_torch.serving.spec_decode import SpecConfig  # noqa: E402
 from torch_parity import jax_to_numpy  # noqa: E402
+from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 BENCH = json.loads((Path(__file__).resolve().parent.parent
                     / "BENCH_decode.json").read_text())["speculative"]
@@ -38,17 +39,6 @@ BENCH = json.loads((Path(__file__).resolve().parent.parent
 BENCH_CFG = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
                  head_dim=64, d_ff=1024, vocab_size=8192, max_seq_len=256)
 PAGE_SIZE, PATTERN, REPEATS = 16, 8, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for these small models: the suite runs six
-    workers at once, and torch's default of a thread a core oversubscribes
-    the host (measured: these tests ran about ten times slower that way)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_benchmark_speculative_workload_gives_recorded_counts():

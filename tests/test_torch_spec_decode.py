@@ -43,19 +43,9 @@ from spec_reference import (BAD_DRAFT, CAPACITY, CASES, CHUNK,  # noqa: E402
                             reference_case, reference_models, run_engine,
                             weight_digest)
 from torch_parity import jax_to_numpy  # noqa: E402
+from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 RECORDED = json.loads(JSON_PATH.read_text())
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for these small models: the suite runs six
-    workers at once, and torch's default of a thread a core oversubscribes
-    the host (measured: these tests ran about ten times slower that way)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +146,8 @@ def test_forward_clamps_token_ids_past_the_vocabulary_like_reference():
     jcfg, jp, cfg, tp = reduced_qwen_pair()
     ids = np.array([[3, 511, 512, 900, 151_935, 7]], np.int32)
     want, _, _ = jax_forward(jp, jcfg, jnp.asarray(ids))
-    got, _ = forward(tp, cfg, torch.from_numpy(ids).long())
-    clamped, _ = forward(tp, cfg, torch.from_numpy(
+    got, _, _ = forward(tp, cfg, torch.from_numpy(ids).long())
+    clamped, _, _ = forward(tp, cfg, torch.from_numpy(
         np.minimum(ids, cfg.vocab_size - 1)).long())
     assert torch.equal(got, clamped)
     # the forward tolerance of tests/test_torch_transformer.py

@@ -34,20 +34,36 @@ from repro_torch.models import forward  # noqa: E402
 from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
 from torch_parity import jax_to_numpy, to_numpy  # noqa: E402
+from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 REL_TOL = 1e-2
+AUX_RTOL = 1e-3
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = jax_get_config("qwen2-0.5b", reduced=True)
-    cfg = get_config("qwen2-0.5b", reduced=True)
+def _pair(arch):
+    """(jax cfg, port cfg, {qmode: (jax params, port params)}) for the
+    reduced ``arch``, the reference's weights carried across."""
+    jcfg = jax_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
     jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
     out = {}
     for qmode in ("none", "w8a8"):
         jq = jax_quantize_params(jp, jcfg, qmode)
         out[qmode] = (jq, from_jax_params(jax_to_numpy(jq), device="cpu"))
     return jcfg, cfg, out
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _pair("qwen2-0.5b")
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """Reduced moonshot-v1-16b-a3b (MoE every layer, top-2 of 4) and
+    llama4-maverick-400b-a17b (dense and MoE layers interleaved, top-1)."""
+    return {arch: _pair(arch) for arch in MOE_ARCHS}
 
 
 def assert_logits_close(got, want, what):
@@ -64,14 +80,14 @@ def test_forward_no_cache(models, qmode):
     jq, tq = params[qmode]
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
     want, _, _ = jax_forward(jq, jcfg, jnp.asarray(toks), qmode=qmode)
-    got, caches = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode)
-    assert caches is None
+    got, caches, aux = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode)
+    assert caches is None and float(aux) == 0.0      # no MoE layer
     assert_logits_close(got, want, f"{qmode} no-cache")
-    last, _ = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode,
-                      last_logits_only=True)
+    last, _, _ = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode,
+                         last_logits_only=True)
     np.testing.assert_array_equal(to_numpy(last), to_numpy(got)[:, -1:])
-    hidden, _ = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode,
-                        return_hidden=True)
+    hidden, _, _ = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode,
+                           return_hidden=True)
     assert hidden.shape == (2, 24, cfg.d_model)
 
 
@@ -79,7 +95,37 @@ def test_forward_no_cache(models, qmode):
 def test_forward_paged_prefill_then_decode(models, qmode):
     """Two prefill chunks (page-aligned, then a partial page) and two
     ragged decode steps over two sequences, through both pools."""
-    jcfg, cfg, params = models
+    paged_prefill_then_decode(*models, qmode)
+
+
+@pytest.mark.parametrize("qmode", ["none", "w8a8"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_matches_reference(moe_models, arch, qmode):
+    """Logits within the forward tolerance and the summed load-balance
+    aux within ``AUX_RTOL``: the routers read bf16 hidden states that f32
+    reduction orders upstream may move by a bf16 ULP (2^-8 relative),
+    which moves mean gates by about 1e-4 (seen: 1.9e-4, llama4, none)."""
+    jcfg, cfg, params = moe_models[arch]
+    jq, tq = params[qmode]
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24))
+    want, _, jaux = jax_forward(jq, jcfg, jnp.asarray(toks), qmode=qmode)
+    got, caches, aux = forward(tq, cfg, torch.from_numpy(toks), qmode=qmode)
+    assert caches is None
+    assert_logits_close(got, want, f"{arch} {qmode}")
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert abs(float(aux) - float(jaux)) <= AUX_RTOL * float(jaux)
+    assert float(aux) > 0.5 * sum(cfg.ffn_of(i) == "moe"
+                                  for i in range(cfg.n_layers))
+
+
+@pytest.mark.parametrize("qmode", ["none", "w8a8"])
+def test_moe_forward_paged_prefill_then_decode(moe_models, qmode):
+    """Reduced moonshot through the paged pools: MoE routing over each
+    prefill chunk and over the two-sequence decode batch."""
+    paged_prefill_then_decode(*moe_models["moonshot-v1-16b-a3b"], qmode)
+
+
+def paged_prefill_then_decode(jcfg, cfg, params, qmode):
     jq, tq = params[qmode]
     jcfg = jcfg.__class__(**{**jcfg.__dict__, "qmode": qmode})
     cfg = cfg.__class__(**{**cfg.__dict__, "qmode": qmode})
@@ -111,7 +157,7 @@ def test_forward_paged_prefill_then_decode(models, qmode):
             jq, jcfg, jnp.asarray(toks), positions=jl[:, None],
             caches=[{"attn": jpool.layer_cache(i, jt, jl)}
                     for i in range(cfg.n_layers)])
-        got, tnew = forward(
+        got, tnew, _ = forward(
             tq, cfg, torch.from_numpy(toks), positions=tl[:, None].long(),
             caches=[{"attn": tpool.layer_cache(i, tt, tl)}
                     for i in range(cfg.n_layers)])

@@ -5,6 +5,20 @@ arrays become numpy here (bf16 as its uint16 bits), and the port's
 ``from_jax_params`` takes that framework-neutral tree.
 """
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models, for the module that
+    imports this fixture: the suite runs six workers at once, and torch's
+    default of a thread a core oversubscribes the host (measured: the
+    speculative tests ran about ten times slower that way)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_to_numpy(tree):
