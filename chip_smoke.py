@@ -117,7 +117,30 @@ Phases (any failure exits non-zero and prints no result):
    over capacity in a 256-token chunk; one decode forward profiled. Then
    W4A8 and W4A4 at full width, 8 of 48 layers, one request of 256 + 4
    tokens each: K4 1,569 times a forward, in situ.
-10. Report: a ``kernels`` JSON line (each kernel's launches on every path
+10. Recurrent mixers and embedding inputs on the dense-slab loop
+   (``generate`` → ``_generate_dense``, bf16 slab), random weights from
+   a seed built and quantized a layer at a time: jamba-v0.1-52b (d 4,096,
+   Mamba d_inner 8,192 state 16, attention 32/8 heads of 128, 16 experts
+   top-2 of d_ff 14,336 on odd layers, vocab 65,536) at full width, 8 of
+   its 32 layers (one whole period: Mamba at 0-3 and 5-7, attention at 4),
+   and rwkv6-7b (d 4,096, 64 heads of 64, d_ff 14,336) at full width and
+   depth, W8A8, 4 requests of 512 prompt tokens and 16 new tokens each;
+   jamba in W4A8 and W4A4, one request of 256 + 4; pixtral-12b and
+   musicgen-large at full width, 4 layers each, W8A8, 2 requests of 256
+   float embedding frames (``frontend.synth_*_embeddings``) + 8 new
+   tokens. Every forward launches the mode's fused GEMM exactly
+   ``gemms_per_forward`` times (jamba 230, rwkv6 257, pixtral and musicgen
+   29) and nothing else. Each run: every K1 (K4) call of one request held
+   against its plain version in situ (exact); first-step logits, kernels
+   vs plain, within ``LOGIT_TOL``. For jamba and rwkv6 W8A8 besides:
+   layer 0's Mamba scan segments or chunked WKV on their prefill inputs
+   against an f64 sequential recurrence (``SCAN_TOL``, ``WKV_TOL``); the
+   state carried from prefill into 4 decode steps, layer 0's final state
+   against an f64 recurrence over the inputs those steps computed, with
+   a control that zeroes the states after the prefill and must fail; one
+   decode forward profiled (busy share, fused GEMM ms, the recurrence's
+   own kernels' ms).
+11. Report: a ``kernels`` JSON line (each kernel's launches on every path
    that ran it), the card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -127,7 +150,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import os
 import re
@@ -159,8 +181,11 @@ from repro_torch.kernels import quantize as k7  # noqa: E402
 from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue  # noqa: E402
 from repro_torch.kernels.ref import quantize_rowwise_ref  # noqa: E402
 from repro_torch.models import init_params, quantize_params  # noqa: E402
+from repro_torch.models import frontend  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.transformer import init_layer  # noqa: E402
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models.transformer import init_quantized_params  # noqa: E402
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
@@ -1449,14 +1474,17 @@ def union_ms(spans):
     return total / 1e3
 
 
-def profile_run(fn, host_ops: bool = True):
+def profile_run(fn, host_ops: bool = True, ranges=()):
     """``fn()`` under torch.profiler: device busy share of the wall time
     and the kernels that take the most device time. Busy time is the union
     of the device kernels' intervals: a programmatic dependent launch (the
     GEMMs' flush kernel) starts before its predecessor ends and waits
     inside it, so the sum of kernel times ("summed") counts that overlap
     twice. ``host_ops=False`` records the device's activity alone, which
-    keeps a long run's trace small."""
+    keeps a long run's trace small. ``ranges``: names of
+    ``record_function`` ranges opened inside ``fn`` (host ops needed);
+    the device ms of the kernels launched inside each come back under
+    ``"ranges"``."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CUDA]
     if host_ops:
@@ -1466,17 +1494,20 @@ def profile_run(fn, host_ops: bool = True):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # a record_function range also leaves a device-side span under its
+    # name (first to last kernel, gaps included): not a kernel
     per_kernel, counts = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0)
         if t > 0 and getattr(e, "device_type", None) is not None and \
-                str(e.device_type).endswith("CUDA"):
+                str(e.device_type).endswith("CUDA") and e.key not in ranges:
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + t / 1e3
             counts[e.key] = counts.get(e.key, 0) + e.count
     summed = sum(per_kernel.values())
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events()
-             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+             if str(getattr(e, "device_type", "")).endswith("CUDA")
+             and e.name not in ranges]
     busy = union_ms([(a, b) for a, b, _ in spans])
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     # K3's and K2's device kernels (the split attention and its merge) by
@@ -1508,9 +1539,15 @@ def profile_run(fn, host_ops: bool = True):
         print(f"  integer GEMMs: {gemm['ms']:.2f} ms busy (summed "
               f"{gemm['summed_ms']:.2f} ms) in {gemm['device_kernels']} "
               f"device kernels")
+    # a range's host-side event totals the kernels launched inside it
+    in_ranges = {name: 0.0 for name in ranges}
+    for e in prof.events():
+        if e.name in in_ranges and str(e.device_type).endswith("CPU"):
+            in_ranges[e.name] += e.device_time_total / 1e3
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy,
                 device_summed_ms=summed,
-                top=[[n, ms] for n, ms in top], paged=paged, gemm=gemm)
+                top=[[n, ms] for n, ms in top], paged=paged, gemm=gemm,
+                ranges=in_ranges)
 
 
 def prefill_last_logits(params, cfg, prompt, impl):
@@ -2476,29 +2513,27 @@ MOE_HEAD_SHAPES = ((1, 2048, 163840), (8, 2048, 163840))
 
 
 def gemms_per_forward(cfg) -> int:
-    """Fused GEMM calls of one forward that computes logits: q, k, v and o
-    a layer; gate, up and down of every expert of an MoE layer, each at
-    capacity M whether or not a token routed to it (three for a dense
-    FFN); the untied head."""
-    ffn = sum(3 * cfg.moe_experts if cfg.ffn_of(i) == "moe" else 3
-              for i in range(cfg.n_layers))
-    return 4 * cfg.n_layers + ffn + (0 if cfg.tie_embeddings else 1)
+    """Fused GEMM calls of one forward that computes logits, by each
+    layer's mixer (attention: q, k, v, o; Mamba: in, x and out
+    projections, dt_proj being a float matmul; RWKV time mix: r, k, v, g
+    and out) and FFN (dense: gate, up, down; MoE: those of every expert,
+    each at capacity M whether or not a token routed to it; RWKV channel
+    mix: key, value, receptance); the untied head."""
+    mixer = {"attn": 4, "mamba": 3, "rwkv": 5}
+    ffn = {"dense": 3, "moe": 3 * cfg.moe_experts, "rwkv_cmix": 3}
+    return (sum(mixer[cfg.mixer_of(i)] + ffn[cfg.ffn_of(i)]
+                for i in range(cfg.n_layers))
+            + (0 if cfg.tie_embeddings else 1))
 
 
 def build_layerwise(cfg, qmode: str, seed: int, device="cuda") -> dict:
     """``quantize_params(init_params(cfg, generator=seeded))`` built one
-    layer at a time: the same draws from one generator in the same order
-    (embedding, head, then each layer), each layer quantized before the
-    next is drawn, so at most one layer is ever held in bf16 (full-width
-    moonshot's bf16 experts alone are 53 GB)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = quantize_params(init_params(
-        dataclasses.replace(cfg, n_layers=0), generator=gen, device=device),
-        cfg, qmode)
-    params["layers"] = [quantize_params(init_layer(cfg, i, gen, device), cfg,
-                                        qmode)
-                        for i in range(cfg.n_layers)]
-    return params
+    layer at a time (``transformer.init_quantized_params``), so at most
+    one layer is ever held in bf16 (full-width moonshot's bf16 experts
+    alone are 53 GB, jamba's 90 GB)."""
+    return init_quantized_params(
+        cfg, qmode, generator=torch.Generator(device=device).manual_seed(seed),
+        device=device)
 
 
 @contextlib.contextmanager
@@ -2764,6 +2799,386 @@ def moe_serving(seed: int, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: recurrent mixers (Mamba, RWKV6) and embedding inputs on the
+# dense-slab loop
+# ---------------------------------------------------------------------------
+REC_LAYERS = 8           # jamba-v0.1-52b: one whole period of its 32 layers
+REC_REQ, REC_PROMPT, REC_NEW = 4, 512, 16
+REC_CUT_PROMPT, REC_CUT_NEW = 256, 4     # jamba W4A8 / W4A4: one request
+FRONT_LAYERS = 4         # pixtral-12b, musicgen-large: 4 of 40 / 48 layers
+FRONT_REQ, FRONT_PROMPT, FRONT_NEW = 2, 256, 8
+STATE_STEPS = 4          # decode steps of the state check
+# Layer 0's recurrence on its prefill inputs, f32 on the card against an
+# f64 sequential recurrence on the same inputs, as a share of max |f64|:
+# the reference's own property tests hold the scan to rtol = atol = 2e-5
+# and the chunked WKV to 1e-4 against their sequential forms
+# (tests/test_properties.py:125, :105). The WKV's factorised decays
+# exp(cl_prev - CL) reach e^(C·LW_MAX) = e^80 at chunk 32, so their
+# exponents carry an absolute error of ~C·LW_MAX·2^-24 ≈ 5e-6.
+SCAN_TOL, WKV_TOL = 2e-5, 1e-4
+# the recurrent states a control zeroes between prefill and decode
+REC_STATE_KEYS = ("mamba", "rwkv_tm", "rwkv_cm")
+
+
+def rec_inputs(cfg, gen, n_req, prompt_len):
+    """Token ids (n_req, prompt_len), or bf16 embeddings (n_req,
+    prompt_len, d_model) for a model with ``embedding_inputs``
+    (``frontend.synth_*_embeddings``)."""
+    if cfg.embedding_inputs:
+        synth = (frontend.synth_frame_embeddings if cfg.family == "audio"
+                 else frontend.synth_patch_embeddings)
+        return synth(gen, cfg, n_req, prompt_len)
+    return torch.randint(0, cfg.vocab_size, (n_req, prompt_len),
+                         generator=gen, device="cuda")
+
+
+def rec_generate(label, params, cfg, prompts, new):
+    """``generate`` (→ ``_generate_dense``, the bf16 slab) over the batch;
+    every forward must launch the mode's fused GEMM exactly
+    ``gemms_per_forward`` times and nothing else; then the batch's prefill
+    once more, timed alone (its time to first token)."""
+    gemm = FUSED[cfg.qmode][0]
+    per = gemms_per_forward(cfg)
+    reset_counts()
+    with forward_launches() as recs:
+        t0 = time.perf_counter()
+        toks = generate(params, cfg, prompts, steps=new, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    bad = [r["launches"] for r in recs if r["launches"] != {gemm: per}]
+    b = prompts.shape[0]
+    t0 = time.perf_counter()
+    build_prefill_step(cfg)(params, prompts, init_serve_caches(
+        cfg, b, prompts.shape[1] + new, device="cuda"))
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    print(f"  {label}: {b} x ({prompts.shape[1]} + {new}) through generate "
+          f"(dense slab) in {wall:.3f} s, {b * new / wall:.2f} generated "
+          f"tok/s, the batch's prefill alone {ttft:.3f} s; {len(recs)} "
+          f"forwards, {gemm} {per} each; mismatches {len(bad)}; kernel "
+          f"launches {launches}")
+    if bad or len(recs) != new or launches != {gemm: per * new}:
+        raise RuntimeError(f"{label}: forwards launched {bad[:2]} (want "
+                           f"{gemm} {per}), {len(recs)} forwards, {launches}")
+    if tuple(toks.shape) != (b, new) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise RuntimeError(f"{label}: tokens of the wrong shape or range")
+    return dict(wall_s=wall, gen_tok_s=b * new / wall, prefill_s=ttft,
+                launches=launches, forwards=len(recs), per_forward=per,
+                tokens=toks)
+
+
+def rec_in_situ(params, cfg, prompt):
+    """Every fused GEMM call of one request (its prefill and two decode
+    steps) held against the plain version on the same inputs: exact (silu:
+    one bf16 ULP)."""
+    gemm, name = FUSED[cfg.qmode]
+    worst, calls = {gemm: 0.0}, {gemm: 0}
+    saved = getattr(ops, name)
+    setattr(ops, name, gemm_in_situ(gemm, name, worst, calls))
+    try:
+        _generate_dense(params, cfg, prompt[None], steps=3, device="cuda")
+    finally:
+        setattr(ops, name, saved)
+    want = 3 * gemms_per_forward(cfg)
+    print(f"  in situ, every {gemm} call of one request (prefill, two "
+          f"decode steps) vs its plain version: {calls[gemm]} calls, max "
+          f"|diff| {worst[gemm]:.3g}")
+    if calls[gemm] != want:
+        raise RuntimeError(f"in situ: {calls[gemm]} calls, expected {want}")
+    return dict(calls=calls, max_abs_diff=worst)
+
+
+def rec_first_step(params, cfg, prompt):
+    """One request's prefill logits through the kernels and through the
+    plain versions (impl='torch'), within ``LOGIT_TOL`` of max |logit|."""
+    def run(impl):
+        caches = init_serve_caches(cfg, 1, prompt.shape[0] + 1,
+                                   device="cuda")
+        return build_prefill_step(cfg, impl=impl)(params, prompt[None],
+                                                  caches)[0][0].float()
+    got, want = run("auto"), run("torch")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError("non-finite logits")
+    scale, err = want.abs().max().item(), max_err(got, want)
+    rel_tol = LOGIT_TOL[cfg.qmode]
+    print(f"  first-step logits, kernels vs plain: max |diff| {err:.4g} = "
+          f"{err / scale:.2%} of max |logit| {scale:.4g} (limit "
+          f"{rel_tol:.0%}); argmax {got.argmax().item()} vs "
+          f"{want.argmax().item()}")
+    if err > rel_tol * scale:
+        raise RuntimeError(f"{cfg.name} {cfg.qmode} kernel logits differ "
+                           f"from the plain versions by more than "
+                           f"{rel_tol:.0%}")
+    return dict(max_abs_diff=err, max_abs_logit=scale, rel_tol=rel_tol)
+
+
+@contextlib.contextmanager
+def layer0_recurrence(mamba: bool):
+    """Record the recurrence calls of every forward (the engine module's
+    ``forward``, which the dense loop's steps call): per forward, the
+    (args, output) of its Mamba scan segments (``ssm._ssm_scan_segment``)
+    or of its WKV (``rwkv._wkv6_chunked`` / ``_wkv6_step``), layer 0's
+    being the first ``nseg`` (Mamba) or the first one (RWKV)."""
+    fwd = []
+    names = ("_ssm_scan_segment",) if mamba else ("_wkv6_chunked",
+                                                  "_wkv6_step")
+    mod = ssm_mod if mamba else rwkv_mod
+    saved = [getattr(mod, n) for n in names] + [engine_mod.forward]
+
+    def rec(fn):
+        def call(*args):
+            out = fn(*args)
+            fwd[-1].append((args, out))
+            return out
+        return call
+
+    def forward(*a, **kw):
+        fwd.append([])
+        return saved[-1](*a, **kw)
+    for n, fn in zip(names, saved):
+        setattr(mod, n, rec(fn))
+    engine_mod.forward = forward
+    try:
+        yield fwd
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(mod, n, fn)
+        engine_mod.forward = saved[-1]
+
+
+def rec_state(params, cfg, prompt, toks):
+    """Layer 0's recurrence, on the card against f64: the request's
+    prefill, then ``STATE_STEPS`` decode steps feeding its own tokens,
+    with every scan segment or WKV call of layer 0 recorded. An f64
+    sequential recurrence over the very inputs those calls took (the Mamba
+    scan's decays and drives, the WKV's r, k, v and log decays) must give
+    the prefill's outputs (the scan's h at every position; the WKV's y and
+    final state) and the state after the decode steps, within
+    ``SCAN_TOL`` / ``WKV_TOL`` of max |f64|. A control zeroes the
+    recurrent states between prefill and decode, and the check must
+    reject it.
+
+    Beside it, not gated: the state and the last logits against one
+    prefill over all the tokens. A step's inputs at M = 1 and that
+    prefill's at M = 516 differ by the bf16 roundings of the float
+    matmuls (the RWKV token-shift LoRAs, Mamba's dt_proj), whose cuBLAS
+    kernels depend on M; the fused GEMMs' int8 roundings then amplify
+    such differences layer by layer (seen on the H100, this seed:
+    rwkv6-7b layer 0's state 4.8e-3 of max from that prefill's, about as
+    far as the zeroed control; the logits ~74% at full depth)."""
+    s = prompt.shape[0]
+    n = s + STATE_STEPS
+    seq = torch.cat([prompt, toks[:STATE_STEPS].to(prompt.device)])[None]
+    mamba = cfg.mixer_of(0) == "mamba"
+    key, name = ("mamba", "h") if mamba else ("rwkv_tm", "s")
+    chunks = cfg.ssm_seq_chunks
+    nseg = chunks if mamba and s > chunks and s % chunks == 0 else 1
+
+    def incremental(zero):
+        with layer0_recurrence(mamba) as fwd:
+            caches = init_serve_caches(cfg, 1, n, device="cuda")
+            _, caches = build_prefill_step(cfg)(params, prompt[None],
+                                                caches)
+            if zero:
+                for c in caches:
+                    for k in REC_STATE_KEYS:
+                        for t in c.get(k, {}).values():
+                            t.zero_()
+            for i in range(STATE_STEPS):
+                logits, caches, _ = engine_mod.forward(
+                    params, cfg, seq[:, s + i:s + i + 1], caches=caches,
+                    cache_pos=s + i)
+        return logits[0, -1].float(), caches[0], fwd
+    got_logits, layer0, fwd = incremental(False)
+    prefill, steps = fwd[0][:nseg], [f[0] for f in fwd[1:]]
+    if len(fwd) != 1 + STATE_STEPS or len(prefill) != nseg:
+        raise RuntimeError(f"recorded {len(fwd)} forwards, {len(prefill)} "
+                           f"prefill calls")
+
+    def rel(got, want):
+        return max_err(got, want) / want.abs().max().item()
+    errs = {}
+    if mamba:          # h_t = a_t h_{t-1} + bu_t, over every call in order
+        h = prefill[0][0][2].double()
+        for i, ((a, bu, _), (h_all, _)) in enumerate(prefill + steps):
+            hs = []
+            for t in range(a.shape[1]):
+                h = a[:, t].double() * h + bu[:, t].double()
+                hs.append(h)
+            if i < nseg:
+                errs["prefill h"] = max(errs.get("prefill h", 0.0), rel(
+                    h_all, torch.stack(hs, dim=1)))
+        tol, what = SCAN_TOL, f"{nseg} scan segments"
+    else:
+        (r, k, v, lw, u, s0, chunk), (y, s_fin) = prefill[0]
+        ref_y, h = rwkv_mod.wkv6_sequential_ref(
+            *(t.double() for t in (r, k, v, lw, u, s0)))
+        errs["prefill y"], errs["prefill s"] = rel(y, ref_y), rel(s_fin, h)
+        for (r, k, v, lw, u, _), _ in steps:
+            h = rwkv_mod.wkv6_sequential_ref(
+                *(t.double() for t in (r, k, v, lw, u)), h)[1]
+        tol, what = WKV_TOL, f"the chunked WKV (chunk {chunk})"
+    errs[f"{name} after decode"] = rel(layer0[key][name], h)
+    control = rel(incremental(True)[1][key][name], h)
+    last, once = build_prefill_step(cfg)(params, seq, init_serve_caches(
+        cfg, 1, n, device="cuda"))
+    beside = max(rel(layer0[k][m], once[0][k][m])
+                 for k in ("mamba", "rwkv_tm") if k in once[0]
+                 for m in once[0][k])
+    gap = rel(got_logits, last[0].float())
+    print(f"  layer 0, prefill ({what}) + {STATE_STEPS} decode steps vs an "
+          f"f64 sequential recurrence over the inputs they took, max |diff| "
+          f"/ max |f64|: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                       errs.items())
+          + f" (limit {tol:g}); control with the states zeroed after the "
+          f"prefill {control:.3g} (must exceed the limit); beside, not "
+          f"gated, against one prefill over the same {n} tokens: layer 0's "
+          f"mixer states {beside:.3g}, the last logits {gap:.2%} of max "
+          f"|logit|")
+    if max(errs.values()) > tol or control <= tol:
+        raise RuntimeError(f"{cfg.name}: layer 0's recurrence {errs}, "
+                           f"control {control:.3g}, limit {tol:g}")
+    return dict(rel_err=errs, control_rel_err=control, tol=tol,
+                one_prefill_state_rel=beside, one_prefill_logits_rel=gap)
+
+
+@contextlib.contextmanager
+def mixer_ranges(gemm_name):
+    """Profiler ranges: "recurrence" around each Mamba and RWKV time-mix
+    call, "gemm in recurrence" around each fused GEMM call inside one; the
+    recurrence's own kernels (conv, dt_proj, the scan or WKV, norms,
+    gates) are the first less the second."""
+    from torch.profiler import record_function
+    inside = [0]
+
+    def mixer(fn):
+        def call(*a, **kw):
+            inside[0] += 1
+            try:
+                with record_function("recurrence"):
+                    return fn(*a, **kw)
+            finally:
+                inside[0] -= 1
+        return call
+
+    def gemm(fn):
+        def call(*a, **kw):
+            if not inside[0]:
+                return fn(*a, **kw)
+            with record_function("gemm in recurrence"):
+                return fn(*a, **kw)
+        return call
+    targets = [(ssm_mod, "mamba_mixer", mixer),
+               (rwkv_mod, "rwkv_time_mix", mixer), (ops, gemm_name, gemm)]
+    saved = [getattr(m, n) for m, n, _ in targets]
+    for m, n, wrap in targets:
+        setattr(m, n, wrap(getattr(m, n)))
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(targets, saved):
+            setattr(m, n, fn)
+
+
+def rec_profile(params, cfg, prompts, new):
+    """One decode forward of the batch under the profiler, after its
+    prefill: device busy share, K1 ms, and the recurrence's own kernels'
+    ms (the Mamba / RWKV time-mix calls less their GEMMs)."""
+    b, s = prompts.shape[:2]
+    caches = init_serve_caches(cfg, b, s + new, device="cuda")
+    last, caches = build_prefill_step(cfg)(params, prompts, caches)
+    tok = last.float().argmax(-1)[:, None]
+    decode = build_decode_step(cfg)
+    decode(params, caches, tok, s)               # first-use costs
+    torch.cuda.synchronize()
+    print(f"  one decode forward of {b} requests under the profiler:")
+    with mixer_ranges(FUSED[cfg.qmode][1]):
+        prof = profile_run(lambda: decode(params, caches, tok, s + 1),
+                           ranges=("recurrence", "gemm in recurrence"))
+    rng = prof["ranges"]
+    prof["recurrence_ms"] = rng["recurrence"] - rng["gemm in recurrence"]
+    if prof["device_busy_ms"]:
+        print(f"  busy {prof['device_busy_ms']:.2f} ms of a "
+              f"{prof['wall_ms']:.1f} ms forward "
+              f"({prof['device_busy_ms'] / prof['wall_ms']:.1%}); fused "
+              f"GEMMs {prof['gemm']['ms']:.2f} ms; the recurrence's own "
+              f"kernels {prof['recurrence_ms']:.2f} ms (Mamba / RWKV "
+              f"time-mix calls {rng['recurrence']:.2f} ms less their GEMMs "
+              f"{rng['gemm in recurrence']:.2f} ms)")
+    return prof
+
+
+def rec_case(label, arch, qmode, seed, smi, *, layers, n_req, prompt_len,
+             new, full):
+    """One run of phase 10: the model built and quantized a layer at a
+    time, ``generate`` over its request mix, in situ, first-step logits;
+    with ``full``, the f64 recurrence check, the state check and one
+    profiled decode forward."""
+    t0 = time.perf_counter()
+    over = {} if layers is None else dict(n_layers=layers)
+    cfg = get_config(arch, qmode=qmode, **over)
+    torch.cuda.reset_peak_memory_stats()
+    params = build_layerwise(cfg, qmode, seed)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    kinds = sorted({f"{cfg.mixer_of(i)}/{cfg.ffn_of(i)}"
+                    for i in range(cfg.n_layers)})
+    print(f"  {label}: {cfg.n_layers} layers ({', '.join(kinds)}), d "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {qmode.upper()}, built "
+          f"and quantized a layer at a time in {build_s:.1f} s: "
+          f"{torch.cuda.memory_allocated():,} bytes on the card "
+          f"({int8_weight_bytes(params):,} of integer weights), peak "
+          f"{torch.cuda.max_memory_allocated():,}; {smi}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = rec_inputs(cfg, gen, n_req, prompt_len)
+    generate(params, cfg, prompts[:1, :16], steps=2, device="cuda")  # warm
+    out = dict(layers=cfg.n_layers, build_s=build_s,
+               bytes_on_card=torch.cuda.memory_allocated())
+    out["run"] = rec_generate(label, params, cfg, prompts, new)
+    toks = out["run"].pop("tokens")
+    out["in_situ"] = rec_in_situ(params, cfg, prompts[0])
+    out["logits"] = rec_first_step(params, cfg, prompts[0])
+    if full:
+        out["state"] = rec_state(params, cfg, prompts[0], toks[0])
+        out["profile"] = rec_profile(params, cfg, prompts, new)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  {label} seconds: {out['seconds']:.1f}")
+    return out
+
+
+def recurrent_serving(seed: int, smi: str):
+    """Phase 10: jamba-v0.1-52b (8 of 32 layers) and rwkv6-7b (all 32) in
+    W8A8 at full width through ``generate``'s dense-slab loop; jamba in
+    W4A8 / W4A4; pixtral-12b and musicgen-large (4 layers each) from float
+    embeddings."""
+    t0 = time.perf_counter()
+    runs = {}
+    for label, arch, qmode, layers, mix, full in (
+            ("jamba w8a8", "jamba-v0.1-52b", "w8a8", REC_LAYERS,
+             (REC_REQ, REC_PROMPT, REC_NEW), True),
+            ("rwkv6 w8a8", "rwkv6-7b", "w8a8", None,
+             (REC_REQ, REC_PROMPT, REC_NEW), True),
+            ("jamba w4a8", "jamba-v0.1-52b", "w4a8", REC_LAYERS,
+             (1, REC_CUT_PROMPT, REC_CUT_NEW), False),
+            ("jamba w4a4", "jamba-v0.1-52b", "w4a4", REC_LAYERS,
+             (1, REC_CUT_PROMPT, REC_CUT_NEW), False),
+            ("pixtral w8a8", "pixtral-12b", "w8a8", FRONT_LAYERS,
+             (FRONT_REQ, FRONT_PROMPT, FRONT_NEW), False),
+            ("musicgen w8a8", "musicgen-large", "w8a8", FRONT_LAYERS,
+             (FRONT_REQ, FRONT_PROMPT, FRONT_NEW), False)):
+        n_req, prompt_len, new = mix
+        runs[label] = rec_case(label, arch, qmode, seed, smi, layers=layers,
+                               n_req=n_req, prompt_len=prompt_len, new=new,
+                               full=full)
+        torch.cuda.empty_cache()
+    runs["seconds"] = time.perf_counter() - t0
+    print(f"  phase 10 seconds: {runs['seconds']:.1f}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -2865,6 +3280,14 @@ def main(argv=None) -> int:
           f"depth, W4A8 and W4A4 at {MOE_CUT_LAYERS} of 48 layers, on the "
           f"paged engine")
     moe = moe_serving(SEED, smi)
+    torch.cuda.empty_cache()
+
+    print(f"[phase 10] recurrent mixers and embedding inputs on the "
+          f"dense-slab loop: jamba-v0.1-52b ({REC_LAYERS} of 32 layers) and "
+          f"rwkv6-7b (32) W8A8 at full width, jamba W4A8 / W4A4, "
+          f"pixtral-12b and musicgen-large ({FRONT_LAYERS} layers) from "
+          f"float embeddings")
+    recurrent = recurrent_serving(SEED, smi)
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -2897,6 +3320,9 @@ def main(argv=None) -> int:
     counts["flash"] = flash["launches"]
     for q in QMODES:
         counts["moe " + q] = moe[q]["launches"]
+    for label, run in recurrent.items():
+        if label != "seconds":
+            counts[label] = run["run"]["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
@@ -2919,7 +3345,7 @@ def main(argv=None) -> int:
                  k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
-                 kernels=kernels), indent=1))
+                 recurrent=recurrent, kernels=kernels), indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

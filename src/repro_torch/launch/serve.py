@@ -8,9 +8,18 @@ On the CPU, at the reduced width (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --reduced --device cpu --qmode w8a8 --batch 4 --prompt-len 32 --steps 16
 
-``--arch`` takes the registry's attention decoders, the mixture-of-experts
-ones too (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b; full-width
-llama4 does not fit one card).
+``--arch`` takes every config of the registry: the attention decoders,
+the mixture-of-experts ones (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b;
+full-width llama4 does not fit one card), the recurrent ones
+(jamba-v0.1-52b: Mamba and attention with MoE; rwkv6-7b) and those that
+take float embeddings (pixtral-12b, musicgen-large: the prompt is a random
+(batch, prompt-len, d_model) bf16 tensor, as in the reference's CLI). The
+last four run on the dense-slab loop, as the reference's ``generate``
+sends them. With a quantizing ``--qmode`` the weights are built and
+quantized one layer at a time (the same draws), so full-width
+jamba-v0.1-52b (~103 GB in bf16, ~52 GB at int8) fits the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --qmode w8a8 --batch 4 --prompt-len 512 --steps 16
 
 ``--qmode`` takes every CAMP mode: w8a8 (fused GEMM K1), w4a8 and w4a4
 (packed int4 weights, fused GEMM K4), the weight-only w8a16 and w4a16
@@ -42,7 +51,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.camp import QMODES
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params, quantize_params
+from repro_torch.models import (init_params, init_quantized_params,
+                                 quantize_params)
 from repro_torch.serving.engine import ContinuousBatchingEngine, generate
 from repro_torch.serving.kv_cache import round_up
 from repro_torch.serving.spec_decode import SpecConfig
@@ -76,11 +86,16 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced, qmode=args.qmode)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, generator=gen, device=device)
     if args.qmode != "none":
         t0 = time.perf_counter()
-        params = quantize_params(params, cfg, args.qmode)
-        print(f"[serve] PTQ to {args.qmode} in {time.perf_counter()-t0:.2f}s")
+        params = init_quantized_params(cfg, args.qmode, generator=gen,
+                                       device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        print(f"[serve] init + PTQ to {args.qmode}, a layer at a time, in "
+              f"{time.perf_counter()-t0:.2f}s")
+    else:
+        params = init_params(cfg, generator=gen, device=device)
 
     spec = None
     if args.spec_method != "off":
@@ -101,8 +116,13 @@ def main(argv=None) -> int:
         print(f"[serve] speculative decoding: {args.spec_method}, "
               f"gamma={gamma}")
 
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           generator=gen, device=device)
+    if cfg.embedding_inputs:
+        prompt = torch.randn((args.batch, args.prompt_len, cfg.d_model),
+                             generator=gen, device=device).to(torch.bfloat16)
+    else:
+        prompt = torch.randint(0, cfg.vocab_size,
+                               (args.batch, args.prompt_len), generator=gen,
+                               device=device)
     t0 = time.perf_counter()
     if spec is None:
         toks = generate(params, cfg, prompt, steps=args.steps,

@@ -1,4 +1,6 @@
 """Decoder LM for the port: config, modules, attention, transformer."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (forward, init_caches,
-                                            init_params, quantize_params)
+                                            init_params,
+                                            init_quantized_params,
+                                            quantize_params)

@@ -23,6 +23,27 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return x * inv * scale.to(x.dtype)
 
 
+def refuse_tf32(x: torch.Tensor, what: str) -> None:
+    """Raise on a CUDA tensor while TF32 matmuls are on: ``what`` computes
+    f32 products that must stay f32, as in the reference."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(f"{what} is f32; TF32 matmuls "
+                           "(torch.backends.cuda.matmul.allow_tf32) would "
+                           "change its results")
+
+
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Per-head LayerNorm over the last dim, in f32. x: (..., H, hd). The
+    variance is the population variance (``jnp.var``), not torch's
+    unbiased default."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
            qmode: str = "none", impl: str = "auto",
            epilogue: Optional[str] = None,

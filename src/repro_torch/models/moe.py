@@ -33,6 +33,7 @@ from repro_torch.core.quant import (QuantizedTensor, pack_int4,
                                     quantize_colwise)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import refuse_tf32
 
 MOE_MIN_CAPACITY = 8
 MOE_GROUP_SIZE = 4096  # tokens per routing group
@@ -147,10 +148,7 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     sg = routing_group_size(t)
     g = t // sg
     cap = expert_capacity(sg, cfg)
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("the MoE router is f32; TF32 matmuls "
-                           "(torch.backends.cuda.matmul.allow_tf32) would "
-                           "change its routing")
+    refuse_tf32(x, "the MoE router")
 
     xg = x.reshape(g, sg, d)
     gates = torch.softmax(xg.float() @ p["router"].float(), dim=-1)

@@ -1,0 +1,228 @@
+"""RWKV6 "Finch" mixer: data-dependent decay linear attention, chunkwise.
+
+Port of ``repro/models/rwkv.py``. The WKV6 recurrence per head (state
+S ∈ R^{hd_k × hd_v}):
+
+    S_t = diag(w_t) · S_{t-1} + k_t v_tᵀ
+    y_t = r_tᵀ · (S_{t-1} + diag(u) k_t v_tᵀ)
+
+runs in the reference's **chunkwise-parallel** form (so its f32 rounding
+follows the reference's): intra-chunk work is batched einsums over every
+chunk at once; the cross-chunk state propagation is a loop over chunks
+that emits the state *before* each chunk. Log-decays are clamped to
+[-LW_MAX, -1e-4], which bounds the factorised intra-chunk exponents by
+C·LW_MAX (80 < 88 = log(f32 max) at C 32). Decode (S 1) is one step.
+
+The projections go through the CAMP pipeline when quantized; the WKV
+contractions are f32 and must not run in TF32 on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import group_norm_heads, linear, refuse_tf32
+
+LW_MAX = 2.5
+_MIX = ("r", "w", "k", "v", "g")
+
+
+def init_rwkv_time_mix(gen: torch.Generator, cfg: ModelConfig, dtype,
+                       device) -> dict:
+    """The reference's shapes and scales, drawn from ``gen``."""
+    d, hd, r = cfg.d_model, cfg.rwkv_head_dim, cfg.rwkv_lora_r
+    h = d // hd
+    m = len(_MIX)
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    sc = d ** -0.5
+    return {
+        "wr": normal((d, d), sc), "wk": normal((d, d), sc),
+        "wv": normal((d, d), sc), "wg": normal((d, d), sc),
+        "out_proj": normal((d, d), sc),
+        "time_maa_x": full((d,), 0.0),
+        "time_maa": full((m, d), 0.0),
+        "time_maa_w1": normal((d, m * 32), sc),
+        "time_maa_w2": normal((m, 32, d), 0.03),
+        "w0": full((d,), 0.5),                         # base log-log decay
+        "w_lora_a": normal((d, r), sc),
+        "w_lora_b": normal((r, d), 0.03),
+        "u": normal((h, hd), 0.1),
+        "g_norm_scale": full((h, hd), 1.0),
+        "g_norm_bias": full((h, hd), 0.0),
+    }
+
+
+def _ddlerp(p, x, x_prev):
+    """RWKV6 data-dependent token-shift interpolation for the 5 streams."""
+    sx = x_prev - x                                            # (B,S,D)
+    xxx = x + sx * p["time_maa_x"].to(x.dtype)
+    lora = torch.tanh(linear(xxx, p["time_maa_w1"]))           # (B,S,5*32)
+    b, s, _ = lora.shape
+    lora = lora.reshape(b, s, len(_MIX), 32)
+    dd = torch.einsum("bsmr,mrd->bsmd", lora, p["time_maa_w2"].to(x.dtype))
+    return {name: x + sx * (p["time_maa"][i].to(x.dtype) + dd[:, :, i])
+            for i, name in enumerate(_MIX)}
+
+
+def _wkv6_chunked(r, k, v, lw, u, s0, chunk: int):
+    """Chunkwise-parallel WKV6. r, k, v, lw: (B, S, H, hd) f32 (lw = log
+    decay ≤ 0), u: (H, hd), s0: (B, H, hd, hd). Returns (y (B, S, H, hd),
+    s_final)."""
+    b, s, h, hd = r.shape
+    assert s % chunk == 0, (s, chunk)
+    nc = s // chunk
+    rs, ks_, vs, lws = (t.reshape(b, nc, chunk, h, hd) for t in (r, k, v, lw))
+
+    cl = torch.cumsum(lws, dim=2)                              # inclusive Σlw
+    cl_prev = cl - lws                                         # exclusive
+    CL = cl[:, :, -1:]                                         # (B,nc,1,H,hd)
+
+    q_t = rs * torch.exp(cl_prev - CL)                         # ≤ e^{|CL|}
+    k_t = ks_ * torch.exp(CL - cl)                             # ≤ 1
+    # strictly causal intra-chunk attention matrix (B, nc, H, C, C)
+    a = torch.einsum("bnthd,bnshd->bnhts", q_t, k_t)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    a = torch.where(tri, a, 0.0)
+    y_intra = torch.einsum("bnhts,bnshd->bnthd", a, vs)
+    # diagonal (current-token bonus) term
+    y_diag = torch.einsum("bnthd,bnthd->bnth", rs * u, ks_)
+    y_intra = y_intra + y_diag[..., None] * vs
+
+    # cross-chunk: per-chunk state inputs and decays
+    upd = torch.einsum("bnshd,bnshe->bnhde", k_t, vs)          # Σ k̃ ⊗ v
+    dec = torch.exp(CL[:, :, 0])                               # (B,nc,H,hd)
+    starts = []
+    st = s0
+    for i in range(nc):
+        starts.append(st)                          # the state *before* chunk i
+        st = st * dec[:, i, ..., None] + upd[:, i]
+    s_starts = torch.stack(starts, dim=1)                      # (B,nc,H,hd,hd)
+
+    q_c = rs * torch.exp(cl_prev)                       # from chunk start
+    y_cross = torch.einsum("bnthd,bnhde->bnthe", q_c, s_starts)
+    return (y_intra + y_cross).reshape(b, s, h, hd), st
+
+
+def _wkv6_step(r, k, v, lw, u, s0):
+    """Single-token WKV6 (decode). r, k, v, lw: (B, 1, H, hd) f32."""
+    r0, k0, v0, lw0 = (t[:, 0] for t in (r, k, v, lw))
+    y = torch.einsum("bhd,bhde->bhe", r0, s0) \
+        + torch.einsum("bhd,bhd->bh", r0 * u, k0)[..., None] * v0
+    s1 = s0 * torch.exp(lw0)[..., None] + k0[..., None] * v0[:, :, None]
+    return y[:, None], s1
+
+
+def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                  cache: Optional[dict] = None, qmode: str = "none",
+                  impl: str = "auto"):
+    """x: (B, S, D) → (y, new_cache). cache = {'s': (B, H, hd, hd) f32,
+    'x_prev': (B, D)}: the state and the mixer's last input token."""
+    refuse_tf32(x, "the WKV recurrence")
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+
+    if cache is not None:
+        x_prev_tok = cache["x_prev"][:, None]
+    else:
+        x_prev_tok = x.new_zeros(b, 1, d)
+    x_shift = torch.cat([x_prev_tok, x[:, :-1]], dim=1)
+    mixed = _ddlerp(p, x, x_shift)
+
+    def proj(name, w):
+        return linear(mixed[name], p[w], qmode=qmode, impl=impl)
+    r, k, v = proj("r", "wr"), proj("k", "wk"), proj("v", "wv")
+    g = F.silu(proj("g", "wg").float()).to(x.dtype)
+
+    lw_raw = p["w0"].float() + torch.tanh(
+        linear(mixed["w"], p["w_lora_a"]).float()) @ p["w_lora_b"].float()
+    lw = -torch.clamp(torch.exp(lw_raw), 1e-4, LW_MAX)        # (B,S,D), ≤ 0
+
+    rh, kh, vh = (t.reshape(b, s, h, hd).float() for t in (r, k, v))
+    lwh = lw.reshape(b, s, h, hd)
+    s0 = (cache["s"] if cache is not None
+          else x.new_zeros(b, h, hd, hd, dtype=torch.float32))
+    u = p["u"].float()
+
+    if s == 1:
+        y, s_fin = _wkv6_step(rh, kh, vh, lwh, u, s0)
+    else:
+        chunk = min(cfg.rwkv_chunk, s)
+        while s % chunk:
+            chunk -= 1
+        y, s_fin = _wkv6_chunked(rh, kh, vh, lwh, u, s0, chunk)
+
+    y = group_norm_heads(y, p["g_norm_scale"], p["g_norm_bias"], cfg.norm_eps)
+    y = y.reshape(b, s, d).to(x.dtype) * g
+    out = linear(y, p["out_proj"], qmode=qmode, impl=impl)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"s": s_fin, "x_prev": x[:, -1]}
+    return out, new_cache
+
+
+def wkv6_sequential_ref(r, k, v, lw, u, s0):
+    """Sequential oracle for the chunked WKV6 (testing only)."""
+    ys = []
+    st = s0
+    for t in range(r.shape[1]):
+        y = torch.einsum("bhd,bhde->bhe", r[:, t], st) \
+            + torch.einsum("bhd,bhd->bh", r[:, t] * u, k[:, t])[..., None] \
+            * v[:, t]
+        st = st * torch.exp(lw[:, t])[..., None] \
+            + k[:, t][..., None] * v[:, t][:, :, None]
+        ys.append(y)
+    return torch.stack(ys, dim=1), st
+
+
+# ---------------------------------------------------------------------------
+# RWKV channel mix (the FFN analogue)
+# ---------------------------------------------------------------------------
+def init_rwkv_channel_mix(gen: torch.Generator, cfg: ModelConfig, dtype,
+                          device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    return {
+        "maa_k": torch.zeros(d, dtype=dtype, device=device),
+        "maa_r": torch.zeros(d, dtype=dtype, device=device),
+        "w_gate": normal((d, f), d ** -0.5),
+        "w_down": normal((f, d), f ** -0.5),
+        "w_up": normal((d, d), d ** -0.5),                     # receptance
+    }
+
+
+def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                     cache: Optional[dict] = None, qmode: str = "none",
+                     impl: str = "auto"):
+    """x: (B, S, D) → (y, new_cache); cache = {'x_prev': (B, D)}."""
+    b, s, d = x.shape
+    if cache is not None:
+        x_prev_tok = cache["x_prev"][:, None]
+    else:
+        x_prev_tok = x.new_zeros(b, 1, d)
+    sx = torch.cat([x_prev_tok, x[:, :-1]], dim=1) - x
+    xk = x + sx * p["maa_k"].to(x.dtype)
+    xr = x + sx * p["maa_r"].to(x.dtype)
+    k = linear(xk, p["w_gate"], qmode=qmode, impl=impl)
+    k = F.relu(k.float()).square().to(x.dtype)
+    v = linear(k, p["w_down"], qmode=qmode, impl=impl)
+    rgate = torch.sigmoid(
+        linear(xr, p["w_up"], qmode=qmode, impl=impl).float())
+    y = (rgate * v.float()).to(x.dtype)
+    new_cache = {"x_prev": x[:, -1]} if cache is not None else None
+    return y, new_cache

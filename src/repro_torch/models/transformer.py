@@ -1,16 +1,19 @@
-"""Decoder-LM assembly: embeddings → N blocks (attention + FFN) → head.
+"""Decoder-LM assembly: embeddings → N blocks (mixer + FFN) → head.
 
-Port of ``repro/models/transformer.py`` for attention decoders whose FFN
-is dense (gated MLP) or a mixture of experts (:mod:`repro_torch.models.
-moe`), per layer as ``cfg.ffn_of`` says, with the dense KV caches of
-:func:`init_caches`. SSM and RWKV layers and embedding inputs come in
-later slices and raise here. :func:`quantize_params` converts every GEMM
-weight to a :class:`~repro_torch.core.quant.QuantizedTensor` (expert
-stacks per expert); the same forward then routes through the CAMP
-kernels.
+Port of ``repro/models/transformer.py``. One code path drives all ten
+architectures through ``ModelConfig``: the mixer of each layer is
+attention, Mamba (:mod:`repro_torch.models.ssm`) or RWKV6 time mix
+(:mod:`repro_torch.models.rwkv`), and its FFN a gated MLP, a mixture of
+experts (:mod:`repro_torch.models.moe`) or the RWKV channel mix, as
+``cfg.mixer_of`` / ``cfg.ffn_of`` say. Models with ``embedding_inputs``
+take float (B, S, D) embeddings in place of token ids.
+:func:`quantize_params` converts every GEMM weight to a
+:class:`~repro_torch.core.quant.QuantizedTensor` (expert stacks per
+expert); the same forward then routes through the CAMP kernels.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -18,6 +21,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import gated_mlp, linear, rms_norm
 
@@ -32,25 +37,12 @@ def _normal(gen, device, dtype, shape, scale) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    for i in range(cfg.n_layers):
-        if cfg.mixer_of(i) != "attn" or cfg.ffn_of(i) not in ("dense",
-                                                               "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {i} is {cfg.mixer_of(i)}/{cfg.ffn_of(i)};"
-                " the port runs attention layers with dense or MoE FFNs "
-                "only so far")
-    if cfg.embedding_inputs:
-        raise NotImplementedError(f"{cfg.name}: embedding inputs not ported")
-
-
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                 device=None) -> dict:
     """Random weights with the reference's shapes and scales.
 
     ``generator`` (default: seed 0 on ``device``) must live on ``device``.
     """
-    _check_supported(cfg)
     device = resolve_device(device)
     gen = generator
     if gen is None:
@@ -66,6 +58,27 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None
     return params
 
 
+def init_quantized_params(cfg: ModelConfig, qmode: str, *,
+                          generator: Optional[torch.Generator] = None,
+                          device=None) -> dict:
+    """``quantize_params(init_params(cfg, generator=...), cfg, qmode)``
+    built one layer at a time: the same draws from one generator in the
+    same order (embedding, head, then each layer), each layer quantized
+    before the next is drawn, so at most one layer is ever held in bf16
+    (full-width jamba-v0.1-52b is ~103 GB in bf16, ~52 GB at int8)."""
+    device = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    params = quantize_params(init_params(
+        dataclasses.replace(cfg, n_layers=0), generator=gen, device=device),
+        cfg, qmode)
+    params["layers"] = [quantize_params(init_layer(cfg, i, gen, device), cfg,
+                                        qmode)
+                        for i in range(cfg.n_layers)]
+    return params
+
+
 def init_layer(cfg: ModelConfig, i: int, gen: torch.Generator,
                device) -> dict:
     """Layer ``i``'s random weights, drawn from ``gen`` on ``device``: a
@@ -78,10 +91,22 @@ def init_layer(cfg: ModelConfig, i: int, gen: torch.Generator,
         return _normal(gen, device, dt, shape, scale)
 
     layer = {"ln1": torch.ones(d, dtype=dt, device=device),
-             "ln2": torch.ones(d, dtype=dt, device=device),
-             "attn": attn_mod.init_attention(gen, cfg, dt, device)}
-    if cfg.ffn_of(i) == "moe":
+             "ln2": torch.ones(d, dtype=dt, device=device)}
+    mixer = cfg.mixer_of(i)
+    if mixer == "attn":
+        layer["attn"] = attn_mod.init_attention(gen, cfg, dt, device)
+    elif mixer == "mamba":
+        layer["mamba"] = ssm_mod.init_mamba(gen, cfg, dt, device)
+    elif mixer == "rwkv":
+        layer["rwkv_tm"] = rwkv_mod.init_rwkv_time_mix(gen, cfg, dt, device)
+    else:
+        raise ValueError(mixer)
+    ffn = cfg.ffn_of(i)
+    if ffn == "moe":
         layer["moe"] = moe_mod.init_moe(gen, cfg, dt, device)
+    elif ffn == "rwkv_cmix":
+        layer["rwkv_cm"] = rwkv_mod.init_rwkv_channel_mix(gen, cfg, dt,
+                                                          device)
     else:
         layer["mlp"] = {"w_gate": normal((d, f), d ** -0.5),
                         "w_up": normal((d, f), d ** -0.5),
@@ -90,20 +115,42 @@ def init_layer(cfg: ModelConfig, i: int, gen: torch.Generator,
 
 
 def _block(lp: dict, cfg: ModelConfig, i: int, h: torch.Tensor,
-           positions: torch.Tensor, cache, cache_pos, qmode: str, impl: str):
-    """One residual block → (h, new_cache, aux); aux is None for a dense
-    FFN."""
-    y, new_cache = attn_mod.attention(
-        lp["attn"], cfg, rms_norm(h, lp["ln1"], cfg.norm_eps), positions,
-        cache=cache, cache_pos=cache_pos, qmode=qmode, impl=impl)
+           positions: torch.Tensor, cache: Optional[dict], cache_pos,
+           qmode: str, impl: str):
+    """One residual block → (h, new_cache, aux). ``cache``: the layer's
+    dict (``attn`` / ``mamba`` / ``rwkv_tm``, and ``rwkv_cm`` beside a
+    channel mix) or None; aux is None unless the FFN is MoE."""
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    mixer = cfg.mixer_of(i)
+    key = {"attn": "attn", "mamba": "mamba", "rwkv": "rwkv_tm"}[mixer]
+    c_in = None if cache is None else cache.get(key)
+    if mixer == "attn":
+        y, c_new = attn_mod.attention(lp["attn"], cfg, hn, positions,
+                                      cache=c_in, cache_pos=cache_pos,
+                                      qmode=qmode, impl=impl)
+    elif mixer == "mamba":
+        y, c_new = ssm_mod.mamba_mixer(lp["mamba"], cfg, hn, cache=c_in,
+                                       qmode=qmode, impl=impl)
+    else:
+        y, c_new = rwkv_mod.rwkv_time_mix(lp["rwkv_tm"], cfg, hn, cache=c_in,
+                                          qmode=qmode, impl=impl)
+    c_out = None if c_new is None else {key: c_new}
     h = h + y
     hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
     aux = None
-    if cfg.ffn_of(i) == "moe":
+    ffn = cfg.ffn_of(i)
+    if ffn == "moe":
         y, aux = moe_mod.moe_ffn(lp["moe"], cfg, hn, qmode=qmode, impl=impl)
+    elif ffn == "rwkv_cmix":
+        y, c_cm = rwkv_mod.rwkv_channel_mix(
+            lp["rwkv_cm"], cfg, hn,
+            cache=None if cache is None else cache.get("rwkv_cm"),
+            qmode=qmode, impl=impl)
+        if c_cm is not None:
+            c_out = {**(c_out or {}), "rwkv_cm": c_cm}
     else:
         y = gated_mlp(hn, lp["mlp"], qmode=qmode, impl=impl)
-    return h + y, new_cache, aux
+    return h + y, c_out, aux
 
 
 def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
@@ -111,12 +158,15 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
             caches: Optional[list] = None, cache_pos: Optional[int] = None,
             qmode: Optional[str] = None, last_logits_only: bool = False,
             return_hidden: bool = False, impl: str = "auto"):
-    """inputs: int tokens (B, S) → (logits, new_caches, aux).
+    """inputs: int tokens (B, S), or float embeddings (B, S, D) when
+    ``cfg.embedding_inputs`` → (logits, new_caches, aux).
 
-    ``caches``: per layer ``{"attn": DenseKVCache | PagedPrefillCache |
-    PagedDecodeCache}`` or None (full causal attention). ``cache_pos``: the
-    position of a one-token decode step over DenseKVCaches; positions then
-    default to ``cache_pos + arange(S)``. ``last_logits_only``: the head at
+    ``caches``: per layer a dict, ``{"attn": DenseKVCache |
+    PagedPrefillCache | PagedDecodeCache}``, ``{"mamba": {h, conv}}`` or
+    ``{"rwkv_tm": {s, x_prev}, "rwkv_cm": {x_prev}}`` (see
+    :func:`init_caches`), or None (no state: full causal attention).
+    ``cache_pos``: the position of a one-token decode step over
+    DenseKVCaches; positions then default to ``cache_pos + arange(S)``. ``last_logits_only``: the head at
     the final position only. ``return_hidden``: the final hidden states
     instead of logits. ``impl`` selects kernels or plain versions (see
     :mod:`repro_torch.kernels.ops`). ``aux``: the MoE layers' load-balance
@@ -129,19 +179,25 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
         if cache_pos is not None:
             base = base + cache_pos
         positions = base.expand(b, s)
-    # token ids past the vocabulary take its last row, as the reference's
-    # gather clamps them (a narrow-vocabulary draft model reads the
-    # target's tokens)
-    h = params["embedding"][inputs.clamp(max=cfg.vocab_size - 1)
-                            ].to(dtype_of(cfg))
+    if inputs.is_floating_point():
+        if not cfg.embedding_inputs:
+            raise ValueError(f"{cfg.name}: float inputs need a model with "
+                             "embedding_inputs")
+        h = inputs.to(dtype_of(cfg))
+    else:
+        # token ids past the vocabulary take its last row, as the
+        # reference's gather clamps them (a narrow-vocabulary draft model
+        # reads the target's tokens)
+        h = params["embedding"][inputs.clamp(max=cfg.vocab_size - 1)
+                                ].to(dtype_of(cfg))
     new_caches = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, lp in enumerate(params["layers"]):
-        cache_i = caches[i]["attn"] if caches is not None else None
+        cache_i = caches[i] if caches is not None else None
         h, c_new, aux = _block(lp, cfg, i, h, positions, cache_i, cache_pos,
                                qmode, impl)
         if new_caches is not None:
-            new_caches.append({"attn": c_new})
+            new_caches.append(c_new)
         if aux is not None:
             aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -157,14 +213,33 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 kv_dtype: Optional[str] = None, device=None) -> list:
-    """Per-layer dense decode caches ``[{"attn": DenseKVCache}, ...]``;
-    ``kv_dtype='int8'`` quantizes the slabs with per-page scales. Recurrent
-    mixers' state caches come with those mixers."""
-    _check_supported(cfg)
+    """Per-layer decode caches: ``{"attn": DenseKVCache}`` (``kv_dtype=
+    'int8'`` quantizes the slabs with per-page scales), the Mamba state
+    ``{"mamba": {h, conv}}``, or the RWKV states ``{"rwkv_tm": {s,
+    x_prev}}``, with ``"rwkv_cm": {x_prev}`` beside a channel mix."""
     device = resolve_device(device)
-    return [{"attn": attn_mod.init_cache(cfg, batch, max_len, dtype_of(cfg),
-                                         kv_dtype=kv_dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+    dt = dtype_of(cfg)
+    caches = []
+    for i in range(cfg.n_layers):
+        mixer = cfg.mixer_of(i)
+        c: dict = {}
+        if mixer == "attn":
+            c["attn"] = attn_mod.init_cache(cfg, batch, max_len, dt,
+                                            kv_dtype=kv_dtype, device=device)
+        elif mixer == "mamba":
+            c["mamba"] = ssm_mod.init_mamba_cache(cfg, batch, dt, device)
+        else:
+            hd = cfg.rwkv_head_dim
+            c["rwkv_tm"] = {
+                "s": torch.zeros(batch, cfg.d_model // hd, hd, hd,
+                                 dtype=torch.float32, device=device),
+                "x_prev": torch.zeros(batch, cfg.d_model, dtype=dt,
+                                      device=device)}
+        if cfg.ffn_of(i) == "rwkv_cmix":
+            c["rwkv_cm"] = {"x_prev": torch.zeros(batch, cfg.d_model,
+                                                  dtype=dt, device=device)}
+        caches.append(c)
+    return caches
 
 
 # ---------------------------------------------------------------------------

@@ -30,9 +30,10 @@ token's noise from a generator seeded by (engine seed, seq_id, token index).
 :func:`build_decode_step`, :func:`_generate_dense`) prefills the whole
 batch into a (B, max_len) :class:`~repro_torch.serving.kv_cache.
 DenseKVCache` slab (float, or int8 with per-page scales) and decodes one
-token per step at a shared position. :func:`generate` sends models with
-recurrent mixers or embedding inputs there, as the reference does; those
-mixers come in a later slice, so such models raise for now.
+token per step at a shared position; Mamba and RWKV layers carry their
+recurrent state there, beside the attention slabs. :func:`generate` sends
+models with recurrent mixers or embedding inputs there, as the reference
+does.
 
 **Speculative decoding** (``spec=``, a
 :class:`~repro_torch.serving.spec_decode.SpecConfig` with method 'ngram'
@@ -76,8 +77,9 @@ DEFAULT_PAGES_PER_STEP = 1       # pages the prefill kernel stages per step
 
 def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
                       kv_dtype: Optional[str] = None, device=None) -> list:
-    """Dense KV caches; ``kv_dtype='int8'`` stores attention KV quantized
-    with per-page dynamic scales (see :mod:`repro_torch.serving.kv_cache`)."""
+    """Dense KV and recurrent-state caches; ``kv_dtype='int8'`` stores
+    attention KV quantized with per-page dynamic scales (see
+    :mod:`repro_torch.serving.kv_cache`)."""
     return init_caches(cfg, batch, max_len, kv_dtype=kv_dtype, device=device)
 
 
@@ -438,13 +440,18 @@ def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
                     temperature: float = 1.0, max_len: Optional[int] = None,
                     kv_dtype: Optional[str] = None, device=None,
                     impl: str = "auto") -> torch.Tensor:
-    """The dense-slab loop: prompt (B, S) → (B, steps) new tokens (on the
-    CPU). The whole batch prefills at once into (B, max_len) slabs, then
-    decodes one token per step at the shared position S + i. The first
-    token is greedy, as in the reference; decode step i samples with a
-    generator seeded by (seed, i)."""
+    """The dense-slab loop: prompt (B, S) token ids, or (B, S, D) float
+    embeddings for a model with ``embedding_inputs`` → (B, steps) new
+    tokens (on the CPU). The whole batch prefills at once into (B,
+    max_len) slabs and recurrent states, then decodes one token per step
+    at the shared position S + i, the generated ids fed back through the
+    embedding table, as in the reference. The first token is greedy, as
+    in the reference; decode step i samples with a generator seeded by
+    (seed, i)."""
     device = resolve_device(device)
-    prompt = torch.as_tensor(prompt).to(device, torch.long)
+    prompt = torch.as_tensor(prompt).to(device)
+    if not prompt.is_floating_point():
+        prompt = prompt.long()
     b, s = prompt.shape[:2]
     caches = init_serve_caches(cfg, b, max_len or (s + steps),
                                kv_dtype=kv_dtype, device=device)
@@ -475,11 +482,9 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
     CPU). All-attention models run on the continuous-batching engine (pages
     int8 for ``kv_dtype='int8'``, else the model dtype; ``spec`` turns on
     speculative decoding); models with recurrent mixers or embedding inputs
-    take the dense-slab loop, as in the reference (``max_len`` is that
-    loop's slab length; ``spec`` is ignored there, since speculation needs
-    the paged cache's rollback). The port has no such layers yet, so for
-    those models the loop raises ``NotImplementedError`` (ROADMAP queue 1
-    item 4)."""
+    (a float (B, S, D) prompt) take the dense-slab loop, as in the
+    reference (``max_len`` is that loop's slab length; ``spec`` is ignored
+    there, since speculation needs the paged cache's rollback)."""
     b, s = prompt.shape[:2]
     if (cfg.embedding_inputs
             or any(cfg.mixer_of(i) != "attn" for i in range(cfg.n_layers))):

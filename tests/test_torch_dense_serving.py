@@ -14,8 +14,8 @@
 * ``_generate_dense`` greedy streams equal to the reference's for
   kv_dtype None / int8 × qmode none / w8a8.
 * ``generate`` sends a model with a recurrent mixer or embedding inputs to
-  ``_generate_dense``, with its options, as the reference does; the loop
-  refuses such models until their layers are ported.
+  ``_generate_dense``, with its options, as the reference does, and the
+  loop serves it.
 
 Logit tolerance against the reference: 1% of max |logit|, as in
 tests/test_torch_transformer.py (the reference's dense path runs eagerly).
@@ -38,7 +38,7 @@ from repro.serving import engine as jeng  # noqa: E402
 from repro.serving import kv_cache as jkv  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
-from repro_torch.models import forward  # noqa: E402
+from repro_torch.models import forward, init_params  # noqa: E402
 from repro_torch.serving import engine as teng  # noqa: E402
 from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from torch_parity import (check_streams, jax_to_numpy,  # noqa: E402
@@ -332,5 +332,13 @@ def test_generate_dispatches_to_dense_loop(model, monkeypatch, change):
         # an all-attention model stays on the engine
         teng.generate(tp, cfg, batch, steps=2, device="cpu")
         assert seen["cfg"] is other
-    with pytest.raises(NotImplementedError):
-        teng.generate(tp, other, batch, steps=3, device="cpu")
+    # the loop serves each such model: (B, steps) tokens of its vocabulary,
+    # from a float (B, S, D) prompt for embedding inputs
+    prompt = batch
+    if other.embedding_inputs:
+        prompt = torch.randn(2, 6, other.d_model, generator=torch.Generator(
+            ).manual_seed(0)).to(torch.bfloat16)
+    out = teng.generate(init_params(other, device="cpu"), other, prompt,
+                        steps=3, device="cpu")
+    assert out.shape == (2, 3) and out.dtype == torch.long
+    assert ((out >= 0) & (out < other.vocab_size)).all()

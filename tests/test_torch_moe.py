@@ -31,7 +31,8 @@ from repro_torch.convert import from_jax_params  # noqa: E402
 from repro_torch.core.quant import QuantizedTensor  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
-from torch_parity import assert_ulps, jax_to_numpy, to_numpy  # noqa: E402
+from torch_parity import (assert_ulps, cuda_like, jax_to_numpy,  # noqa: E402
+                          to_numpy)
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
 
 QMODE_BITS = {"none": None, "w8a16": 8, "w4a16": 4, "w8a8": 8, "w4a8": 4,
@@ -204,18 +205,20 @@ def test_quantized_tensor_shapes():
                                   "llama4-maverick-400b-a17b", "jamba-v0.1-52b",
                                   "rwkv6-7b", "pixtral-12b", "musicgen-large"])
 def test_supported_architectures(arch):
-    """Attention + MoE decoders build; recurrent mixers and embedding
-    inputs still wait for their slices."""
+    """Every architecture builds, each layer with the mixer and FFN that
+    ``cfg.mixer_of`` / ``cfg.ffn_of`` give it (recurrent mixers and
+    embedding inputs are ported), the MoE router in f32."""
     cfg = get_config(arch, reduced=True)
-    if arch in ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"):
-        params = init_params(cfg, device="cpu")
-        kinds = [sorted(set(lp) & {"mlp", "moe"}) for lp in params["layers"]]
-        assert kinds == [[cfg.ffn_of(i).replace("dense", "mlp")]
-                         for i in range(cfg.n_layers)]
-        assert params["layers"][-1]["moe"]["router"].dtype == torch.float32
-    else:
-        with pytest.raises(NotImplementedError):
-            init_params(cfg, device="cpu")
+    params = init_params(cfg, device="cpu")
+    mixer_key = {"attn": "attn", "mamba": "mamba", "rwkv": "rwkv_tm"}
+    ffn_key = {"dense": "mlp", "moe": "moe", "rwkv_cmix": "rwkv_cm"}
+    kinds = [sorted(set(lp) - {"ln1", "ln2"}) for lp in params["layers"]]
+    assert kinds == [sorted({mixer_key[cfg.mixer_of(i)],
+                             ffn_key[cfg.ffn_of(i)]})
+                     for i in range(cfg.n_layers)]
+    for i, lp in enumerate(params["layers"]):
+        if cfg.ffn_of(i) == "moe":
+            assert lp["moe"]["router"].dtype == torch.float32
 
 
 def test_router_refuses_tf32(monkeypatch):
@@ -228,19 +231,7 @@ def test_router_refuses_tf32(monkeypatch):
     x = _x("float32")[1]
     tmoe.moe_ffn(tp, cfg, x)                       # CPU: unaffected
     with pytest.raises(RuntimeError, match="TF32"):
-        tmoe.moe_ffn(tp, cfg, _CudaLike(x))
-
-
-class _CudaLike(torch.Tensor):
-    """A CPU tensor that reports ``is_cuda`` (the router check only)."""
-
-    @staticmethod
-    def __new__(cls, x):
-        return torch.Tensor._make_subclass(cls, x)
-
-    @property
-    def is_cuda(self):
-        return True
+        tmoe.moe_ffn(tp, cfg, cuda_like(x))
 
 
 def test_chip_smoke_layerwise_build_equals_init_params():

@@ -9,8 +9,10 @@ pages) must be the same, and so must the request's shape.
 With ``--spec-*`` flags both drive the engine themselves: the engine class
 is stubbed the same way, and its ``kv_dtype``, ``capacity_tokens``, the
 ``SpecConfig`` fields and the draft config must be the same. Then the
-port's command runs unstubbed with each spec method, and with each MoE
-architecture (the CPU smokes).
+port's command runs unstubbed with each spec method, with each MoE
+architecture, and with jamba-v0.1-52b, rwkv6-7b and pixtral-12b (the CPU
+smokes); for pixtral-12b and jamba both commands hand ``generate`` a
+prompt of the same shape (float embeddings for pixtral).
 """
 import sys
 
@@ -145,4 +147,58 @@ def test_serve_moe_cpu_smoke(capsys, arch):
                              "--qmode", "w8a8", "--batch", "2",
                              "--prompt-len", "12", "--steps", "4"]) == 0
     out = capsys.readouterr().out
-    assert "[serve] PTQ to w8a8" in out and "generated (2, 4)" in out
+    assert "PTQ to w8a8" in out and "generated (2, 4)" in out
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-7b",
+                                  "pixtral-12b"])
+def test_serve_recurrent_and_frontend_cpu_smoke(capsys, arch):
+    """The recurrent and float-embedding architectures serve through the
+    CLI at the reduced width, on the dense-slab loop."""
+    assert torch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--qmode", "w8a8", "--batch", "2",
+                             "--prompt-len", "12", "--steps", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "PTQ to w8a8" in out and "generated (2, 4)" in out
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "jamba-v0.1-52b"])
+def test_serve_prompt_matches_reference(monkeypatch, arch):
+    """Both ``main`` functions hand ``generate`` a prompt of the same
+    shape: a float (B, S, D) one for embedding inputs, as the reference's
+    CLI builds it; and the layer-at-a-time build equals
+    ``quantize_params(init_params(...))`` on the same generator."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (init_params, init_quantized_params,
+                                    quantize_params)
+    args = ["--arch", arch, "--reduced", "--qmode", "w8a8", "--batch",
+            str(BATCH), "--prompt-len", str(PROMPT_LEN), "--steps",
+            str(STEPS)]
+    ref_calls, port_calls = [], []
+    monkeypatch.setattr(jax_serve, "generate",
+                        _recorder(ref_calls, lambda a: a))
+    monkeypatch.setattr(torch_serve, "generate",
+                        _recorder(port_calls, torch.from_numpy))
+    monkeypatch.setattr(sys, "argv", ["serve", *args])
+    assert jax_serve.main() == 0
+    assert torch_serve.main(args + ["--device", "cpu"]) == 0
+    ref, port = ref_calls[0], port_calls[0]
+    assert port["prompt_shape"] == ref["prompt_shape"]
+    cfg = get_config(arch, reduced=True)
+    assert len(port["prompt_shape"]) == (3 if cfg.embedding_inputs else 2)
+    got = init_quantized_params(cfg, "w8a8", device="cpu",
+                                generator=torch.Generator().manual_seed(1))
+    want = quantize_params(init_params(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(1)),
+        cfg, "w8a8")
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        if hasattr(tree, "q"):
+            return [tree.q, tree.scale]
+        return [tree]
+    assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+    assert len(leaves(got)) == len(leaves(want))

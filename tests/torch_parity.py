@@ -115,3 +115,24 @@ def check_streams(got, want, jcfg, jp, prompts):
         top2 = np.sort(to_numpy(logits)[0, -1])[-2:]
         pytest.fail(f"request {i} diverged at step {step}: reference top-2 "
                     f"gap {top2[1] - top2[0]:.5f}")
+
+
+def assert_rel_close(got, want, rel, what=""):
+    """max |got - want| ≤ rel · max |want| (same shapes)."""
+    got, want = to_numpy(got), to_numpy(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    tol = rel * np.abs(want).max(initial=0.0)
+    err = np.abs(got.astype(np.float64) - want).max(initial=0.0)
+    assert err <= tol, f"{what}: max |diff| {err} > {tol}"
+
+
+def cuda_like(x):
+    """``x`` as a CPU tensor that reports ``is_cuda``: the TF32 guards
+    read the flag only for CUDA tensors."""
+    import torch
+
+    class CudaLike(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+    return torch.Tensor._make_subclass(CudaLike, x)
