@@ -140,9 +140,28 @@ Phases (any failure exits non-zero and prints no result):
    a control that zeroes the states after the prefill and must fail; one
    decode forward profiled (busy share, fused GEMM ms, the recurrence's
    own kernels' ms).
-11. Report: a ``kernels`` JSON line (each kernel's launches on every path
-   that ran it), the card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+11. Training: full-width qwen3-0.6b (28 layers, d 1,024, vocab 151,936,
+   bf16, a checkpoint per block) from random weights, ``TRAIN_STEPS``
+   steps of 8 x 512 tokens through ``build_train_step`` and ``loop.run``
+   as the train CLI sets them up (cosine LR, AdamW with weight decay),
+   once with f32 moments and once with int8 moments and int8 gradient
+   compression. Each run: every loss finite and the last five's mean below
+   the first five's; no kernel launched with f32 moments, and K7 exactly
+   3 times a leaf a step with int8 (both moments and the gradient); step
+   time, tokens/s, peak memory and one profiled step (device busy share)
+   beside the 6·N·tokens bound. Every K7 call of one int8 step held
+   against its plain version in situ (exact), and K7 at moonshot-v1-16b-
+   a3b's trained leaf shapes (the untied head's 163,840-long rows, the
+   expert stack as E·K rows, a norm scale as one row), timed at each; the
+   reduced f32 step's loss and gradients on the card against the CPU's
+   (the CPU tests' tolerances); a restart from a mid-run checkpoint (full
+   width, 2 layers, int8) against the run at once (the reference test's
+   rtol 1e-5 on ``final_norm``; whether the whole state is bit for bit is
+   printed).
+12. Report: a ``kernels`` JSON line (each kernel's launches on every path
+   that ran it: K7's main path is the int8 training run), the card's name
+   and power limit, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 Needs the repository's ``src/`` beside it; imports nothing of JAX.
 """
@@ -194,6 +213,15 @@ from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
                                         init_serve_caches)
 from repro_torch.serving import spec_decode as sd  # noqa: E402
 from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
+from repro_torch.data import SyntheticLMData, shard_batch  # noqa: E402
+from repro_torch.models.transformer import loss_fn  # noqa: E402
+from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
+from repro_torch.optim.adamw import int8_moment_quant  # noqa: E402
+from repro_torch.train import build_train_step, init_train_state  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train.train_step import (_int8_compress,  # noqa: E402
+                                          value_and_grad)
+from repro_torch.tree import leaves, leaves_with_path, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
@@ -1454,14 +1482,16 @@ def check_in_situ(engine, prompt, qmode):
 
 
 def profile_serving(engine, prompts):
-    """The same workload again under torch.profiler (see profile_run)."""
+    """The same workload again under torch.profiler (see profile_run),
+    the device's activity alone: with the host ops, a whole serving run's
+    trace took the profiler ~80 s to process."""
     eng = engine()
 
     def run():
         for p in prompts:
             eng.submit(p, NEW)
         eng.run()
-    return profile_run(run)
+    return profile_run(run, host_ops=False)
 
 
 def union_ms(spans):
@@ -1912,7 +1942,7 @@ def dense_serving(seed: int):
                             gen_tok_s=N_REQ * NEW / wall, tokens=toks.tolist())
     for name in ("dense bf16 slab", "float pages"):
         print(f"  profiled rerun, {name}:")
-        result[name]["profile"] = profile_run(runs[name])
+        result[name]["profile"] = profile_run(runs[name], host_ops=False)
     agree = (torch.tensor(result["dense bf16 slab"]["tokens"])
              == torch.tensor(result["float pages"]["tokens"])).float().mean()
     print(f"  greedy tokens equal between the bf16 slab and float pages: "
@@ -3179,6 +3209,271 @@ def recurrent_serving(seed: int, smi: str):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_LR = 3e-3          # the train CLI's default; cosine, 2 warm-up steps
+TRAIN_WARM = 2           # steps left out of the step time (first-use costs)
+# restart check: full width, depth cut so the checkpoint's write and read
+# stay short (the embedding alone is 156 M values)
+RESTART_LAYERS, RESTART_STEPS, RESTART_AT = 2, 6, 3
+RESTART_RTOL = 1e-5      # tests/test_train_loop.py::test_restart_exact
+# the reduced f32 step, card vs CPU: the CPU tests' f32 tolerances against
+# the reference (tests/test_torch_train.py: loss relative, each gradient
+# leaf as a share of its largest |g|)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-6, 1e-5
+# leaf shapes of moonshot-v1-16b-a3b's trained state through K7: the
+# untied head's 163,840-long rows, its embedding, an expert stack (rows of
+# E·K), the router and a norm scale (one row)
+K7_LEAF_SHAPES = ((2048, 163840), (163840, 2048), (64, 2048, 1408),
+                  (2048, 64), (2048,))
+
+
+@contextlib.contextmanager
+def k7_checked(record):
+    """Every K7 call inside: the kernel, then its plain version on the same
+    tensor, exact; a row of ``record`` per call."""
+    kernel = k7.quantize_rowwise_kernel
+
+    def call(x, *, bits=8):
+        q, s = kernel(x, bits=bits)
+        q_r, s_r = quantize_rowwise_ref(x, bits)
+        record.append(dict(shape=tuple(x.shape), dtype=str(x.dtype),
+                           exact=bool(torch.equal(q, q_r)
+                                      and torch.equal(s, s_r)),
+                           max_abs_err=max(max_err(q, q_r), max_err(s, s_r))))
+        return q, s
+    k7.quantize_rowwise_kernel = call
+    try:
+        yield
+    finally:
+        k7.quantize_rowwise_kernel = kernel
+
+
+def train_setup(cfg, int8: bool, steps: int):
+    """(optimizer, train step) as the train CLI builds them; ``int8``:
+    int8 moments and int8 gradient compression (K7)."""
+    opt = adamw(lr=cosine_schedule(TRAIN_LR, steps // 10, steps),
+                weight_decay=0.01, quantize_moments=int8)
+    return opt, build_train_step(cfg, opt,
+                                 compress_grads="int8" if int8 else None)
+
+
+def train_state(cfg, opt, seed):
+    return init_train_state(
+        cfg, opt, generator=torch.Generator(device="cuda").manual_seed(seed),
+        device="cuda")
+
+
+def train_run(label, cfg, seed, int8, smi):
+    """``TRAIN_STEPS`` steps of full-width training through ``loop.run``
+    from random weights: the launch counts of the run, step time, tokens/s,
+    peak memory and the losses; then, for the int8 run, every K7 call of
+    one more step against its plain version, and one step profiled."""
+    opt, step = train_setup(cfg, int8, TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_state(cfg, opt, seed)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, hist = train_loop.run(step, state, data, steps=TRAIN_STEPS,
+                                 log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    loss = hist["loss"]
+    step_s = float(np.median(hist["step_time"][TRAIN_WARM:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(int8=int8, launches=launches, loss=loss, wall_s=wall,
+               step_ms=step_s * 1e3, step_ms_all=[t * 1e3 for t in
+                                                  hist["step_time"]],
+               tokens_per_s=tokens / step_s,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               loss_first5=float(np.mean(loss[:5])),
+               loss_last5=float(np.mean(loss[-5:])))
+    n_leaves = len(leaves(state["params"]))
+    n = sum(p.numel() for p in leaves(state["params"]))
+    # 6·N·tokens (forward 2, backward 4) at the dense bf16 peak; the
+    # recomputed forward (remat) and attention's S² products not counted
+    out.update(params=n, bound_ms=6.0 * n * tokens / BF16_OPS_PER_S * 1e3)
+    print(f"  {label}: {n:,} parameters; 6·N·tokens bound "
+          f"{out['bound_ms']:.2f} ms a step at the dense bf16 peak")
+    print(f"  {label}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens in {wall:.1f} s; step {out['step_ms']:.1f} ms (median "
+          f"after {TRAIN_WARM}; first {out['step_ms_all'][0]:.0f} ms), "
+          f"{out['tokens_per_s']:,.0f} tokens/s, peak "
+          f"{out['peak_bytes']:,} bytes; loss {loss[0]:.4f} → {loss[-1]:.4f}"
+          f" (first 5 {out['loss_first5']:.4f}, last 5 "
+          f"{out['loss_last5']:.4f}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; {smi}")
+    if not all(np.isfinite(loss)):
+        raise RuntimeError(f"{label}: a loss is not finite: {loss}")
+    if not out["loss_last5"] < out["loss_first5"]:
+        raise RuntimeError(f"{label}: the loss did not fall: {loss}")
+    # int8: each step quantizes every gradient leaf and both moments of
+    # every leaf; f32 moments: no kernel at all
+    want = dict.fromkeys(launches, 0)
+    if int8:
+        want["K7"] = TRAIN_STEPS * 3 * n_leaves
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want}")
+    batch = shard_batch(data.batch_at(TRAIN_STEPS), device="cuda")
+    if int8:
+        calls = []
+        with k7_checked(calls):
+            step(state, batch)
+        torch.cuda.synchronize()
+        bad = [c for c in calls if not c["exact"]]
+        longest = max(c["shape"][-1] for c in calls)
+        print(f"  {label}: in situ, one step's {len(calls)} K7 calls "
+              f"({len({c['shape'] for c in calls})} shapes, rows up to "
+              f"{longest:,}) against the plain version: "
+              f"{'exact' if not bad else f'{len(bad)} FAIL'}")
+        if bad or len(calls) != 3 * n_leaves:
+            raise RuntimeError(f"{label}: K7 in situ: {len(calls)} calls, "
+                               f"{bad[:3]}")
+        out["in_situ"] = dict(calls=len(calls), longest_row=longest,
+                              max_abs_err=max(c["max_abs_err"]
+                                              for c in calls))
+    print(f"  {label}: one step under the profiler:")
+    prof = profile_run(lambda: step(state, batch), host_ops=False)
+    out["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                           "device_summed_ms", "top")}
+    return out
+
+
+def k7_training_shapes(timer, gen):
+    """K7 through the optimizer's and the gradient compression's calls at
+    ``K7_LEAF_SHAPES`` (a second moment in f32 after the sqrt transform, a
+    bf16 gradient), each call exact against its plain version; times of
+    the moment quantize at the widest rows."""
+    calls, rows = [], []
+    for shape in K7_LEAF_SHAPES:
+        v = torch.rand(shape, device="cuda", generator=gen) * 1e-6
+        g = (torch.randn(shape, device="cuda", generator=gen)
+             * 1e-3).to(torch.bfloat16)
+        with k7_checked(calls):
+            int8_moment_quant(v, sqrt_transform=True)
+            _int8_compress(g)
+        x = torch.sqrt(v).reshape(-1, shape[-1])
+        m, k = x.shape
+        q, s = k7.quantize_rowwise_kernel(x)
+        b_ms, b_by = bound(nbytes(x, q, s), 3.0 * m * k, F32_OPS_PER_S)
+        rows.append(dict(kernel="K7", m=m, k=k, bits=8, dtype=str(x.dtype),
+                         label="training", max_abs_err=0.0, ok=True,
+                         ms=timer(lambda: k7.quantize_rowwise_kernel(x)),
+                         plain_ms=timer(lambda: quantize_rowwise_ref(x, 8)),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del v, g, x, q, s
+    torch.cuda.synchronize()
+    for c, r in zip(calls[::2], rows):
+        r["max_abs_err"] = c["max_abs_err"]
+        r["ok"] = c["exact"]
+    bad = [c for c in calls if not c["exact"]]
+    for r in rows:
+        print(f"  K7 at a trained leaf m={r['m']} k={r['k']} f32: "
+              f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+              f"bound={r['bound_ms']:.4f} ({r['bound_by']})")
+    print(f"  K7 at moonshot's leaf shapes: {len(calls)} calls (moments and "
+          f"bf16 gradients) {'exact' if not bad else f'{len(bad)} FAIL'}")
+    if bad:
+        raise RuntimeError(f"K7 at the trained leaf shapes: {bad}")
+    return rows
+
+
+def train_card_vs_cpu(seed):
+    """The reduced f32 train step's loss and gradients on the card against
+    the same computation on the CPU, from the same weights and batch."""
+    cfg = get_config(TRAIN_ARCH, reduced=True, dtype="float32")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu")
+    batch = SyntheticLMData(cfg.vocab_size, 8, 32, seed=seed).batch_at(0)
+    l_cpu, g_cpu = value_and_grad(loss_fn, params, cfg,
+                                  shard_batch(batch, device="cpu"))
+    l_gpu, g_gpu = value_and_grad(loss_fn, tree_map(torch.Tensor.cuda, params),
+                                  cfg, shard_batch(batch, device="cuda"))
+    loss_rel = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    worst, where = 0.0, None
+    for (path, a), b in zip(leaves_with_path(g_cpu), leaves(g_gpu)):
+        rel = max_err(b.cpu(), a) / max(a.abs().max().item(), 1e-30)
+        if rel >= worst:
+            worst, where = rel, "/".join(map(str, path))
+    ok = loss_rel <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL
+    print(f"  reduced f32 step, card vs CPU: loss {float(l_gpu):.7f} vs "
+          f"{float(l_cpu):.7f} (relative {loss_rel:.2e}, limit "
+          f"{TRAIN_LOSS_TOL:g}); gradients worst {worst:.2e} of a leaf's "
+          f"largest at {where} (limit {TRAIN_GRAD_TOL:g}): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("the card's train step differs from the CPU's")
+    return dict(loss_rel=loss_rel, grad_worst=worst, grad_worst_leaf=where)
+
+
+def train_restart(seed):
+    """Full width at ``RESTART_LAYERS`` layers, int8 moments and gradients:
+    ``RESTART_STEPS`` steps at once against ``RESTART_AT`` steps, a
+    checkpoint, and a new state restored from it for the rest."""
+    cfg = get_config(TRAIN_ARCH, n_layers=RESTART_LAYERS)
+    opt, step = train_setup(cfg, True, RESTART_STEPS)
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=seed)
+    full, _ = train_loop.run(step, train_state(cfg, opt, seed), data,
+                             steps=RESTART_STEPS, log_every=0)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        train_loop.run(step, train_state(cfg, opt, seed), data,
+                       steps=RESTART_AT, ckpt_dir=d, ckpt_every=RESTART_AT,
+                       log_every=0)
+        t1 = time.perf_counter()
+        resumed, hist = train_loop.run(step, train_state(cfg, opt, seed),
+                                       data, steps=RESTART_STEPS, ckpt_dir=d,
+                                       ckpt_every=100, log_every=0)
+        t2 = time.perf_counter()
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                         if f.is_file())
+    a = full["params"]["final_norm"].float()
+    b = resumed["params"]["final_norm"].float()
+    ok = (len(hist["loss"]) == RESTART_STEPS - RESTART_AT
+          and torch.allclose(b, a, rtol=RESTART_RTOL, atol=0))
+    same = all(torch.equal(x, y) for x, y in zip(leaves(full),
+                                                  leaves(resumed)))
+    print(f"  restart ({RESTART_LAYERS} layers, full width, int8): "
+          f"{RESTART_AT} steps + a {ckpt_bytes:,}-byte checkpoint "
+          f"({t1 - t0:.1f} s) + restore and {len(hist['loss'])} steps "
+          f"({t2 - t1:.1f} s) → final_norm within rtol {RESTART_RTOL:g} of "
+          f"{RESTART_STEPS} steps at once: {'ok' if ok else 'FAIL'}; "
+          f"whole state bit for bit: {same}")
+    if not ok:
+        raise RuntimeError("restart from the checkpoint is not exact")
+    return dict(ok=ok, bit_for_bit=same, ckpt_bytes=ckpt_bytes,
+                first_s=t1 - t0, resumed_s=t2 - t1)
+
+
+def training(seed: int, smi: str, timer, gen):
+    """Phase 11: full-width qwen3-0.6b trained with f32 moments, then with
+    int8 moments and int8 gradients (K7); K7 at the trained leaf shapes;
+    the reduced f32 step on the card vs the CPU; the restart."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    print(f"  {TRAIN_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size:,}, bf16, remat {cfg.remat}; {smi}")
+    out = {}
+    for label, int8 in (("f32 moments", False),
+                        ("int8 moments + int8 gradients", True)):
+        out[label] = train_run(label, cfg, seed, int8, smi)
+        torch.cuda.empty_cache()
+    out["k7_rows"] = k7_training_shapes(timer, gen)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = train_card_vs_cpu(seed)
+    out["restart"] = train_restart(seed)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 11 seconds: {out['seconds']:.1f}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -3288,6 +3583,13 @@ def main(argv=None) -> int:
           f"pixtral-12b and musicgen-large ({FRONT_LAYERS} layers) from "
           f"float embeddings")
     recurrent = recurrent_serving(SEED, smi)
+    torch.cuda.empty_cache()
+
+    print(f"[phase 11] training: full-width {TRAIN_ARCH} for {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens with f32 moments, "
+          f"then int8 moments and int8 gradients (K7)")
+    trained = training(SEED, smi, timer, gen)
+    rows += trained["k7_rows"]
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -3314,7 +3616,7 @@ def main(argv=None) -> int:
     # the path whose run counts each kernel's launches
     path_of = {"K1": "w8a8", "K2": "w8a8", "K3": "w8a8", "K4 w4a8": "w4a8",
                "K4 w4a4": "w4a4", "K5": "unfused", "K6a": "unfused",
-               "K6b": "unfused", "K7": "unfused", "K8": "flash"}
+               "K6b": "unfused", "K7": "train int8", "K8": "flash"}
     counts = {q: served[q]["launches"] for q in QMODES}
     counts["unfused"] = unfused["launches"]
     counts["flash"] = flash["launches"]
@@ -3323,6 +3625,8 @@ def main(argv=None) -> int:
     for label, run in recurrent.items():
         if label != "seconds":
             counts[label] = run["run"]["launches"]
+    counts["train int8"] = trained["int8 moments + int8 gradients"][
+        "launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
@@ -3345,7 +3649,8 @@ def main(argv=None) -> int:
                  k3_controls=k3_controls, k2_splits=k2_splits,
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
-                 recurrent=recurrent, kernels=kernels), indent=1))
+                 recurrent=recurrent, training=trained, kernels=kernels),
+            indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -20,10 +20,10 @@ _QT_KEYS = {"q", "scale", "bits", "shape"}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")          # a contiguous copy; 0-d stays 0-d
     if a.dtype == np.uint16:
-        return torch.from_numpy(a.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def from_jax_params(tree, device=None):
@@ -45,3 +45,15 @@ def from_jax_params(tree, device=None):
         raise TypeError(f"unsupported leaf {type(x)}")
 
     return walk(tree)
+
+
+def from_jax_train_state(state: dict, device=None) -> dict:
+    """The reference's ``init_train_state`` output as numpy (see the module
+    docstring) → the port's train state: ``{"params", "opt": {"m", "v",
+    "count"}, "step"}``, int8 moments as ``{"q", "scale"}`` dicts, and
+    ``count`` and ``step`` 0-d int32 tensors. The port then starts from
+    the reference's exact state."""
+    if set(state) != {"params", "opt", "step"}:
+        raise ValueError(f"a train state has params, opt and step; got "
+                         f"{sorted(state)}")
+    return {k: from_jax_params(v, device) for k, v in state.items()}

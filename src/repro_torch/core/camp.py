@@ -21,6 +21,9 @@ flush. ``fused=False`` takes the two-kernel composition instead: rowwise
 quantize (K7), then the unfused GEMM (K5 for w8a8, K6a for w4a8, and for
 w4a4 the int4 activations packed along K and K6b). It equals the fused
 path bit for bit; no model path selects it.
+
+:func:`qat_matmul` is the training side: both operands fake-quantized
+(K7's rowwise chain, straight-through gradients), then a float matmul.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quant import QuantizedTensor, pack_int4, quantize_weight
+from repro_torch.core.quant import (QuantizedTensor, fake_quant, pack_int4,
+                                    quantize_weight)
 from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import apply_epilogue, validate_epilogue
 
@@ -112,3 +116,13 @@ def camp_matmul(x: torch.Tensor, w, *, qmode: str = "w8a8",
         a_packed = pack_int4(a_q.T).T.contiguous()   # packed along K
         y = ops.gemm_a4w4(a_packed, w.q, k, a_s, w.scale, **kw)
     return y.reshape(*lead, n)
+
+
+def qat_matmul(x: torch.Tensor, w: torch.Tensor, *, bits: int = 8
+               ) -> torch.Tensor:
+    """Training-side fake-quantized ``x @ w`` with straight-through
+    gradients: x per row, w per output channel (over K), as PTQ
+    quantizes them."""
+    xq = fake_quant(x, bits)
+    wq = fake_quant(w.T, bits).T
+    return torch.matmul(xq, wq)

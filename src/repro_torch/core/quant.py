@@ -87,6 +87,11 @@ def quantize_rowwise(x: torch.Tensor, bits: int = 8):
     return q.to(torch.int8), scale
 
 
+def dequantize_rowwise(q: torch.Tensor, scale: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
+    return q.to(dtype) * scale.to(dtype)
+
+
 def quantize_colwise(w: torch.Tensor, bits: int = 8):
     """Symmetric per-column quantization of (K, N) → scale (1, N) f32."""
     qmax = _qmax(bits)
@@ -123,3 +128,27 @@ def quantize_weight(w: torch.Tensor, bits: int = 8) -> QuantizedTensor:
     if bits == 4:
         q = pack_int4(q)
     return QuantizedTensor(q=q, scale=scale, bits=bits, shape=tuple(w.shape))
+
+
+# --------------------------------------------------------------------------
+# QAT fake quantization with a straight-through gradient
+# --------------------------------------------------------------------------
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits):
+        # K7's rowwise chain (the reference's under jit); kernels import
+        # this module, so the kernel's wrapper is imported here
+        from repro_torch.kernels.quantize import quantize_lastdim
+        q, scale = quantize_lastdim(x, bits=bits)
+        return (q.float() * scale).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None                      # straight through
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Quantize → dequantize x per row of its last axis (absmax, ``bits``),
+    with the identity as its gradient."""
+    _qmax(bits)
+    return _FakeQuant.apply(x, bits)

@@ -1,0 +1,101 @@
+"""Deterministic synthetic LM data pipeline.
+
+Port of ``repro/data/pipeline.py``; :class:`SyntheticLMData` is plain
+numpy and yields the reference's batches bit for bit.
+
+* **step-addressable determinism**: the batch of step ``s`` is a pure
+  function of ``(seed, s)``; a restart from a checkpoint replays the exact
+  stream with no stored iterator state (the contract of
+  :mod:`repro_torch.train.loop`).
+* **feeding**: :func:`shard_batch` puts a host batch on the device (one
+  device; tensor parallelism is not ported yet).
+* **background prefetch**: a depth-2 thread prefetcher overlaps host data
+  generation with device steps.
+
+The token stream is a mixed Markov / Zipf source, so the LM loss has real
+structure to learn.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+class SyntheticLMData:
+    def __init__(self, vocab_size: int, batch: int, seq: int, *,
+                 seed: int = 0, embedding_dim: Optional[int] = None):
+        self.vocab = vocab_size
+        self.batch = batch
+        self.seq = seq
+        self.seed = seed
+        self.embedding_dim = embedding_dim
+        # fixed Markov backbone: each token prefers a successor band
+        self._succ = np.random.default_rng(seed).integers(
+            0, vocab_size, size=(min(vocab_size, 4096),), dtype=np.int64)
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        toks = np.empty((self.batch, self.seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, self.batch)
+        noise = rng.random((self.batch, self.seq))
+        jump = rng.integers(0, self.vocab, (self.batch, self.seq))
+        for t in range(self.seq):
+            follow = self._succ[toks[:, t] % len(self._succ)] % self.vocab
+            toks[:, t + 1] = np.where(noise[:, t] < 0.75, follow, jump[:, t])
+        out = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.embedding_dim:                  # embedding-input models
+            emb = rng.standard_normal(
+                (self.batch, self.seq, self.embedding_dim)).astype(np.float32)
+            out["inputs"] = emb
+        return out
+
+    def __iter__(self) -> Iterator[dict]:
+        s = 0
+        while True:
+            yield self.batch_at(s)
+            s += 1
+
+
+def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
+                device=None) -> dict:
+    """A host batch of numpy arrays → tensors on ``device`` (default: the
+    card; see :func:`repro_torch.device.resolve_device`)."""
+    if mesh is not None or specs is not None:
+        raise NotImplementedError("sharded feeding needs tensor "
+                                  "parallelism, which is not ported yet")
+    device = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, order="C")).to(device)
+            for k, v in batch.items()}
+
+
+class Prefetcher:
+    """Depth-N background prefetch over a data iterator."""
+
+    def __init__(self, it: Iterator[dict], depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._done = object()
+        self._t = threading.Thread(target=self._fill, daemon=True)
+        self._t.start()
+
+    def _fill(self):
+        try:
+            for item in self._it:
+                self._q.put(item)
+        finally:
+            self._q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            raise StopIteration
+        return item

@@ -10,7 +10,9 @@ so the unfused quantize → GEMM path equals the fused kernels bit for bit.
 :func:`quantize_rowwise_kernel` takes the plain version for a CPU tensor
 and launches ``csrc/quantize.cu`` for a CUDA tensor (or raises);
 ``launches`` counts kernel launches. :func:`team_size` picks how many of
-the kernel's threads take one row.
+the kernel's threads take one row. :func:`quantize_lastdim` runs it over
+the rows of any tensor's last axis: the training path's int8 moments,
+int8 gradient compression and fake quantization.
 """
 from __future__ import annotations
 
@@ -82,3 +84,13 @@ def quantize_rowwise_kernel(x: torch.Tensor, *, bits: int = 8):
     global launches
     launches += 1
     return q, s
+
+
+def quantize_lastdim(x: torch.Tensor, *, bits: int = 8):
+    """x (..., K) → (int8 q (..., K), f32 scale (..., 1)): K7 (or its
+    plain version, for a CPU tensor) over x viewed as (M, K) rows."""
+    if x.ndim == 0:
+        raise ValueError("quantize_lastdim needs a last axis")
+    q, s = quantize_rowwise_kernel(x.reshape(-1, x.shape[-1]).contiguous(),
+                                   bits=bits)
+    return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)

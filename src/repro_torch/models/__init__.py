@@ -2,5 +2,5 @@
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (forward, init_caches,
                                             init_params,
-                                            init_quantized_params,
+                                            init_quantized_params, loss_fn,
                                             quantize_params)

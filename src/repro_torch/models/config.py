@@ -49,7 +49,7 @@ class ModelConfig:
     embedding_inputs: bool = False
 
     dtype: str = "bfloat16"
-    remat: bool = True
+    remat: bool = True               # recompute each block in backward
     attn_q_chunk: int = 0            # q-chunked exact attention (0 = off)
     qmode: str = "none"              # serving quantization (CAMP)
     max_seq_len: int = 8192

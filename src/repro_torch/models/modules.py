@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, rope, linear-with-CAMP, gated MLP.
+"""Shared building blocks: norms, rope, linear-with-CAMP, gated MLP, and
+the training loss (softmax cross entropy, streamed over the vocabulary).
 
 Port of ``repro/models/modules.py`` (the single-device paths; the
 row-parallel tensor-parallel linear comes with tensor parallelism).
@@ -8,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.camp import camp_matmul, weight_bits
 from repro_torch.core.quant import QuantizedTensor, div_exact
@@ -115,3 +117,58 @@ def gated_mlp(x: torch.Tensor, p: dict, *, qmode: str = "none",
     g = linear(x, p["w_gate"], qmode=qmode, impl=impl, epilogue="silu")
     h = linear(x, p["w_up"], qmode=qmode, impl=impl, epilogue="mul", operand=g)
     return linear(h, p["w_down"], qmode=qmode, impl=impl)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy; logits (B, S, V) taken in f32,
+    labels (B, S)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def _chunk_stats(h, head_c, labels, c0: int, vc: int):
+    """One vocabulary chunk's (row max, Σ exp(logit − max), gold logit or
+    0 where the label lies outside the chunk), each (B, S) f32."""
+    logits = torch.matmul(h, head_c.to(h.dtype)).float()
+    m = logits.amax(dim=-1)
+    s = torch.exp(logits - m[..., None]).sum(dim=-1)
+    idx = labels - c0
+    in_c = (idx >= 0) & (idx < vc)
+    gold = torch.gather(logits, -1, idx.clamp(0, vc - 1)[..., None])[..., 0]
+    return m, s, torch.where(in_c, gold, 0.0)
+
+
+def chunked_xent(h: torch.Tensor, head, labels: torch.Tensor, *,
+                 n_chunks: int = 8) -> torch.Tensor:
+    """Streamed cross entropy: the (B, S, V) f32 logits are never held
+    whole. The head's columns go in ``n_chunks`` chunks (fewer until they
+    divide V) with an online max / sum-exp, each chunk's statistics
+    recomputed in the backward pass (a checkpoint), so live memory is one
+    (B, S, V / n) slice. Exact up to f32 rounding.
+
+    h: (B, S, D) final hidden; head: (D, V) weight (or QuantizedTensor).
+    """
+    if isinstance(head, QuantizedTensor):
+        head = head.dequantize()
+    b, s, _ = h.shape
+    v = head.shape[-1]
+    while v % n_chunks:
+        n_chunks -= 1
+    vc = v // n_chunks
+    labels = labels.long()
+    run_m = torch.full((b, s), -torch.inf, dtype=torch.float32,
+                       device=h.device)
+    run_s = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    gold_total = torch.zeros((b, s), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        m, s_, gold = checkpoint(_chunk_stats, h, head[:, c * vc:(c + 1) * vc],
+                                 labels, c * vc, vc, use_reentrant=False,
+                                 preserve_rng_state=False)
+        new_m = torch.maximum(run_m, m)
+        run_s = run_s * torch.exp(run_m - new_m) + s_ * torch.exp(m - new_m)
+        run_m = new_m
+        gold_total = gold_total + gold
+    lse = run_m + torch.log(run_s)
+    return (lse - gold_total).mean()

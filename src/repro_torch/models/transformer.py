@@ -10,6 +10,9 @@ take float (B, S, D) embeddings in place of token ids.
 :func:`quantize_params` converts every GEMM weight to a
 :class:`~repro_torch.core.quant.QuantizedTensor` (expert stacks per
 expert); the same forward then routes through the CAMP kernels.
+:func:`loss_fn` is the training loss: the forward to the final hidden
+states (one recomputed checkpoint per block when ``cfg.remat``), the
+streamed cross entropy over the head, and the MoE aux loss.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -24,9 +28,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import gated_mlp, linear, rms_norm
+from repro_torch.models.modules import (chunked_xent, gated_mlp, linear,
+                                        rms_norm)
 
-MOE_AUX_COEF = 0.01   # weight of the MoE aux loss in training (not ported)
+MOE_AUX_COEF = 0.01   # weight of the MoE aux loss in training
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -171,6 +176,10 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     instead of logits. ``impl`` selects kernels or plain versions (see
     :mod:`repro_torch.kernels.ops`). ``aux``: the MoE layers' load-balance
     losses summed (f32 scalar; zero without MoE layers).
+
+    With ``cfg.remat``, no caches and grad enabled, each block runs under
+    a checkpoint: its activations are recomputed in the backward pass, as
+    the reference's ``jax.checkpoint`` per block.
     """
     qmode = cfg.qmode if qmode is None else qmode
     b, s = inputs.shape[:2]
@@ -192,10 +201,16 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
                                 ].to(dtype_of(cfg))
     new_caches = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, lp in enumerate(params["layers"]):
         cache_i = caches[i] if caches is not None else None
-        h, c_new, aux = _block(lp, cfg, i, h, positions, cache_i, cache_pos,
-                               qmode, impl)
+        if remat:
+            h, c_new, aux = checkpoint(
+                _block, lp, cfg, i, h, positions, None, cache_pos, qmode,
+                impl, use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, c_new, aux = _block(lp, cfg, i, h, positions, cache_i,
+                                   cache_pos, qmode, impl)
         if new_caches is not None:
             new_caches.append(c_new)
         if aux is not None:
@@ -209,6 +224,19 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     logits = linear(h, head, qmode="none" if cfg.tie_embeddings else qmode,
                     impl=impl)
     return logits, new_caches, aux_total
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch = {'inputs': (B, S) int or (B, S, D) float, 'labels': (B, S)
+    int} → the mean next-token cross entropy (f32 scalar), plus
+    ``MOE_AUX_COEF`` × the aux loss for MoE configs. The head is streamed
+    (:func:`chunked_xent`): the (B, S, V) logits are never held whole."""
+    h, _, aux = forward(params, cfg, batch["inputs"], return_hidden=True)
+    head = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+    loss = chunked_xent(h, head, batch["labels"])
+    if cfg.moe_experts:
+        loss = loss + MOE_AUX_COEF * aux
+    return loss
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
