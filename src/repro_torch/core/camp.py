@@ -59,14 +59,17 @@ def camp_matmul(x: torch.Tensor, w, *, qmode: str = "w8a8",
                 impl: str = "auto", out_dtype=None,
                 fused: Optional[bool] = None, epilogue: str = "none",
                 bias: Optional[torch.Tensor] = None,
-                operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+                operand: Optional[torch.Tensor] = None,
+                plan=None) -> torch.Tensor:
     """Quantized matmul ``x @ W`` via the CAMP pipeline.
 
     ``x``: (..., K) float; ``w``: :class:`QuantizedTensor` (K, N), or a
     float tensor when qmode='none'. Returns (..., N) in ``out_dtype``
     (default x.dtype). ``impl`` as in :mod:`repro_torch.kernels.ops`.
     ``fused=None`` means fused for the integer modes (ignored by 'none' and
-    the weight-only modes, which quantize no activations).
+    the weight-only modes, which quantize no activations). ``plan=None``
+    takes the integer GEMM's launch plan from the autotune (see
+    :mod:`repro_torch.kernels.ops`); a CPU tensor ignores it.
     """
     if qmode not in QMODES:
         raise ValueError(f"qmode={qmode!r} not in {QMODES}")
@@ -100,7 +103,7 @@ def camp_matmul(x: torch.Tensor, w, *, qmode: str = "w8a8",
     x2 = x2.contiguous()
     opd2 = None if operand is None else operand.reshape(-1, n).contiguous()
     kw = dict(out_dtype=out_dtype, impl=impl, epilogue=epilogue, bias=bias,
-              operand=opd2)
+              operand=opd2, plan=plan)
     if fused is None or fused:
         fn = {"w8a8": ops.gemm_i8_fused, "w4a8": ops.gemm_w4_fused,
               "w4a4": ops.gemm_a4w4_fused}[qmode]

@@ -16,10 +16,11 @@ the fused K1 bit for bit.
   ``csrc/camp_gemm_tc.cuh`` (K1, K4, K5, K6a, K6b): the flush's arguments
   (``csrc/camp_gemm_common.cuh``'s ``GemmArgs``), then an int32 workspace
   (the fused kernels' row scales, then the partial sums), the row tile,
-  the split of K and the flags of :func:`tc_flags`.
-* :func:`split_plan` picks that template's row tile and split of K;
-  :func:`tc_flags` how the call flushes and where the fused kernels' row
-  scales come from.
+  the split of K and the flags of a
+  :class:`~repro_torch.core.blocking.PlanConfig`.
+* The wrappers take their plan from :func:`repro_torch.core.autotune.
+  get_plan` (the measured plan of a tuned shape, else the analytic seed
+  :func:`repro_torch.core.blocking.choose_plan`), or from ``plan=``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.blocking import (FLUSH_IN_BLOCK, SCALE_KERNEL,
+                                       PlanConfig, choose_plan, tc_flags)
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import EPILOGUE_STAGES, validate_epilogue
 from repro_torch.kernels.ref import dot_i32, flush_ref
@@ -42,51 +46,6 @@ _ARGTYPES = [_VOID, _INT, _VOID, _VOID, _VOID, _VOID, _INT, _VOID, _INT,
              _VOID, _INT, _INT, _INT, _INT, _INT, _INT,
              _VOID, _INT, _INT, _INT, _INT, _VOID]
 _fns = {}
-
-TC_BN = 128           # output columns a block of the tensor-core template
-TC_BK = 128           # K a step
-TC_ROW_TILES = (8, 32, 128)
-# csrc/camp_gemm_tc.cuh's Flags
-FLUSH_IN_BLOCK = 1    # one split: the product block flushes its own sums
-SCALE_KERNEL = 2      # fused: row scales from a scale pass kernel
-SPLIT_SCALES = 4      # fused: each block's scales from its own K range
-                      # (wrong on purpose: chip_smoke.py's control)
-# the fused kernels' row tiles whose scales come from the scale pass (at
-# the others each block reduces its own rows of x): the faster choice per
-# row tile at the serving shapes (PERF.md)
-SCALE_KERNEL_ROW_TILES = (32, 128)
-
-
-def split_plan(m: int, n: int, k: int, sms: int) -> Tuple[int, int, int]:
-    """(MT, splits, K steps a split) for the tensor-core template
-    (``csrc/camp_gemm_tc.cuh``) at an (M, K) x (K, N) product on a card of
-    ``sms`` SMs: the smallest row tile that holds M (else 128), then the
-    K steps split into equal runs so that the grid comes to about one block
-    an SM, at least one step a split."""
-    mt = next((t for t in TC_ROW_TILES if m <= t), TC_ROW_TILES[-1])
-    tiles = -(-n // TC_BN) * -(-m // mt)
-    steps = max(1, -(-k // TC_BK))
-    want = max(1, min(steps, sms // tiles))
-    per = -(-steps // want)
-    return mt, -(-steps // per), per
-
-
-def tc_flags(m: int, n: int, plan: Tuple[int, int, int], sms: int,
-             fused: bool) -> int:
-    """The tensor-core template's flags for an (M, N) output under
-    ``plan`` on a card of ``sms`` SMs: the product block flushes its own
-    sums where there is one split and the grid fills the card (with fewer
-    blocks than SMs, a flush kernel over the whole card is faster: silu
-    and mul at M 256, N 4,864); the fused kernels take their row scales
-    from the scale pass at the row tiles of ``SCALE_KERNEL_ROW_TILES``."""
-    mt, splits, _ = plan
-    flags = 0
-    if splits == 1 and -(-n // TC_BN) * -(-m // mt) >= sms:
-        flags |= FLUSH_IN_BLOCK
-    if fused and mt in SCALE_KERNEL_ROW_TILES:
-        flags |= SCALE_KERNEL
-    return flags
-
 
 def device_kernels(flags: int) -> int:
     """Device kernels one tensor-core call launches under ``flags``: the
@@ -111,9 +70,10 @@ def sms_of(a: torch.Tensor) -> int:
     return build.sm_count(index)
 
 
-def plan_for(a: torch.Tensor, n: int, k: int) -> Tuple[int, int, int]:
-    """:func:`split_plan` for ``a``'s rows on ``a``'s card."""
-    return split_plan(a.shape[0], n, k, sms_of(a))
+def plan_for(a: torch.Tensor, n: int, k: int, fused: bool) -> PlanConfig:
+    """The analytic plan (:func:`~repro_torch.core.blocking.choose_plan`)
+    for ``a``'s rows on ``a``'s card."""
+    return choose_plan(a.shape[0], n, k, sms_of(a), fused)
 
 
 def check_tensor(name, t, shape, dtypes, device):
@@ -212,9 +172,11 @@ def camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale, *, out_dtype=torch.float32,
 def camp_gemm_i8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
                  b_scale: torch.Tensor, *, out_dtype=torch.float32,
                  epilogue: str = "none", bias: Optional[torch.Tensor] = None,
-                 operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 operand: Optional[torch.Tensor] = None,
+                 plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """int8 A (M, K), scales (M, 1) f32 × int8 B (K, N), scales (1, N) f32
-    → (M, N) in ``out_dtype`` (bf16 or f32)."""
+    → (M, N) in ``out_dtype`` (bf16 or f32). ``plan`` (a CUDA tensor
+    only) overrides the autotune's."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if a_q.device.type == "cpu":
@@ -225,8 +187,9 @@ def camp_gemm_i8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     (m, k), n = a_q.shape, b_q.shape[1]
     check_tensor("a_q", a_q, (m, k), (torch.int8,), a_q.device)
     check_tensor("b_q", b_q, (k, n), (torch.int8,), a_q.device)
+    plan = plan or autotune.get_plan("i8", m, n, k)
     out = launch_gemm("camp_gemm", "camp_gemm_i8", a_q, a_scale, b_q,
-                      b_scale, k, plan=plan_for(a_q, n, k), **kw)
+                      b_scale, k, plan=plan[:3], flags=plan.flags, **kw)
     if out.numel():
         global launches
         launches += 1

@@ -15,8 +15,9 @@ for the flush.
   use them, and ``chip_smoke.py`` holds the kernels against them.
 * ``camp_gemm_fused_*`` are the wrappers: a CPU tensor goes to the plain
   version; a CUDA tensor launches ``csrc/camp_gemm_fused.cu`` (or raises):
-  the tensor-core template of K5/K6a with x quantized on chip, under K5's
-  split plan (``camp_gemm.plan_for``), one to three device kernels a call
+  the tensor-core template of K5/K6a with x quantized on chip, under the
+  autotune's plan (:func:`repro_torch.core.autotune.get_plan`, fused) or
+  ``plan=``, one to three device kernels a call
   (``camp_gemm.device_kernels``). ``launches`` (w8a8), ``launches_w4a8``
   and ``launches_w4a4`` count calls that launch.
 """
@@ -26,9 +27,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.blocking import PlanConfig
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels.camp_gemm import (FLOATS, check_tensor, launch_gemm,
-                                           plan_for, require_cuda)
+                                           require_cuda)
 from repro_torch.kernels.ref import dot_i32, flush_ref, quantize_rowwise_ref
 
 launches = 0          # kernel launches through camp_gemm_fused_w8a8 (K1)
@@ -37,6 +40,8 @@ launches_w4a4 = 0     # through camp_gemm_fused_w4a4 (K4)
 
 # qmode → (activation bits, weight bits)
 _BITS = {"w8a8": (8, 8), "w4a8": (8, 4), "w4a4": (4, 4)}
+# qmode → the autotune's kernel kind
+KIND = {"w8a8": "i8", "w4a8": "w4", "w4a4": "a4w4"}
 
 
 def _check_k(qmode, x, b):
@@ -84,7 +89,7 @@ def camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, *, out_dtype=torch.float32,
                       dot=dot_i32)
 
 
-def _fused_cuda(qmode, x, b, b_scale, kw):
+def _fused_cuda(qmode, x, b, b_scale, kw, plan):
     require_cuda(x, f"camp_gemm_fused_{qmode}")
     if x.ndim != 2 or b.ndim != 2:
         raise ValueError(f"camp_gemm_fused_{qmode} takes 2-D x and W")
@@ -92,26 +97,30 @@ def _fused_cuda(qmode, x, b, b_scale, kw):
     (m, k), n, dev = x.shape, b.shape[1], x.device
     check_tensor("x", x, (m, k), FLOATS, dev)
     check_tensor("W", b, (b.shape[0], n), (torch.int8,), dev)
+    plan = plan or autotune.get_plan(KIND[qmode], m, n, k, fused=True,
+                                     a_in_bytes=x.element_size())
     return launch_gemm("camp_gemm_fused", f"camp_gemm_fused_{qmode}", x, None,
-                       b, b_scale, k, plan=plan_for(x, n, k), **kw)
+                       b, b_scale, k, plan=plan[:3], flags=plan.flags, **kw)
 
 
 def camp_gemm_fused_w8a8(x: torch.Tensor, b_q: torch.Tensor,
                          b_scale: torch.Tensor, *, out_dtype=torch.float32,
                          epilogue: str = "none",
                          bias: Optional[torch.Tensor] = None,
-                         operand: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         operand: Optional[torch.Tensor] = None,
+                         plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """w8a8 GEMM of x (M, K) bf16/f32 by b_q (K, N) int8, scales (1, N) f32.
 
     ``bias`` (N,) and ``operand`` (M, N) are bf16/f32, as the epilogue
-    needs them. Returns (M, N) in ``out_dtype`` (bf16 or f32).
+    needs them. Returns (M, N) in ``out_dtype`` (bf16 or f32). ``plan``
+    (a CUDA tensor only; the plain versions have none) overrides the
+    autotune's.
     """
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if x.device.type == "cpu":
         return camp_gemm_fused_w8a8_ref(x, b_q, b_scale, **kw)
-    out = _fused_cuda("w8a8", x, b_q, b_scale, kw)
+    out = _fused_cuda("w8a8", x, b_q, b_scale, kw, plan)
     if out.numel():
         global launches
         launches += 1
@@ -122,14 +131,14 @@ def camp_gemm_fused_w4a8(x: torch.Tensor, b_packed: torch.Tensor,
                          b_scale: torch.Tensor, *, out_dtype=torch.float32,
                          epilogue: str = "none",
                          bias: Optional[torch.Tensor] = None,
-                         operand: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         operand: Optional[torch.Tensor] = None,
+                         plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """w4a8: x (M, K) bf16/f32 (K even) by packed-int4 W (K//2, N)."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if x.device.type == "cpu":
         return camp_gemm_fused_w4a8_ref(x, b_packed, b_scale, **kw)
-    out = _fused_cuda("w4a8", x, b_packed, b_scale, kw)
+    out = _fused_cuda("w4a8", x, b_packed, b_scale, kw, plan)
     if out.numel():
         global launches_w4a8
         launches_w4a8 += 1
@@ -140,14 +149,14 @@ def camp_gemm_fused_w4a4(x: torch.Tensor, b_packed: torch.Tensor,
                          b_scale: torch.Tensor, *, out_dtype=torch.float32,
                          epilogue: str = "none",
                          bias: Optional[torch.Tensor] = None,
-                         operand: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         operand: Optional[torch.Tensor] = None,
+                         plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """w4a4: x quantized to [-7, 7] in the kernel, by packed W (K//2, N)."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if x.device.type == "cpu":
         return camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, **kw)
-    out = _fused_cuda("w4a4", x, b_packed, b_scale, kw)
+    out = _fused_cuda("w4a4", x, b_packed, b_scale, kw, plan)
     if out.numel():
         global launches_w4a4
         launches_w4a4 += 1

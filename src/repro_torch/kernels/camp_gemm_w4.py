@@ -10,7 +10,9 @@ along K, low nibble = even k, both sign-extended
 
 Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages). Both
 CUDA kernels (``csrc/camp_gemm.cu``) are instances of K5's tensor-core
-template (``csrc/camp_gemm_tc.cuh``) under K5's split plan: K is even, so
+template (``csrc/camp_gemm_tc.cuh``) under the autotune's plan (kinds
+``w4`` and ``a4w4`` of :func:`repro_torch.core.autotune.get_plan`, or
+``plan=``): K is even, so
 a K step never splits a packed byte, and the nibbles are unpacked into
 int8 in shared memory (B from its TMA-loaded stage; K6b's packed A from
 registers, one K step ahead).
@@ -26,8 +28,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import unpack_int4
+from repro_torch.core import autotune
+from repro_torch.core.blocking import PlanConfig
 from repro_torch.kernels.camp_gemm import (check_tensor, launch_gemm,
-                                           plan_for, require_cuda)
+                                           require_cuda)
 from repro_torch.kernels.ref import dot_i32, flush_ref
 
 launches_w4 = 0       # kernel launches through camp_gemm_w4
@@ -67,9 +71,11 @@ def camp_gemm_w4(a_q: torch.Tensor, b_packed: torch.Tensor,
                  a_scale: torch.Tensor, b_scale: torch.Tensor, *,
                  out_dtype=torch.float32, epilogue: str = "none",
                  bias: Optional[torch.Tensor] = None,
-                 operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 operand: Optional[torch.Tensor] = None,
+                 plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """int8 A (M, K), scales (M, 1) × packed-int4 B (K//2, N), scales (1, N)
-    → (M, N) in ``out_dtype``."""
+    → (M, N) in ``out_dtype``. ``plan`` (a CUDA tensor only) overrides the
+    autotune's."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     _packed_shapes(a_q, b_packed, a_q.shape[-1], "camp_gemm_w4")
@@ -79,8 +85,9 @@ def camp_gemm_w4(a_q: torch.Tensor, b_packed: torch.Tensor,
     (m, k), n, dev = a_q.shape, b_packed.shape[1], a_q.device
     check_tensor("a_q", a_q, (m, k), (torch.int8,), dev)
     check_tensor("b_packed", b_packed, (k // 2, n), (torch.int8,), dev)
+    plan = plan or autotune.get_plan("w4", m, n, k)
     out = launch_gemm("camp_gemm", "camp_gemm_w4", a_q, a_scale, b_packed,
-                      b_scale, k, plan=plan_for(a_q, n, k), **kw)
+                      b_scale, k, plan=plan[:3], flags=plan.flags, **kw)
     if out.numel():
         global launches_w4
         launches_w4 += 1
@@ -91,9 +98,11 @@ def camp_gemm_a4w4(a_packed: torch.Tensor, b_packed: torch.Tensor,
                    a_scale: torch.Tensor, b_scale: torch.Tensor, *,
                    out_dtype=torch.float32, epilogue: str = "none",
                    bias: Optional[torch.Tensor] = None,
-                   operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   operand: Optional[torch.Tensor] = None,
+                   plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """Packed-int4 A (M, K//2), scales (M, 1) × packed-int4 B (K//2, N),
-    scales (1, N) → (M, N) in ``out_dtype``; the logical K is 2 · K//2."""
+    scales (1, N) → (M, N) in ``out_dtype``; the logical K is 2 · K//2.
+    ``plan`` (a CUDA tensor only) overrides the autotune's."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     _packed_shapes(a_packed, b_packed, 2 * a_packed.shape[-1],
@@ -104,9 +113,10 @@ def camp_gemm_a4w4(a_packed: torch.Tensor, b_packed: torch.Tensor,
     (m, k2), n, dev = a_packed.shape, b_packed.shape[1], a_packed.device
     check_tensor("a_packed", a_packed, (m, k2), (torch.int8,), dev)
     check_tensor("b_packed", b_packed, (k2, n), (torch.int8,), dev)
+    plan = plan or autotune.get_plan("a4w4", m, n, 2 * k2)
     out = launch_gemm("camp_gemm", "camp_gemm_a4w4", a_packed, a_scale,
-                      b_packed, b_scale, 2 * k2,
-                      plan=plan_for(a_packed, n, 2 * k2), **kw)
+                      b_packed, b_scale, 2 * k2, plan=plan[:3],
+                      flags=plan.flags, **kw)
     if out.numel():
         global launches_a4w4
         launches_a4w4 += 1

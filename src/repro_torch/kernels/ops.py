@@ -16,6 +16,12 @@ Port of ``repro/kernels/ops.py``. Every op takes ``impl``:
 A CUDA tensor reaches a plain version only when 'torch' or 'hybrid' is
 asked for: a kernel that fails to build or launch raises.
 
+The GEMM ops take ``plan=`` (a :class:`~repro_torch.core.blocking.
+PlanConfig`), the counterpart of the reference's ``block=``: the kernel's
+launch plan, where the default (None) takes the autotune's
+(:func:`repro_torch.core.autotune.get_plan`). The plain versions have no
+plan and ignore it.
+
 The ``gemm_*_fused`` family quantizes the activations inside the GEMM (K1,
 K4); ``quantize_rowwise`` (K7) followed by ``gemm_i8`` (K5), ``gemm_w4``
 (K6a) or ``gemm_a4w4`` (K6b) is the unfused composition, equal to the
@@ -59,72 +65,76 @@ def _dot(impl: str, hybrid_dot):
 
 def gemm_i8_fused(x, b_q, b_scale, *, out_dtype=torch.float32,
                   impl: str = "auto", epilogue: str = "none", bias=None,
-                  operand=None):
+                  operand=None, plan=None):
     """w8a8 with in-kernel activation quantization: (M,K) float × (K,N) int8."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     impl = check_impl(impl, x)
     if impl == "cuda":
-        return camp_gemm_fused_w8a8(x, b_q, b_scale, **kw)
+        return camp_gemm_fused_w8a8(x, b_q, b_scale, **kw, plan=plan)
     return camp_gemm_fused_w8a8_ref(
         x, b_q, b_scale, dot=_dot(impl, hybrid.hybrid_matmul_i8), **kw)
 
 
 def gemm_w4_fused(x, b_packed, b_scale, *, out_dtype=torch.float32,
                   impl: str = "auto", epilogue: str = "none", bias=None,
-                  operand=None):
+                  operand=None, plan=None):
     """w4a8 with in-kernel activation quantization: (M,K) float ×
     (K//2,N) packed int4."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     impl = check_impl(impl, x)
     if impl == "cuda":
-        return camp_gemm_fused_w4a8(x, b_packed, b_scale, **kw)
+        return camp_gemm_fused_w4a8(x, b_packed, b_scale, **kw,
+                                    plan=plan)
     return camp_gemm_fused_w4a8_ref(
         x, b_packed, b_scale, dot=_dot(impl, hybrid.hybrid_matmul_w4a8), **kw)
 
 
 def gemm_a4w4_fused(x, b_packed, b_scale, *, out_dtype=torch.float32,
                     impl: str = "auto", epilogue: str = "none", bias=None,
-                    operand=None):
+                    operand=None, plan=None):
     """w4a4 with in-kernel int4 activation quantization: the packed int4
     activations of the unfused path never exist at all."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if check_impl(impl, x) == "cuda":
-        return camp_gemm_fused_w4a4(x, b_packed, b_scale, **kw)
+        return camp_gemm_fused_w4a4(x, b_packed, b_scale, **kw,
+                                    plan=plan)
     return camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, **kw)
 
 
 def gemm_i8(a_q, b_q, a_scale, b_scale, *, out_dtype=torch.float32,
             impl: str = "auto", epilogue: str = "none", bias=None,
-            operand=None):
+            operand=None, plan=None):
     """int8 GEMM: (M,K) int8 × (K,N) int8 → (M,N) with the scale flush."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     impl = check_impl(impl, a_q)
     if impl == "cuda":
-        return camp_gemm_i8(a_q, b_q, a_scale, b_scale, **kw)
+        return camp_gemm_i8(a_q, b_q, a_scale, b_scale, **kw, plan=plan)
     return camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale,
                             dot=_dot(impl, hybrid.hybrid_matmul_i8), **kw)
 
 
 def gemm_w4(a_q, b_packed, a_scale, b_scale, *, out_dtype=torch.float32,
             impl: str = "auto", epilogue: str = "none", bias=None,
-            operand=None):
+            operand=None, plan=None):
     """a8w4 GEMM: int8 activations × packed-int4 weights."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     impl = check_impl(impl, a_q)
     if impl == "cuda":
-        return camp_gemm_w4(a_q, b_packed, a_scale, b_scale, **kw)
+        return camp_gemm_w4(a_q, b_packed, a_scale, b_scale, **kw,
+                            plan=plan)
     return camp_gemm_w4_ref(a_q, b_packed, a_scale, b_scale,
                             dot=_dot(impl, hybrid.hybrid_matmul_w4a8), **kw)
 
 
 def gemm_a4w4(a_packed, b_packed, k, a_scale, b_scale, *,
               out_dtype=torch.float32, impl: str = "auto",
-              epilogue: str = "none", bias=None, operand=None):
+              epilogue: str = "none", bias=None, operand=None,
+              plan=None):
     """int4 GEMM: both operands packed two per byte along K (logical K=k)."""
     if k != 2 * a_packed.shape[-1]:
         raise ValueError(f"gemm_a4w4: K={k} but A is packed to "
@@ -132,7 +142,8 @@ def gemm_a4w4(a_packed, b_packed, k, a_scale, b_scale, *,
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if check_impl(impl, a_packed) == "cuda":
-        return camp_gemm_a4w4(a_packed, b_packed, a_scale, b_scale, **kw)
+        return camp_gemm_a4w4(a_packed, b_packed, a_scale, b_scale, **kw,
+                              plan=plan)
     return camp_gemm_a4w4_ref(a_packed, b_packed, a_scale, b_scale, **kw)
 
 

@@ -166,13 +166,17 @@ def paged_attention_cuda(q, k_pages, v_pages, k_scale, v_scale, tables,
             raise ValueError(f"{name} must be contiguous int32 {shape} on "
                              f"{q.device}")
     max_tiles = -(-tables.shape[1] * ps // TILE)
-    return _run(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
-                sm_scale, plan_for(q, b * kv, g, max_tiles))
+    out = _run(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
+               sm_scale, plan_for(q, b * kv, g, max_tiles))
+    global launches
+    launches += 1
+    return out
 
 
 def _run(q, k_pages, v_pages, k_scale, v_scale, tables, lengths, sm_scale,
          plan):
-    """Launch K3 with ``plan`` = (n_split, tiles_per_split)."""
+    """Launch K3 with ``plan`` = (n_split, tiles_per_split), uncounted
+    (the wrapper counts; the autotune's page and chunk scorers time it)."""
     b, kv, g, hd = q.shape
     n_split, per = plan
     scale = sm_scale if sm_scale is not None else hd ** -0.5
@@ -187,8 +191,6 @@ def _run(q, k_pages, v_pages, k_scale, v_scale, tables, lengths, sm_scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {rc}")
-    global launches
-    launches += 1
     return out
 
 

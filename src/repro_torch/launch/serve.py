@@ -39,7 +39,10 @@ quantized to ``--qmode``) over its own paged pool; ``--spec-gamma auto``
 picks the window from the measured acceptance rate
 (:mod:`repro_torch.core.autotune`). With a spec method the CLI drives the
 engine itself over int8 pages, as the reference does, and prints the
-acceptance summary.
+acceptance summary; before serving it tunes the fused GEMMs' launch plans
+at the decode and verify-panel shapes (``warm_gemm_autotune``: measured
+on the card, stored in ``$REPRO_TORCH_AUTOTUNE_CACHE`` or
+``~/.cache/repro_torch/autotune.json`` for later processes).
 """
 from __future__ import annotations
 
@@ -49,11 +52,13 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import autotune
 from repro_torch.core.camp import QMODES
 from repro_torch.device import resolve_device
 from repro_torch.models import (init_params, init_quantized_params,
                                  quantize_params)
-from repro_torch.serving.engine import ContinuousBatchingEngine, generate
+from repro_torch.serving.engine import (ContinuousBatchingEngine, generate,
+                                       warm_gemm_autotune)
 from repro_torch.serving.kv_cache import round_up
 from repro_torch.serving.spec_decode import SpecConfig
 
@@ -113,6 +118,13 @@ def main(argv=None) -> int:
                                                args.qmode)
         spec = SpecConfig(method=args.spec_method, gamma=gamma,
                           draft_cfg=draft_cfg, draft_params=draft_params)
+        # pre-tune the γ+1-row verify panels next to the decode shapes
+        gammas = autotune.SPEC_GAMMAS if gamma == "auto" else (gamma,)
+        t0 = time.perf_counter()
+        tuned = warm_gemm_autotune(cfg, batch_sizes=(1, args.batch),
+                                   spec_gammas=gammas)
+        print(f"[serve] tuned {len(tuned)} GEMM plans in "
+              f"{time.perf_counter() - t0:.2f}s")
         print(f"[serve] speculative decoding: {args.spec_method}, "
               f"gamma={gamma}")
 

@@ -50,10 +50,14 @@ sequence at a time, as in the reference. ``gamma='auto'`` re-picks the
 window from the measured acceptance rate every ``SPEC_RETUNE_EVERY``
 steps (:mod:`repro_torch.core.autotune`).
 
-Page size, prefill chunk and pages per kernel step are fixed, documented
-defaults here (the reference takes them from its TPU autotune); a Hopper
-autotune is later work. Tensor parallelism (``mesh=``) comes in a later
-slice and raises.
+The engine's page size, prefill chunk and pages per kernel step come
+from the autotune (:func:`repro_torch.core.autotune.get_page_size`: K3
+timed on the card, an analytic H100 model on the CPU; and
+:func:`~repro_torch.core.autotune.get_prefill_params`: the model) unless
+the caller gives them, as in the reference. :func:`warm_gemm_autotune` measures the
+integer GEMMs' launch plans at a model's serving shapes before it serves.
+Tensor parallelism (``mesh=``) comes in a later slice and raises;
+``warm_gemm_autotune(tp=)`` already gives its shard shapes.
 """
 from __future__ import annotations
 
@@ -66,13 +70,12 @@ import torch
 
 from repro_torch.core import autotune
 from repro_torch.device import resolve_device
+from repro_torch.kernels.camp_gemm_fused import KIND as QMODE_KIND
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import expert_capacity, routing_group_size
 from repro_torch.models.transformer import dtype_of, forward, init_caches
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import spec_decode as sd
-
-DEFAULT_PREFILL_CHUNK = 256      # prompt tokens per prefill step
-DEFAULT_PAGES_PER_STEP = 1       # pages the prefill kernel stages per step
 
 
 def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -81,6 +84,78 @@ def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
     attention KV quantized with per-page dynamic scales (see
     :mod:`repro_torch.serving.kv_cache`)."""
     return init_caches(cfg, batch, max_len, kv_dtype=kv_dtype, device=device)
+
+
+def warm_gemm_autotune(cfg: ModelConfig, *, batch_sizes=(1, 8, 32),
+                       prefill_len: int = 0, measure=None, tp: int = 1,
+                       spec_gammas=()):
+    """Tune the fused GEMMs' launch plans (K1, K4) at the transformer's
+    serving shapes, so the request path finds them in the cache.
+
+    Decode runs one token a sequence (M = batch) and prefill M = batch ×
+    prompt_len, over the same (K, N) weights: attention q/kv/out, the
+    dense MLP's up/gate and down, the MoE experts' up/gate and down at the
+    **expert-capacity M** (groups × capacity, as :mod:`repro_torch.models.
+    moe` launches them) and the untied lm head. Mixer-specific projections
+    (Mamba, RWKV) are not covered. Measured on the card, analytic on the
+    CPU (``measure`` as in :func:`repro_torch.core.autotune.tune`).
+
+    ``tp > 1`` gives the tensor-parallel shard shapes instead: column-
+    parallel projections run (m, n/tp, k) a device and the row-parallel
+    out and down projections (m, n, k/tp). Shapes already in the cache are
+    skipped, so no shape is tuned twice.
+
+    ``spec_gammas`` adds the speculative verify panels: each width
+    M ∈ [2, γ+1] (drafters often propose fewer than γ tokens).
+
+    Returns [((m, n, k), plan), ...] for the shapes tuned now.
+    """
+    kind = QMODE_KIND.get(cfg.qmode)
+    if kind is None:  # 'none' / weight-only: float matmul, nothing to tune
+        return []
+    a_in_bytes = dtype_of(cfg).itemsize      # x's type on the request path
+    d, hd = cfg.d_model, cfg.hd
+
+    def shard(k, n, *, row_parallel):
+        """Local (K, N) of one device's GEMM under tp-way model sharding."""
+        if tp <= 1:
+            return (k, n)
+        if row_parallel:
+            return (k // tp, n) if k % tp == 0 else (k, n)
+        return (k, n // tp) if n % tp == 0 else (k, n)
+
+    proj = {
+        shard(d, hd * cfg.n_heads, row_parallel=False),     # q proj
+        shard(d, hd * cfg.n_kv_heads, row_parallel=False),  # kv proj
+        shard(hd * cfg.n_heads, d, row_parallel=True),      # attn out
+        shard(d, cfg.d_ff, row_parallel=False),             # mlp up/gate
+        shard(cfg.d_ff, d, row_parallel=True),              # mlp down
+    }
+    if not cfg.tie_embeddings:
+        proj.add(shard(d, cfg.vocab_size, row_parallel=False))  # lm head
+    ms = sorted({b * max(prefill_len, 1) for b in batch_sizes}
+                | set(batch_sizes)
+                | {m for g in spec_gammas for m in range(2, g + 2)})
+    shapes = {(m, n, k) for m in ms for (k, n) in proj}
+    if cfg.moe_experts:
+        # expert GEMMs run at M = groups × capacity, not M = tokens
+        eproj = (shard(d, cfg.expert_ff, row_parallel=False),
+                 shard(cfg.expert_ff, d, row_parallel=True))
+        for m in ms:
+            sg = routing_group_size(m)
+            em = (m // sg) * expert_capacity(sg, cfg)
+            shapes |= {(max(em, 1), n, k) for (k, n) in eproj}
+    out = []
+    for (m, n, k) in sorted(shapes):
+        if autotune.has_cached(kind, m, n, k, fused=True,
+                               a_in_bytes=a_in_bytes):
+            continue           # an earlier warmup already paid for it
+        plan = autotune.tune(kind, m, n, k, fused=True,
+                             a_in_bytes=a_in_bytes, measure=measure,
+                             save=False)
+        out.append(((m, n, k), plan))
+    autotune.flush()           # one disk write for the whole warmup
+    return out
 
 
 def build_prefill_step(cfg: ModelConfig, *, impl: str = "auto"):
@@ -186,12 +261,21 @@ class ContinuousBatchingEngine:
         self.params, self.cfg = params, cfg
         self.sample, self.temperature, self.seed = sample, temperature, seed
         self.impl = impl
-        ps = page_size or kvc.DEFAULT_PAGE_SIZE
-        chunk = prefill_chunk or DEFAULT_PREFILL_CHUNK
+        # page size and prefill chunking from the autotune's cache (the
+        # page timed through K3 on the card, the chunk from the analytic
+        # model) unless the caller pins them
+        mean_len = max(cfg.max_seq_len // 2, 128)
+        ps = page_size or autotune.get_page_size(
+            cfg.n_kv_heads, cfg.hd, mean_len=mean_len,
+            group=cfg.n_heads // cfg.n_kv_heads)
+        if prefill_chunk is None:
+            prefill_chunk, pp = autotune.get_prefill_params(
+                cfg.n_kv_heads, cfg.hd, ps, mean_len=mean_len)
+            pages_per_step = pages_per_step or pp
         # non-final chunks cover whole pages, so a partial page is quantized
         # exactly once (by the final chunk)
-        self.chunk_tokens = max(ps, chunk - chunk % ps)
-        self.pages_per_step = pages_per_step or DEFAULT_PAGES_PER_STEP
+        self.chunk_tokens = max(ps, prefill_chunk - prefill_chunk % ps)
+        self.pages_per_step = pages_per_step or 1
         capacity_tokens = capacity_tokens or 8 * cfg.max_seq_len
         self.pool = kvc.PagePool(
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,

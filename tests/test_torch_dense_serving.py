@@ -44,6 +44,7 @@ from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from torch_parity import (check_streams, jax_to_numpy,  # noqa: E402
                           random_prompts, to_numpy)
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 KV, HD, PS = 2, 16, 8
 REL_TOL = 1e-2

@@ -41,8 +41,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import quant as jquant  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels.camp_gemm import (SCALE_KERNEL, TC_BK,  # noqa: E402
-                                           split_plan, tc_flags)
+from repro_torch.core.blocking import (SCALE_KERNEL, TC_BK,  # noqa: E402
+                                       split_plan, tc_flags)
 from repro_torch.kernels.ref import flush_ref, recip_f32  # noqa: E402
 from test_torch_gemm_tiles import (EPILOGUE, RAGGED_SHAPES,  # noqa: E402
                                    SERVING_SHAPES, SMS, model, swz_off)

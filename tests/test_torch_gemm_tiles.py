@@ -49,8 +49,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import quant as jquant  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels.camp_gemm import (TC_BK, TC_BN,  # noqa: E402
-                                           TC_ROW_TILES, split_plan)
+from repro_torch.core.blocking import (TC_BK, TC_BN,  # noqa: E402
+                                       TC_ROW_TILES, split_plan)
 from repro_torch.kernels.ref import flush_ref  # noqa: E402
 from torch_parity import to_numpy  # noqa: E402
 

@@ -29,6 +29,7 @@ from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
 from torch_parity import (check_streams, jax_to_numpy,  # noqa: E402
                           random_prompts, reduced_qwen_pair, to_numpy)
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 INT4_MODES = ["w4a8", "w4a4"]
 

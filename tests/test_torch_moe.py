@@ -34,6 +34,7 @@ from repro_torch.models.config import ModelConfig  # noqa: E402
 from torch_parity import (assert_ulps, cuda_like, jax_to_numpy,  # noqa: E402
                           to_numpy)
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 QMODE_BITS = {"none": None, "w8a16": 8, "w4a16": 4, "w8a8": 8, "w4a8": 4,
               "w4a4": 4}

@@ -43,6 +43,7 @@ from repro_torch.serving import engine as teng  # noqa: E402
 from spec_reference import weight_digest  # noqa: E402
 from torch_parity import assert_rel_close, jax_to_numpy  # noqa: E402
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 RECORDED = json.loads(JSON_PATH.read_text())
 REL = {"float32": 5e-5, "bfloat16": 1e-2}

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro.launch import serve as jax_serve  # noqa: E402
 from repro_torch.launch import serve as torch_serve  # noqa: E402
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 BATCH, PROMPT_LEN, STEPS = 2, 8, 3
 

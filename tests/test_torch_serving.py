@@ -45,6 +45,7 @@ from repro_torch.serving.spec_decode import SpecConfig  # noqa: E402
 from torch_parity import (check_streams, jax_to_numpy,  # noqa: E402
                           random_prompts, reduced_qwen_pair)
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture(scope="module")

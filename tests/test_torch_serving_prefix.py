@@ -24,6 +24,7 @@ from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
 from torch_parity import (check_streams, random_prompts,  # noqa: E402
                           reduced_qwen_pair)
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 
 @pytest.fixture(scope="module")

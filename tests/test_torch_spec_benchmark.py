@@ -32,6 +32,7 @@ from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
 from repro_torch.serving.spec_decode import SpecConfig  # noqa: E402
 from torch_parity import jax_to_numpy  # noqa: E402
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 BENCH = json.loads((Path(__file__).resolve().parent.parent
                     / "BENCH_decode.json").read_text())["speculative"]

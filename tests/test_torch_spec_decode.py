@@ -44,6 +44,7 @@ from spec_reference import (BAD_DRAFT, CAPACITY, CASES, CHUNK,  # noqa: E402
                             weight_digest)
 from torch_parity import jax_to_numpy  # noqa: E402
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 RECORDED = json.loads(JSON_PATH.read_text())
 

@@ -35,6 +35,7 @@ from repro_torch.serving import kv_cache as tkv  # noqa: E402
 from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
 from torch_parity import jax_to_numpy, to_numpy  # noqa: E402
 from torch_parity import one_thread  # noqa: E402,F401 (autouse)
+from torch_parity import autotune_cache  # noqa: E402,F401 (autouse)
 
 REL_TOL = 1e-2
 AUX_RTOL = 1e-3

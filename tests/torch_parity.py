@@ -21,6 +21,25 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def autotune_cache(tmp_path_factory):
+    """Both packages' autotune caches in a fresh directory for the module
+    that imports this fixture, and empty in memory before and after:
+    engines that pick their own page size and chunk, and GEMM warmups,
+    never read or write a cache in the home directory."""
+    from repro.core import autotune as jax_autotune
+    from repro_torch.core import autotune
+    d = tmp_path_factory.mktemp("autotune")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(d / "torch.json"))
+        mp.setenv("REPRO_AUTOTUNE_CACHE", str(d / "ref.json"))
+        autotune.clear_cache()
+        jax_autotune.clear_cache()
+        yield d
+    autotune.clear_cache()
+    jax_autotune.clear_cache()
+
+
 def jax_to_numpy(tree):
     """JAX params tree → numpy tree; QuantizedTensor → {q, scale, bits, shape}."""
     import jax.numpy as jnp
