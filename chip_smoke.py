@@ -180,10 +180,39 @@ Phases (any failure exits non-zero and prints no result):
    ``LOGIT_TOL`` of the fixed engine's; then both in turns; (f) the host
    µs of a K1 call with the plan computed per call and with the cache
    lookup.
-13. Report: a ``kernels`` JSON line (each kernel's launches on every path
+13. Tensor-parallel serving: first K1 against its plain version at a tp
+   2 rank's shard shapes, as phase 2 holds it (q 896 × 448 and k/v 896 ×
+   64 with their bias, wo 448 × 896, gate/up 896 × 2,432, down 2,432 ×
+   896; M 1, 8, 256), every case exact or the phase fails. Then
+   full-width qwen2-0.5b W8A8 (random weights
+   from the seed, every rank sharding the whole tree) served by 2 ranks,
+   two processes on the one card joined through gloo (NCCL refuses two
+   ranks on one device): each rank holds 7 of 14 q heads and 1 of 2 kv
+   heads of every page, d_ff 2,432 and vocabulary rows 75,968. Phase 3's
+   mix (8 × 512 prompt tokens, two sharing a 256-token prefix) with 16
+   new tokens, page 16 and chunk 256. Each rank must launch K1, K2 and K3,
+   K1 at exactly the shard shapes; every K1/K2/K3 call of one request in
+   situ; both ranks' host state (tables, lens, shared pages, free,
+   retained) at step 4 and at the end equal to a one-process engine's on
+   the same mix; the sharded first-step logits through the kernels within
+   W8A8's ``LOGIT_TOL`` of the sharded plain forward and of the one-process
+   engine, and a control in which rank 1 leaves its partial out of the
+   wo/w_down reduce must fail both; with the int8 wire, every
+   ``quantized_psum`` on the card equal to the same call on CPU copies of
+   the partials. Then 4 ranks, which do not divide the 2 kv heads, on 2 ×
+   (128 + 8): attention replicated (``engine.tp`` 1, the pool unsharded),
+   the MLP sharded 4 ways (d_ff 1,216), host state equal. Each rank's
+   peak memory and the tok/s of one process and of the ranks in turns
+   are printed beside the card's name and power limit: two processes
+   time-sharing one card, not a tensor-parallel speed.
+14. Report: a ``kernels`` JSON line (each kernel's launches on every path
    that ran it: K7's main path is the int8 training run), the card's name
    and power limit, and as the last line ``{"ok": true, "device":
    {...}}``.
+
+Each phase that draws random cases draws them from a generator of its
+own, seeded from ``SEED`` and the phase's number (``phase_gen``), so
+cases added to one phase move no other phase's inputs.
 
 The autotune's cache (``$REPRO_TORCH_AUTOTUNE_CACHE``) points at a fresh
 temporary file for the whole run, and the engines of phases 3, 6, 7, 8 and
@@ -232,6 +261,9 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.transformer import init_quantized_params  # noqa: E402
+from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
+from repro_torch.parallel.sharding import (make_rules,  # noqa: E402
+                                           mesh_context, shard_params)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
@@ -381,6 +413,19 @@ def nbytes(*tensors) -> int:
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def phase_gen(phase: int) -> torch.Generator:
+    """The generator of one phase's random cases: seeded from SEED and the
+    phase's number, so that cases added to one phase move no other's."""
+    return torch.Generator(device="cuda").manual_seed(SEED + phase)
+
+
+def gate(rows, what: str) -> None:
+    """Raise if any checked row failed."""
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"{what}: {len(bad)} kernel checks failed: {bad}")
 
 
 def within_bf16_ulp(a, b, atol: float = 0.0) -> bool:
@@ -1616,19 +1661,26 @@ def profile_run(fn, host_ops: bool = True, ranges=()):
                 ranges=in_ranges)
 
 
-def prefill_last_logits(params, cfg, prompt, impl):
+def prefill_last_logits(params, cfg, prompt, impl, mesh=None, opts=None):
     """``prompt`` prefilled in chunks of 256 over a fresh int8 pool →
-    its last position's logits (f32)."""
+    its last position's logits (f32). Under ``mesh`` (phase 13): this
+    rank's shards and kv heads, inside a serve-mode mesh context with
+    ``opts``."""
     ps = kvc.DEFAULT_PAGE_SIZE
     pool = kvc.PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
                         head_dim=cfg.hd, num_pages=len(prompt) // ps + 1,
-                        page_size=ps, quantized=True, device="cuda")
+                        page_size=ps, quantized=True, mesh=mesh,
+                        device=prompt.device)
     pool.reserve(0, len(prompt))
-    for start in range(0, len(prompt), 256):
-        logits = paged_chunk_forward(
-            params, cfg, pool, 0, prompt[start:start + 256], start,
-            logits="last" if start + 256 >= len(prompt) else "none",
-            impl=impl)
+    scope = (contextlib.nullcontext() if mesh is None else mesh_context(
+        mesh, make_rules("serve"), mode="serve", opts=opts,
+        layout=params.layout))
+    with scope:
+        for start in range(0, len(prompt), 256):
+            logits = paged_chunk_forward(
+                params, cfg, pool, 0, prompt[start:start + 256], start,
+                logits="last" if start + 256 >= len(prompt) else "none",
+                impl=impl)
     return logits[0, -1].float()
 
 
@@ -3913,6 +3965,332 @@ def autotune_phase(seed: int, timer, gen, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor-parallel serving
+# ---------------------------------------------------------------------------
+TP_ARCH = "qwen2-0.5b"
+TP_RANKS = 2             # two processes time-sharing cuda:0 through gloo
+TP_NEW = 16              # new tokens a request of phase 3's mix
+TP_INDIV_RANKS = 4       # does not divide qwen2-0.5b's 2 kv heads
+TP_INDIV_MIX = (2, 128, 8)   # requests, prompt tokens, new tokens
+TP_ENGINE = dict(kv_dtype="int8", page_size=16, prefill_chunk=256,
+                 pages_per_step=1)
+TP_TIMEOUT_S = 300.0     # a spawned group's limit; the phase aims at 120 s
+TP_SNAP = 4              # engine step of the mid-flight host state
+# K1's (K, N) on a tp 2 rank of full-width qwen2-0.5b, by its epilogue on
+# the path: q and k/v column shards (bias), wo and down row shards, the
+# gate and up column shards; N 64 lies below the template's 128-wide
+# n-tile and K 448 is 3.5 K steps
+TP_SHARD_GEMMS = {"bias": ((896, 448), (896, 64)),
+                  "none": ((448, 896), (2432, 896)),
+                  "silu": ((896, 2432),), "mul": ((896, 2432),)}
+
+
+def tp_shard_k1(timer, gen):
+    """K1 rows, as phase 2's, at the tp 2 shard shapes, M 1, 8 and 256."""
+    return [row for epi, kns in TP_SHARD_GEMMS.items()
+            for row in check_fused(timer, gen, "w8a8",
+                                   [(m, k, n) for m in (1, 8, 256)
+                                    for k, n in kns],
+                                   (torch.bfloat16,), epilogues=(epi,))]
+
+
+def tp_build(cfg, seed: int, device, n_req=N_REQ, prompt_len=PROMPT_LEN):
+    """Full W8A8 weights from the seed and phase 3's mix after them (two
+    requests sharing a ``PREFIX_LEN`` prefix), cut to its first ``n_req``
+    requests of ``prompt_len`` tokens (tp 4's two share every page)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = quantize_params(init_params(cfg, generator=gen, device=device),
+                             cfg, "w8a8")
+    prompts = torch.randint(0, cfg.vocab_size, (N_REQ, PROMPT_LEN),
+                            generator=gen, device=device)
+    prompts[1, :PREFIX_LEN] = prompts[0, :PREFIX_LEN]
+    return params, prompts[:n_req, :prompt_len]
+
+
+def tp_engine(params, cfg, n_req, prompt_len, new, device, mesh=None, **kw):
+    return ContinuousBatchingEngine(
+        params, cfg, capacity_tokens=n_req * kvc.round_up(prompt_len + new,
+                                                          16),
+        mesh=mesh, device=device, **TP_ENGINE, **kw)
+
+
+def host_state(eng):
+    """The replicated scheduler state that must be equal on every rank and
+    to a one-process engine's."""
+    return {"tables": {k: list(v) for k, v in eng.pool.tables.items()},
+            "lens": dict(eng.pool.lens),
+            "stats": eng.pool.shared_page_stats(), "free": eng.pool.num_free,
+            "retained": eng.pool.num_retained}
+
+
+def tp_drive(eng, prompts, new, device):
+    """The mix on ``eng`` → wall seconds, streams, the host state at step
+    ``TP_SNAP`` and at the end."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    sids = [eng.submit(p, new) for p in prompts]
+    steps, mid = 0, None
+    while eng.step():
+        steps += 1
+        if steps == TP_SNAP:
+            mid = host_state(eng)
+    sync()
+    wall = time.perf_counter() - t0
+    return dict(wall_s=wall, tokens=[eng.finished[s].tokens for s in sids],
+                mid=mid, end=host_state(eng),
+                gen_tok_s=len(sids) * new / wall)
+
+
+def tp_expected_k1(cfg, tp: int):
+    """The (K, N) of every K1 a rank launches: q, k/v and gate/up column
+    shards, wo and down row shards (the tied head is a float product)."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    return {(d, cfg.n_heads * hd // tp), (d, cfg.n_kv_heads * hd // tp),
+            (cfg.n_heads * hd // tp, d), (d, f // tp), (f // tp, d)}
+
+
+def tp_wire_check(local, cfg, prompt, mesh):
+    """One forward with the int8-wire reduce: every ``quantized_psum`` call
+    on the card recorded, then the same call again on CPU copies of its
+    partial (gloo takes both) → (calls, max |card − CPU|, the logits)."""
+    from repro_torch.models import modules
+    from repro_torch.parallel.collectives import quantized_psum
+    calls = []
+
+    def spy(y, m, axis="model"):
+        out = quantized_psum(y, m, axis)
+        calls.append((y.detach().clone(), out.detach().clone()))
+        return out
+    modules.quantized_psum = spy
+    try:
+        logits = prefill_last_logits(local, cfg, prompt, "auto", mesh,
+                                opts={"tp_int8_reduce": True})
+    finally:
+        modules.quantized_psum = quantized_psum
+    worst = 0.0
+    for y, out in calls:
+        cpu = quantized_psum(y.cpu(), mesh)
+        worst = max(worst, (cpu - out.cpu()).abs().max().item())
+    return len(calls), worst, logits
+
+
+def tp_dropped_partial(local, cfg, prompt, mesh):
+    """The control: rank 1 leaves its partial out of every wo / w_down
+    reduce (a zero in its place) → the logits."""
+    from repro_torch.models import modules
+    from repro_torch.parallel.collectives import psum
+
+    def drop(y, m, axis="model"):
+        return psum(torch.zeros_like(y) if m.rank == 1 else y, m, axis)
+    modules.psum = drop
+    try:
+        return prefill_last_logits(local, cfg, prompt, "auto", mesh)
+    finally:
+        modules.psum = psum
+
+
+def tp_rank(mesh, job):
+    """One rank of phase 13: build the weights from the seed, keep this
+    rank's shards, serve the mix (twice, for the turns), and with
+    ``job['checks']`` the in-situ check with the K1 shapes, the logits
+    through the kernels and the plain versions, the dropped-partial
+    control and the int8 wire on card vs CPU."""
+    device = mesh.device.type
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TP_ARCH, qmode="w8a8")
+    n_req, prompt_len, new = job["mix"]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params, prompts = tp_build(cfg, job["seed"], mesh.device, n_req,
+                               prompt_len)
+    local = shard_params(params, mesh, cfg)
+    del params
+    peak = {}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        peak["build_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        peak["shards_gb"] = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    def make():
+        return tp_engine(local, cfg, n_req, prompt_len, new, mesh.device,
+                         mesh=mesh)
+    warm = make()                        # first-use costs (cuBLAS, caches)
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    reset_counts()
+    first = tp_drive(make(), prompts, new, device)
+    eng = make()
+    out = dict(rank=mesh.rank, run=first, peak=peak,
+               launches={k: v for k, v in read_counts().items() if v},
+               tp=eng.tp, sharded=eng.pool.sharded,
+               pages=tuple(eng.pool.k_pages[0].shape),
+               w_down=tuple(local["layers"][0]["mlp"]["w_down"].shape),
+               vocab_rows=local["embedding"].shape[0])
+    if not job["checks"]:
+        return out
+    out["again"] = tp_drive(make(), prompts, new, device)
+    shapes = set()
+    gemm = ops.camp_gemm_fused_w8a8
+
+    def record(x, b, *a, **kw):
+        shapes.add((x.shape[-1], b.shape[-1]))
+        return gemm(x, b, *a, **kw)
+    ops.camp_gemm_fused_w8a8 = record
+    try:
+        out["in_situ"] = check_in_situ(make, prompts[0], "w8a8")
+    finally:
+        ops.camp_gemm_fused_w8a8 = gemm
+    out["k1_shapes"] = sorted(shapes)
+    out["logits"] = prefill_last_logits(local, cfg, prompts[0], "auto", mesh)
+    out["plain_logits"] = prefill_last_logits(local, cfg, prompts[0], "torch",
+                                         mesh)
+    out["dropped_logits"] = tp_dropped_partial(local, cfg, prompts[0], mesh)
+    out["wire_calls"], out["wire_card_vs_cpu"], out["wire_logits"] = \
+        tp_wire_check(local, cfg, prompts[0], mesh)
+    if device == "cuda":
+        peak["serve_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_spawn(world: int, job: dict, device: str):
+    with tempfile.TemporaryDirectory(prefix="tp-") as d:
+        return spawn_ranks(tp_rank, world, init_dir=d, backend="gloo",
+                           device=device, args=(job,), timeout=TP_TIMEOUT_S)
+
+
+def tp_gap(got, want) -> float:
+    """max |got − want| as a share of max |want|."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def tp_serving(seed: int, smi: str, device: str = "cuda"):
+    """Phase 13: full-width qwen2-0.5b W8A8 served by ``TP_RANKS`` ranks
+    (processes on one card, gloo) against a one-process engine on the
+    same mix; then ``TP_INDIV_RANKS`` ranks, which do not divide the kv
+    heads. Every failure raises."""
+    t0 = time.perf_counter()
+    cfg = get_config(TP_ARCH, qmode="w8a8")
+    params, prompts = tp_build(cfg, seed, device)
+    one = {}
+    warm = tp_engine(params, cfg, N_REQ, PROMPT_LEN, TP_NEW, device)
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    one["first"] = tp_drive(tp_engine(params, cfg, N_REQ, PROMPT_LEN, TP_NEW,
+                                      device), prompts, TP_NEW, device)
+    one["logits"] = prefill_last_logits(params, cfg, prompts[0], "auto",
+                                   None).cpu().numpy()
+    n_i, len_i, new_i = TP_INDIV_MIX
+    one["indiv"] = tp_drive(tp_engine(params, cfg, n_i, len_i, new_i,
+                                      device), prompts[:n_i, :len_i], new_i,
+                            device)
+    ranks = tp_spawn(TP_RANKS, dict(seed=seed, checks=True,
+                                    mix=(N_REQ, PROMPT_LEN, TP_NEW)), device)
+    one["again"] = tp_drive(tp_engine(params, cfg, N_REQ, PROMPT_LEN,
+                                      TP_NEW, device), prompts, TP_NEW,
+                            device)
+    indiv = tp_spawn(TP_INDIV_RANKS, dict(seed=seed, checks=False,
+                                          mix=TP_INDIV_MIX), device)
+    del params
+
+    fails = []
+    want_k1 = tp_expected_k1(cfg, TP_RANKS)
+    for r in ranks:
+        missing = {"K1", "K2", "K3"} - set(r["launches"])
+        if device == "cuda" and missing:
+            fails.append(f"rank {r['rank']} launched no {sorted(missing)}")
+        if set(map(tuple, r["k1_shapes"])) != want_k1:
+            fails.append(f"rank {r['rank']} K1 at {r['k1_shapes']}, the "
+                         f"shards are {sorted(want_k1)}")
+        if not (r["tp"] == TP_RANKS and r["sharded"]):
+            fails.append(f"rank {r['rank']}: tp {r['tp']}, sharded "
+                         f"{r['sharded']}")
+        for run in ("run", "again"):
+            for when in ("mid", "end"):
+                if r[run][when] != one["first"][when]:
+                    fails.append(f"rank {r['rank']} {run}: host state at "
+                                 f"{when} differs from one process's")
+        if r["wire_card_vs_cpu"] != 0.0 or not r["wire_calls"]:
+            fails.append(f"rank {r['rank']}: quantized_psum card vs CPU "
+                         f"{r['wire_card_vs_cpu']} over {r['wire_calls']} "
+                         f"calls")
+    r0, r1 = ranks
+    if r0["run"]["tokens"] != r1["run"]["tokens"]:
+        fails.append("the ranks' streams differ")
+    tol = LOGIT_TOL["w8a8"]
+    gaps = {"kernels_vs_plain": tp_gap(r0["logits"], r0["plain_logits"]),
+            "kernels_vs_one_process": tp_gap(r0["logits"], one["logits"]),
+            "wire_vs_f32": tp_gap(r0["wire_logits"], r0["logits"]),
+            "ranks": tp_gap(r1["logits"], r0["logits"]),
+            "control_vs_plain": tp_gap(r0["dropped_logits"],
+                                       r0["plain_logits"]),
+            "control_vs_one_process": tp_gap(r0["dropped_logits"],
+                                             one["logits"])}
+    for k in ("kernels_vs_plain", "kernels_vs_one_process"):
+        if gaps[k] > tol:
+            fails.append(f"logits {k} {gaps[k]:.2%} > {tol:.0%}")
+    if gaps["ranks"] != 0.0:
+        fails.append(f"the ranks' logits differ by {gaps['ranks']:.3g}")
+    for k in ("control_vs_plain", "control_vs_one_process"):
+        if gaps[k] <= tol:
+            fails.append(f"the dropped-partial control passed: {k} "
+                         f"{gaps[k]:.2%}")
+    for r in indiv:
+        if r["tp"] != 1 or r["sharded"] or r["pages"][1] != cfg.n_kv_heads:
+            fails.append(f"tp {TP_INDIV_RANKS} rank {r['rank']}: tp "
+                         f"{r['tp']}, pages {r['pages']}")
+        if r["w_down"] != (cfg.d_ff // TP_INDIV_RANKS, cfg.d_model):
+            fails.append(f"tp {TP_INDIV_RANKS} rank {r['rank']}: w_down "
+                         f"{r['w_down']}")
+        for when in ("mid", "end"):
+            if r["run"][when] != one["indiv"][when]:
+                fails.append(f"tp {TP_INDIV_RANKS} rank {r['rank']}: host "
+                             f"state at {when} differs")
+    agree = np.mean([a == b for s, t in zip(r0["run"]["tokens"],
+                                            one["first"]["tokens"])
+                     for a, b in zip(s, t)])
+    agree_i = np.mean([a == b for s, t in zip(indiv[0]["run"]["tokens"],
+                                              one["indiv"]["tokens"])
+                       for a, b in zip(s, t)])
+    print(f"  {smi}; two processes time-sharing one card through gloo: no "
+          f"tensor-parallel speed")
+    for r in ranks:
+        print(f"  rank {r['rank']}: launches {r['launches']}, K1 (K, N) "
+              f"{r['k1_shapes']}, pages {r['pages']}, w_down {r['w_down']}, "
+              f"vocab rows {r['vocab_rows']}, in situ "
+              f"{r['in_situ']['calls']} max |diff| "
+              f"{r['in_situ']['max_abs_diff']}, memory GB (peak of the "
+              f"full build, its shards, peak serving) "
+              + "/".join(f"{v:.3f}" for v in r["peak"].values())
+              + f", int8 wire card vs CPU {r['wire_card_vs_cpu']} over "
+              f"{r['wire_calls']} calls")
+    print(f"  logits (share of max |logit|, limit {tol:.0%}): "
+          + ", ".join(f"{k} {v:.2%}" for k, v in gaps.items()))
+    print(f"  host state equal to one process's at step {TP_SNAP} and at the "
+          f"end; streams agree with one process's on {agree:.1%} of tokens")
+    print(f"  generated tok/s in turns: one process {one['first']['gen_tok_s']:.1f}, "
+          f"tp {TP_RANKS} {r0['run']['gen_tok_s']:.1f} / "
+          f"{r0['again']['gen_tok_s']:.1f}, one process "
+          f"{one['again']['gen_tok_s']:.1f}")
+    print(f"  tp {TP_INDIV_RANKS} (kv heads indivisible): tp "
+          f"{indiv[0]['tp']}, pages {indiv[0]['pages']}, w_down "
+          f"{indiv[0]['w_down']}, launches {indiv[0]['launches']}, host "
+          f"state equal, streams agree on {agree_i:.1%}")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 13 seconds: {seconds:.1f}")
+    if fails:
+        raise RuntimeError("phase 13: " + "; ".join(fails))
+    ranks = [{k: v for k, v in r.items() if not k.endswith("logits")}
+             for r in ranks]               # the rows' values stay out
+    return dict(card=smi, ranks=ranks, indiv=indiv, gaps=gaps,
+                one_process={k: one[k] for k in ("first", "again", "indiv")},
+                agree=agree, agree_indiv=agree_i, seconds=seconds,
+                launches=r0["launches"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -3931,7 +4309,7 @@ def main(argv=None) -> int:
 
 
 def smoke(args) -> int:
-    """Phases 1-13 (module docstring); raises on any failure."""
+    """Phases 1-14 (module docstring); raises on any failure."""
     t_all = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3952,7 +4330,7 @@ def smoke(args) -> int:
     gemm_sass = tc_sass()
 
     print("[phase 2] kernels vs plain versions at the serving shapes")
-    timer, gen = Timer(), torch.Generator(device="cuda").manual_seed(SEED)
+    timer, gen = Timer(), phase_gen(2)
     k1_shapes = [(m, k, n) for m in (1, 8, 256)
                  for k, n in ((896, 896), (896, 128), (896, 4864),
                               (4864, 896))]
@@ -3978,9 +4356,7 @@ def smoke(args) -> int:
     k3_rows, k3_controls = check_k3(timer, gen)
     rows += k3_rows + check_k2(timer, gen)
     k2_splits = k2_split_sweep(timer, gen)
-    bad = [r for r in rows if not r["ok"]]
-    if bad:
-        raise RuntimeError(f"{len(bad)} kernel checks failed: {bad}")
+    gate(rows, "phase 2")
 
     served, engines = {}, {}
     for qmode in QMODES:
@@ -3994,15 +4370,13 @@ def smoke(args) -> int:
 
     print("[phase 4] the unfused path: camp_matmul(fused=False) at the "
           "serving shapes")
-    unfused = unfused_path(timer, gen)
+    unfused = unfused_path(timer, phase_gen(4))
 
     print("[phase 5] K8 flash attention through flash_attention, at the "
           "qwen2-0.5b, qwen3-0.6b and stablelm-12b shapes and hd 8-256 "
           "ragged")
-    flash = check_k8(gen)
-    bad = [r for r in flash["rows"] if not r["ok"]]
-    if bad:
-        raise RuntimeError(f"{len(bad)} K8 checks failed: {bad}")
+    flash = check_k8(phase_gen(5))
+    gate(flash["rows"], "phase 5")
     torch.cuda.empty_cache()
 
     print("[phase 6] full-width qwen2-0.5b W8A8 dense-slab serving and "
@@ -4037,14 +4411,24 @@ def smoke(args) -> int:
     print(f"[phase 11] training: full-width {TRAIN_ARCH} for {TRAIN_STEPS} "
           f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens with f32 moments, "
           f"then int8 moments and int8 gradients (K7)")
-    trained = training(SEED, smi, timer, gen)
+    trained = training(SEED, smi, timer, phase_gen(11))
     rows += trained["k7_rows"]
     torch.cuda.empty_cache()
 
     print(f"[phase 12] the autotune: {AUTOTUNE_ARCH}'s page size and chunk, "
           f"its GEMM plans in W8A8, W4A8 and W4A4 (bit for bit), the tuned "
           f"engine against the fixed one in turns")
-    tuned = autotune_phase(SEED, timer, gen, smi)
+    tuned = autotune_phase(SEED, timer, phase_gen(12), smi)
+    torch.cuda.empty_cache()
+
+    print(f"[phase 13] tensor-parallel serving: full-width {TP_ARCH} W8A8 "
+          f"served by {TP_RANKS} ranks (processes sharing the card through "
+          f"gloo) against one process; {TP_INDIV_RANKS} ranks, which do not "
+          f"divide its kv heads")
+    k1_shards = tp_shard_k1(timer, phase_gen(13))
+    gate(k1_shards, "phase 13: K1 at the tp shard shapes")
+    rows += k1_shards
+    tp = tp_serving(SEED, smi)
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -4082,6 +4466,7 @@ def smoke(args) -> int:
             counts[label] = run["run"]["launches"]
     counts["train int8"] = trained["int8 moments + int8 gradients"][
         "launches"]
+    counts[f"tp{TP_RANKS} rank 0"] = tp["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
@@ -4105,7 +4490,7 @@ def smoke(args) -> int:
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
                  recurrent=recurrent, training=trained, autotune=tuned,
-                 kernels=kernels),
+                 tensor_parallel=tp, kernels=kernels),
             indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -25,8 +25,8 @@ f32 q takes one block per head, in the plain version's order of
 operations. ``launches`` counts wrapper calls, one per call whatever the
 number of device kernels.
 
-The head-sharded tensor-parallel wrapper (``paged_attention_tp``) comes
-with tensor parallelism in a later slice.
+:func:`paged_attention_tp` is the head-sharded tensor-parallel wrapper,
+not a kernel: a rank runs K3 over its own kv heads of its own page shards.
 """
 from __future__ import annotations
 
@@ -208,3 +208,35 @@ def paged_attention(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
           else paged_attention_cuda)
     return fn(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
               sm_scale=sm_scale)
+
+
+def check_head_shards(kv_local: int, pages_kv: int, n_kv_heads: int, mesh,
+                      axis: str) -> None:
+    """The reference's divisibility error, and this rank's heads checked
+    against its page shards."""
+    tp = mesh.shape[axis]
+    if n_kv_heads % tp:
+        raise ValueError(
+            f"kv heads {n_kv_heads} not divisible by {axis}={tp}")
+    if kv_local * tp != n_kv_heads or pages_kv != kv_local:
+        raise ValueError(f"a rank of {axis}={tp} holds {n_kv_heads // tp} "
+                         f"of {n_kv_heads} kv heads; got q with {kv_local} "
+                         f"and pages with {pages_kv}")
+
+
+def paged_attention_tp(q, k_pages, v_pages, k_scale, v_scale, tables,
+                       lengths, *, mesh, n_kv_heads: int, axis: str = "model",
+                       sm_scale: Optional[float] = None, impl: str = "auto"):
+    """Head-sharded tensor-parallel paged decode attention, this rank's
+    part (the reference's ``shard_map`` body).
+
+    ``q``: this rank's (B, KV/tp, G, hd) queries; pages and scales: its
+    (P, KV/tp, ps, hd) and (P, KV/tp, ps) shards of the pool; tables and
+    lengths are the replicated control state. The rank runs
+    :func:`paged_attention` over its local heads; no KV byte crosses
+    ranks. ``n_kv_heads`` (the model's) must divide over the mesh's
+    ``axis``, else ``ValueError``.
+    """
+    check_head_shards(q.shape[1], k_pages.shape[1], n_kv_heads, mesh, axis)
+    return paged_attention(q, k_pages, v_pages, k_scale, v_scale, tables,
+                           lengths, sm_scale=sm_scale, impl=impl)

@@ -25,6 +25,8 @@ the number of device kernels.
 
 Float pages (scales None) take the plain version on every device, as in
 the reference, whose Pallas kernel runs only for int8 pages.
+:func:`paged_prefill_attention_tp` is the head-sharded tensor-parallel
+wrapper, not a kernel: a rank runs K2 over its own kv heads.
 """
 from __future__ import annotations
 
@@ -35,8 +37,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import check_impl
-from repro_torch.kernels.paged_attention import (TILE, check_pages,
-                                                 plan_for, scratch)
+from repro_torch.kernels.paged_attention import (TILE, check_head_shards,
+                                                 check_pages, plan_for,
+                                                 scratch)
 
 _NEG = -1e30
 
@@ -145,3 +148,24 @@ def paged_prefill_attention(q, k_pages, v_pages, k_scale, v_scale, table, *,
     return paged_prefill_cuda(q, k_pages, v_pages, k_scale, v_scale, table,
                               q_start=q_start, pages_per_step=pages_per_step,
                               sm_scale=sm_scale)
+
+
+def paged_prefill_attention_tp(q, k_pages, v_pages, k_scale, v_scale, table,
+                               *, mesh, n_kv_heads: int, q_start: int,
+                               axis: str = "model", pages_per_step: int = 1,
+                               sm_scale: Optional[float] = None,
+                               impl: str = "auto"):
+    """Head-sharded tensor-parallel chunked paged prefill, this rank's part
+    (the reference's ``shard_map`` body).
+
+    ``q``: this rank's (KV/tp, C, G, hd) queries; pages and scales: its
+    shards of the pool; the block table is replicated. The rank runs the
+    chunk's causal attention (:func:`paged_prefill_attention`) over its
+    local heads; no KV byte crosses ranks. ``n_kv_heads`` (the model's)
+    must divide over the mesh's ``axis``, else ``ValueError``.
+    """
+    check_head_shards(q.shape[0], k_pages.shape[1], n_kv_heads, mesh, axis)
+    return paged_prefill_attention(q, k_pages, v_pages, k_scale, v_scale,
+                                   table, q_start=q_start,
+                                   pages_per_step=pages_per_step,
+                                   sm_scale=sm_scale, impl=impl)

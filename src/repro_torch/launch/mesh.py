@@ -1,0 +1,195 @@
+"""The serving mesh: one process a tensor-parallel rank.
+
+Port of ``repro/launch/mesh.py``'s serving mesh. The reference builds a
+(data, model) device mesh under one controller; here every rank is a
+process of its own, joined to the others through ``torch.distributed``:
+
+* :func:`init_rank` joins the process group with an explicit backend and
+  ``init_method`` (nothing on the machine announces a cluster);
+* :func:`make_serving_mesh` returns this rank's :class:`ServingMesh`:
+  ``shape = {"data": 1, "model": tp}``, its rank, the process group and
+  its device;
+* :func:`spawn_ranks` starts ``tp`` rank processes (the ``spawn`` start
+  method), runs a function in each and returns their results, failing
+  loudly on any error or past its timeout.
+
+Backends: NCCL where each rank has a card of its own; gloo on the CPU, or
+on one card shared by several ranks when the caller asks for it (NCCL
+refuses two ranks on one device). Like every entry point, a mesh needs the
+card unless the caller asks for the CPU (:mod:`repro_torch.device`).
+"""
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.device import resolve_device
+
+
+def pick_backend(world: int, device: torch.device,
+                 backend: Optional[str] = None) -> str:
+    """The process group's backend for ``world`` ranks on ``device``.
+
+    Default: NCCL on a card, gloo on the CPU. NCCL needs a card a rank:
+    with fewer cards than ranks it raises ``ValueError`` (ask for gloo to
+    share one card)."""
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: nccl or gloo")
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("the nccl backend needs CUDA devices")
+        n = torch.cuda.device_count()
+        if n < world:
+            raise ValueError(
+                f"nccl needs a card a rank: {world} ranks, {n} card(s); "
+                "pass backend='gloo' to share a card between ranks")
+    return backend
+
+
+def init_rank(rank: int, world: int, *, init_method: str,
+              backend: Optional[str] = None, device=None) -> torch.device:
+    """Join the process group as ``rank`` of ``world``; returns this rank's
+    device. ``init_method``: ``file://<path>`` (a path all ranks share) or
+    ``tcp://localhost:<port>``."""
+    device = resolve_device(device)
+    backend = pick_backend(world, device, backend)
+    if device.type == "cuda" and backend == "nccl":
+        device = torch.device("cuda", rank)      # a card a rank
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank)
+    return device
+
+
+class ServingMesh:
+    """This rank's view of a (data 1, model ``tp``) serving mesh."""
+
+    def __init__(self, tp: int, rank: int, group, device: torch.device):
+        self.shape = {"data": 1, "model": tp}
+        self.rank = rank
+        self.coords = {"data": 0, "model": rank}
+        self.group = group
+        self.device = device
+
+    def __repr__(self):
+        return (f"ServingMesh({self.shape}, rank {self.rank}, "
+                f"{dist.get_backend(self.group)} on {self.device})")
+
+
+def make_serving_mesh(tp: int = 1, *, device=None) -> ServingMesh:
+    """This rank's serving mesh over the joined process group (call
+    :func:`init_rank` first): the model axis carries all ``tp`` ranks
+    (data-parallel replicas are separate engines)."""
+    if not dist.is_initialized():
+        raise RuntimeError("join the process group first (init_rank)")
+    world = dist.get_world_size()
+    if world != tp:
+        raise ValueError(f"{world} ranks for a tp={tp} mesh: one rank a "
+                         "model shard")
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return ServingMesh(tp, dist.get_rank(), dist.group.WORLD, device)
+
+
+def _to_host(x):
+    """Tensors in a rank's result → numpy (bf16 as f32): a tensor would
+    travel through shared memory that dies with the rank."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_host(v) for v in x)
+    return x
+
+
+def _rank_main(fn, rank, world, init_method, backend, device, args,
+               results) -> None:
+    try:
+        if backend == "gloo":       # the ranks share this host: loopback
+            os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dev = init_rank(rank, world, init_method=init_method,
+                        backend=backend, device=device)
+        mesh = make_serving_mesh(world, device=dev)
+        results.put((rank, "ok", _to_host(fn(mesh, *args))))
+    except BaseException:          # reported to the parent, then re-raised
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable[..., Any], world: int, *, init_dir: str,
+                backend: Optional[str] = None, device=None,
+                args: Sequence[Any] = (), timeout: Optional[float] = None
+                ) -> List[Any]:
+    """Run ``fn(mesh, *args)`` in ``world`` rank processes → the results
+    in rank order (their tensors as numpy arrays).
+
+    ``fn`` and ``args`` are pickled (``fn`` by its import path); each rank
+    joins through a file under ``init_dir`` (a fresh directory of the
+    caller's), with ``backend`` as :func:`pick_backend` decides. Raises
+    ``RuntimeError`` with every failing rank's traceback, and
+    ``TimeoutError`` (after killing the ranks) when ``timeout`` seconds
+    (None: no limit) pass first.
+    """
+    device = resolve_device(device)
+    backend = pick_backend(world, device, backend)
+    init_method = "file://" + os.path.join(os.path.abspath(init_dir),
+                                           "rendezvous")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, init_method, backend, str(device),
+                               tuple(args), results), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + (timeout if timeout is not None
+                                   else float("inf"))
+    got, errors = {}, {}
+    try:
+        while len(got) + len(errors) < world:
+            left = deadline - time.monotonic()
+            try:
+                rank, status, out = results.get(timeout=min(max(left, 0.1),
+                                                            1.0))
+            except queue_mod.Empty:
+                if time.monotonic() >= deadline:
+                    raise TimeoutError(
+                        f"{world - len(got) - len(errors)} of {world} ranks "
+                        f"gave no result within {timeout:.0f} s") from None
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in got]
+                if dead and results.empty():
+                    raise RuntimeError(f"ranks {dead} exited without a "
+                                       "result") from None
+                continue
+            (got if status == "ok" else errors)[rank] = out
+            if errors:
+                break          # the others may wait on the failed rank
+    finally:
+        for p in procs:
+            p.join(timeout=5.0 if not errors else 1.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise RuntimeError("rank failure:\n" + "\n".join(
+            f"--- rank {r} ---\n{tb}" for r, tb in sorted(errors.items())))
+    return [got[r] for r in range(world)]

@@ -43,10 +43,25 @@ acceptance summary; before serving it tunes the fused GEMMs' launch plans
 at the decode and verify-panel shapes (``warm_gemm_autotune``: measured
 on the card, stored in ``$REPRO_TORCH_AUTOTUNE_CACHE`` or
 ``~/.cache/repro_torch/autotune.json`` for later processes).
+
+Tensor-parallel serving (``--tp N``): N rank processes (the ``spawn``
+start method), rank 0 printing. Each rank builds the weights from the seed
+a layer at a time and keeps only its shards
+(``init_quantized_params(mesh=)``), so no rank ever holds the whole
+model: column-parallel q/kv/gate/up,
+row-parallel wo/down (``--tp-int8-reduce``: an int8 payload on the wire),
+a vocabulary-sharded embedding and head, and the paged pool head-sharded.
+``--tp-backend``: nccl (the default on cards: a card a rank) or gloo (the
+CPU's, or several ranks sharing one card). On the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --reduced --device cpu --qmode w8a8 --tp 2 --batch 2 \
+      --prompt-len 16 --steps 4
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 import torch
@@ -55,8 +70,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import autotune
 from repro_torch.core.camp import QMODES
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import (init_params, init_quantized_params,
                                  quantize_params)
+from repro_torch.parallel.sharding import effective_model_shards
 from repro_torch.serving.engine import (ContinuousBatchingEngine, generate,
                                        warm_gemm_autotune)
 from repro_torch.serving.kv_cache import round_up
@@ -76,6 +93,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis (tensor-parallel) degree; 1 = off")
+    ap.add_argument("--tp-int8-reduce", action="store_true",
+                    help="int8-compress the row-parallel all-reduces")
+    ap.add_argument("--tp-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend of --tp (default: nccl on "
+                         "cards, a card a rank; gloo on the CPU)")
     ap.add_argument("--spec-method", default="off",
                     choices=["off", "ngram", "draft"],
                     help="speculative decoding: model-free n-gram lookup "
@@ -90,17 +114,58 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced, qmode=args.qmode)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    if args.qmode != "none":
+    if args.spec_method != "off":
+        # pre-tune the γ+1-row verify panels next to the decode shapes (at
+        # the shard shapes under --tp), before any rank starts
+        gammas = autotune.SPEC_GAMMAS if args.spec_gamma == "auto" \
+            else (int(args.spec_gamma),)
         t0 = time.perf_counter()
+        tuned = warm_gemm_autotune(cfg, batch_sizes=(1, args.batch),
+                                   tp=args.tp, spec_gammas=gammas)
+        print(f"[serve] tuned {len(tuned)} GEMM plans in "
+              f"{time.perf_counter() - t0:.2f}s")
+    if args.tp > 1:
+        with tempfile.TemporaryDirectory(prefix="serve-tp-") as init_dir:
+            spawn_ranks(_serve_rank, args.tp, init_dir=init_dir,
+                        backend=args.tp_backend, device=device, args=(args,))
+        return 0
+    _serve(args, cfg, device, None, print)
+    return 0
+
+
+def _serve_rank(mesh, args) -> None:
+    """One rank of ``--tp``: rank 0 prints."""
+    tp = mesh.shape["model"]
+    if mesh.device.type == "cpu":       # the host's cores split over ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // tp))
+    cfg = get_config(args.arch, reduced=args.reduced, qmode=args.qmode)
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    tp_eff = effective_model_shards(mesh, cfg.n_kv_heads)
+    say(f"[serve] mesh {dict(mesh.shape)}; kv-head sharding: "
+        f"{tp_eff if tp_eff > 1 else 'replicated'}")
+    say(f"[serve] {tp} ranks, {torch.distributed.get_backend(mesh.group)} "
+        f"on {mesh.device}")
+    _serve(args, cfg, mesh.device, mesh, say)
+
+
+def _serve(args, cfg, device, mesh, say) -> None:
+    """Build the weights and the prompts from the seed and serve them;
+    under ``mesh`` as one rank of it."""
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    if args.qmode != "none" or mesh is not None:
         params = init_quantized_params(cfg, args.qmode, generator=gen,
-                                       device=device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        print(f"[serve] init + PTQ to {args.qmode}, a layer at a time, in "
-              f"{time.perf_counter()-t0:.2f}s")
+                                       device=device, mesh=mesh)
     else:
         params = init_params(cfg, generator=gen, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    done = [what for what, on in (("PTQ to " + args.qmode,
+                                   args.qmode != "none"),
+                                  ("shard", mesh is not None)) if on]
+    if done:
+        say(f"[serve] init + {' + '.join(done)}, a layer at a time, in "
+            f"{time.perf_counter()-t0:.2f}s")
 
     spec = None
     if args.spec_method != "off":
@@ -118,15 +183,8 @@ def main(argv=None) -> int:
                                                args.qmode)
         spec = SpecConfig(method=args.spec_method, gamma=gamma,
                           draft_cfg=draft_cfg, draft_params=draft_params)
-        # pre-tune the γ+1-row verify panels next to the decode shapes
-        gammas = autotune.SPEC_GAMMAS if gamma == "auto" else (gamma,)
-        t0 = time.perf_counter()
-        tuned = warm_gemm_autotune(cfg, batch_sizes=(1, args.batch),
-                                   spec_gammas=gammas)
-        print(f"[serve] tuned {len(tuned)} GEMM plans in "
-              f"{time.perf_counter() - t0:.2f}s")
-        print(f"[serve] speculative decoding: {args.spec_method}, "
-              f"gamma={gamma}")
+        say(f"[serve] speculative decoding: {args.spec_method}, "
+            f"gamma={gamma}")
 
     if cfg.embedding_inputs:
         prompt = torch.randn((args.batch, args.prompt_len, cfg.d_model),
@@ -138,31 +196,32 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if spec is None:
         toks = generate(params, cfg, prompt, steps=args.steps,
-                        seed=args.seed, sample=args.sample, device=device)
+                        seed=args.seed, sample=args.sample, mesh=mesh,
+                        tp_int8_reduce=args.tp_int8_reduce, device=device)
     else:
         # drive the engine directly so the acceptance stats are reportable
         eng = ContinuousBatchingEngine(
             params, cfg, kv_dtype="int8",
             capacity_tokens=args.batch * round_up(
                 args.prompt_len + args.steps, 128),
-            sample=args.sample, seed=args.seed, spec=spec, device=device)
+            sample=args.sample, seed=args.seed, mesh=mesh,
+            tp_int8_reduce=args.tp_int8_reduce, spec=spec, device=device)
         sids = [eng.submit(prompt[i], args.steps)
                 for i in range(args.batch)]
         outs = eng.run()
         toks = torch.tensor([outs[s] for s in sids], dtype=torch.long)
         s = eng.spec_summary()
-        print(f"[serve] spec: {s['spec_steps']} verify steps, acceptance "
-              f"{s['acceptance_rate']:.2f}, "
-              f"{s['mean_tokens_per_step']:.2f} tokens/step "
-              f"(gamma={s['gamma']})")
+        say(f"[serve] spec: {s['spec_steps']} verify steps, acceptance "
+            f"{s['acceptance_rate']:.2f}, "
+            f"{s['mean_tokens_per_step']:.2f} tokens/step "
+            f"(gamma={s['gamma']})")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     n_new = toks.shape[0] * toks.shape[1]
-    print(f"[serve] {device}: generated {tuple(toks.shape)} in {dt:.2f}s "
-          f"({n_new/dt:.1f} tok/s incl. kernel build)")
-    print(f"[serve] sample row: {toks[0][:16].tolist()}")
-    return 0
+    say(f"[serve] {device}: generated {tuple(toks.shape)} in {dt:.2f}s "
+        f"({n_new/dt:.1f} tok/s incl. kernel build)")
+    say(f"[serve] sample row: {toks[0][:16].tolist()}")
 
 
 if __name__ == "__main__":

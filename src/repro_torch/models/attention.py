@@ -21,7 +21,16 @@ exact and without online-softmax state; peak memory is proportional to
 chunk × T instead of T × T.
 
 Grouped computation never repeats KV heads: q is viewed as (B, S, KV, G,
-hd). The tensor-parallel wrappers come in a later slice.
+hd).
+
+Under a serve-mode mesh whose layout shards the heads (the model axis
+divides the kv heads: ``effective_model_shards`` > 1), a rank holds its
+column shards of wq/wk/wv (and their biases), so its projections yield
+its own heads; the paged branches run K2/K3 over them through the ``_tp``
+wrappers, and the out projection is row-parallel
+(:func:`repro_torch.models.modules.row_parallel_linear`) when the layout
+shards ``wo``, else the heads are gathered for the whole ``wo``.
+Otherwise attention runs replicated on whole weights.
 """
 from __future__ import annotations
 
@@ -29,10 +38,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.paged_prefill import paged_prefill_attention
+from repro_torch.kernels.paged_attention import (paged_attention,
+                                                 paged_attention_tp)
+from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
+                                               paged_prefill_attention_tp)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import apply_rope, linear, rms_norm, rope_freqs
+from repro_torch.models.modules import (apply_rope, linear, rms_norm,
+                                        rope_freqs, row_parallel_linear)
+from repro_torch.parallel.collectives import all_gather_last
+from repro_torch.parallel.sharding import serve_tp, sharded
 from repro_torch.serving.kv_cache import (DEFAULT_PAGE_SIZE, DenseKVCache,
                                           PagedDecodeCache, PagedPrefillCache)
 
@@ -84,8 +98,13 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """x (B, S, D) → (y, new_cache); ``cache_pos``: the decode position of
     a one-token step over a DenseKVCache."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    g = h // kv
+    h_all, kv_all, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h_all // kv_all
+    # head-sharded TP applies when every kv shard holds whole head groups
+    # (the layout's "heads"); h and kv are then this rank's heads
+    mesh, tp = serve_tp()
+    head_tp = sharded("heads")
+    h, kv = (h_all // tp, kv_all // tp) if head_tp else (h_all, kv_all)
 
     def proj(name, heads):
         return linear(x, p[name], p.get(name + "_bias"), qmode=qmode,
@@ -100,6 +119,11 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k, cos, sin)
 
     def out_proj(out):
+        if sharded("wo"):
+            return row_parallel_linear(out, p["wo"], mesh=mesh, qmode=qmode,
+                                       impl=impl)
+        if head_tp:
+            out = all_gather_last(out, mesh)         # wo kept whole
         return linear(out, p["wo"], qmode=qmode, impl=impl)
 
     if isinstance(cache, PagedPrefillCache):
@@ -107,10 +131,13 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
             raise ValueError("paged prefill runs one sequence's chunk at a time")
         new_cache = cache.write_chunk(k.transpose(1, 2), v.transpose(1, 2))
         qp = q.reshape(s, kv, g, hd).permute(1, 0, 2, 3).contiguous()
-        ctx = paged_prefill_attention(
-            qp, new_cache.k_pages, new_cache.v_pages, new_cache.k_scale,
-            new_cache.v_scale, new_cache.table, q_start=new_cache.q_start,
-            pages_per_step=new_cache.pages_per_step, impl=impl)
+        args = (qp, new_cache.k_pages, new_cache.v_pages, new_cache.k_scale,
+                new_cache.v_scale, new_cache.table)
+        kw = dict(q_start=new_cache.q_start,
+                  pages_per_step=new_cache.pages_per_step, impl=impl)
+        ctx = (paged_prefill_attention_tp(*args, mesh=mesh,
+                                          n_kv_heads=kv_all, **kw)
+               if head_tp else paged_prefill_attention(*args, **kw))
         out = ctx.permute(1, 0, 2, 3).reshape(1, s, h * hd)
         return out_proj(out), new_cache
 
@@ -119,10 +146,12 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
             raise ValueError("paged decode takes one token per sequence")
         new_cache = cache.append(k.transpose(1, 2)[:, :, 0],
                                  v.transpose(1, 2)[:, :, 0])
-        ctx = paged_attention(q.reshape(b, kv, g, hd).contiguous(),
-                              new_cache.k_pages, new_cache.v_pages,
-                              new_cache.k_scale, new_cache.v_scale,
-                              new_cache.tables, new_cache.lengths, impl=impl)
+        args = (q.reshape(b, kv, g, hd).contiguous(), new_cache.k_pages,
+                new_cache.v_pages, new_cache.k_scale, new_cache.v_scale,
+                new_cache.tables, new_cache.lengths)
+        ctx = (paged_attention_tp(*args, mesh=mesh, n_kv_heads=kv_all,
+                                  impl=impl)
+               if head_tp else paged_attention(*args, impl=impl))
         return out_proj(ctx.reshape(b, 1, h * hd)), new_cache
 
     new_cache = None

@@ -1,8 +1,10 @@
 """Shared building blocks: norms, rope, linear-with-CAMP, gated MLP, and
 the training loss (softmax cross entropy, streamed over the vocabulary).
 
-Port of ``repro/models/modules.py`` (the single-device paths; the
-row-parallel tensor-parallel linear comes with tensor parallelism).
+Port of ``repro/models/modules.py``. Under a serving mesh
+(:mod:`repro_torch.parallel.sharding`) a rank holds its shards of the
+weights: the gated MLP's gate/up columns and down rows, reduced by
+:func:`row_parallel_linear`.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.camp import camp_matmul, weight_bits
 from repro_torch.core.quant import QuantizedTensor, div_exact
 from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue
+from repro_torch.parallel.collectives import psum, quantized_psum
+from repro_torch.parallel.sharding import active_ctx, serve_tp, sharded
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -83,6 +87,50 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     return y
 
 
+def tp_shardable(w, tp: int) -> bool:
+    """Can a (K, N) weight's contraction dim split over ``tp`` shards?
+
+    int4 payloads are packed 2-per-byte along K, so each K-shard must also
+    hold an even number of logical rows.
+    """
+    if tp <= 1:
+        return False
+    k = w.shape[0]
+    if k % tp:
+        return False
+    if isinstance(w, QuantizedTensor) and w.bits == 4:
+        return (k // tp) % 2 == 0
+    return True
+
+
+def _tp_int8_reduce() -> bool:
+    ctx = active_ctx()
+    return bool(ctx is not None and ctx.opts.get("tp_int8_reduce"))
+
+
+def row_parallel_linear(x: torch.Tensor, w, *, mesh, axis: str = "model",
+                        qmode: str = "none", impl: str = "auto",
+                        quantized_reduce: Optional[bool] = None
+                        ) -> torch.Tensor:
+    """Megatron row-parallel projection, this rank's part: ``x @ W`` with
+    W K-sharded.
+
+    ``x``: this rank's (..., K/tp) columns (its heads × head_dim after
+    head-sharded attention, its d_ff slice after the column-parallel
+    gate/up); ``w``: its (K/tp, N) rows. The rank runs :func:`linear` on
+    its shard (the fused CAMP GEMM quantizes x from shard-local rows, so
+    no quantized operand is gathered); the f32 partials are all-reduced,
+    with an int8 payload when ``quantized_reduce`` (default: the serve
+    context's ``tp_int8_reduce`` option), and cast to x's dtype.
+    """
+    if quantized_reduce is None:
+        quantized_reduce = _tp_int8_reduce()
+    y = linear(x, w, qmode=qmode, impl=impl).float()
+    y = quantized_psum(y, mesh, axis) if quantized_reduce \
+        else psum(y, mesh, axis)
+    return y.to(x.dtype)
+
+
 def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float):
     """positions (...,) int → (cos, sin) of shape (..., head_dim // 2), f32.
 
@@ -112,10 +160,18 @@ def gated_mlp(x: torch.Tensor, p: dict, *, qmode: str = "none",
     """SiLU-gated FFN: down(silu(gate(x)) * up(x)), as three fused GEMMs.
 
     The gate applies SiLU in its flush, the up projection multiplies by the
-    activated gate in its flush, and the down projection is plain.
+    activated gate in its flush, and the down projection is plain. Under a
+    serve-mode mesh whose layout shards the MLP, a rank holds its d_ff
+    columns of gate/up and the matching rows of ``w_down``
+    (:func:`~repro_torch.parallel.sharding.shard_params` shards the three
+    together): the down projection is then row-parallel, one all-reduce
+    per MLP.
     """
     g = linear(x, p["w_gate"], qmode=qmode, impl=impl, epilogue="silu")
     h = linear(x, p["w_up"], qmode=qmode, impl=impl, epilogue="mul", operand=g)
+    if sharded("mlp"):
+        return row_parallel_linear(h, p["w_down"], mesh=serve_tp()[0],
+                                   qmode=qmode, impl=impl)
     return linear(h, p["w_down"], qmode=qmode, impl=impl)
 
 

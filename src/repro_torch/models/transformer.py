@@ -13,6 +13,13 @@ expert); the same forward then routes through the CAMP kernels.
 :func:`loss_fn` is the training loss: the forward to the final hidden
 states (one recomputed checkpoint per block when ``cfg.remat``), the
 streamed cross entropy over the head, and the MoE aux loss.
+
+Under a serve-mode mesh (:mod:`repro_torch.parallel.sharding`) whose
+layout shards the vocabulary ("vocab" → model), a rank holds its block of
+embedding rows: the lookup takes the ids in its block and an all-reduce
+sums the ranks' rows (exact: one addend is not zero), and the head (tied,
+or an untied ``lm_head`` holding its block of columns) computes this
+rank's logit columns and gathers them in rank order.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (chunked_xent, gated_mlp, linear,
                                         rms_norm)
+from repro_torch.parallel.collectives import all_gather_last, psum
+from repro_torch.parallel.sharding import (RankShards, serve_tp, shard_params,
+                                           sharded)
 
 MOE_AUX_COEF = 0.01   # weight of the MoE aux loss in training
 
@@ -65,23 +75,35 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None
 
 def init_quantized_params(cfg: ModelConfig, qmode: str, *,
                           generator: Optional[torch.Generator] = None,
-                          device=None) -> dict:
+                          device=None, mesh=None) -> dict:
     """``quantize_params(init_params(cfg, generator=...), cfg, qmode)``
     built one layer at a time: the same draws from one generator in the
     same order (embedding, head, then each layer), each layer quantized
     before the next is drawn, so at most one layer is ever held in bf16
-    (full-width jamba-v0.1-52b is ~103 GB in bf16, ~52 GB at int8)."""
+    (full-width jamba-v0.1-52b is ~103 GB in bf16, ~52 GB at int8).
+
+    With ``mesh`` (a serving mesh): this rank's
+    :class:`~repro_torch.parallel.sharding.RankShards`, each part sharded
+    (:func:`~repro_torch.parallel.sharding.shard_params`) before the next
+    is drawn, so a rank holds one whole layer at most besides its shards.
+    """
     device = resolve_device(device)
     gen = generator
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
-    params = quantize_params(init_params(
-        dataclasses.replace(cfg, n_layers=0), generator=gen, device=device),
-        cfg, qmode)
-    params["layers"] = [quantize_params(init_layer(cfg, i, gen, device), cfg,
-                                        qmode)
-                        for i in range(cfg.n_layers)]
-    return params
+
+    def part(tree):
+        tree = quantize_params(tree, cfg, qmode)
+        return tree if mesh is None else shard_params(tree, mesh, cfg)
+    params = part(init_params(dataclasses.replace(cfg, n_layers=0),
+                              generator=gen, device=device))
+    layers = [part({"layers": [init_layer(cfg, i, gen, device)]})
+              for i in range(cfg.n_layers)]
+    params["layers"] = [tree["layers"][0] for tree in layers]
+    if mesh is None:
+        return params
+    return RankShards(params, params.layout.union(
+        *(tree.layout for tree in layers)))
 
 
 def init_layer(cfg: ModelConfig, i: int, gen: torch.Generator,
@@ -197,8 +219,8 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
         # token ids past the vocabulary take its last row, as the
         # reference's gather clamps them (a narrow-vocabulary draft model
         # reads the target's tokens)
-        h = params["embedding"][inputs.clamp(max=cfg.vocab_size - 1)
-                                ].to(dtype_of(cfg))
+        h = embed(params["embedding"], inputs.clamp(max=cfg.vocab_size - 1)
+                  ).to(dtype_of(cfg))
     new_caches = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -223,7 +245,25 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     head = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
     logits = linear(h, head, qmode="none" if cfg.tie_embeddings else qmode,
                     impl=impl)
+    if sharded("embedding" if cfg.tie_embeddings else "lm_head"):
+        logits = all_gather_last(logits, serve_tp()[0])  # vocab-sharded
     return logits, new_caches, aux_total
+
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; under a serve-mode mesh whose layout shards the
+    embedding (``table`` this rank's block of vocabulary rows), the rows
+    of the ids in the block, zeros elsewhere, summed over the ranks in f32
+    (exact)."""
+    if not sharded("embedding"):
+        return table[ids]
+    mesh, _ = serve_tp()
+    rows = table.shape[0]
+    local = ids - mesh.coords["model"] * rows
+    mine = (local >= 0) & (local < rows)
+    part = table[local.clamp(0, rows - 1)].float()
+    part = torch.where(mine[..., None], part, torch.zeros_like(part))
+    return psum(part, mesh).to(table.dtype)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:

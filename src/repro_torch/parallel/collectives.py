@@ -1,0 +1,145 @@
+"""Collectives of one rank over a serving mesh's model axis.
+
+Port of ``repro/parallel/collectives.py``. The reference's ``shard_map``
+bodies (``psum``, ``pmax``, ``all_gather``, ``ppermute`` over an axis)
+become ``torch.distributed`` calls of this rank on the mesh's process
+group (:mod:`repro_torch.launch.mesh`):
+
+* :func:`psum` — the f32 all-reduce of the row-parallel partials;
+* :func:`quantized_psum` — the same with an **int8** payload on the wire:
+  the global absmax by a MAX all-reduce, every partial quantized against
+  it, the int8 payloads all-gathered and summed in int32 in rank order;
+* :func:`ring_collective_matmul` — ``x @ W`` with x row-sharded and W
+  column-sharded, x's shards rotated around the ring (send/recv), one
+  partial product a hop;
+* :func:`int8_allreduce_mean` — the int8-compressed mean all-reduce of a
+  gradient;
+* :func:`all_gather_last` and :func:`broadcast_ints` — the vocabulary
+  gather of the head's columns and rank 0's host decisions (sampled
+  tokens, the engine's page size), which the replicated scheduler needs.
+
+Every call takes tensors on the rank's device as they are: NCCL and gloo
+both take CUDA tensors for these calls (gloo stages them through host
+memory itself). ``broadcast_ints`` builds its tensor where the backend
+wants it: on the card for NCCL, on the host for gloo.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.quant import div_exact
+
+
+def _group(mesh, axis: str):
+    if axis != "model":
+        raise ValueError(f"a serving mesh reduces over 'model', not {axis!r}")
+    return mesh.group
+
+
+def _gather(x: torch.Tensor, mesh, axis: str) -> List[torch.Tensor]:
+    """Every rank's ``x``, in rank order."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, x, group=_group(mesh, axis))
+    return parts
+
+
+def psum(y: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
+    """All-reduce-sum of this rank's f32 partial (a new tensor)."""
+    out = y.float().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh, axis))
+    return out
+
+
+def quantized_psum(y: torch.Tensor, mesh, axis: str = "model"
+                   ) -> torch.Tensor:
+    """All-reduce-sum with an int8 payload on the wire.
+
+    ``y`` is this rank's partial sum. Every rank quantizes against the
+    GLOBAL absmax (one scalar MAX all-reduce): ``scale = absmax / 127`` (1
+    where absmax is 0, correctly rounded), ``round(y / scale)`` half to
+    even, clipped to [-127, 127]. The int8 payloads are all-gathered, each
+    rank sums them in int32 in rank order (exact), then multiplies by the
+    scale. Bit for bit the reference's arithmetic; off by at most one
+    shared quantization step a rank from the exact sum.
+    """
+    group = _group(mesh, axis)
+    y32 = y.float()
+    absmax = y32.abs().amax().reshape(1)
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                        div_exact(absmax, 127.0))
+    q = torch.clamp(torch.round(y32 / scale), -127, 127).to(torch.int8)
+    total = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    for part in _gather(q, mesh, axis):          # rank order
+        total += part.to(torch.int32)
+    return total.float() * scale
+
+
+def all_gather_last(x: torch.Tensor, mesh, axis: str = "model"
+                    ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along the last dim, in rank order
+    (a column-sharded output made whole)."""
+    return torch.cat(_gather(x, mesh, axis), dim=-1)
+
+
+def broadcast_ints(values: Sequence[int], mesh, axis: str = "model"
+                   ) -> List[int]:
+    """Rank 0's ``values`` on every rank (the same count on each)."""
+    group = _group(mesh, axis)
+    dev = mesh.device if dist.get_backend(group) == "nccl" else "cpu"
+    t = torch.tensor(list(values), dtype=torch.long, device=dev)
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return t.tolist()
+
+
+def ring_collective_matmul(x: torch.Tensor, w: torch.Tensor, mesh,
+                           axis: str = "model") -> torch.Tensor:
+    """x: this rank's (M/p, K) rows; w: its (K, N/p) columns → its
+    (M, N/p) column block of ``concat(x) @ W``.
+
+    Instead of gathering x up front, the ring rotates x's shards: at hop
+    ``s`` this rank holds rank ``(r + s) % p``'s rows, multiplies them into
+    their row block, and passes them to rank ``r - 1`` while taking the
+    next from ``r + 1``. The wire carries one all-gather of x in all.
+    """
+    group = _group(mesh, axis)
+    p, r = mesh.shape[axis], mesh.coords[axis]
+    m_blk = x.shape[0]
+    y = torch.zeros((m_blk * p, w.shape[1]), dtype=w.dtype, device=w.device)
+    cur = x.contiguous()
+    for step in range(p):
+        src = (r + step) % p
+        y[src * m_blk:(src + 1) * m_blk] = (cur @ w).to(y.dtype)
+        if step != p - 1:
+            nxt = torch.empty_like(cur)
+            ops = [dist.P2POp(dist.isend, cur,
+                              dist.get_global_rank(group, (r - 1) % p),
+                              group),
+                   dist.P2POp(dist.irecv, nxt,
+                              dist.get_global_rank(group, (r + 1) % p),
+                              group)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            cur = nxt
+    return y
+
+
+def int8_allreduce_mean(g: torch.Tensor, mesh, axis: str = "model"
+                        ) -> torch.Tensor:
+    """Mean all-reduce of this rank's ``g`` with an int8-valued payload:
+    quantized against the global absmax, int32 counts summed, dequantized
+    and divided by the rank count; exact up to the shared step."""
+    group = _group(mesh, axis)
+    p = mesh.shape[axis]
+    g32 = g.float()
+    absmax = g32.abs().amax().reshape(1)
+    dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
+                        div_exact(absmax, 127.0))
+    q = torch.clamp(torch.round(g32 / scale), -127, 127).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    return div_exact(q.float() * scale, float(p)).to(g.dtype)

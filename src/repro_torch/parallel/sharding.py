@@ -1,0 +1,443 @@
+"""Divisibility-aware logical-axis sharding rules, and one rank's shards.
+
+Port of ``repro/parallel/sharding.py``. A spec is a tuple with one entry a
+dim: None (replicated), a mesh axis name, or a tuple of axis names (a joint
+binding); the reference's ``PartitionSpec`` holds the same entries. The
+rule tables and the spec resolution are the reference's, as data.
+
+The reference runs one controller over a device mesh and lets ``shard_map``
+and GSPMD place the shards. Here each rank is a process of its own
+(:mod:`repro_torch.launch.mesh`): :func:`mesh_context` makes a mesh active
+for the model code of this rank, exactly as the reference's context does
+(``serve_tp`` and ``effective_model_shards`` answer the same), and
+:func:`shard_params` cuts this rank's shards out of a full params tree by
+the specs :func:`params_pspecs` gives.
+
+The reference's ``logical`` (a GSPMD layout hint on an activation) has no
+eager counterpart and is not ported: a rank's tensors are its own shards.
+
+Which weights a rank holds as shards is decided once, by
+:func:`serve_pspecs`; :func:`shard_params` records the decision as the
+tree's ``layout`` (a set of :data:`PARTS`), the serve-mode
+:func:`mesh_context` carries it, and the model code asks :func:`sharded`.
+
+Outside a :func:`mesh_context` every helper is a no-op, so the same model
+code runs single-device unchanged.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import re
+from typing import Any, Mapping, Optional, Sequence
+
+import torch
+
+from repro_torch.core.quant import QuantizedTensor
+
+_CTX: contextvars.ContextVar[Optional["MeshCtx"]] = contextvars.ContextVar(
+    "repro_torch_mesh_ctx", default=None)
+
+
+# The parts of a serving tree a rank may hold as shards: "heads" the q/k/v
+# column shards (and biases) that give it its own heads, "wo" the
+# out projection's rows, "mlp" w_gate/w_up columns with w_down's rows,
+# "embedding" its block of vocabulary rows, "lm_head" an untied head's
+# block of vocabulary columns.
+PARTS = ("heads", "wo", "mlp", "embedding", "lm_head")
+
+
+class MeshCtx:
+    def __init__(self, mesh, rules: Mapping[str, Sequence[str]],
+                 mode: str = "train",
+                 opts: Optional[Mapping[str, Any]] = None,
+                 layout: frozenset = frozenset()):
+        self.mesh = mesh
+        self.rules = dict(rules)
+        self.mode = mode
+        self.opts = dict(opts or {})   # e.g. {'tp_int8_reduce': True}
+        self.layout = frozenset(layout)   # the PARTS held as shards
+
+    def axis_size(self, name: str) -> int:
+        return self.mesh.shape[name]
+
+
+def active_ctx() -> Optional[MeshCtx]:
+    return _CTX.get()
+
+
+@contextlib.contextmanager
+def mesh_context(mesh, rules: Mapping[str, Sequence[str]],
+                 mode: str = "train",
+                 opts: Optional[Mapping[str, Any]] = None,
+                 layout: frozenset = frozenset()):
+    """Make ``mesh`` active for the model code; ``layout``: the parts of
+    the params the forward runs on that are this rank's shards (a
+    :class:`RankShards` tree's ``layout``)."""
+    tok = _CTX.set(MeshCtx(mesh, rules, mode, opts, layout))
+    try:
+        yield _CTX.get()
+    finally:
+        _CTX.reset(tok)
+
+
+def serve_tp() -> tuple:
+    """(mesh, model_axis_size) of an active *serving* mesh context, else
+    (None, 1).
+
+    The engine enters ``mesh_context(mesh, rules, mode='serve')`` around
+    every target forward; the model code (attention's paged branches, the
+    row-parallel projections, the vocabulary-sharded embedding and head)
+    reads this to decide whether this rank's tensor-parallel code applies.
+    """
+    ctx = active_ctx()
+    if ctx is None or ctx.mode != "serve":
+        return None, 1
+    size = dict(ctx.mesh.shape).get("model", 1)
+    if size <= 1:
+        return None, 1
+    return ctx.mesh, size
+
+
+def sharded(part: str) -> bool:
+    """Does this rank hold ``part`` (one of :data:`PARTS`) as shards? Only
+    inside a serve-mode mesh context whose layout lists it."""
+    if part not in PARTS:
+        raise ValueError(f"unknown part {part!r}: one of {PARTS}")
+    mesh, _ = serve_tp()
+    return mesh is not None and part in active_ctx().layout
+
+
+def effective_model_shards(mesh, n_kv_heads: int) -> int:
+    """Sharding degree the head-sharded serving path actually gets.
+
+    The ONE copy of the kv-head divisibility rule: the mesh's model-axis
+    size when it divides ``n_kv_heads``, else 1 (replicated attention). The
+    engine, the page pool, :func:`serve_pspecs` (and through the layout it
+    records, the attention routing) and the serve entry point all consult
+    this, so page storage and kernel dispatch never disagree about
+    whether heads are sharded.
+    """
+    if mesh is None:
+        return 1
+    tp = dict(mesh.shape).get("model", 1)
+    return tp if tp > 1 and n_kv_heads % tp == 0 else 1
+
+
+# ---------------------------------------------------------------------------
+# Rule tables
+# ---------------------------------------------------------------------------
+def make_rules(mode: str = "train", multi_pod: bool = False,
+               family: str = "dense") -> dict:
+    """Logical-name → mesh-axis-candidate tuples (greedy prefix binding).
+
+    The reference's tables (see its docstring for the layout decisions):
+    ``train`` is flat FSDP (recurrent families keep the batch on data and
+    put heads / d_inner on model), ``prefill``/``decode`` the dense-slab
+    TP with a sequence-sharded KV cache, and ``serve`` the paged engine's
+    head-sharded TP: page storage and the q/k/v head dims carry the model
+    axis, so paged attention is shard-local and the row-parallel wo /
+    w_down outputs are the only reductions a layer.
+    """
+    data = ("pod", "data") if multi_pod else ("data",)
+    weights = {
+        "fsdp": ("data",) if mode == "train" else (),
+        "heads_flat": ("model",),
+        "d_ff": ("model",),
+        "vocab": ("model",),
+        "head_dim": (), "embed": (), "ssm_state": (), "conv_dim": (),
+        "moe_capacity": (),
+    }
+    if mode == "train":
+        recurrent = family in ("ssm", "hybrid")
+        return {
+            **weights,
+            "batch": ("data",) if recurrent else ("data", "model"),
+            "batch_out": ("data",),
+            "seq_act": ("pod",) if multi_pod else (),
+            "seq": (),
+            "heads": ("model",) if recurrent else (),
+            "kv_heads": (),
+            "ssm_inner": ("model",),
+            "expert": ("model",),
+            "expert_ff": (),
+            "moe_group": ("data",),
+            "seq_kv": (),
+        }
+    if mode in ("prefill", "decode"):
+        return {
+            **weights,
+            "batch": data,
+            "batch_out": data,
+            "seq_act": (),
+            "seq": (),
+            "heads": ("model",),
+            "kv_heads": ("model",),
+            "ssm_inner": ("model",),
+            "expert": data,
+            "expert_ff": ("model",),
+            "moe_group": (),
+            "seq_kv": ("model",),
+        }
+    if mode == "serve":
+        return {
+            **weights,
+            "batch": data,
+            "batch_out": data,
+            "seq_act": (),
+            "seq": (),
+            "heads": ("model",),
+            "kv_heads": ("model",),
+            "kv_pages": (),
+            "ssm_inner": ("model",),
+            "expert": data,
+            "expert_ff": ("model",),
+            "moe_group": (),
+            "seq_kv": (),
+        }
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# Spec resolution
+# ---------------------------------------------------------------------------
+def spec_for(shape: Sequence[int], names: Sequence[Optional[str]],
+             rules: Mapping[str, Sequence[str]], mesh) -> tuple:
+    """The spec of a ``shape`` whose dims carry logical ``names``.
+
+    Divisibility- and reuse-checked: a mesh axis binds to at most one dim,
+    and only when it divides the dim (joint axes as a product).
+    """
+    if len(shape) != len(names):
+        raise ValueError(f"shape {tuple(shape)} vs names {tuple(names)}")
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, names):
+        if not name:
+            out.append(None)
+            continue
+        axes = [a for a in rules.get(name, ())
+                if a in mesh.shape and a not in used]
+        bound, prod = [], 1
+        for a in axes:        # the longest dividing prefix, greedily
+            if dim % (prod * mesh.shape[a]) == 0:
+                bound.append(a)
+                prod *= mesh.shape[a]
+        if bound:
+            used.update(bound)
+            out.append(tuple(bound) if len(bound) > 1 else bound[0])
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Parameter logical axes by path pattern
+# ---------------------------------------------------------------------------
+# Matched in order against '/'-joined param paths. First hit wins.
+_PARAM_PATTERNS: list[tuple[str, tuple]] = [
+    (r"embedding$",            ("vocab", "fsdp")),
+    (r"lm_head$",              ("fsdp", "vocab")),
+    (r"(wq|wk|wv|wr|wg)$",     ("fsdp", "heads_flat")),
+    (r"(wq|wk|wv)_bias$",      ("heads_flat",)),
+    (r"wo$",                   ("heads_flat", "fsdp")),
+    (r"(w_gate|w_up)$",        ("fsdp", "d_ff")),
+    (r"w_down$",               ("d_ff", "fsdp")),
+    (r"router$",               ("fsdp", None)),
+    (r"experts/(w_gate|w_up)$", ("expert", "fsdp", "expert_ff")),
+    (r"experts/w_down$",       ("expert", "expert_ff", "fsdp")),
+    (r"(in_proj|x_proj|rkvg|time_maa_w[12]|w_lora_[ab]|dt_proj)$", ("fsdp", None)),
+    (r"out_proj$",             (None, "fsdp")),
+    (r"conv_w$",               (None, "ssm_inner")),
+    (r"A_log$",                ("ssm_inner", None)),
+    (r"(scale|bias|norm|A|D|dt_bias|time_.*|w0|u|ln_[xw].*|g_norm.*)$", None),
+]
+
+
+def _axes_for_path(path: str, ndim: int):
+    for pat, axes in _PARAM_PATTERNS:
+        if re.search(pat, path):
+            if axes is None:
+                return (None,) * ndim
+            if len(axes) == ndim:
+                return axes
+            if len(axes) < ndim:  # leading batch-ish dims unsharded
+                return (None,) * (ndim - len(axes)) + tuple(axes)
+            return axes[:ndim]
+    return (None,) * ndim
+
+
+# 'heads_flat' (= n_heads*head_dim or n_kv*head_dim columns) shards over
+# model when divisible, independent of whether per-head activations shard.
+_EXTRA_RULES = {"heads_flat": ("model",)}
+
+
+class QSpec:
+    """The specs of a QuantizedTensor's payload and its (1, N) scale (the
+    reference returns them in a QuantizedTensor of specs)."""
+
+    def __init__(self, q: tuple, scale: tuple):
+        self.q, self.scale = q, scale
+
+    def __eq__(self, other):
+        return (isinstance(other, QSpec)
+                and (self.q, self.scale) == (other.q, other.scale))
+
+    def __repr__(self):
+        return f"QSpec(q={self.q}, scale={self.scale})"
+
+
+def _walk(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _walk(v, fn, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_walk(v, fn, path + (str(i),)) for i, v in enumerate(tree)]
+    return fn("/".join(path), tree)
+
+
+def params_pspecs(params_tree: Any, rules: Mapping[str, Sequence[str]],
+                  mesh) -> Any:
+    """Spec tree for a params tree, by path patterns. QuantizedTensor
+    leaves get a :class:`QSpec`: the payload's spec from its own (packed)
+    shape, the scale's last dim following the payload's columns."""
+    full_rules = {**rules, **_EXTRA_RULES}
+
+    def one(path, leaf):
+        if isinstance(leaf, QuantizedTensor):
+            axes = _axes_for_path(path, leaf.q.ndim)
+            qspec = spec_for(leaf.q.shape, axes, full_rules, mesh)
+            sspec = (None,) * (leaf.scale.ndim - 1) + (
+                qspec[-1] if len(qspec) else None,)
+            return QSpec(qspec, sspec)
+        axes = _axes_for_path(path, len(leaf.shape))
+        return spec_for(leaf.shape, axes, full_rules, mesh)
+
+    return _walk(params_tree, one)
+
+
+# ---------------------------------------------------------------------------
+# One rank's shards
+# ---------------------------------------------------------------------------
+class RankShards(dict):
+    """A params tree holding one rank's shards (:func:`shard_params`'s
+    output); the engine takes it as it is. ``layout``: the :data:`PARTS`
+    it holds as shards."""
+
+    def __init__(self, tree, layout=frozenset()):
+        super().__init__(tree)
+        self.layout = frozenset(layout)
+
+
+_ATTN = ("wq", "wk", "wv", "wq_bias", "wk_bias", "wv_bias", "wo")
+
+
+def _replicated(spec):
+    if isinstance(spec, QSpec):
+        return QSpec((None,) * len(spec.q), (None,) * len(spec.scale))
+    return (None,) * len(spec)
+
+
+def _is_sharded(spec) -> bool:
+    s = spec.q if isinstance(spec, QSpec) else spec
+    return any(a is not None for a in s)
+
+
+def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
+    """:func:`params_pspecs` under the serve rules, made to match what a
+    rank computes eagerly, where GSPMD would gather:
+
+    * attention whose kv heads the model axis does not divide
+      (``effective_model_shards`` 1) runs replicated, so its q/k/v/o
+      weights stay whole;
+    * a gated MLP whose ``w_down`` cannot be K-sharded (``tp_shardable``:
+      a packed int4 shard needs an even number of rows) keeps ``w_gate``
+      and ``w_up`` whole too.
+
+    Every other spec is the reference's.
+    """
+    specs = params_pspecs(params, rules or make_rules("serve"), mesh)
+    head_tp = effective_model_shards(mesh, cfg.n_kv_heads) > 1
+    for layer in specs.get("layers", []):
+        attn = layer.get("attn")
+        if attn is not None and not head_tp:
+            for k in _ATTN:
+                if k in attn:
+                    attn[k] = _replicated(attn[k])
+        mlp = layer.get("mlp")
+        if mlp is not None and not _is_sharded(mlp["w_down"]):
+            for k in ("w_gate", "w_up"):
+                mlp[k] = _replicated(mlp[k])
+    return specs
+
+
+def _layout(specs) -> frozenset:
+    """The :data:`PARTS` a :func:`serve_pspecs` tree shards; every layer
+    must shard alike."""
+    top = {part for part in ("embedding", "lm_head")
+           if part in specs and _is_sharded(specs[part])}
+    layers = {frozenset(
+        part for part, sub, key in (("heads", "attn", "wq"),
+                                    ("wo", "attn", "wo"),
+                                    ("mlp", "mlp", "w_down"))
+        if sub in layer and _is_sharded(layer[sub][key]))
+        for layer in specs.get("layers", [])}
+    if len(layers) > 1:
+        raise ValueError(f"layers shard apart: {sorted(map(sorted, layers))}")
+    return frozenset(top).union(*layers)
+
+
+def _slice(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec``, copied out so that the
+    full tensor's storage can be freed."""
+    coords = mesh.coords
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else axes
+        n, idx = 1, 0
+        for a in axes:                 # row-major over the joint axes
+            idx = idx * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        size = x.shape[dim] // n
+        x = x.narrow(dim, idx * size, size)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
+    """This rank's local tree: every leaf sliced by :func:`serve_pspecs`.
+
+    A QuantizedTensor column shard slices the payload and its (1, N) scale
+    together; a row shard slices the payload's (packed) K rows and keeps
+    the scale. Replicated leaves are kept as they are (the same tensors).
+    The result's ``layout`` lists the parts sharded. Any part of a params
+    tree (the top without its layers, one layer as ``{"layers": [...]}``)
+    shards alike.
+    """
+    if cfg.moe_experts or any(cfg.mixer_of(i) != "attn"
+                              for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            "tensor-parallel serving covers attention decoders with dense "
+            "FFNs; MoE and recurrent models under a mesh are ROADMAP queue 1 "
+            "item 10")
+    specs = serve_pspecs(params, mesh, cfg, rules)
+
+    def put(leaf, spec):
+        if isinstance(leaf, QuantizedTensor):
+            if not _is_sharded(spec):
+                return leaf
+            q = _slice(leaf.q, spec.q, mesh)
+            scale = _slice(leaf.scale, spec.scale, mesh)
+            rows = q.shape[-2] * (2 if leaf.bits == 4 else 1)
+            return QuantizedTensor(q=q, scale=scale, bits=leaf.bits,
+                                   shape=(*leaf.shape[:-2], rows,
+                                          q.shape[-1]))
+        return _slice(leaf, spec, mesh) if _is_sharded(spec) else leaf
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, s) for v, s in zip(tree, spec)]
+        return put(tree, spec)
+
+    return RankShards(walk(params, specs), _layout(specs))

@@ -56,12 +56,32 @@ timed on the card, an analytic H100 model on the CPU; and
 :func:`~repro_torch.core.autotune.get_prefill_params`: the model) unless
 the caller gives them, as in the reference. :func:`warm_gemm_autotune` measures the
 integer GEMMs' launch plans at a model's serving shapes before it serves.
-Tensor parallelism (``mesh=``) comes in a later slice and raises;
-``warm_gemm_autotune(tp=)`` already gives its shard shapes.
+
+**Tensor parallelism** (``mesh=``, this rank's
+:class:`~repro_torch.launch.mesh.ServingMesh`): the engine runs as SPMD,
+one process a rank, each rank constructing the same engine on the same
+requests. It keeps this rank's shards of the params
+(:func:`~repro_torch.parallel.sharding.shard_params`; a
+:class:`~repro_torch.parallel.sharding.RankShards` tree is taken as it
+is), its kv heads of every page (``PagePool(mesh=)``), and runs every
+target forward inside a ``mode='serve'`` mesh context: column-parallel
+q/kv/gate/up, K2/K3 over the rank's heads, row-parallel wo/down with an
+f32 or (``tp_int8_reduce``) int8-wire all-reduce, a vocabulary-sharded
+embedding and head. The scheduler state is replicated; rank 0's sampled
+tokens are broadcast every step, and the page size, chunk and pages per
+step are picked once, by rank 0, and broadcast. ``self.tp`` is the
+degree attention gets (1 when the model axis does not divide the kv
+heads: attention then runs replicated, the MLP and head still sharded).
+A speculative engine verifies under the mesh and drafts replicated, each
+rank holding the whole draft model; rank 0's draft ids and verdict are
+broadcast, so every rank's cache holds the KV of the same tokens.
+:func:`warm_gemm_autotune` with
+``tp=`` tunes the shard shapes.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional
 
@@ -74,6 +94,10 @@ from repro_torch.kernels.camp_gemm_fused import KIND as QMODE_KIND
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import expert_capacity, routing_group_size
 from repro_torch.models.transformer import dtype_of, forward, init_caches
+from repro_torch.parallel.collectives import broadcast_ints
+from repro_torch.parallel.sharding import (RankShards, effective_model_shards,
+                                           make_rules, mesh_context,
+                                           shard_params)
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import spec_decode as sd
 
@@ -234,6 +258,10 @@ class ContinuousBatchingEngine:
     :mod:`repro_torch.kernels.ops`); ``device`` defaults to the card.
     ``spec`` turns on speculative decoding (module docstring); a draft
     model runs on the engine's device with the engine's ``impl``.
+    ``mesh`` (this rank's serving mesh), ``rules`` (default: the serve
+    table) and ``tp_int8_reduce`` turn on tensor-parallel serving (module
+    docstring); ``params`` are then the full tree (this rank keeps its
+    shards) or this rank's :class:`RankShards`.
     """
 
     SPEC_RETUNE_EVERY = 16               # spec steps between auto-γ re-picks
@@ -246,11 +274,9 @@ class ContinuousBatchingEngine:
                  pages_per_step: Optional[int] = None,
                  sample: str = "greedy", temperature: float = 1.0,
                  seed: int = 0, retain_pages: Optional[int] = None,
-                 mesh=None, spec: Optional[sd.SpecConfig] = None,
+                 mesh=None, rules=None, tp_int8_reduce: bool = False,
+                 spec: Optional[sd.SpecConfig] = None,
                  device=None, impl: str = "auto"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=) is not ported yet")
         mixers = {cfg.mixer_of(i) for i in range(cfg.n_layers)}
         if mixers != {"attn"}:
             raise ValueError(
@@ -258,20 +284,21 @@ class ContinuousBatchingEngine:
         if sample not in ("greedy", "temperature"):
             raise ValueError(f"sample={sample!r}")
         self.device = resolve_device(device)
-        self.params, self.cfg = params, cfg
+        self.cfg = cfg
         self.sample, self.temperature, self.seed = sample, temperature, seed
         self.impl = impl
-        # page size and prefill chunking from the autotune's cache (the
-        # page timed through K3 on the card, the chunk from the analytic
-        # model) unless the caller pins them
-        mean_len = max(cfg.max_seq_len // 2, 128)
-        ps = page_size or autotune.get_page_size(
-            cfg.n_kv_heads, cfg.hd, mean_len=mean_len,
-            group=cfg.n_heads // cfg.n_kv_heads)
-        if prefill_chunk is None:
-            prefill_chunk, pp = autotune.get_prefill_params(
-                cfg.n_kv_heads, cfg.hd, ps, mean_len=mean_len)
-            pages_per_step = pages_per_step or pp
+        self.mesh = mesh
+        self.rules = rules if rules is not None else (
+            make_rules("serve") if mesh is not None else None)
+        self.tp_int8_reduce = tp_int8_reduce
+        # the sharding degree attention and the pool get (replicated
+        # attention where the model axis does not divide the kv heads)
+        self.tp = effective_model_shards(mesh, cfg.n_kv_heads)
+        if mesh is not None and not isinstance(params, RankShards):
+            params = shard_params(params, mesh, cfg, self.rules)
+        self.params = params
+        ps, prefill_chunk, pages_per_step = self._pick_pages(
+            page_size, prefill_chunk, pages_per_step)
         # non-final chunks cover whole pages, so a partial page is quantized
         # exactly once (by the final chunk)
         self.chunk_tokens = max(ps, prefill_chunk - prefill_chunk % ps)
@@ -281,7 +308,8 @@ class ContinuousBatchingEngine:
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
             num_pages=-(-capacity_tokens // ps), page_size=ps,
             quantized=(kv_dtype == "int8"), dtype=dtype_of(cfg),
-            retain_pages=retain_pages, device=self.device)
+            mesh=mesh if self.tp > 1 else None, retain_pages=retain_pages,
+            device=self.device)
         self.waiting: collections.deque = collections.deque()
         self.prefilling: collections.deque = collections.deque()
         self.active: List[Request] = []
@@ -304,6 +332,45 @@ class ContinuousBatchingEngine:
             if self.spec_gamma < 1:
                 raise ValueError(f"spec gamma {self.spec_gamma} < 1")
 
+    def _pick_pages(self, page_size, prefill_chunk, pages_per_step):
+        """Page size, prefill chunk and pages per step: the caller's, else
+        the autotune's (the page timed through K3 on the card, the chunk
+        from the analytic model). Under a mesh rank 0 picks and broadcasts
+        them: ranks timing K3 at once on one card could pick apart."""
+        cfg = self.cfg
+        if page_size and prefill_chunk:
+            return page_size, prefill_chunk, pages_per_step
+        picks = [0, 0, 0]
+        if self.mesh is None or self.mesh.rank == 0:
+            mean_len = max(cfg.max_seq_len // 2, 128)
+            ps = page_size or autotune.get_page_size(
+                cfg.n_kv_heads, cfg.hd, mean_len=mean_len,
+                group=cfg.n_heads // cfg.n_kv_heads)
+            chunk = prefill_chunk
+            if chunk is None:
+                chunk, pp = autotune.get_prefill_params(
+                    cfg.n_kv_heads, cfg.hd, ps, mean_len=mean_len)
+                pages_per_step = pages_per_step or pp
+            picks = [ps, chunk, pages_per_step or 0]
+        if self.mesh is not None:
+            picks = broadcast_ints(picks, self.mesh)
+        return picks[0], picks[1], picks[2] or None
+
+    def _mesh_scope(self):
+        """Serve-mode mesh context for one target forward (a no-op without
+        a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return mesh_context(self.mesh, self.rules, mode="serve",
+                            opts={"tp_int8_reduce": self.tp_int8_reduce},
+                            layout=self.params.layout)
+
+    def _agree(self, values: List[int]) -> List[int]:
+        """Rank 0's ``values`` on every rank (as they are without a mesh):
+        the replicated scheduler must see one token stream."""
+        return values if self.mesh is None else broadcast_ints(values,
+                                                               self.mesh)
+
     # -- request lifecycle ----------------------------------------------
     def submit(self, prompt, max_new_tokens: int) -> int:
         """Queue a prompt; returns its sequence id."""
@@ -325,13 +392,13 @@ class ContinuousBatchingEngine:
         """
         last = logits.float()
         if self.sample == "greedy":
-            return last.argmax(dim=-1).tolist()
+            return self._agree(last.argmax(dim=-1).tolist())
         out = []
         for row, r in zip(last, reqs):
             gen = torch.Generator().manual_seed(
                 (self.seed * 1_000_003 + r.seq_id) * 1_000_003 + len(r.tokens))
             out.append(int(_gumbel_argmax(row, self.temperature, gen)))
-        return out
+        return self._agree(out)
 
     def _finish(self, req: Request) -> None:
         self.pool.release(req.seq_id)
@@ -433,10 +500,12 @@ class ContinuousBatchingEngine:
         ps = self.pool.page_size
         for pidx in range(L // ps, (L + m - 1) // ps + 1):
             self.pool.ensure_writable(req.seq_id, pidx)
-        logits = sd.paged_chunk_forward(
-            self.params, self.cfg, self.pool, req.seq_id,
-            [req.tokens[-1]] + draft, L,
-            pages_per_step=self.pages_per_step, logits="all", impl=self.impl)
+        with self._mesh_scope():
+            logits = sd.paged_chunk_forward(
+                self.params, self.cfg, self.pool, req.seq_id,
+                [req.tokens[-1]] + draft, L,
+                pages_per_step=self.pages_per_step, logits="all",
+                impl=self.impl)
         return logits[0].float().cpu().numpy()
 
     def _spec_one(self, req: Request) -> None:
@@ -444,19 +513,34 @@ class ContinuousBatchingEngine:
         remaining = req.max_new_tokens - len(req.tokens)
         gamma = min(self.spec_gamma, remaining - 1)
         draft, draft_q = ([], None)
+        # the draft reservation covers the largest window auto-tuning
+        # could pick
+        gamma_cap = max(self.spec_gamma, max(autotune.SPEC_GAMMAS))
         if gamma > 0:
-            # the draft reservation covers the largest window auto-tuning
-            # could pick
-            gamma_cap = max(self.spec_gamma, max(autotune.SPEC_GAMMAS))
+            # drafting runs replicated, outside the mesh: every rank holds
+            # the whole draft model
             draft, draft_q = self.drafter.propose(
                 req.seq_id, list(req.prompt_tokens) + req.tokens, gamma,
                 reserve_tokens=req.reserve_tokens + gamma_cap + 1)
+            if self.mesh is not None:
+                # every rank verifies (and writes the KV of) rank 0's
+                # draft, at a fixed width; a rank whose own draft differed
+                # scores it as a deterministic one (its verdict is
+                # replaced by rank 0's below)
+                got = self._agree([len(draft)] + draft
+                                  + [-1] * (gamma - len(draft)))
+                if got[1:got[0] + 1] != draft:
+                    draft, draft_q = got[1:got[0] + 1], None
         L = self.pool.lens[req.seq_id]
         rows = self._spec_verify(req, draft)
         n_acc, emitted = sd.accept_speculative(
             rows, draft, draft_q, sample=self.sample,
             temperature=self.temperature, seed=self.seed, seq_id=req.seq_id,
             start_index=len(req.tokens))
+        if self.mesh is not None:      # rank 0's verdict, at a fixed width
+            got = self._agree([n_acc] + emitted
+                              + [-1] * (gamma_cap + 1 - len(emitted)))
+            n_acc, emitted = got[0], got[1:got[0] + 2]
         # the cache must hold everything but the last emitted token
         self.pool.truncate(req.seq_id, L + n_acc + 1)
         req.tokens.extend(emitted)
@@ -501,12 +585,14 @@ class ContinuousBatchingEngine:
         Returns True while work remains."""
         self._admit()
         if self.prefilling:
-            self._prefill_step()
+            with self._mesh_scope():
+                self._prefill_step()
         if self.active:
             if self.drafter is not None:
-                self._spec_step()
+                self._spec_step()        # only the verify runs in the mesh
             else:
-                self._decode()
+                with self._mesh_scope():
+                    self._decode()
         return bool(self.active or self.waiting or self.prefilling)
 
     def run(self) -> Dict[int, List[int]]:
@@ -559,19 +645,26 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
              max_len: Optional[int] = None, kv_dtype: Optional[str] = None,
              page_size: Optional[int] = None,
              prefill_chunk: Optional[int] = None,
-             retain_pages: Optional[int] = None,
+             retain_pages: Optional[int] = None, mesh=None,
+             tp_int8_reduce: bool = False,
              spec: Optional[sd.SpecConfig] = None, device=None,
              impl: str = "auto") -> torch.Tensor:
     """Batched generation: prompt (B, S) → (B, steps) new tokens (on the
     CPU). All-attention models run on the continuous-batching engine (pages
     int8 for ``kv_dtype='int8'``, else the model dtype; ``spec`` turns on
-    speculative decoding); models with recurrent mixers or embedding inputs
-    (a float (B, S, D) prompt) take the dense-slab loop, as in the
-    reference (``max_len`` is that loop's slab length; ``spec`` is ignored
-    there, since speculation needs the paged cache's rollback)."""
+    speculative decoding; ``mesh`` and ``tp_int8_reduce`` tensor-parallel
+    serving, every rank calling with the same arguments); models with
+    recurrent mixers or embedding inputs (a float (B, S, D) prompt) take
+    the dense-slab loop, as in the reference (``max_len`` is that loop's
+    slab length; ``spec`` is ignored there, since speculation needs the
+    paged cache's rollback; a mesh raises there)."""
     b, s = prompt.shape[:2]
     if (cfg.embedding_inputs
             or any(cfg.mixer_of(i) != "attn" for i in range(cfg.n_layers))):
+        if mesh is not None:
+            raise NotImplementedError(
+                "recurrent and embedding-input models under a mesh are not "
+                "ported (ROADMAP queue 1, item 10)")
         return _generate_dense(params, cfg, prompt, steps=steps, seed=seed,
                                sample=sample, temperature=temperature,
                                max_len=max_len, kv_dtype=kv_dtype,
@@ -581,8 +674,8 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
         params, cfg, kv_dtype=kv_dtype, page_size=ps,
         capacity_tokens=b * kvc.round_up(s + steps, ps),
         prefill_chunk=prefill_chunk, sample=sample, temperature=temperature,
-        seed=seed, retain_pages=retain_pages, spec=spec, device=device,
-        impl=impl)
+        seed=seed, retain_pages=retain_pages, mesh=mesh,
+        tp_int8_reduce=tp_int8_reduce, spec=spec, device=device, impl=impl)
     sids = [eng.submit(prompt[i], steps) for i in range(b)]
     outs = eng.run()
     return torch.tensor([outs[sid] for sid in sids], dtype=torch.long)

@@ -32,8 +32,14 @@ page); appending a token requantizes its page. It too updates in place.
 
 The int8 conversion divides by 127 and by the scale with correctly rounded
 divisions, as the reference's eagerly-run cache ops do (see
-:func:`repro_torch.core.quant.div_exact`). Head-sharded storage comes with
-tensor parallelism in a later slice.
+:func:`repro_torch.core.quant.div_exact`).
+
+**Head-sharded storage.** Under tensor-parallel serving each rank's pool
+(``PagePool(mesh=...)``, when the mesh's model axis divides the kv heads)
+holds its ``n_kv_heads / tp`` heads of every page, scales alike: (P,
+KV/tp, ps, hd) a layer. The control state (free list, refcounts, block
+tables, prefix trie, LRU) is replicated: every rank runs the same
+scheduler on the same requests, so it stays equal on every rank.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import div_exact
+from repro_torch.parallel.sharding import effective_model_shards
 
 INT8_AMAX = 127.0
 SCALE_EPS = 1e-8          # floor so all-zero rows dequantize to exact zeros
@@ -342,12 +349,17 @@ class PagePool:
     reference dies is retained in an LRU of ``retain_pages`` slots (default
     the whole pool) with its trie entry intact; allocation evicts LRU-first.
     :meth:`truncate` rewinds a sequence, as pure metadata.
+
+    With ``mesh=`` (a serving mesh whose model axis divides ``n_kv_heads``,
+    see :func:`~repro_torch.parallel.sharding.effective_model_shards`) the
+    page and scale storage holds this rank's heads only (:attr:`sharded`);
+    an indivisible head count gives an unsharded pool.
     """
 
     def __init__(self, *, n_layers: int, n_kv_heads: int, head_dim: int,
                  num_pages: int, page_size: int = DEFAULT_PAGE_SIZE,
                  quantized: bool = True, dtype=torch.bfloat16,
-                 retain_pages: Optional[int] = None, device=None):
+                 mesh=None, retain_pages: Optional[int] = None, device=None):
         self.n_layers = n_layers
         self.n_kv_heads = n_kv_heads
         self.head_dim = head_dim
@@ -356,8 +368,11 @@ class PagePool:
         self.quantized = quantized
         self.device = torch.device(device) if device is not None else \
             torch.device("cpu")
-        shape = (num_pages, n_kv_heads, page_size, head_dim)
-        sshape = (num_pages, n_kv_heads, page_size)
+        shards = effective_model_shards(mesh, n_kv_heads)
+        self.mesh = mesh if shards > 1 else None
+        self.local_kv_heads = n_kv_heads // shards
+        shape = (num_pages, self.local_kv_heads, page_size, head_dim)
+        sshape = (num_pages, self.local_kv_heads, page_size)
         page_dtype = torch.int8 if quantized else dtype
 
         def pages():
@@ -384,6 +399,11 @@ class PagePool:
             collections.OrderedDict()          # LRU: oldest first
         self._prefix_root = _PrefixNode(-1)
         self._prefix_nodes: Dict[int, Tuple[_PrefixNode, Tuple[int, ...]]] = {}
+
+    @property
+    def sharded(self) -> bool:
+        """Page storage head-sharded over a mesh's model axis?"""
+        return self.mesh is not None
 
     # -- accounting ------------------------------------------------------
     @property

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither ``jax`` nor ``repro``; its
+"""The port stands alone: it imports neither ``jax`` nor ``repro`` (nor do
+``chip_smoke.py`` and the tensor-parallel tests' rank module); its
 entry points need an explicit CPU request on a host without CUDA; and a
 CPU tensor goes to a kernel's plain version without counting a launch."""
 import os
@@ -22,6 +23,8 @@ for name in mods:
     importlib.import_module(name)
 sys.path.insert(0, {root!r})
 import chip_smoke
+sys.path.insert(0, {tests!r})
+import torch_tp_worker
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'repro'
              or m.startswith('repro.'))
@@ -33,7 +36,8 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL.format(root=str(ROOT))],
+        [sys.executable, "-c", _IMPORT_ALL.format(root=str(ROOT),
+                                                tests=str(ROOT / "tests"))],
         capture_output=True, text=True, env=env, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)

@@ -203,3 +203,51 @@ def test_serve_prompt_matches_reference(monkeypatch, arch):
         return [tree]
     assert all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
     assert len(leaves(got)) == len(leaves(want))
+
+
+def _parser_of(main, argv, monkeypatch):
+    """The ``argparse`` parser ``main`` builds, caught at ``parse_args``."""
+    import argparse
+
+    class Caught(Exception):
+        pass
+    seen = []
+
+    def parse_args(self, args=None, namespace=None):
+        seen.append(self)
+        raise Caught
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    with pytest.raises(Caught):
+        main() if not argv else main(argv)
+    monkeypatch.undo()
+    return {a.dest: a for a in seen[0]._actions}
+
+
+@pytest.mark.parametrize("dest", ["tp", "tp_int8_reduce"])
+def test_serve_tp_flags_match_reference(monkeypatch, dest):
+    ref = _parser_of(jax_serve.main, [], monkeypatch)[dest]
+    port = _parser_of(torch_serve.main, ["--reduced"], monkeypatch)[dest]
+    assert port.option_strings == ref.option_strings
+    for f in ("type", "default", "const", "nargs", "help"):
+        assert getattr(port, f) == getattr(ref, f), f
+    assert type(port) is type(ref)
+
+
+def test_serve_tp_needs_cuda_or_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_serve.main(["--reduced", "--steps", "1", "--tp", "2"])
+
+
+def test_serve_tp_cpu_end_to_end(capfd):
+    """``--tp 2 --device cpu``: two gloo ranks serve the reduced model end
+    to end; rank 0 prints the mesh line and the tokens."""
+    assert torch_serve.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
+                             "cpu", "--qmode", "w8a8", "--tp", "2",
+                             "--tp-int8-reduce", "--batch", "2",
+                             "--prompt-len", "16", "--steps", "4"]) == 0
+    out = capfd.readouterr().out
+    assert "[serve] mesh {'data': 1, 'model': 2}; kv-head sharding: " \
+        "replicated" in out
+    assert out.count("generated (2, 4)") == 1

@@ -121,8 +121,14 @@ def test_engine_rejects_oversized_request_and_unported_options(model):
     eng.submit(torch.zeros(8, dtype=torch.long), 32)  # 5 pages, pool has 2
     with pytest.raises(RuntimeError):
         eng.run()
-    with pytest.raises(NotImplementedError):
-        ContinuousBatchingEngine(tp, cfg, device="cpu", mesh=object())
+    # tensor parallelism is ported for dense FFNs; an MoE model under a
+    # mesh is not (refused before any collective)
+    mesh = type("Mesh", (), {"shape": {"data": 1, "model": 2},
+                             "coords": {"data": 0, "model": 0}})()
+    with pytest.raises(NotImplementedError, match="MoE"):
+        ContinuousBatchingEngine(
+            {}, get_config("moonshot-v1-16b-a3b", reduced=True),
+            device="cpu", mesh=mesh)
     # speculative decoding is ported: a window below 1 is refused
     with pytest.raises(ValueError, match="gamma"):
         ContinuousBatchingEngine(tp, cfg, device="cpu",
