@@ -66,10 +66,16 @@ Phases (any failure exits non-zero and prints no result):
    S 4,096, bf16 and f32 causal), and hd 8, 16, 32 and 256 at an S that
    leaves a ragged last tile (f32 and bf16, causal and not): every call
    launches K8; each output within its tolerance of the plain version (f32
-   2e-5, bf16 one ULP + ``K8_BF16_ATOL``), and in bf16 no farther
+   2e-5; bf16 one ULP + 2u·Σp|v|/l, a bound derived per element beside
+   ``K8_P_ROUND``), and in bf16 no farther
    (root-mean-square distance) from an f64 computation of 64 rows of up to
-   three heads than twice the plain version is; a dropped-kv-tile control
-   that the checks must reject; times beside the plain version, SDPA and
+   three heads than twice the plain version is, and each head's RMS
+   distance to the plain version over all its elements within
+   ``K8_ALL_RMS`` times the plain version's own to f64; dropped-kv-tile
+   controls that the checks must reject, one in the sampled rows and one
+   in a whole other head, which the every-element check itself must
+   reject (which check caught each printed); times
+   beside the plain version, SDPA and
    the bound, with the share of the bound and the factor against SDPA.
 6. Dense-slab serving: full-width qwen2-0.5b W8A8, the same 8 prompts of
    512 tokens and 32 new tokens through ``_generate_dense`` with a bf16
@@ -205,7 +211,34 @@ Phases (any failure exits non-zero and prints no result):
    peak memory and the tok/s of one process and of the ranks in turns
    are printed beside the card's name and power limit: two processes
    time-sharing one card, not a tensor-parallel speed.
-14. Report: a ``kernels`` JSON line (each kernel's launches on every path
+14. Sharded (FSDP) training: qwen3-0.6b at full width (d 1,024, vocab
+   151,936, bf16), ``FSDP_LAYERS`` (8) of its 28 layers, int8 moments
+   and int8 gradients, on a (data 1, model 2) mesh of ranks, two
+   processes on the one card joined through gloo, each holding its block
+   of every sharded leaf of the state; ``FSDP_STEPS`` steps of 2 x 512
+   tokens a rank against one process from the same state and batches:
+   the first step's loss and grad_norm within ``FSDP_FIRST_RTOL``, every
+   loss within ``FSDP_LOSS_RTOL``, the moment scales after the first step
+   of the leaves the mesh splits within ``FSDP_SCALE_TOL`` of the leaf's
+   largest; K7 exactly 3 times a leaf a step on each rank, every K7 call
+   of the last step in situ (exact); three controls from the initial
+   shards that must land outside those limits: moments quantized with a
+   block-local absmax (the scales, one step), rank 1's gradient left out
+   of the reduce (the first step's grad_norm) and rank 1's AdamW update
+   zeroed for all the steps (every loss); a save from the shards (rank 0
+   writes), restored into one process byte for byte the state the ranks
+   hold (a CRC a leaf), whose next step's loss and grad_norm lie within
+   ``FSDP_FIRST_RTOL`` of the ranks' same step; each rank's
+   peak memory, the bytes a rank sends a step from the shapes, step times
+   (two processes time-sharing one card: no sharded speed).
+15. The examples on the card (``examples/torch/``: quickstart,
+   serve_quantized, fault_tolerance_demo), each in a process of its own,
+   started together before phase 14 and running beside it: each exits 0
+   within ``EXAMPLES_BUDGET_S`` (60 s) of its start and prints its
+   equalities (the unfused int8 GEMM's CUDA kernel equal to its plain
+   version, the speculative greedy stream equal to the plain one, the
+   resumed training equal to the uninterrupted run).
+16. Report: a ``kernels`` JSON line (each kernel's launches on every path
    that ran it: K7's main path is the int8 training run), the card's name
    and power limit, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -225,13 +258,18 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
+import importlib
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
+import zlib
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -262,8 +300,11 @@ from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.transformer import init_quantized_params  # noqa: E402
 from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
-from repro_torch.parallel.sharding import (make_rules,  # noqa: E402
-                                           mesh_context, shard_params)
+from repro_torch.launch.mesh import AXES  # noqa: E402
+from repro_torch.parallel.sharding import (axes_of, gather_tree,  # noqa: E402
+                                           make_rules, mesh_context, named,
+                                           shard_params, shard_tree,
+                                           train_state_pspecs)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
@@ -272,14 +313,19 @@ from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
                                         init_serve_caches)
 from repro_torch.serving import spec_decode as sd  # noqa: E402
 from repro_torch.serving.spec_decode import paged_chunk_forward  # noqa: E402
-from repro_torch.data import SyntheticLMData, shard_batch  # noqa: E402
+from repro_torch.data import (SyntheticLMData, batch_specs,  # noqa: E402
+                              shard_batch)
 from repro_torch.models.transformer import loss_fn  # noqa: E402
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
 from repro_torch.optim.adamw import int8_moment_quant  # noqa: E402
 from repro_torch.train import build_train_step, init_train_state  # noqa: E402
+# the module (the package exports the function ``adamw`` under its name)
+adamw_mod = importlib.import_module("repro_torch.optim.adamw")
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import train_step as step_mod  # noqa: E402
 from repro_torch.train.train_step import (_int8_compress,  # noqa: E402
-                                          value_and_grad)
+                                          param_specs, value_and_grad)
 from repro_torch.tree import leaves, leaves_with_path, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -1824,23 +1870,33 @@ def _k8_shapes():
 K8_SHAPES = _k8_shapes()
 # K8 against its plain version, elementwise.
 # * f32: rtol = atol = 2e-5, the reference's own (tests/test_kernels.py:162).
-# * bf16: one bf16 ULP of the larger magnitude plus K8_BF16_ATOL. Both
-#   outputs are f32 sums rounded to bf16, so most differences are one
-#   rounding flip; beyond it, the kernel's 64-column tiles and the plain
-#   version's blocks give a row different running maxima, so p is rounded
-#   to bf16 at different points, which moves small outputs of the early
-#   rows (65-128 columns seen) by up to ~1e-3. Measured (H100, this seed,
-#   every bf16 shape below, two runs): the one-ULP rule needs at most
-#   1.21e-3 beside it, and the dropped-tile control exceeds it by at least
-#   3.1e-3 (at S = 32,768); 2e-3 lies between. The reference test's 5e-2 is
-#   about the size of a typical output at S = 4,096 (std ~0.026) and would
-#   pass a dropped kv tile.
+# * bf16: a bound derived per element, |kernel - plain| <= one bf16 ULP of
+#   the larger magnitude + 2u * (sum_j p_j |v_j|) / l, u = 2^-8 (bf16's
+#   unit roundoff). Both sides compute o = sum_j p_j v_j / l with every p_j
+#   rounded to bf16 before the PV product, each at its own running maximum
+#   (the kernel's 64- or 128-column tiles, the plain version's blocks), so
+#   one side's p_j and the other's differ by at most 2u p_j (relative error
+#   <= u each), which moves o by at most 2u * sum_j p_j |v_j| / l; the
+#   output then rounds once more to bf16 (the ULP). sum_j p_j |v_j| / l is
+#   the plain version run on |v| in f32 (``k8_p_bound``). It replaces a
+#   fitted atol (2e-3, one seed's worst case) that other inputs exceeded.
 # Beside it, at every bf16 shape: 64 rows of up to three heads in f64, and
 # the kernel no farther from them (root-mean-square) than twice the plain
-# version is. A control proves both checks can see a fault: the same rows
-# with one 64-column kv tile dropped for the late rows must fail them.
+# version is. A control proves the checks can see a fault: the same rows
+# with one 64-column kv tile dropped for the late rows must fail one of
+# them (at long S the elementwise bound grows with E|v| while one dropped
+# tile moves an output by ~64/S of it, so there the RMS check catches it).
+# Over every element, at every bf16 shape: each head's RMS distance
+# between the kernel and the plain version within K8_ALL_RMS times the
+# plain version's own RMS distance to f64 (the sampled rows). By the
+# triangle inequality RMS(kernel - plain) <= RMS(kernel - f64) +
+# RMS(plain - f64), which is at most (2 + 1) times the plain version's
+# when the kernel meets the f64 check; taken per head, so a fault in one
+# head cannot hide among the others. Its control drops the same kv tile
+# in one whole head outside the sampled ones and must fail it.
 K8_F32_TOL = 2e-5
-K8_BF16_ATOL = 2e-3
+K8_P_ROUND = 2.0 ** -8
+K8_ALL_RMS = 3.0
 
 
 def k8_inputs(gen, heads, kv_heads, s, d, dtype):
@@ -1853,19 +1909,27 @@ def k8_inputs(gen, heads, kv_heads, s, d, dtype):
     return q, k, v
 
 
-def k8_close(got, want) -> bool:
+def k8_p_bound(q, k, v, causal):
+    """2u * sum_j p_j |v_j| / l per output element (bf16 inputs): the
+    plain version on f32 copies with |v|."""
+    return 2 * K8_P_ROUND * k8.flash_attention_reference(
+        q.float(), k.float(), v.float().abs(), causal=causal)
+
+
+def k8_excess(got, want, p_bound) -> torch.Tensor:
+    """|got - want| over the bf16 bound, elementwise (≤ 1 passes)."""
+    a, b = got.float(), want.float()
+    return (a - b).abs() / (BF16_ULP_REL * torch.maximum(a.abs(), b.abs())
+                            + p_bound)
+
+
+def k8_close(got, want, p_bound=None) -> bool:
+    """Within K8's elementwise limit (f32: 2e-5; bf16: the derived bound,
+    ``p_bound`` from :func:`k8_p_bound`)."""
     if got.dtype == torch.float32:
         return bool(((got - want).abs()
                      <= K8_F32_TOL + K8_F32_TOL * want.abs()).all())
-    return within_bf16_ulp(got, want, K8_BF16_ATOL)
-
-
-def bf16_ulp_excess(got, want) -> float:
-    """The atol that one bf16 ULP of the larger magnitude needs beside it
-    to cover every |got - want|."""
-    a, b = got.float(), want.float()
-    return ((a - b).abs() - BF16_ULP_REL
-            * torch.maximum(a.abs(), b.abs())).max().clamp(min=0).item()
+    return bool((k8_excess(got, want, p_bound) <= 1).all())
 
 
 def f64_rows(q, k, v, causal, heads, rows, drop=None):
@@ -1890,14 +1954,30 @@ def f64_rows(q, k, v, causal, heads, rows, drop=None):
     return torch.stack(out)
 
 
+def f64_head(q, k, v, causal, h, drop=None):
+    """Every row of head ``h`` as :func:`f64_rows` computes them, in
+    chunks of rows whose f64 scores take 512 MB."""
+    s = q.shape[1]
+    step = max(1, (1 << 26) // s)
+    return torch.cat([f64_rows(q, k, v, causal, [h], torch.arange(
+        r, min(r + step, s), device=q.device), drop)[0]
+        for r in range(0, s, step)])
+
+
 def rms(x) -> float:
     return x.double().pow(2).mean().sqrt().item()
 
 
+def head_rms(a, b) -> torch.Tensor:
+    """RMS(a - b) of each head (dim 0)."""
+    return (a.double() - b.double()).pow(2).mean(dim=(1, 2)).sqrt()
+
+
 def check_k8(gen):
     """K8 through its entry point at every shape (the launches counted),
-    then each output against the plain version and f64 rows, the
-    dropped-tile control, times, bound, yardstick."""
+    then each output against the plain version, every head's RMS distance
+    to it and f64 rows, the dropped-tile controls, times, bound,
+    yardstick."""
     cases = [(label, s, dtype, causal,
               *k8_inputs(gen, heads, kv, s, d, dtype))
              for label, heads, kv, s, d, dtype, causal in K8_SHAPES]
@@ -1919,27 +1999,48 @@ def check_k8(gen):
         want = k8.flash_attention_reference(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        elem_ok = k8_close(got, want)
+        p_bound = k8_p_bound(q, k, v, causal) if bf16 else None
+        elem_ok = k8_close(got, want, p_bound)
+        share = k8_excess(got, want, p_bound).max().item() if bf16 else None
         # 64 rows of up to three heads against f64, and the control
         r = torch.linspace(0, s - 1, 64, device="cuda").long()
         heads = sorted({0, bh // 2, bh - 1})
         exact = f64_rows(q, k, v, causal, heads, r)
         fault = f64_rows(q, k, v, causal, heads, r, drop=64).to(dtype)
         g_rows, w_rows = got[heads][:, r], want[heads][:, r]
+        b_rows = p_bound[heads][:, r] if bf16 else None
         f64 = dict(kernel=rms(g_rows.double() - exact),
                    plain=rms(w_rows.double() - exact),
                    kernel_max=max_err(g_rows.double(), exact),
                    plain_max=max_err(w_rows.double(), exact),
                    control=rms(fault.double() - exact))
         rms_ok = not bf16 or f64["kernel"] <= 2 * f64["plain"]
-        control = dict(elementwise=k8_close(fault, w_rows),
+        # every element: each head's RMS distance to the plain version
+        all_lim = K8_ALL_RMS * f64["plain"]
+        all_rms = head_rms(got, want).max().item() if bf16 else None
+        all_ok = not bf16 or all_rms <= all_lim
+        control = dict(elementwise=k8_close(fault, w_rows, b_rows),
                        rms=not bf16 or f64["control"] <= 2 * f64["plain"],
-                       max_abs_err=max_err(fault, w_rows),
-                       ulp_excess=(bf16_ulp_excess(fault, w_rows)
-                                   if bf16 else None))
-        if control["elementwise"] and control["rms"]:
+                       all=True, max_abs_err=max_err(fault, w_rows),
+                       share=(k8_excess(fault, w_rows, b_rows).max().item()
+                              if bf16 else None))
+        if bf16:            # the same tile dropped in one whole head
+            h = min(1, bh - 1)
+            bad = want.clone()
+            bad[h] = f64_head(q, k, v, causal, h, drop=64).to(dtype)
+            control["head"] = h
+            control["all_rms"] = head_rms(bad, want).max().item()
+            control["all"] = control["all_rms"] <= all_lim
+            del bad
+            if control["all"]:
+                raise RuntimeError(f"K8 {label} S={s}: the every-element "
+                                   f"check passes a dropped kv tile in "
+                                   f"head {h}: {control}")
+        if control["elementwise"] and control["rms"] and control["all"]:
             raise RuntimeError(f"K8 {label} S={s}: the check passes a "
                                f"dropped kv tile: {control}")
+        control["caught_by"] = "+".join(
+            k for k in ("elementwise", "rms", "all") if not control[k])
         pairs = s * (s + 1) // 2 if causal else s * s
         b_ms, b_by = bound(4 * nbytes(q), 4.0 * bh * d * pairs,
                            BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
@@ -1947,10 +2048,13 @@ def check_k8(gen):
         timer = Timer(iters=3 if long else 20)
         row = dict(kernel="K8", label=label, bh=bh, s=s, d=d,
                    dtype=str(dtype), causal=causal, max_abs_err=err,
-                   tol=(dict(atol=K8_BF16_ATOL, ulp=1) if bf16
+                   tol=(dict(ulp=1, p_round=2 * K8_P_ROUND) if bf16
                         else dict(atol=K8_F32_TOL, rtol=K8_F32_TOL)),
-                   ulp_excess=bf16_ulp_excess(got, want) if bf16 else None,
-                   ok=elem_ok and rms_ok, f64=f64, control=control,
+                   bound_share=share,
+                   p_bound_max=p_bound.max().item() if bf16 else None,
+                   all_rms=all_rms, all_rms_limit=all_lim if bf16 else None,
+                   ok=elem_ok and rms_ok and all_ok, f64=f64,
+                   control=control,
                    ms=timer(lambda: k8.flash_attention_cuda(
                        q, k, v, causal=causal)),
                    plain_ms=Timer(iters=1 if long else 5)(
@@ -1960,21 +2064,26 @@ def check_k8(gen):
                        q4, k4, v4, is_causal=causal)),
                    bound_ms=b_ms, bound_by=b_by)
         rows.append(row)
-        lim = (f"1 ULP + {K8_BF16_ATOL:g}, needs +{row['ulp_excess']:.3g}"
-               if bf16 else f"{K8_F32_TOL:g}")
+        lim = (f"1 ULP + 2u·Σp|v|/l (≤ {row['p_bound_max']:.3g}), "
+               f"{share:.3f} of it used" if bf16 else f"{K8_F32_TOL:g}")
+        every = (f"; every head's rms to plain ≤ {all_rms:.3g} "
+                 f"(limit {all_lim:.3g})" if bf16 else "")
         ctl = (f"control max {control['max_abs_err']:.3g}"
-               + (f" (+{control['ulp_excess']:.3g}), rms {f64['control']:.3g}"
-                  if bf16 else ""))
+               + (f" ({control['share']:.3g} of the bound), rms "
+                  f"{f64['control']:.3g}, head {control['head']} whole rms "
+                  f"{control['all_rms']:.3g}" if bf16 else "")
+               + f" caught by {control['caught_by']}")
         print(f"  K8 BH={bh} S={s} D={d} {str(dtype)[6:]} "
               f"{'causal' if causal else 'non-causal'} {label}: err={err:.3g}"
               f" ({lim}) {'ok' if row['ok'] else 'FAIL'}; f64 rms kernel "
               f"{f64['kernel']:.3g} plain {f64['plain']:.3g}, max kernel "
-              f"{f64['kernel_max']:.3g} plain {f64['plain_max']:.3g}; {ctl} "
-              f"caught; ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+              f"{f64['kernel_max']:.3g} plain {f64['plain_max']:.3g}{every};"
+              f" {ctl}; "
+              f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
               f"sdpa={row['library_ms']:.4f} bound={b_ms:.4f} ({b_by}), "
               f"{b_ms / row['ms']:.1%} of the bound, "
               f"{row['ms'] / row['library_ms']:.2f}x SDPA")
-        del want
+        del want, p_bound
     return dict(launches=launches, rows=rows)
 
 
@@ -4291,6 +4400,426 @@ def tp_serving(seed: int, smi: str, device: str = "cuda"):
                 launches=r0["launches"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: sharded (FSDP) training
+# ---------------------------------------------------------------------------
+FSDP_MESH = (1, 2)       # (data, model): two processes sharing cuda:0, gloo
+FSDP_BATCH, FSDP_STEPS = 4, 4      # 4 rows of TRAIN_SEQ: 2 x 512 a rank
+# full width, depth cut to 8 of the 28 layers: at full depth the phase
+# took 102.0 s of its 90 s budget, and at 14 layers (81.1 s) the whole
+# script took 1,178.8 s of its 1,200 s (NVIDIA H100 80GB HBM3, 700 W);
+# the gather, reduce and checkpoint scale with the parameters
+FSDP_LAYERS = 8
+FSDP_TIMEOUT_S = 420.0   # the spawned group's limit; the phase aims at 90 s
+# Sharded against one process from the same state and batches, bf16. The
+# ranks' gradients are the one process's summed over two row blocks in
+# another order, each block's backward running its bf16 matmuls at
+# another M, so bf16 roundings differ and compound through the layers.
+# From the same state (the first step) only that separates them; after
+# it the two trajectories drift apart (AdamW's normalized updates
+# turn a last-bit difference of a near-zero gradient into a full step),
+# which moves the later grad_norms by up to ~10% (printed) but the losses
+# far less. Each limit has a control that must land outside it. Measured
+# at these 8 layers (NVIDIA H100 80GB HBM3, 700 W): first step 1.06e-4,
+# losses 9.1e-5, scales 1.14e-2; the controls 0.287 (dropped gradient)
+# and 0.677 (local absmax).
+FSDP_FIRST_RTOL = 5e-4   # a step from one state: the first step's loss
+#                          and grad_norm (control: rank 1's gradient left
+#                          out of the reduce), and the restored one's
+#                          against the ranks' step from the saved state
+FSDP_LOSS_RTOL = 5e-4    # every step's loss (control: rank 1's AdamW
+#                          update zeroed for every step)
+# the moment scales after the first step of the leaves whose last dim the
+# mesh splits, as a share of the leaf's largest scale (control: those
+# moments quantized with each block's own absmax): 16 bf16 ULPs, as the
+# gradients' compounded bf16 roundings move a row's absmax by several
+FSDP_SCALE_TOL = 2.0 ** -4
+
+
+def _moment_scales(tree):
+    """The scale leaves of an int8 moment tree (or of its shardings)."""
+    return tree_map(lambda m: m["scale"], tree,
+                    is_leaf=lambda x: isinstance(x, dict) and "q" in x)
+
+
+def state_crcs(state) -> list:
+    """A CRC-32 of each leaf's bytes, in leaf order (any dtype, device)."""
+    return [zlib.crc32(x.detach().contiguous().view(-1).view(torch.uint8)
+                       .cpu().numpy()) for x in leaves(state)]
+
+
+def fsdp_split_leaves(cfg) -> list:
+    """For each params leaf, in leaf order: does ``FSDP_MESH`` split its
+    last dim (so that its int8 rows need the MAX over the split)?"""
+    mesh = types.SimpleNamespace(shape=dict(zip(AXES, FSDP_MESH)))
+    specs, _ = param_specs(cfg, make_rules("train", family=cfg.family), mesh)
+    return [adamw_mod.row_max_of(spec, mesh) is not None
+            for spec in leaves(specs)]
+
+
+def fsdp_wire_bytes(cfg, mesh_shape) -> dict:
+    """Bytes a rank sends a step on a mesh whose batch and sharded leaves
+    split over all its p ranks (``FSDP_MESH``), from the shapes: ring
+    collectives send (p - 1)/p of the payload for an all-gather or a
+    reduce-scatter, 2(p - 1)/p for an all-reduce. The params are gathered
+    in their dtype, the gradients reduced in f32, the row absmax of every
+    block of split rows MAX-reduced three times (gradient, m, v)."""
+    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)))
+    specs, shapes = param_specs(cfg, make_rules("train", family=cfg.family),
+                                mesh)
+    p = mesh_shape[0] * mesh_shape[1]
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+    def ways(entry):
+        return int(np.prod([mesh.shape[a] for a in axes_of(entry)]))
+    out = dict(gather=0.0, reduce=0.0, row_max=0.0)
+    for spec, shape in zip(leaves(specs), leaves(shapes)):
+        n = int(np.prod(shape))
+        if int(np.prod([ways(e) for e in spec])) > 1:
+            out["gather"] += (p - 1) / p * n * item
+            out["reduce"] += (p - 1) / p * n * 4
+        else:
+            out["reduce"] += 2 * (p - 1) / p * n * 4
+        if spec and ways(spec[-1]) > 1:
+            rows = n // shape[-1]
+            out["row_max"] += 3 * 2 * (p - 1) / p * rows * 4
+    out["norm_and_loss"] = 2 * (p - 1) / p * 4 * (len(leaves(specs)) + 1)
+    out["total"] = sum(out.values())
+    return out
+
+
+def fsdp_rank(mesh, job):
+    """One rank of phase 14: the seed's full-width state sharded by the
+    train specs, ``FSDP_STEPS`` steps on its rows (each step's K7 launches
+    counted, the last step's K7 calls in situ), the moment scales after
+    the first step, the three controls from the initial shards, a save
+    (with the CRCs of the whole state it writes) and one more step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH, n_layers=FSDP_LAYERS)
+    opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
+    rules = make_rules("train", family=cfg.family)
+    data = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ,
+                           seed=job["seed"])
+    torch.cuda.reset_peak_memory_stats()
+
+    def batch(s):
+        b = data.batch_at(s)
+        return shard_batch(b, mesh=mesh, specs=batch_specs(b, rules, mesh))
+
+    def one_step(state, s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch(s))
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        return state, loss, norm, (time.perf_counter() - t0) * 1e3
+
+    out = dict(rank=mesh.rank, loss=[], grad_norm=[], step_ms=[], k7=[])
+    with mesh_context(mesh, rules, mode="train"):
+        full = train_state(cfg, opt, job["seed"])
+        n_leaves = len(leaves(full["params"]))
+        sh = named(train_state_pspecs(full, rules, mesh), mesh)
+        state0 = shard_tree(full, sh)
+        del full
+        torch.cuda.empty_cache()
+        gc.collect()
+        out["shards_gb"] = torch.cuda.memory_allocated() / 1e9
+        scale_sh = _moment_scales(sh["opt"]["m"])
+        split = fsdp_split_leaves(cfg)
+
+        def scales(state):
+            """The moment scales of the leaves the mesh splits."""
+            return [[x for x, cut in zip(leaves(gather_tree(
+                _moment_scales(state["opt"][k]), scale_sh)), split) if cut]
+                for k in ("m", "v")]
+        state, calls = state0, []
+        for s in range(FSDP_STEPS):
+            reset_counts()
+            with (k7_checked(calls) if s == FSDP_STEPS - 1
+                  else contextlib.nullcontext()):
+                state, loss, norm, ms = one_step(state, s)
+            out["k7"].append(read_counts()["K7"])
+            out["loss"].append(loss)
+            out["grad_norm"].append(norm)
+            out["step_ms"].append(ms)
+            if s == 0:
+                out["scales"] = scales(state)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["n_leaves"] = n_leaves
+        out["in_situ"] = dict(calls=len(calls),
+                              exact=all(c["exact"] for c in calls),
+                              longest_row=max(c["shape"][-1] for c in calls))
+        # controls, each one step from the initial shards
+        row_max_of = adamw_mod.row_max_of
+        adamw_mod.row_max_of = lambda spec, m: None
+        try:
+            st, *_ = one_step(state0, 0)
+            out["control_local_absmax"] = scales(st)
+        finally:
+            adamw_mod.row_max_of = row_max_of
+        reduce_grads = step_mod.reduce_grads
+
+        def dropped(grads, specs, m, axes, shards):
+            if m.rank == 1:
+                grads = tree_map(torch.zeros_like, grads)
+            return reduce_grads(grads, specs, m, axes, shards)
+        step_mod.reduce_grads = dropped
+        try:
+            _, loss, norm, _ = one_step(state0, 0)
+            out["control_dropped"] = dict(loss=loss, grad_norm=norm)
+        finally:
+            step_mod.reduce_grads = reduce_grads
+
+        def zeroed(grads, opt_state, params, **kw):
+            updates, opt_state = opt.update(grads, opt_state, params, **kw)
+            if mesh.rank == 1:
+                updates = tree_map(torch.zeros_like, updates)
+            return updates, opt_state
+        bad_step = build_train_step(cfg, adamw_mod.Optimizer(opt.init, zeroed),
+                                    compress_grads="int8")
+        st, out["control_update"] = state0, []
+        for s in range(FSDP_STEPS):
+            st, m = bad_step(st, batch(s))
+            out["control_update"].append(float(m["loss"]))
+        del state0, st
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ckpt_lib.save(job["dir"], state, FSDP_STEPS, shardings=sh)
+        out["save_s"] = time.perf_counter() - t0
+        whole = gather_tree(state, sh)
+        if mesh.rank == 0:
+            out["crcs"] = state_crcs(whole)
+        del whole
+        _, loss, norm, _ = one_step(state, FSDP_STEPS)
+        out["next"] = dict(loss=loss, grad_norm=norm)
+    if mesh.rank:
+        out.pop("scales")
+        out.pop("control_local_absmax")
+    return out
+
+
+def _rel_gap(got, want) -> float:
+    return abs(got - want) / abs(want)
+
+
+def _scale_gap(got, want) -> float:
+    """max |got − want| over the moment scales, as a share of the largest
+    scale of its leaf."""
+    return max(float(np.max(np.abs(np.asarray(g) - np.asarray(w)))
+                     / np.max(np.asarray(w)))
+               for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+
+
+def fsdp_training(seed: int, smi: str):
+    """Phase 14: full-width qwen3-0.6b, int8 moments and int8 gradients,
+    on ``FSDP_MESH`` ranks against one process from the same state and
+    batches; then the ranks' checkpoint restored into one process, byte for
+    byte the state they saved, for the step they took after it. Every
+    failure raises."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH, n_layers=FSDP_LAYERS)
+    opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
+    data = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_state(cfg, opt, seed)
+    one = dict(loss=[], grad_norm=[], step_ms=[])
+    for s in range(FSDP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, shard_batch(data.batch_at(s), device="cuda"))
+        one["loss"].append(float(m["loss"]))
+        one["grad_norm"].append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        one["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        if s == 0:
+            split = fsdp_split_leaves(cfg)
+            one["scales"] = [[x.cpu().numpy() for x, cut in zip(leaves(
+                _moment_scales(state["opt"][k])), split) if cut]
+                for k in ("m", "v")]
+    one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="fsdp-") as d:
+        ranks = spawn_ranks(fsdp_rank, FSDP_MESH[0] * FSDP_MESH[1],
+                            init_dir=d, backend="gloo", device="cuda",
+                            args=(dict(seed=seed, dir=os.path.join(d, "ck")),),
+                            timeout=FSDP_TIMEOUT_S, shape=FSDP_MESH)
+        t1 = time.perf_counter()
+        restored = ckpt_lib.restore(os.path.join(d, "ck"),
+                                               train_state(cfg, opt, seed))
+        restore_s = time.perf_counter() - t1
+        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*.npz"))
+    restored_crcs = state_crcs(restored)
+    _, m = step(restored, shard_batch(data.batch_at(FSDP_STEPS),
+                                      device="cuda"))
+    elastic = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    del restored
+    torch.cuda.empty_cache()
+
+    r0 = ranks[0]
+    wire = fsdp_wire_bytes(cfg, FSDP_MESH)
+    first = max(_rel_gap(r0[k][0], one[k][0]) for k in ("loss", "grad_norm"))
+    gaps = dict(
+        first_step=first,
+        loss=max(_rel_gap(a, b) for a, b in zip(r0["loss"], one["loss"])),
+        scales=_scale_gap(r0["scales"], one["scales"]),
+        restored=max(_rel_gap(elastic[k], r0["next"][k])
+                     for k in ("loss", "grad_norm")),
+        grad_norm=max(_rel_gap(a, b) for a, b in
+                      zip(r0["grad_norm"], one["grad_norm"])),
+        control_local_absmax=_scale_gap(r0["control_local_absmax"],
+                                        one["scales"]),
+        control_dropped=_rel_gap(r0["control_dropped"]["grad_norm"],
+                                 one["grad_norm"][0]),
+        control_update=max(_rel_gap(a, b) for a, b in
+                           zip(r0["control_update"], one["loss"])))
+    fails = []
+    for k, tol in (("first_step", FSDP_FIRST_RTOL), ("loss", FSDP_LOSS_RTOL),
+                   ("scales", FSDP_SCALE_TOL),
+                   ("restored", FSDP_FIRST_RTOL)):
+        if not gaps[k] <= tol:
+            fails.append(f"{k} gap {gaps[k]:.3g} > {tol:g}")
+    if gaps["control_local_absmax"] <= FSDP_SCALE_TOL:
+        fails.append("the block-local absmax control passed")
+    if gaps["control_dropped"] <= FSDP_FIRST_RTOL:
+        fails.append("the dropped-rank control passed")
+    if gaps["control_update"] <= FSDP_LOSS_RTOL:
+        fails.append("the zeroed-update control passed")
+    if restored_crcs != r0["crcs"]:
+        bad = [i for i, (a, b) in enumerate(zip(restored_crcs, r0["crcs"]))
+               if a != b]
+        fails.append(f"the restored state differs from the saved one in "
+                     f"{len(bad)} of {len(r0['crcs'])} leaves: {bad[:8]}")
+    for r in ranks:
+        want = 3 * r["n_leaves"]
+        if r["k7"] != [want] * FSDP_STEPS:
+            fails.append(f"rank {r['rank']}: K7 {r['k7']} a step, expected "
+                         f"{want}")
+        if not (r["in_situ"]["exact"] and r["in_situ"]["calls"] == want):
+            fails.append(f"rank {r['rank']}: K7 in situ {r['in_situ']}")
+        if (r["loss"], r["grad_norm"]) != (r0["loss"], r0["grad_norm"]):
+            fails.append(f"rank {r['rank']}'s metrics differ from rank 0's")
+    seconds = time.perf_counter() - t0
+    print(f"  {TRAIN_ARCH} full width, {cfg.n_layers} of 28 layers, int8 "
+          f"moments + int8 gradients, {FSDP_MESH} mesh of ranks (processes "
+          f"time-sharing one card through gloo: no sharded speed); {smi}")
+    for s in range(FSDP_STEPS):
+        print(f"  step {s}: loss {r0['loss'][s]:.6f} (one process "
+              f"{one['loss'][s]:.6f}), grad_norm {r0['grad_norm'][s]:.6f} "
+              f"({one['grad_norm'][s]:.6f}); ms rank 0 {r0['step_ms'][s]:.0f}"
+              f", rank 1 {ranks[1]['step_ms'][s]:.0f}, one process "
+              f"{one['step_ms'][s]:.0f}")
+    print(f"  gaps (limits: first and restored step {FSDP_FIRST_RTOL:g}, "
+          f"every loss {FSDP_LOSS_RTOL:g} relative; scales "
+          f"{FSDP_SCALE_TOL:g} of a leaf's largest; grad_norm after the "
+          f"first step printed): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+    print(f"  K7 {r0['k7']} a step a rank ({r0['n_leaves']} leaves x 3), in "
+          f"situ (last step) {r0['in_situ']['calls']} calls "
+          f"{'exact' if r0['in_situ']['exact'] else 'FAIL'} (rows up to "
+          f"{r0['in_situ']['longest_row']:,})")
+    print(f"  memory GB: a rank's shards " + " / ".join(
+        f"{r['shards_gb']:.3f}" for r in ranks) + ", peak " + " / ".join(
+        f"{r['peak_gb']:.3f}" for r in ranks)
+        + f"; one process peak {one['peak_gb']:.3f}")
+    print(f"  bytes a rank sends a step (from the shapes): "
+          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in wire.items()))
+    print(f"  checkpoint {ckpt_bytes:,} bytes: save {r0['save_s']:.1f} s "
+          f"(gather, rank 0 writes), restore into one process "
+          f"{restore_s:.1f} s, {len(r0['crcs'])} leaves "
+          f"{'byte for byte' if restored_crcs == r0['crcs'] else 'DIFFERENT'}"
+          f" the saved state; its next step loss {elastic['loss']:.6f}, "
+          f"grad_norm {elastic['grad_norm']:.6f} (the ranks' step "
+          f"{FSDP_STEPS}: {r0['next']['loss']:.6f}, "
+          f"{r0['next']['grad_norm']:.6f})")
+    print(f"  phase 14 seconds: {seconds:.1f}")
+    if fails:
+        raise RuntimeError("phase 14: " + "; ".join(fails))
+    for r in ranks:
+        r.pop("scales", None)
+        r.pop("control_local_absmax", None)
+        r.pop("crcs", None)
+    one.pop("scales")
+    return dict(card=smi, ranks=ranks, one_process=one, elastic=elastic,
+                gaps=gaps, wire_bytes=wire, ckpt_bytes=ckpt_bytes,
+                restore_s=restore_s, seconds=seconds,
+                launches={"K7": sum(r0["k7"])})
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the examples
+# ---------------------------------------------------------------------------
+EXAMPLES = {"quickstart": ("CUDA kernel == plain version: True",
+                           "hybrid(4-bit blocks) == int8 dot: True"),
+            "serve_quantized": ("greedy streams bit-identical: True",),
+            "fault_tolerance_demo": ("resumed == uninterrupted: True",)}
+EXAMPLES_BUDGET_S = 60.0
+
+
+def start_examples() -> dict:
+    """Phase 15's examples, each in a process of its own, all started at
+    once (they run beside phase 14), each waited for by a thread of its
+    own that keeps its output and the seconds it took."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    runs = {}
+    for name in EXAMPLES:
+        run = dict(t0=time.perf_counter(), proc=subprocess.Popen(
+            [sys.executable, str(root / "examples" / "torch" / f"{name}.py")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=str(root)))
+
+        def wait(run=run):
+            run["stdout"], run["stderr"] = run["proc"].communicate()
+            run["seconds"] = time.perf_counter() - run["t0"]
+        run["waiter"] = threading.Thread(target=wait, daemon=True)
+        run["waiter"].start()
+        runs[name] = run
+    return runs
+
+
+def stop_examples(runs: dict) -> None:
+    for run in runs.values():
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+        run["waiter"].join()
+
+
+def finish_examples(runs: dict):
+    """Phase 15: each example must exit 0, print its equalities and end
+    within ``EXAMPLES_BUDGET_S`` of its start."""
+    out, fails = {}, []
+    try:
+        for name, run in runs.items():
+            left = EXAMPLES_BUDGET_S - (time.perf_counter() - run["t0"])
+            run["waiter"].join(timeout=max(left, 1.0))
+            if run["waiter"].is_alive():
+                raise RuntimeError(f"example {name} still runs after "
+                                   f"{EXAMPLES_BUDGET_S:g} s")
+            missing = [w for w in EXAMPLES[name] if w not in run["stdout"]]
+            code = run["proc"].returncode
+            print(f"  {name}: exit {code} in {run['seconds']:.1f} s"
+                  + (f", missing {missing}" if missing
+                     else ", equalities hold"))
+            for line in run["stdout"].strip().splitlines():
+                print(f"    {line}")
+            if code or missing:
+                fails.append(f"example {name}: exit {code}, missing "
+                             f"{missing}: {run['stderr'][-2000:]}")
+            if run["seconds"] > EXAMPLES_BUDGET_S:
+                fails.append(f"example {name} took {run['seconds']:.1f} s "
+                             f"of its {EXAMPLES_BUDGET_S:g} s")
+            out[name] = dict(seconds=run["seconds"], stdout=run["stdout"])
+    finally:
+        stop_examples(runs)
+    seconds = max(r["seconds"] for r in out.values())
+    print(f"  phase 15 seconds: {seconds:.1f} beside phase 14 (limit "
+          f"{EXAMPLES_BUDGET_S:g} s)")
+    if fails:
+        raise RuntimeError("phase 15: " + "; ".join(fails))
+    return dict(runs=out, seconds=seconds)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -4309,7 +4838,7 @@ def main(argv=None) -> int:
 
 
 def smoke(args) -> int:
-    """Phases 1-14 (module docstring); raises on any failure."""
+    """Phases 1-16 (module docstring); raises on any failure."""
     t_all = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4429,6 +4958,24 @@ def smoke(args) -> int:
     gate(k1_shards, "phase 13: K1 at the tp shard shapes")
     rows += k1_shards
     tp = tp_serving(SEED, smi)
+    torch.cuda.empty_cache()
+
+    print("[phase 15] the examples on the card (quickstart, "
+          "serve_quantized, fault_tolerance_demo) start, beside phase 14")
+    procs = start_examples()
+    try:
+        print(f"[phase 14] sharded training: full-width {TRAIN_ARCH}, "
+              f"{FSDP_LAYERS} layers, on a {FSDP_MESH} mesh of ranks "
+              f"(processes sharing the card through gloo), int8 moments and "
+              f"gradients, against one process; the checkpoint restored "
+              f"into one process")
+        fsdp = fsdp_training(SEED, smi)
+        torch.cuda.empty_cache()
+    except BaseException:
+        stop_examples(procs)
+        raise
+    print("[phase 15] the examples' results")
+    examples = finish_examples(procs)
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -4467,6 +5014,7 @@ def smoke(args) -> int:
     counts["train int8"] = trained["int8 moments + int8 gradients"][
         "launches"]
     counts[f"tp{TP_RANKS} rank 0"] = tp["launches"]
+    counts["fsdp rank 0"] = fsdp["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]
@@ -4490,7 +5038,8 @@ def smoke(args) -> int:
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
                  recurrent=recurrent, training=trained, autotune=tuned,
-                 tensor_parallel=tp, kernels=kernels),
+                 tensor_parallel=tp, fsdp=fsdp, examples=examples,
+                 kernels=kernels),
             indent=1))
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -76,6 +76,11 @@ class QuantizedTensor:
                  else torch.stack([unpack_int4(m, k) for m in w]))
         return w.to(self.scale.dtype) * self.scale
 
+    def memory_bytes(self) -> int:
+        """Bytes of the payload and its f32 scales (the reference's
+        count)."""
+        return self.q.numel() + 4 * self.scale.numel()
+
 
 def quantize_rowwise(x: torch.Tensor, bits: int = 8):
     """Symmetric per-row quantization → ``(int8 q, f32 scale (..., 1))``."""

@@ -1,1 +1,3 @@
-from repro_torch.data.pipeline import Prefetcher, SyntheticLMData, shard_batch
+from repro_torch.data.pipeline import (Prefetcher, RankBatch,  # noqa: F401
+                                     SyntheticLMData, batch_specs,
+                                     shard_batch)

@@ -7,8 +7,11 @@ numpy and yields the reference's batches bit for bit.
   function of ``(seed, s)``; a restart from a checkpoint replays the exact
   stream with no stored iterator state (the contract of
   :mod:`repro_torch.train.loop`).
-* **feeding**: :func:`shard_batch` puts a host batch on the device (one
-  device; tensor parallelism is not ported yet).
+* **feeding**: :func:`shard_batch` puts a host batch on the device; on a
+  mesh of ranks, only this rank's rows (:class:`RankBatch`), by the specs
+  ``spec_for`` gives the batch's dims (:func:`batch_specs`): the batch
+  binds ``("data", "model")`` in training (recurrent families ``data``
+  only), and rows the mesh does not divide stay replicated.
 * **background prefetch**: a depth-2 thread prefetcher overlaps host data
   generation with device steps.
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import axes_of, block_view, spec_for
 
 
 class SyntheticLMData:
@@ -62,16 +66,54 @@ class SyntheticLMData:
             s += 1
 
 
+class RankBatch(dict):
+    """This rank's rows of a batch (:func:`shard_batch` on a mesh).
+
+    ``axes``: the mesh axes the rows are split over (empty: every rank
+    holds the whole batch); ``shards``: how many distinct row blocks the
+    mesh holds. The sharded train step reduces its gradients over
+    ``axes`` and divides by ``shards``, so replicated rows count once.
+    """
+
+    def __init__(self, rows: dict, axes: tuple, shards: int):
+        super().__init__(rows)
+        self.axes, self.shards = tuple(axes), int(shards)
+
+
+def batch_specs(batch: dict, rules, mesh) -> dict:
+    """The spec of each array of a host batch: dims named ``("batch",
+    "seq")`` (embedding inputs: ``+ ("embed",)``)."""
+    names = ("batch", "seq", "embed")
+    return {k: spec_for(np.shape(v), names[:np.ndim(v)], rules, mesh)
+            for k, v in batch.items()}
+
+
 def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
                 device=None) -> dict:
     """A host batch of numpy arrays → tensors on ``device`` (default: the
-    card; see :func:`repro_torch.device.resolve_device`)."""
-    if mesh is not None or specs is not None:
-        raise NotImplementedError("sharded feeding needs tensor "
-                                  "parallelism, which is not ported yet")
-    device = resolve_device(device)
-    return {k: torch.from_numpy(np.array(v, order="C")).to(device)
-            for k, v in batch.items()}
+    card; see :func:`repro_torch.device.resolve_device`; on a mesh, the
+    mesh's device). With ``mesh`` and ``specs`` (:func:`batch_specs`):
+    this rank's block of every array, as a :class:`RankBatch`; every
+    array's batch dim must bind the same axes."""
+    if mesh is None:
+        if specs is not None:
+            raise ValueError("specs without a mesh")
+        device = resolve_device(device)
+        return {k: torch.from_numpy(np.array(v, order="C")).to(device)
+                for k, v in batch.items()}
+    if specs is None:
+        raise ValueError("a mesh needs the batch's specs (batch_specs)")
+    device = mesh.device if device is None else torch.device(device)
+    rows = {specs[k][0] for k in batch}
+    if len(rows) != 1:
+        raise ValueError(f"the arrays' batch dims bind apart: {rows}")
+    axes = axes_of(rows.pop())
+    shards = 1
+    for a in axes:
+        shards *= mesh.shape[a]
+    return RankBatch({k: block_view(torch.from_numpy(np.asarray(v)),
+                                    specs[k], mesh).contiguous().to(device)
+                      for k, v in batch.items()}, axes, shards)
 
 
 class Prefetcher:

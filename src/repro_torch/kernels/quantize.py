@@ -17,6 +17,7 @@ int8 gradient compression and fake quantization.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -86,11 +87,23 @@ def quantize_rowwise_kernel(x: torch.Tensor, *, bits: int = 8):
     return q, s
 
 
-def quantize_lastdim(x: torch.Tensor, *, bits: int = 8):
+def quantize_lastdim(x: torch.Tensor, *, bits: int = 8,
+                     row_absmax: Optional[torch.Tensor] = None):
     """x (..., K) → (int8 q (..., K), f32 scale (..., 1)): K7 (or its
-    plain version, for a CPU tensor) over x viewed as (M, K) rows."""
+    plain version, for a CPU tensor) over x viewed as (M, K) rows.
+
+    ``row_absmax`` (..., 1): where x holds a block of longer rows (a shard
+    of the last dim), each whole row's absmax (≥ the block's, one of the
+    rows' values, so exact in x's dtype). K7 then quantizes x's rows with
+    one more column holding it: their absmax, hence their scale and every
+    value, is the whole row's, bit for bit.
+    """
     if x.ndim == 0:
         raise ValueError("quantize_lastdim needs a last axis")
+    if row_absmax is not None:
+        q, s = quantize_lastdim(torch.cat([x, row_absmax.to(x.dtype)], -1),
+                                bits=bits)
+        return q[..., :-1].contiguous(), s
     q, s = quantize_rowwise_kernel(x.reshape(-1, x.shape[-1]).contiguous(),
                                    bits=bits)
     return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)

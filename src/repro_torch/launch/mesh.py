@@ -1,15 +1,17 @@
-"""The serving mesh: one process a tensor-parallel rank.
+"""Meshes of ranks: one process a rank.
 
-Port of ``repro/launch/mesh.py``'s serving mesh. The reference builds a
-(data, model) device mesh under one controller; here every rank is a
-process of its own, joined to the others through ``torch.distributed``:
+Port of ``repro/launch/mesh.py``. The reference builds a (data, model)
+device mesh under one controller; here every rank is a process of its own,
+joined to the others through ``torch.distributed``:
 
 * :func:`init_rank` joins the process group with an explicit backend and
   ``init_method`` (nothing on the machine announces a cluster);
-* :func:`make_serving_mesh` returns this rank's :class:`ServingMesh`:
-  ``shape = {"data": 1, "model": tp}``, its rank, the process group and
-  its device;
-* :func:`spawn_ranks` starts ``tp`` rank processes (the ``spawn`` start
+* :func:`make_mesh` returns this rank's :class:`RankMesh` of a (data,
+  model) shape (the counterpart of ``make_test_mesh(shape, axes)``): its
+  coordinates, rank ``data_index * model + model_index``, and a process
+  subgroup along each axis (its row of the model axis, its column of the
+  data axis); a serving mesh of ``tp`` ranks is ``make_mesh((1, tp))``;
+* :func:`spawn_ranks` starts the rank processes (the ``spawn`` start
   method), runs a function in each and returns their results, failing
   loudly on any error or past its timeout.
 
@@ -72,35 +74,83 @@ def init_rank(rank: int, world: int, *, init_method: str,
     return device
 
 
-class ServingMesh:
-    """This rank's view of a (data 1, model ``tp``) serving mesh."""
+AXES = ("data", "model")
 
-    def __init__(self, tp: int, rank: int, group, device: torch.device):
-        self.shape = {"data": 1, "model": tp}
+
+class RankMesh:
+    """This rank's view of a (data, model) mesh of ranks.
+
+    ``shape``: ``{"data": d, "model": m}``; ``rank``: this rank's index in
+    ``group`` (all the mesh's ranks), ``coords["data"] * m +
+    coords["model"]``; ``groups``: for each axis longer than one, the
+    subgroup of the ranks that differ from this one only along it, its
+    members in the order of their coordinate.
+    """
+
+    def __init__(self, shape: dict, rank: int, group, groups: dict,
+                 device: torch.device):
+        self.shape = {a: int(shape[a]) for a in AXES}
         self.rank = rank
-        self.coords = {"data": 0, "model": rank}
+        m = self.shape["model"]
+        self.coords = {"data": rank // m, "model": rank % m}
         self.group = group
+        self.groups = dict(groups)
         self.device = device
 
+    def group_of(self, axes):
+        """The subgroup over ``axes`` (longer-than-one axes only): None if
+        none is left, the whole mesh's group if every such axis is in."""
+        live = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        if not live:
+            return None
+        if len(live) == sum(self.shape[a] > 1 for a in AXES):
+            return self.group
+        return self.groups[live[0]]
+
+    def member_coords(self, axes, j: int) -> dict:
+        """The coordinates of member ``j`` of :meth:`group_of` ``(axes)``:
+        this rank's, with the group's axes taken row-major from ``j``."""
+        coords = dict(self.coords)
+        for a in reversed([a for a in AXES
+                           if a in axes and self.shape[a] > 1]):
+            j, coords[a] = divmod(j, self.shape[a])
+        return coords
+
     def __repr__(self):
-        return (f"ServingMesh({self.shape}, rank {self.rank}, "
+        return (f"{type(self).__name__}({self.shape}, rank {self.rank}, "
                 f"{dist.get_backend(self.group)} on {self.device})")
 
 
-def make_serving_mesh(tp: int = 1, *, device=None) -> ServingMesh:
-    """This rank's serving mesh over the joined process group (call
-    :func:`init_rank` first): the model axis carries all ``tp`` ranks
-    (data-parallel replicas are separate engines)."""
+def make_mesh(shape, *, device=None) -> RankMesh:
+    """This rank's (data, model) mesh over the joined process group (call
+    :func:`init_rank` first); ``shape``: ``(d, m)`` or ``{"data": d,
+    "model": m}``, d·m the world size. Every rank creates every subgroup,
+    in one order (``dist.new_group`` must be called so)."""
     if not dist.is_initialized():
         raise RuntimeError("join the process group first (init_rank)")
+    if not isinstance(shape, dict):
+        shape = dict(zip(AXES, shape))
+    d, m = int(shape["data"]), int(shape["model"])
     world = dist.get_world_size()
-    if world != tp:
-        raise ValueError(f"{world} ranks for a tp={tp} mesh: one rank a "
-                         "model shard")
+    if d * m != world:
+        raise ValueError(f"a {d} x {m} mesh needs {d * m} ranks, not {world}")
+    rank = dist.get_rank()
+    groups = {}
+    if d > 1 and m > 1:
+        rows = [dist.new_group([i * m + j for j in range(m)])
+                for i in range(d)]
+        cols = [dist.new_group([i * m + j for i in range(d)])
+                for j in range(m)]
+        groups = {"model": rows[rank // m], "data": cols[rank % m]}
+    elif m > 1:
+        groups = {"model": dist.group.WORLD}
+    elif d > 1:
+        groups = {"data": dist.group.WORLD}
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return ServingMesh(tp, dist.get_rank(), dist.group.WORLD, device)
+    return RankMesh({"data": d, "model": m}, rank, dist.group.WORLD, groups,
+                    device)
 
 
 def _to_host(x):
@@ -117,13 +167,13 @@ def _to_host(x):
 
 
 def _rank_main(fn, rank, world, init_method, backend, device, args,
-               results) -> None:
+               results, shape) -> None:
     try:
         if backend == "gloo":       # the ranks share this host: loopback
             os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         dev = init_rank(rank, world, init_method=init_method,
                         backend=backend, device=device)
-        mesh = make_serving_mesh(world, device=dev)
+        mesh = make_mesh(shape or (1, world), device=dev)
         results.put((rank, "ok", _to_host(fn(mesh, *args))))
     except BaseException:          # reported to the parent, then re-raised
         results.put((rank, "error", traceback.format_exc()))
@@ -135,10 +185,12 @@ def _rank_main(fn, rank, world, init_method, backend, device, args,
 
 def spawn_ranks(fn: Callable[..., Any], world: int, *, init_dir: str,
                 backend: Optional[str] = None, device=None,
-                args: Sequence[Any] = (), timeout: Optional[float] = None
-                ) -> List[Any]:
+                args: Sequence[Any] = (), timeout: Optional[float] = None,
+                shape=None) -> List[Any]:
     """Run ``fn(mesh, *args)`` in ``world`` rank processes → the results
-    in rank order (their tensors as numpy arrays).
+    in rank order (their tensors as numpy arrays). ``mesh`` is this rank's
+    :func:`make_mesh` of ``shape`` (d, m), by default (1, ``world``): the
+    serving mesh, every rank on the model axis.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path); each rank
     joins through a file under ``init_dir`` (a fresh directory of the
@@ -155,7 +207,7 @@ def spawn_ranks(fn: Callable[..., Any], world: int, *, init_dir: str,
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
                          args=(fn, r, world, init_method, backend, str(device),
-                               tuple(args), results), daemon=True)
+                               tuple(args), results, shape), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()

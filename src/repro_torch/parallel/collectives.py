@@ -1,9 +1,10 @@
-"""Collectives of one rank over a serving mesh's model axis.
+"""Collectives of one rank over the axes of a mesh of ranks.
 
 Port of ``repro/parallel/collectives.py``. The reference's ``shard_map``
 bodies (``psum``, ``pmax``, ``all_gather``, ``ppermute`` over an axis)
-become ``torch.distributed`` calls of this rank on the mesh's process
-group (:mod:`repro_torch.launch.mesh`):
+become ``torch.distributed`` calls of this rank on the process group of
+the mesh's axes (:mod:`repro_torch.launch.mesh`); ``axis`` names one axis
+or a tuple of them. Serving reduces over the model axis:
 
 * :func:`psum` — the f32 all-reduce of the row-parallel partials;
 * :func:`quantized_psum` — the same with an **int8** payload on the wire:
@@ -18,6 +19,16 @@ group (:mod:`repro_torch.launch.mesh`):
   gather of the head's columns and rank 0's host decisions (sampled
   tokens, the engine's page size), which the replicated scheduler needs.
 
+Sharded training (:mod:`repro_torch.train.train_step`) gathers and
+reduce-scatters blocks over one axis or both:
+
+* :func:`all_reduce` — a sum or a MAX over the axes (a row's global
+  absmax, the loss, the squares of the gradient norm);
+* :func:`gather_blocks` — every rank's block along the axes, in the
+  group's order (a parameter made whole);
+* :func:`reduce_scatter` — the sum over the ranks of each rank's block
+  (a gradient reduced to this rank's shard).
+
 Every call takes tensors on the rank's device as they are: NCCL and gloo
 both take CUDA tensors for these calls (gloo stages them through host
 memory itself). ``broadcast_ints`` builds its tensor where the backend
@@ -25,26 +36,76 @@ wants it: on the card for NCCL, on the host for gloo.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.quant import div_exact
+from repro_torch.launch.mesh import AXES
 
 
-def _group(mesh, axis: str):
-    if axis != "model":
-        raise ValueError(f"a serving mesh reduces over 'model', not {axis!r}")
-    return mesh.group
+Axes = Union[str, Sequence[str]]
 
 
-def _gather(x: torch.Tensor, mesh, axis: str) -> List[torch.Tensor]:
+def _axes(axis: Axes) -> tuple:
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    unknown = set(axes) - set(AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}: of {AXES}")
+    return axes
+
+
+def _group(mesh, axis: Axes):
+    """The process group over ``axis``; None when it holds one rank."""
+    return mesh.group_of(_axes(axis))
+
+
+def _size(mesh, axis: Axes) -> int:
+    n = 1
+    for a in _axes(axis):
+        n *= mesh.shape[a]
+    return n
+
+
+def _gather(x: torch.Tensor, mesh, axis: Axes) -> List[torch.Tensor]:
     """Every rank's ``x``, in rank order."""
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty_like(x) for _ in range(_size(mesh, axis))]
     dist.all_gather(parts, x, group=_group(mesh, axis))
     return parts
+
+
+def all_reduce(x: torch.Tensor, mesh, axis: Axes,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced (``op``: SUM or MAX) over the ranks along ``axis``, a
+    new tensor (a copy of ``x`` where they are this rank alone)."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    group = _group(mesh, axis)
+    if group is not None:
+        dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+def gather_blocks(x: torch.Tensor, mesh, axis: Axes) -> List[torch.Tensor]:
+    """Every rank's ``x`` along ``axis``, member ``j`` of the group at
+    ``mesh.member_coords(axis, j)``; ``[x]`` where the group is one rank."""
+    if _group(mesh, axis) is None:
+        return [x]
+    return _gather(x, mesh, axis)
+
+
+def reduce_scatter(blocks: Sequence[torch.Tensor], mesh, axis: Axes
+                   ) -> torch.Tensor:
+    """Σ over the ranks along ``axis`` of their ``blocks[j]``, for this
+    rank's ``j`` (its index in the group): ``blocks`` holds one block a
+    member, in the group's order, all of one shape."""
+    group = _group(mesh, axis)
+    if group is None:
+        return blocks[0].clone(memory_format=torch.contiguous_format)
+    out = torch.empty_like(blocks[0], memory_format=torch.contiguous_format)
+    dist.reduce_scatter(out, [b.contiguous() for b in blocks], group=group)
+    return out
 
 
 def psum(y: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
@@ -86,10 +147,12 @@ def all_gather_last(x: torch.Tensor, mesh, axis: str = "model"
     return torch.cat(_gather(x, mesh, axis), dim=-1)
 
 
-def broadcast_ints(values: Sequence[int], mesh, axis: str = "model"
+def broadcast_ints(values: Sequence[int], mesh, axis: Axes = "model"
                    ) -> List[int]:
     """Rank 0's ``values`` on every rank (the same count on each)."""
     group = _group(mesh, axis)
+    if group is None:
+        return list(values)
     dev = mesh.device if dist.get_backend(group) == "nccl" else "cpu"
     t = torch.tensor(list(values), dtype=torch.long, device=dev)
     dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)

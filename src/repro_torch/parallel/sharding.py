@@ -21,6 +21,13 @@ Which weights a rank holds as shards is decided once, by
 tree's ``layout`` (a set of :data:`PARTS`), the serve-mode
 :func:`mesh_context` carries it, and the model code asks :func:`sharded`.
 
+Training (flat FSDP under ``make_rules("train")``) keeps every leaf of the
+train state as this rank's block along every sharded dim, on both axes:
+:func:`train_state_pspecs` gives the specs of a whole state,
+:class:`NamedSharding` pairs a spec with its mesh (as the reference's), and
+:func:`shard_tree` / :func:`gather_tree` cut a whole tree into this rank's
+shards and make shards whole again.
+
 Outside a :func:`mesh_context` every helper is a no-op, so the same model
 code runs single-device unchanged.
 """
@@ -34,6 +41,9 @@ from typing import Any, Mapping, Optional, Sequence
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.launch.mesh import AXES
+from repro_torch.parallel import collectives as coll
+from repro_torch.tree import leaves, tree_map, unflatten
 
 _CTX: contextvars.ContextVar[Optional["MeshCtx"]] = contextvars.ContextVar(
     "repro_torch_mesh_ctx", default=None)
@@ -386,21 +396,48 @@ def _layout(specs) -> frozenset:
     return frozenset(top).union(*layers)
 
 
+def axes_of(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _block(entry, coords, mesh) -> tuple:
+    """(index, count) of the block a rank at ``coords`` holds along a dim
+    whose spec entry is ``entry``: row-major over its joint axes."""
+    n, idx = 1, 0
+    for a in axes_of(entry):
+        idx = idx * mesh.shape[a] + coords[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def block_view(x: torch.Tensor, spec: tuple, mesh, coords=None
+               ) -> torch.Tensor:
+    """The block of ``x`` under ``spec`` that the rank at ``coords``
+    (default: this rank) holds, as a view."""
+    coords = mesh.coords if coords is None else coords
+    for dim, entry in enumerate(spec):
+        idx, n = _block(entry, coords, mesh)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, idx * size, size)
+    return x
+
+
 def _slice(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of ``x`` under ``spec``, copied out so that the
     full tensor's storage can be freed."""
-    coords = mesh.coords
-    for dim, axes in enumerate(spec):
-        if axes is None:
-            continue
-        axes = (axes,) if isinstance(axes, str) else axes
-        n, idx = 1, 0
-        for a in axes:                 # row-major over the joint axes
-            idx = idx * mesh.shape[a] + coords[a]
-            n *= mesh.shape[a]
-        size = x.shape[dim] // n
-        x = x.narrow(dim, idx * size, size)
-    return x.clone(memory_format=torch.contiguous_format)
+    return block_view(x, spec, mesh).clone(
+        memory_format=torch.contiguous_format)
+
+
+def dense_attention_decoder(cfg) -> bool:
+    """Attention mixers and dense FFNs only: the models a mesh of ranks
+    runs (MoE and recurrent ones are ROADMAP queue 1 item 10)."""
+    return not cfg.moe_experts and all(cfg.mixer_of(i) == "attn"
+                                       for i in range(cfg.n_layers))
 
 
 def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
@@ -413,31 +450,124 @@ def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
     tree (the top without its layers, one layer as ``{"layers": [...]}``)
     shards alike.
     """
-    if cfg.moe_experts or any(cfg.mixer_of(i) != "attn"
-                              for i in range(cfg.n_layers)):
+    if not dense_attention_decoder(cfg):
         raise NotImplementedError(
             "tensor-parallel serving covers attention decoders with dense "
             "FFNs; MoE and recurrent models under a mesh are ROADMAP queue 1 "
             "item 10")
     specs = serve_pspecs(params, mesh, cfg, rules)
 
-    def put(leaf, spec):
-        if isinstance(leaf, QuantizedTensor):
-            if not _is_sharded(spec):
-                return leaf
-            q = _slice(leaf.q, spec.q, mesh)
-            scale = _slice(leaf.scale, spec.scale, mesh)
-            rows = q.shape[-2] * (2 if leaf.bits == 4 else 1)
-            return QuantizedTensor(q=q, scale=scale, bits=leaf.bits,
-                                   shape=(*leaf.shape[:-2], rows,
-                                          q.shape[-1]))
-        return _slice(leaf, spec, mesh) if _is_sharded(spec) else leaf
-
     def walk(tree, spec):
         if isinstance(tree, dict):
             return {k: walk(v, spec[k]) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return [walk(v, s) for v, s in zip(tree, spec)]
-        return put(tree, spec)
+        return shard_leaf(tree, spec, mesh)
 
     return RankShards(walk(params, specs), _layout(specs))
+
+
+def _qt(q, scale, like: QuantizedTensor) -> QuantizedTensor:
+    """A QuantizedTensor of ``like``'s bits over payload ``q``, its logical
+    shape read from ``q`` (packed int4 rows count twice)."""
+    rows = q.shape[-2] * (2 if like.bits == 4 else 1)
+    return QuantizedTensor(q=q, scale=scale, bits=like.bits,
+                           shape=(*like.shape[:-2], rows, q.shape[-1]))
+
+
+def shard_leaf(leaf, spec, mesh):
+    """This rank's block of a whole leaf (a copy; the leaf itself where
+    ``spec`` shards nothing). A QuantizedTensor column shard slices the
+    payload and its (1, N) scale together; a row shard slices the
+    payload's (packed) K rows and keeps the scale."""
+    if not _is_sharded(spec):
+        return leaf
+    if isinstance(leaf, QuantizedTensor):
+        return _qt(_slice(leaf.q, spec.q, mesh),
+                   _slice(leaf.scale, spec.scale, mesh), leaf)
+    return _slice(leaf, spec, mesh)
+
+
+def live_axes(spec, mesh) -> tuple:
+    """The mesh axes longer than one that ``spec`` binds, in mesh order."""
+    used = {a for entry in spec for a in axes_of(entry)}
+    return tuple(a for a in AXES if a in used and mesh.shape[a] > 1)
+
+
+# ---------------------------------------------------------------------------
+# Training: a train state's shards
+# ---------------------------------------------------------------------------
+class NamedSharding:
+    """A leaf's spec on a mesh (the reference's ``NamedSharding``)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh, self.spec = mesh, spec
+
+    def __repr__(self):
+        return f"NamedSharding({self.spec})"
+
+
+def train_state_pspecs(state: Any, rules: Mapping[str, Sequence[str]],
+                       mesh) -> Any:
+    """Spec tree of a whole train state ``{"params", "opt": {"m", "v",
+    "count"}, "step"}`` (the leaves' shapes are read; meta tensors do):
+    the params by :func:`params_pspecs`; each moment as its parameter (an
+    int8 moment's payload as the parameter, its (..., 1) row scales with
+    the last dim whole); the counters replicated."""
+    pspecs = params_pspecs(state["params"], rules, mesh)
+
+    def moment(spec, m):
+        if isinstance(m, dict):
+            return {"q": spec, "scale": spec[:-1] + (None,)}
+        return spec
+    opt = {k: v for k, v in state["opt"].items() if k not in ("m", "v")}
+    return {"params": pspecs,
+            "opt": {**{k: (None,) * v.ndim for k, v in opt.items()},
+                    **{k: tree_map(moment, pspecs, state["opt"][k])
+                       for k in ("m", "v")}},
+            "step": (None,) * state["step"].ndim}
+
+
+def named(specs: Any, mesh) -> Any:
+    """A spec tree → the same tree of :class:`NamedSharding` on ``mesh``."""
+    return unflatten(specs, [NamedSharding(mesh, spec)
+                             for spec in leaves(specs)])
+
+
+def shard_tree(tree: Any, shardings: Any) -> Any:
+    """This rank's shards of a whole ``tree`` (the same on every rank) by a
+    matching tree of :class:`NamedSharding`."""
+    return unflatten(tree, [shard_leaf(x, sh.spec, sh.mesh) for x, sh in
+                            zip(leaves(tree), leaves(shardings))])
+
+
+def gather_tree(tree: Any, shardings: Any) -> Any:
+    """The whole tree from this rank's shards (a collective: every rank of
+    the shardings' mesh calls it). The blocks of all the leaves gathered
+    over one group of axes (in one dtype) travel in one all-gather.
+    Tensor leaves only: a QuantizedTensor leaf raises ``TypeError``."""
+    xs, shs = leaves(tree), leaves(shardings)
+    out = list(xs)
+    buckets: dict = {}
+    for i, (x, sh) in enumerate(zip(xs, shs)):
+        if isinstance(x, QuantizedTensor):
+            raise TypeError("gather_tree gathers tensors; a sharded "
+                            "QuantizedTensor leaf has no gather yet")
+        if live_axes(sh.spec, sh.mesh):
+            key = (id(sh.mesh), live_axes(sh.spec, sh.mesh), x.dtype)
+            buckets.setdefault(key, []).append(i)
+    for (_, axes, _), idx in buckets.items():
+        mesh = shs[idx[0]].mesh
+        parts = coll.gather_blocks(torch.cat([xs[i].reshape(-1)
+                                              for i in idx]), mesh, axes)
+        for i in idx:
+            out[i] = xs[i].new_empty(
+                [d * _block(e, mesh.coords, mesh)[1]
+                 for d, e in zip(xs[i].shape, shs[i].spec)])
+        for j, part in enumerate(parts):
+            coords = mesh.member_coords(axes, j)
+            for i, piece in zip(idx, part.split([xs[i].numel()
+                                                 for i in idx])):
+                block_view(out[i], shs[i].spec, mesh, coords).copy_(
+                    piece.view(xs[i].shape))
+    return unflatten(tree, out)

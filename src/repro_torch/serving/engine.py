@@ -58,8 +58,8 @@ the caller gives them, as in the reference. :func:`warm_gemm_autotune` measures 
 integer GEMMs' launch plans at a model's serving shapes before it serves.
 
 **Tensor parallelism** (``mesh=``, this rank's
-:class:`~repro_torch.launch.mesh.ServingMesh`): the engine runs as SPMD,
-one process a rank, each rank constructing the same engine on the same
+:class:`~repro_torch.launch.mesh.RankMesh` of shape (1, tp)): the engine
+runs as SPMD, one process a rank, each rank constructing the same engine on the same
 requests. It keeps this rank's shards of the params
 (:func:`~repro_torch.parallel.sharding.shard_params`; a
 :class:`~repro_torch.parallel.sharding.RankShards` tree is taken as it

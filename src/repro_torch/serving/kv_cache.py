@@ -418,6 +418,17 @@ class PagePool:
     def pages_for(self, n_tokens: int) -> int:
         return max(1, math.ceil(n_tokens / self.page_size))
 
+    def page_bytes(self) -> int:
+        """Device bytes one page slot occupies across all layers (k + v,
+        with the int8 pages' per-token f32 scales), over the model's kv
+        heads, as the reference counts it (a rank of a head-sharded pool
+        holds its share)."""
+        per = self.n_kv_heads * self.page_size * self.head_dim
+        scale = (2 * 4 * self.n_kv_heads * self.page_size
+                 if self.quantized else 0)
+        return self.n_layers * (2 * per * self.k_pages[0].element_size()
+                                + scale)
+
     def can_reserve(self, n_tokens: int, prompt=None) -> bool:
         """Would :meth:`reserve` succeed? Retained shared pages are about to
         be revived, so they do not count as both shared and free."""

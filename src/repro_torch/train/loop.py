@@ -11,6 +11,14 @@
 
 ``float(loss)`` is each step's one host sync, so a step's wall time is
 its device time plus whatever the host could not overlap.
+
+Under a train :func:`~repro_torch.parallel.sharding.mesh_context` every
+rank runs the loop on its shards (``shardings=``: the state's tree of
+``NamedSharding``): it feeds this rank's rows, restores and saves through
+the shardings (rank 0 writes), and stops where rank 0 stops: rank 0's
+SIGTERM/SIGINT decision is broadcast after every step, so a signal that
+reaches one rank alone leaves no rank waiting in a collective. The
+straggler monitor times this rank's own steps.
 """
 from __future__ import annotations
 
@@ -18,7 +26,12 @@ import signal
 import time
 from typing import Any, Callable, Optional
 
-from repro_torch.data.pipeline import shard_batch
+import torch.distributed as dist
+
+from repro_torch.data.pipeline import batch_specs, shard_batch
+from repro_torch.launch.mesh import AXES
+from repro_torch.parallel.collectives import broadcast_ints
+from repro_torch.parallel.sharding import active_ctx
 from repro_torch.train import checkpoint as ckpt_lib
 
 
@@ -59,21 +72,37 @@ class StragglerMonitor:
 def run(train_step: Callable, state: Any, data, *, steps: int,
         ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
         log_every: int = 10, straggler_factor: float = 3.0,
-        on_metrics: Optional[Callable[[int, dict], None]] = None):
+        on_metrics: Optional[Callable[[int, dict], None]] = None,
+        shardings: Any = None):
     """Run up to ``steps`` total steps, resuming from the latest checkpoint.
 
     ``data``: an object with ``batch_at(step) -> dict`` of numpy arrays
     (step-addressable); batches go to the device of ``state["step"]``.
-    Returns (state, history dict).
+    ``shardings``: the state's shardings, required under a train mesh
+    (module docstring). Returns (state, history dict).
     """
+    ctx = active_ctx()
+    mesh = ctx.mesh if ctx is not None and ctx.mode == "train" else None
+    if (mesh is None) != (shardings is None):
+        raise ValueError("shardings= goes with a train mesh_context, and a "
+                         "train mesh_context needs the state's shardings")
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     start_step = 0
     if ckpt_dir is not None:
         latest = ckpt_lib.find_latest(ckpt_dir)
         if latest is not None:
-            state = ckpt_lib.restore(ckpt_dir, state, step=latest)
+            state = ckpt_lib.restore(ckpt_dir, state, step=latest,
+                                     shardings=shardings)
             start_step = latest
-            print(f"[loop] restored checkpoint step {latest}")
+            say(f"[loop] restored checkpoint step {latest}")
     device = state["step"].device
+
+    def feed(step):
+        batch = data.batch_at(step)
+        if mesh is None:
+            return shard_batch(batch, device=device)
+        return shard_batch(batch, mesh=mesh, device=device,
+                           specs=batch_specs(batch, ctx.rules, mesh))
 
     monitor = StragglerMonitor(factor=straggler_factor)
     history = {"loss": [], "step_time": [], "straggler_steps": []}
@@ -88,35 +117,40 @@ def run(train_step: Callable, state: Any, data, *, steps: int,
     try:
         for step in range(start_step, steps):
             t0 = time.time()
-            batch = shard_batch(data.batch_at(step), device=device)
-            state, metrics = train_step(state, batch)
+            state, metrics = train_step(state, feed(step))
             loss = float(metrics["loss"])
             dt = time.time() - t0
             if monitor.observe(step, dt):
                 history["straggler_steps"].append(step)
-                print(f"[loop] straggler at step {step}: {dt:.2f}s "
+                say(f"[loop] straggler at step {step}: {dt:.2f}s "
                       f"(ewma {monitor.ewma:.2f}s)")
             history["loss"].append(loss)
             history["step_time"].append(dt)
             if on_metrics:
                 on_metrics(step, {"loss": loss, "dt": dt})
             if log_every and step % log_every == 0:
-                print(f"[loop] step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+                say(f"[loop] step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
             if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
                 if pending_save is not None:
                     pending_save.join()
                 pending_save = ckpt_lib.save(ckpt_dir, state, step + 1,
-                                             async_=True)
+                                             async_=True,
+                                             shardings=shardings)
+            if mesh is not None:
+                stop["now"] = bool(broadcast_ints([stop["now"]], mesh,
+                                                  AXES)[0])
             if stop["now"]:
-                print(f"[loop] signal received — checkpointing at step "
-                      f"{step + 1}")
+                say(f"[loop] signal received — checkpointing at step "
+                    f"{step + 1}")
                 break
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
     if pending_save is not None:
         pending_save.join()
+    if mesh is not None:
+        dist.barrier(group=mesh.group)    # rank 0's files are in place
     if ckpt_dir and stop["now"]:
-        ckpt_lib.save(ckpt_dir, state, step + 1)
+        ckpt_lib.save(ckpt_dir, state, step + 1, shardings=shardings)
     history["monitor"] = monitor.events
     return state, history

@@ -8,18 +8,46 @@ Port of ``repro/train/train_step.py``.
 * ``compress_grads='int8'`` quantizes → dequantizes each gradient leaf per
   row of its last axis (int8, absmax): the reference's numerics of an int8
   data-parallel all-reduce. The quantize is K7 on a CUDA tensor.
+
+Under a train :func:`~repro_torch.parallel.sharding.mesh_context` (flat
+FSDP on a (data, model) mesh of ranks, the counterpart of the reference's
+GSPMD step under ``make_rules("train")``) the state holds this rank's
+blocks of the params and moments (:func:`~repro_torch.parallel.sharding.
+shard_tree` by :func:`~repro_torch.parallel.sharding.train_state_pspecs`)
+and the batch is this rank's rows (``shard_batch(mesh=)``). A step:
+
+1. gathers the whole params (every leaf, once a step);
+2. computes the loss and gradients on this rank's rows (``grad_accum``
+   splits them);
+3. reduces each gradient to this rank's block, summed over the ranks
+   that hold distinct rows and divided by their count (rows a batch
+   replicates count once), and the loss alike (:func:`reduce_grads`);
+4. compresses the reduced gradient blocks with each whole row's absmax
+   (``int8``), and runs AdamW on the blocks (``update(specs=)``).
+
+Dense attention decoders only: an MoE model (routing groups form over the
+global token array) or a recurrent one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.quant import div_exact
+from repro_torch.data.pipeline import RankBatch
 from repro_torch.kernels.quantize import quantize_lastdim
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_params, loss_fn
-from repro_torch.optim.adamw import Optimizer, global_norm
+from repro_torch.optim.adamw import (Optimizer, RowMax, global_norm,
+                                     row_max_of)
+from repro_torch.launch.mesh import AXES
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (active_ctx, block_view,
+                                           dense_attention_decoder,
+                                           gather_tree, live_axes, named,
+                                           params_pspecs)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -33,12 +61,66 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *,
                                 device=params["final_norm"].device)}
 
 
-def _int8_compress(g: torch.Tensor) -> torch.Tensor:
-    """Quantize → dequantize a gradient leaf (per last-axis row, int8)."""
+def _int8_compress(g: torch.Tensor, row_max: RowMax = None
+                   ) -> torch.Tensor:
+    """Quantize → dequantize a gradient leaf (per last-axis row, int8);
+    ``row_max`` as :func:`~repro_torch.optim.adamw.int8_moment_quant`'s."""
     if g.ndim == 0:
         return g
-    q, scale = quantize_lastdim(g, bits=8)
+    absmax = (None if row_max is None
+              else row_max(g.abs().amax(dim=-1, keepdim=True)))
+    q, scale = quantize_lastdim(g, bits=8, row_absmax=absmax)
     return (q.float() * scale).to(g.dtype)
+
+
+def param_specs(cfg: ModelConfig, rules, mesh):
+    """(spec tree, shape tree) of ``cfg``'s whole params on ``mesh``
+    (shapes from meta tensors: nothing is allocated)."""
+    meta = init_params(cfg, generator=torch.Generator(), device="meta")
+    return (params_pspecs(meta, rules, mesh),
+            tree_map(lambda p: tuple(p.shape), meta))
+
+
+def check_trainable_sharded(cfg: ModelConfig) -> None:
+    """Raise for a model the sharded step does not cover."""
+    if not dense_attention_decoder(cfg):
+        raise NotImplementedError(
+            "sharded training covers dense attention decoders; MoE and "
+            "recurrent models under a mesh are ROADMAP queue 1 item 10")
+
+
+def reduce_grads(grads, specs, mesh, batch_axes: tuple, shards: int):
+    """This rank's block of every mean gradient: its block of each leaf
+    summed in f32 over the ranks along ``batch_axes`` (those holding
+    distinct rows), divided by ``shards``, in the leaf's dtype. The leaves
+    those axes shard are reduce-scattered (each member of the group gets
+    its own block), the others all-reduced: one call each, over one flat
+    buffer."""
+    live = tuple(a for a in AXES if a in batch_axes and mesh.shape[a] > 1)
+    gs, ss = leaves(grads), leaves(specs)
+    scatter = [i for i, s in enumerate(ss)
+               if set(live) & set(live_axes(s, mesh))]
+    whole = sorted(set(range(len(gs))) - set(scatter))
+    n = int(math.prod(mesh.shape[a] for a in live))
+    out = [None] * len(gs)
+
+    def flat(idx, coords=None):
+        return torch.cat([block_view(gs[i], ss[i], mesh, coords)
+                          .float().reshape(-1) for i in idx])
+
+    def place(idx, total):
+        shapes = [block_view(gs[i], ss[i], mesh).shape for i in idx]
+        pieces = total.split([math.prod(x) for x in shapes])
+        for i, shape, piece in zip(idx, shapes, pieces):
+            out[i] = div_exact(piece.view(shape), shards).to(gs[i].dtype)
+
+    if scatter:
+        place(scatter, coll.reduce_scatter(
+            [flat(scatter, mesh.member_coords(live, j)) for j in range(n)],
+            mesh, live))
+    if whole:
+        place(whole, coll.all_reduce(flat(whole), mesh, live))
+    return unflatten(grads, out)
 
 
 def value_and_grad(loss: Callable, params, cfg: ModelConfig, batch: dict):
@@ -69,9 +151,10 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     """
     if compress_grads not in (None, "int8"):
         raise ValueError(f"compress_grads={compress_grads!r}: None or 'int8'")
+    specs_of: dict = {}
 
-    def train_step(state, batch):
-        params = state["params"]
+    def local_grads(params, batch):
+        """(loss, gradients) of ``batch``, split into micro-batches."""
         if grad_accum == 1:
             lval, grads = value_and_grad(loss, params, cfg, batch)
         else:
@@ -89,6 +172,49 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
                 lval = lval + div_exact(lv, grad_accum)
                 g = tree_map(lambda x: div_exact(x, grad_accum), g)
                 grads = g if grads is None else tree_map(torch.add, grads, g)
+        return lval, grads
+
+    def sharded_step(state, batch, ctx):
+        check_trainable_sharded(cfg)
+        if not isinstance(batch, RankBatch):
+            raise TypeError("under a train mesh the step takes this rank's "
+                            "rows: shard_batch(batch, mesh=, specs=)")
+        mesh = ctx.mesh
+        key = (id(mesh), repr(sorted(ctx.rules.items())))
+        if key not in specs_of:
+            specs_of.clear()
+            specs_of[key] = param_specs(cfg, ctx.rules, mesh)
+        specs, shapes = specs_of[key]
+        with torch.no_grad():
+            params = gather_tree(state["params"], named(specs, mesh))
+        if [tuple(p.shape) for p in leaves(params)] != leaves(shapes):
+            raise ValueError("under a train mesh the state holds this "
+                             "rank's shards (shard_tree by "
+                             "train_state_pspecs)")
+        lval, grads = local_grads(params, batch)
+        del params
+        with torch.no_grad():
+            grads = reduce_grads(grads, specs, mesh, batch.axes,
+                                 batch.shards)
+            lval = div_exact(coll.all_reduce(lval, mesh, batch.axes),
+                             batch.shards)
+            if compress_grads == "int8":
+                grads = tree_map(lambda g, spec: _int8_compress(
+                    g, row_max_of(spec, mesh)), grads, specs)
+            updates, opt_state = optimizer.update(
+                grads, state["opt"], state["params"], specs=specs)
+            new_params = tree_map(lambda p, u: p + u, state["params"],
+                                  updates)
+            metrics = {"loss": lval, "grad_norm": global_norm(grads, specs)}
+        return ({"params": new_params, "opt": opt_state,
+                 "step": state["step"] + 1}, metrics)
+
+    def train_step(state, batch):
+        ctx = active_ctx()
+        if ctx is not None and ctx.mode == "train":
+            return sharded_step(state, batch, ctx)
+        params = state["params"]
+        lval, grads = local_grads(params, batch)
 
         with torch.no_grad():
             if compress_grads == "int8":

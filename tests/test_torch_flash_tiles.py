@@ -21,11 +21,16 @@ the card, in its order of operations:
   kernel's own tile order; l summed from the unrounded p; the output
   acc / max(l, 1e-30) rounded to bf16.
 
-Limits are ``chip_smoke.py``'s for K8 in bf16: one bf16 ULP of the larger
-magnitude + 2e-3 elementwise against the reference, and a root-mean-square
-distance to f64 no more than twice the reference's. A control leaves one
-kv tile out for the later rows, as a kernel that skipped a tile would, and
-must fail them.
+Limits: ``chip_smoke.py``'s for K8 in bf16, elementwise one bf16 ULP of
+the larger magnitude + 2u·Σp|v|/l against the reference (u = 2^-8: each
+side rounds every p to bf16 at its own running maximum; Σp|v|/l computed
+here in f64 on |v|), and a root-mean-square distance to f64 no more than
+twice the reference's; each head's RMS distance to the reference within
+three times the reference's own RMS distance to f64; and the tighter one
+ULP + 2e-3, an atol fitted to one seed on the card that the model meets
+too. A control leaves one kv tile out for the later rows, as a kernel
+that skipped a tile would, and must fail them; left out in one head only,
+it must fail the per-head RMS check.
 """
 import math
 
@@ -44,7 +49,9 @@ BQ = 128                 # query rows a block
 WG_ROWS = 64             # query rows a warpgroup
 LOG2E = 1.4426950408889634
 BF16_ULP_REL = 2.0 ** -7
-K8_BF16_ATOL = 2e-3      # chip_smoke.py
+K8_BF16_ATOL = 2e-3      # the fitted atol (see the module docstring)
+K8_P_ROUND = 2.0 ** -8   # chip_smoke.py: bf16's unit roundoff
+K8_ALL_RMS = 3.0         # chip_smoke.py: the per-head RMS check's factor
 S_RAGGED = 208           # 3 tiles of 64 (1 of 128) and a ragged 16
 
 
@@ -130,6 +137,33 @@ def within_limits(got, want, exact):
                                                          - exact)
 
 
+def within_derived_bound(got, want, exact, p_bound):
+    """chip_smoke.py's K8 bf16 checks: elementwise one ULP + ``p_bound``
+    (2u·Σp|v|/l) against the reference, and RMS to f64 no more than twice
+    the reference's."""
+    a, b = got.float(), want.float()
+    elem = bool(((a - b).abs() <= p_bound + BF16_ULP_REL
+                 * torch.maximum(a.abs(), b.abs())).all())
+
+    def rms(x):
+        return x.double().pow(2).mean().sqrt().item()
+    return elem and rms(got.double() - exact) <= 2 * rms(want.double()
+                                                         - exact)
+
+
+def within_every_element(got, want, exact):
+    """chip_smoke.py's K8 bf16 check over every element: each head's RMS
+    distance to the reference within ``K8_ALL_RMS`` times the reference's
+    own RMS distance to f64."""
+    per_head = (got.double() - want.double()).pow(2).mean(dim=(1, 2)).sqrt()
+    own = (want.double() - exact).pow(2).mean().sqrt()
+    return bool((per_head <= K8_ALL_RMS * own).all())
+
+
+def p_bound(q, k, v, causal):
+    return 2 * K8_P_ROUND * f64_attention(q, k, v.abs(), causal)
+
+
 def inputs(d, bh=2, s=S_RAGGED, seed=0):
     rng = np.random.default_rng(seed + d)
     return [rng.standard_normal((bh, s, d)).astype(np.float32)
@@ -151,6 +185,30 @@ def test_model_within_chip_limits(d, causal):
     want = reference(q, k, v, causal)
     assert got.shape == want.shape == (2, S_RAGGED, d)
     assert within_limits(got, want, f64_attention(tq, tk, tv, causal))
+
+
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_within_derived_bound(d, causal):
+    q, k, v = inputs(d)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got, _ = model(tq, tk, tv, causal)
+    want = reference(q, k, v, causal)
+    assert within_derived_bound(got, want, f64_attention(tq, tk, tv, causal),
+                                p_bound(tq, tk, tv, causal))
+
+
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+def test_dropped_tile_fails_the_derived_bound(d):
+    q, k, v = inputs(d)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    exact = f64_attention(tq, tk, tv, True)
+    bound = p_bound(tq, tk, tv, True)
+    want = reference(q, k, v, True)
+    good, _ = model(tq, tk, tv, True)
+    bad, _ = model(tq, tk, tv, True, drop_tile=1)
+    assert within_derived_bound(good, want, exact, bound)
+    assert not within_derived_bound(bad, want, exact, bound)
 
 
 @pytest.mark.parametrize("d", [64, 128, 160, 256])
@@ -178,3 +236,26 @@ def test_mask_only_on_crossing_tiles(d, s, causal, most):
     _, masked = model(q, q, q, causal)
     if most is not None:
         assert masked <= most
+
+
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_model_within_every_element_check(d, causal):
+    q, k, v = inputs(d)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got, _ = model(tq, tk, tv, causal)
+    want = reference(q, k, v, causal)
+    assert within_every_element(got, want, f64_attention(tq, tk, tv, causal))
+
+
+@pytest.mark.parametrize("d", [64, 128, 160, 256])
+def test_dropped_tile_in_one_head_fails_every_element_check(d):
+    q, k, v = inputs(d)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    exact = f64_attention(tq, tk, tv, True)
+    want = reference(q, k, v, True)
+    good, _ = model(tq, tk, tv, True)
+    bad = good.clone()
+    bad[1] = model(tq, tk, tv, True, drop_tile=1)[0][1]
+    assert within_every_element(good, want, exact)
+    assert not within_every_element(bad, want, exact)

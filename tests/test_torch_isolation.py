@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither ``jax`` nor ``repro`` (nor do
-``chip_smoke.py`` and the tensor-parallel tests' rank module); its
+``chip_smoke.py``, the port's examples under ``examples/torch/`` and the
+tensor-parallel and sharded-training tests' rank modules); its
 entry points need an explicit CPU request on a host without CUDA; and a
 CPU tensor goes to a kernel's plain version without counting a launch."""
 import os
@@ -25,6 +26,12 @@ sys.path.insert(0, {root!r})
 import chip_smoke
 sys.path.insert(0, {tests!r})
 import torch_tp_worker
+import torch_fsdp_worker
+import importlib.util, pathlib
+for path in sorted(pathlib.Path({examples!r}).glob('*.py')):
+    spec = importlib.util.spec_from_file_location('example_' + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    mods.append(spec.name)
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'repro'
              or m.startswith('repro.'))
@@ -36,8 +43,9 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL.format(root=str(ROOT),
-                                                tests=str(ROOT / "tests"))],
+        [sys.executable, "-c", _IMPORT_ALL.format(
+            root=str(ROOT), tests=str(ROOT / "tests"),
+            examples=str(ROOT / "examples" / "torch"))],
         capture_output=True, text=True, env=env, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     n_mods, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)

@@ -21,6 +21,7 @@ import signal
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -47,11 +48,12 @@ from repro_torch.configs import ARCH_NAMES, get_config  # noqa: E402
 from repro_torch.convert import (from_jax_params,  # noqa: E402
                                  from_jax_train_state)
 from repro_torch.data import (Prefetcher, SyntheticLMData,  # noqa: E402
-                              shard_batch)
+                              batch_specs, shard_batch)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import init_params, loss_fn  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.sharding import make_rules  # noqa: E402
 from repro_torch.train import build_train_step, init_train_state  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
@@ -326,8 +328,17 @@ def test_data_matches_reference(seq, emb):
     t = shard_batch(ours.batch_at(0), device="cpu")
     np.testing.assert_array_equal(t["labels"].numpy(),
                                   ref.batch_at(0)["labels"])
-    with pytest.raises(NotImplementedError):
+    # on a mesh: this rank's rows by the batch's specs (sharded feeding is
+    # ported; tests/test_torch_fsdp.py holds every case), never without
+    with pytest.raises(ValueError, match="specs"):
         shard_batch(ours.batch_at(0), mesh=object(), device="cpu")
+    mesh = SimpleNamespace(shape={"data": 2, "model": 1},
+                           coords={"data": 1, "model": 0},
+                           device=torch.device("cpu"))
+    b = ours.batch_at(0)
+    rows = shard_batch(b, mesh=mesh, specs=batch_specs(
+        b, make_rules("train"), mesh))
+    np.testing.assert_array_equal(rows["labels"].numpy(), b["labels"][2:])
 
 
 def test_checkpoint_files(tmp_path, setup):

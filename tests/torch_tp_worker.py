@@ -10,7 +10,7 @@ parent holds them against the reference.
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
-from repro_torch.launch.mesh import ServingMesh
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.models import init_params
 from repro_torch.models.modules import linear, row_parallel_linear
 from repro_torch.models.transformer import forward
@@ -45,7 +45,8 @@ def collectives(mesh, path):
     # a 2-rank mesh over ranks 0 and 1 (every rank creates the group)
     pair = torch.distributed.new_group([0, 1])
     if r < 2:
-        m2 = ServingMesh(2, r, pair, mesh.device)
+        m2 = RankMesh({"data": 1, "model": 2}, r, pair, {"model": pair},
+                      mesh.device)
         out["psum2"] = coll.psum(inp["partials"][r], m2)
     x, w = inp["ring_x"], inp["ring_w"]
     mb, nb = x.shape[0] // p, w.shape[1] // p
