@@ -110,13 +110,13 @@ Phases (any failure exits non-zero and prints no result):
    held against its plain version in situ; (a) and (b) plain and
    speculative in turns; (b) under the profiler.
 9. MoE serving: moonshot-v1-16b-a3b (48 layers, d 2,048, 16/16 heads of
-   128, 64 experts top-6 of d_ff 1,408, vocab 163,840) at full width and
-   depth in W8A8, random weights from a seed built and quantized one layer
-   at a time; phase 3's 8 prompts with 16 new tokens each on the paged
-   engine over int8 pages. Every forward launches K1 9,409 times (48 × (4
-   + 64 × 3) + the head; a non-final prefill chunk computes no logits:
-   9,408), K2 48 times (prefill) or K3 48 times (decode), and nothing
-   else. Every K1, K2 and K3 call of one request held against its plain
+   128, 64 experts top-6 of d_ff 1,408, vocab 163,840) at full width,
+   12 of its 48 layers (``MOE_W8A8_LAYERS``), in W8A8, random weights from
+   a seed built and quantized one layer at a time; phase 3's 8 prompts
+   with 16 new tokens each on the paged engine over int8 pages. Every
+   forward launches K1 2,353 times (12 × (4 + 64 × 3) + the head; a
+   non-final prefill chunk computes no logits: 2,352), K2 12 times
+   (prefill) or K3 12 times (decode), and nothing else. Every K1, K2 and K3 call of one request held against its plain
    version in situ; its first-step logits through the kernels against the
    plain versions within ``LOGIT_TOL``, with the share of (token, layer)
    pairs whose top-6 expert set differs and the picks each layer drops
@@ -210,7 +210,25 @@ Phases (any failure exits non-zero and prints no result):
    the MLP sharded 4 ways (d_ff 1,216), host state equal. Each rank's
    peak memory and the tok/s of one process and of the ranks in turns
    are printed beside the card's name and power limit: two processes
-   time-sharing one card, not a tensor-parallel speed.
+   time-sharing one card, not a tensor-parallel speed. Then every model
+   family under the mesh, 2 ranks in one spawn (``tp_families``): K1 at a
+   rank's expert column shards (M 8, 32; K 2,048, N 704) and K7 / K5 at
+   its down projection's (K7 over a layer's E·C rows of 704 + 1 columns,
+   K5 at K 704, N 2,048), exact; moonshot-v1-16b-a3b W8A8 at full width,
+   ``TP_MOE_LAYERS`` (4) of 48 layers, phase 3's 8 prompts with 8 new
+   tokens: every forward of a rank launches K1 4 + 2 × 64 times a layer
+   (+ the head), K7 once and K5 64 times a layer (the down projection
+   with the whole row's scale: ``moe._down_partial``), K2 or K3 once a
+   layer; every K1/K2/K3/K7/K5 call of one request in situ; host state
+   equal to one process's; layer 0's MoE FFN on one input within one bf16
+   ULP of max |y| of one process's, and a control quantizing h from the
+   rank's own rows (as the dense FFN does) must miss that; first-step
+   logits within W8A8's ``LOGIT_TOL`` of one process's, a dropped-partial
+   control outside; a rank's memory and the bytes it sends a decode step
+   from the shapes. Then rwkv6-7b and pixtral-12b W8A8 at full width, 4
+   layers each, 2 × (256 + 8) through ``generate(mesh=)`` (whole params
+   on each rank): greedy streams equal to one process's bit for bit, K1
+   launches equal.
 14. Sharded (FSDP) training: qwen3-0.6b at full width (d 1,024, vocab
    151,936, bf16), ``FSDP_LAYERS`` (8) of its 28 layers, int8 moments
    and int8 gradients, on a (data 1, model 2) mesh of ranks, two
@@ -261,6 +279,7 @@ import contextlib
 import gc
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -1104,17 +1123,18 @@ def _unfused_inputs(gen, kind, m, k, n):
     return a, w, s_a, s_b
 
 
-def check_unfused(timer, gen, kind):
-    """K5 (i8), K6a (w4) or K6b (a4w4) at the serving and the ragged
-    shapes, bf16, with their split plans and the K-major ``_int_mm``
-    yardsticks."""
+def check_unfused(timer, gen, kind, shapes=SERVING_SHAPES + RAGGED_SHAPES,
+                  epilogues=EPILOGUES, out_dtype=torch.bfloat16):
+    """K5 (i8), K6a (w4) or K6b (a4w4) at ``shapes`` (M, K, N), by
+    default the serving and the ragged ones, bf16, with their split plans
+    and the K-major ``_int_mm`` yardsticks."""
     key, kernel, plain = UNFUSED[kind]
     rows = []
-    for m, k, n in SERVING_SHAPES + RAGGED_SHAPES:
+    for m, k, n in shapes:
         args = _unfused_inputs(gen, kind, m, k, n)
-        for epi in EPILOGUES:
+        for epi in epilogues:
             bias, opd = _extras(gen, m, n, epi, torch.bfloat16)
-            kw = dict(out_dtype=torch.bfloat16, epilogue=epi, bias=bias,
+            kw = dict(out_dtype=out_dtype, epilogue=epi, bias=bias,
                       operand=opd)
             rows.append(gemm_case(timer, key, kernel, plain,
                                   unfused_library(kind), args, kw,
@@ -1154,15 +1174,17 @@ K7_SHAPES = ((1, 896), (8, 896), (256, 896), (4096, 896), (8, 4864),
              (256, 4864), (256, 4870), (8, 29568), (256, 29568))
 
 
-def check_k7(timer, gen):
-    """K7 at ``K7_SHAPES``, bits 8 and 4, bf16 and f32, a zero row in each
-    (but M 1), with its threads a row (``team_size``). No single PyTorch
-    call computes it, so there is no library yardstick; beside it is timed
-    one that moves the same bytes, ``x.to(torch.int8)`` (reads x, writes
-    M x K int8), the floor this timer gives a one-pass kernel of them."""
+def check_k7(timer, gen, shapes=K7_SHAPES,
+             dtypes=(torch.bfloat16, torch.float32)):
+    """K7 at ``shapes`` (default ``K7_SHAPES``), bits 8 and 4, in
+    ``dtypes``, a zero row in each (but M 1), with its threads a row
+    (``team_size``). No single PyTorch call computes it, so there is no
+    library yardstick; beside it is timed one that moves the same bytes,
+    ``x.to(torch.int8)`` (reads x, writes M x K int8), the floor this
+    timer gives a one-pass kernel of them."""
     rows = []
-    for m, k in K7_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+    for m, k in shapes:
+        for dtype in dtypes:
             x = torch.randn(m, k, device="cuda", generator=gen).to(dtype)
             if m > 1:
                 x[m // 2] = 0.0                         # a zero row → (0, 1)
@@ -1556,10 +1578,12 @@ def checked(key, kernel, plain, close, worst, calls):
         kw.pop("pages_per_step", None)
         kw.pop("plan", None)
         want = plain(*args, **kw)
+        err = max(max_err(a, b) for a, b in zip(
+            *(x if isinstance(x, tuple) else (x,) for x in (got, want))))
         if not close(got, want, kw):
             raise RuntimeError(f"{key} in situ differs from its plain "
-                               f"version by {max_err(got, want):.3g}")
-        worst[key] = max(worst[key], max_err(got, want))
+                               f"version by {err:.3g}")
+        worst[key] = max(worst[key], err)
         calls[key] += 1
         return got
     return call
@@ -1573,20 +1597,35 @@ def gemm_in_situ(gemm, name, worst, calls):
                        got, want, kw.get("epilogue", "none")), worst, calls)
 
 
-def check_in_situ(engine, prompt, qmode):
+def exact(got, want, kw) -> bool:
+    """Bit for bit (a tuple output: every member)."""
+    return all(torch.equal(a, b) for a, b in zip(
+        *(x if isinstance(x, tuple) else (x,) for x in (got, want))))
+
+
+# the unfused kernels as a tensor-parallel MoE layer's down projection
+# calls them (``moe._down_partial``): ops' name, the plain version
+UNFUSED_IN_SITU = {"K7": ("quantize_rowwise_kernel", quantize_rowwise_ref),
+                   "K5": ("camp_gemm_i8", k5.camp_gemm_i8_ref)}
+
+
+def check_in_situ(engine, prompt, qmode, unfused=()):
     """Every kernel launch of one request (two prefill chunks, two decode
     steps) on the engine, held against its plain version on the very same
     inputs: the GEMM exact (silu: one bf16 ULP), K2/K3 within one bf16
-    ULP."""
+    ULP; and each of ``unfused`` (keys of ``UNFUSED_IN_SITU``) exact."""
     gemm, name = FUSED[qmode]
-    worst = {gemm: 0.0, "K2": 0.0, "K3": 0.0}
-    calls = {gemm: 0, "K2": 0, "K3": 0}
+    keys = (gemm, "K2", "K3", *unfused)
+    worst = {key: 0.0 for key in keys}
+    calls = {key: 0 for key in keys}
 
     def att_close(got, want, kw):
         return _att_ok(got.float(), want.float(), got.dtype)
 
     saved = (getattr(ops, name), k2.paged_prefill_cuda,
              k3.paged_attention_cuda)
+    saved_unfused = {UNFUSED_IN_SITU[key][0]: getattr(
+        ops, UNFUSED_IN_SITU[key][0]) for key in unfused}
     setattr(ops, name, gemm_in_situ(gemm, name, worst, calls))
     k2.paged_prefill_cuda = checked("K2", saved[1],
                                     k2.paged_prefill_reference, att_close,
@@ -1594,6 +1633,10 @@ def check_in_situ(engine, prompt, qmode):
     k3.paged_attention_cuda = checked("K3", saved[2],
                                       k3.paged_attention_reference, att_close,
                                       worst, calls)
+    for key in unfused:
+        attr, plain = UNFUSED_IN_SITU[key]
+        setattr(ops, attr, checked(key, saved_unfused[attr], plain, exact,
+                                   worst, calls))
     try:
         eng = engine()
         eng.submit(prompt, 3)
@@ -1601,6 +1644,8 @@ def check_in_situ(engine, prompt, qmode):
     finally:
         setattr(ops, name, saved[0])
         k2.paged_prefill_cuda, k3.paged_attention_cuda = saved[1:]
+        for attr, fn in saved_unfused.items():
+            setattr(ops, attr, fn)
     print(f"  in situ, every kernel call vs its plain version on the same "
           f"inputs: calls {calls}, max |diff| {worst}")
     if not all(calls.values()):
@@ -2729,6 +2774,9 @@ def speculative(seed: int):
 # ---------------------------------------------------------------------------
 MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_NEW = 16             # new tokens a request, phase 3's 8 prompts of 512
+# W8A8: full width, 12 of 48 layers (at 48 the phase took ~140 s, and the
+# script must leave room for phase 13's MoE serving mesh)
+MOE_W8A8_LAYERS = 12
 MOE_CUT_LAYERS = 8       # W4A8 / W4A4: full width, 8 of 48 layers
 MOE_CUT_PROMPT, MOE_CUT_NEW = 256, 4
 # K1 as moe._expert_matmul calls it (f32 out, no epilogue): M is the
@@ -2929,12 +2977,12 @@ def moe_engine(params, cfg, n_req, prompt_len, new):
     return engine
 
 
-def serve_moe_w8a8(seed: int, smi: str):
-    """Full-width, full-depth moonshot-v1-16b-a3b in W8A8 on the paged
-    engine: phase 3's request mix with ``MOE_NEW`` new tokens, every
+def serve_moe_w8a8(seed: int, smi: str, layers: int = MOE_W8A8_LAYERS):
+    """Full-width moonshot-v1-16b-a3b in W8A8 at ``layers`` of 48 on the
+    paged engine: phase 3's request mix with ``MOE_NEW`` new tokens, every
     forward's launches held to the model; in situ; first-step logits and
     routing; one profiled decode forward."""
-    cfg = get_config(MOE_ARCH, qmode="w8a8")
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=layers)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = build_layerwise(cfg, "w8a8", seed)
@@ -3013,11 +3061,11 @@ def serve_moe_cut(seed: int, qmode: str):
                 per_forward=per_forward, in_situ=in_situ)
 
 
-def moe_serving(seed: int, smi: str):
-    """Phase 9: W8A8 at full depth, then W4A8 and W4A4 cut to
+def moe_serving(seed: int, smi: str, layers: int = MOE_W8A8_LAYERS):
+    """Phase 9: W8A8 at ``layers`` of 48, then W4A8 and W4A4 cut to
     ``MOE_CUT_LAYERS`` layers; the phase's seconds."""
     t0 = time.perf_counter()
-    out = {"w8a8": serve_moe_w8a8(seed, smi)}
+    out = {"w8a8": serve_moe_w8a8(seed, smi, layers)}
     torch.cuda.empty_cache()
     for qmode in ("w4a8", "w4a4"):
         out[qmode] = serve_moe_cut(seed, qmode)
@@ -4401,6 +4449,314 @@ def tp_serving(seed: int, smi: str, device: str = "cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13 (continued): every model family under a serving mesh
+# ---------------------------------------------------------------------------
+TP_MOE_LAYERS = 4        # moonshot-v1-16b-a3b W8A8: full width, 4 of 48
+TP_MOE_NEW = 8           # new tokens a request of phase 3's 8 prompts
+TP_SLAB_ARCHS = ("rwkv6-7b", "pixtral-12b")   # W8A8, whole params a rank
+TP_SLAB_LAYERS = 4
+TP_SLAB_MIX = (2, 256, 8)    # requests, prompt tokens, new tokens
+TP_FFN_TOKENS = 32       # layer 0's MoE FFN check: (1, 32, d) input
+# A tp 2 rank's expert GEMMs of moonshot: K1 at the gate/up column shards
+# (K d 2,048, N 704 of 1,408), K7 over a layer's E·C rows of its 704 down
+# columns and one more holding the whole row's absmax, K5 at the down
+# projection's row shards (K 704, N 2,048); M the capacity: 8 for a
+# decode batch of 8, 32 for a 256-token chunk
+TP_MOE_K1 = ((8, 2048, 704), (32, 2048, 704))
+TP_MOE_K7 = ((64 * 8, 705), (64 * 32, 705))
+TP_MOE_K5 = ((8, 704, 2048), (32, 704, 2048))
+
+
+def tp_moe_kernels(timer, gen):
+    """K1, K7 and K5 at a tp 2 rank's expert shard shapes, f32 out (as
+    ``moe`` calls them), against their plain versions: exact."""
+    return (check_fused(timer, gen, "w8a8", TP_MOE_K1, (torch.bfloat16,),
+                        out_dtype=torch.float32, epilogues=("none",))
+            + check_k7(timer, gen, TP_MOE_K7, (torch.bfloat16,))
+            + check_unfused(timer, gen, "i8", TP_MOE_K5, ("none",),
+                            torch.float32))
+
+
+def tp_moe_per_forward(cfg, lane: str, logits: bool) -> dict:
+    """A rank's launches in one forward of the MoE model under the mesh:
+    K1 for q, k, v, o and every expert's gate and up column shards (and
+    the head), K7 once and K5 once an expert for the down projection,
+    K2 (prefill) or K3 (decode) once a layer."""
+    n, e = cfg.n_layers, cfg.moe_experts
+    return {"K1": n * (4 + 2 * e) + int(logits), "K7": n, "K5": n * e,
+            "K2" if lane == "prefill" else "K3": n}
+
+
+def tp_wire_bytes(cfg, tp: int, batch: int, capacity: int) -> dict:
+    """Bytes a rank puts on the wire in one decode step of ``batch``
+    tokens, from the shapes (each collective's payload): per layer the wo
+    and the MoE y reduces (f32, or int8 with the wire), the MoE row MAX
+    (one f32 a slot row); the embedding's reduce and the head's gather of
+    the rank's logit columns."""
+    d, n = cfg.d_model, cfg.n_layers
+    rows = cfg.moe_experts * capacity
+    return {"reduce_f32": n * 2 * batch * d * 4,
+            "reduce_int8": n * 2 * batch * d,
+            "row_max": n * rows * 4,
+            "embedding": batch * d * 4,
+            "logit_gather": batch * cfg.vocab_size // tp * 4}
+
+
+def tp_moe_ffn(local, cfg, x, mesh):
+    """Layer 0's MoE FFN under the mesh on ``x``, and the control that
+    quantizes h from this rank's own rows (the shard-local scale of the
+    dense FFN's row-parallel down projection)."""
+    def run():
+        with mesh_context(mesh, make_rules("serve"), mode="serve",
+                          layout=local.layout):
+            return moe_mod.moe_ffn(local["layers"][0]["moe"], cfg, x,
+                                   qmode=cfg.qmode)[0].float().cpu()
+    y = run()
+    inner = moe_mod._row_absmax
+    moe_mod._row_absmax = lambda h2, m: h2.abs().amax(dim=-1, keepdim=True)
+    try:
+        return y, run()
+    finally:
+        moe_mod._row_absmax = inner
+
+
+def tp_moe_part(mesh, job):
+    """A rank's MoE serving: build its shards a layer at a time, serve
+    the mix (every forward's launches held), in situ, the first-step
+    logits, the dropped-partial control and layer 0's FFN check."""
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=TP_MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    local = init_quantized_params(
+        cfg, "w8a8", generator=torch.Generator(device="cuda").manual_seed(
+            job["seed"]), device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    peak = {"build_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "shards_gb": torch.cuda.memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    prompts = job["prompts"].to("cuda")
+    n_req, prompt_len = prompts.shape
+
+    def make():
+        return tp_engine(local, cfg, n_req, prompt_len, TP_MOE_NEW, "cuda",
+                         mesh=mesh)
+    warm = make()
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    reset_counts()
+    with forward_launches() as recs:
+        run = tp_drive(make(), prompts, TP_MOE_NEW, "cuda")
+    launches = {k: v for k, v in read_counts().items() if v}
+    bad = [r for r in recs if r["launches"] != tp_moe_per_forward(
+        cfg, r["lane"], r["logits"])]
+    out = dict(rank=mesh.rank, run=run, launches=launches,
+               forwards=len(recs), bad=bad[:2],
+               lanes=sorted({r["lane"] for r in recs}),
+               layout=sorted(local.layout),
+               w_gate=tuple(local["layers"][0]["moe"]["experts"]
+                            ["w_gate"].shape),
+               w_down=tuple(local["layers"][0]["moe"]["experts"]
+                            ["w_down"].shape))
+    out["in_situ"] = check_in_situ(make, prompts[0], "w8a8",
+                                   unfused=("K7", "K5"))
+    out["logits"] = prefill_last_logits(local, cfg, prompts[0], "auto",
+                                        mesh).cpu()
+    out["dropped_logits"] = tp_dropped_partial(local, cfg, prompts[0],
+                                               mesh).cpu()
+    out["ffn"], out["ffn_control"] = tp_moe_ffn(local, cfg,
+                                                job["ffn_x"].to("cuda"),
+                                                mesh)
+    peak["serve_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["peak"] = peak
+    return out
+
+
+def tp_slab_part(mesh, job):
+    """Each dense-slab model through ``generate(mesh=)`` on whole params
+    (built a layer at a time, as one process builds them): the streams
+    and the launches."""
+    out = {}
+    for arch in TP_SLAB_ARCHS:
+        cfg = get_config(arch, qmode="w8a8", n_layers=TP_SLAB_LAYERS)
+        params = build_layerwise(cfg, "w8a8", job["seed"])
+        prompts = job["slab_prompts"][arch].to("cuda")
+        generate(params, cfg, prompts[:1, :16], steps=2, mesh=mesh,
+                 device="cuda")                               # warm
+        reset_counts()
+        toks = generate(params, cfg, prompts, steps=TP_SLAB_MIX[2],
+                        mesh=mesh, device="cuda")
+        out[arch] = dict(tokens=toks, launches={
+            k: v for k, v in read_counts().items() if v})
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_families_rank(mesh, job):
+    """One rank of phase 13's second spawn: the MoE part, then the
+    dense-slab part."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dict(moe=tp_moe_part(mesh, job), slab=tp_slab_part(mesh, job))
+
+
+def ulp_bf16(x: float) -> float:
+    """The spacing of bf16 values at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def tp_families(seed: int, smi: str, device: str = "cuda"):
+    """Phase 13's second part: moonshot-v1-16b-a3b W8A8 (4 of 48 layers)
+    with its experts split over 2 ranks, and rwkv6-7b and pixtral-12b
+    through ``generate(mesh=)``, each against one process on the same
+    inputs. Every failure raises."""
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=TP_MOE_LAYERS)
+    params = build_layerwise(cfg, "w8a8", seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (N_REQ, PROMPT_LEN),
+                            generator=gen, device=device)
+    prompts[1, :PREFIX_LEN] = prompts[0, :PREFIX_LEN]   # a shared prefix
+    ffn_x = torch.randn((1, TP_FFN_TOKENS, cfg.d_model), generator=gen,
+                        device=device).to(torch.bfloat16)
+    one = {}
+    warm = tp_engine(params, cfg, N_REQ, PROMPT_LEN, TP_MOE_NEW, device)
+    warm.submit(prompts[0, :40], 2)
+    warm.run()
+    one["run"] = tp_drive(tp_engine(params, cfg, N_REQ, PROMPT_LEN,
+                                    TP_MOE_NEW, device), prompts, TP_MOE_NEW,
+                          device)
+    one["logits"] = prefill_last_logits(params, cfg, prompts[0], "auto",
+                                        None).cpu()
+    one["ffn"] = moe_mod.moe_ffn(params["layers"][0]["moe"], cfg, ffn_x,
+                                 qmode="w8a8")[0].float().cpu()
+    del params
+    torch.cuda.empty_cache()
+    n_req, prompt_len, new = TP_SLAB_MIX
+    slab_prompts, slab_one = {}, {}
+    for arch in TP_SLAB_ARCHS:
+        scfg = get_config(arch, qmode="w8a8", n_layers=TP_SLAB_LAYERS)
+        slab_prompts[arch] = rec_inputs(scfg, torch.Generator(
+            device=device).manual_seed(seed + 1), n_req, prompt_len)
+        sparams = build_layerwise(scfg, "w8a8", seed, device=device)
+        reset_counts()
+        slab_one[arch] = dict(tokens=generate(
+            sparams, scfg, slab_prompts[arch], steps=new, device=device),
+            launches={k: v for k, v in read_counts().items() if v})
+        del sparams
+        torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    job = dict(seed=seed, prompts=prompts.cpu(), ffn_x=ffn_x.cpu(),
+               slab_prompts={a: p.cpu() for a, p in slab_prompts.items()})
+    with tempfile.TemporaryDirectory(prefix="tp-families-") as d:
+        ranks = spawn_ranks(tp_families_rank, TP_RANKS, init_dir=d,
+                            backend="gloo", device=device, args=(job,),
+                            timeout=TP_TIMEOUT_S)
+
+    fails = []
+    f = cfg.expert_ff
+    top = float(one["ffn"].abs().max())
+    ulp = ulp_bf16(top)
+    tol = LOGIT_TOL["w8a8"]
+    gaps = {}
+    one_ffn = one["ffn"].numpy()
+    for rr in ranks:
+        m = rr["moe"]
+        r = m["rank"]
+        if m["bad"] or m["lanes"] != ["decode", "prefill"]:
+            fails.append(f"rank {r}: forwards launched other than expected: "
+                         f"{m['bad']} (lanes {m['lanes']})")
+        if m["w_gate"] != (cfg.moe_experts, cfg.d_model, f // TP_RANKS) or \
+                m["w_down"] != (cfg.moe_experts, f // TP_RANKS, cfg.d_model):
+            fails.append(f"rank {r}: expert blocks {m['w_gate']} / "
+                         f"{m['w_down']}")
+        if "experts" not in m["layout"]:
+            fails.append(f"rank {r}: layout {m['layout']}")
+        for when in ("mid", "end"):
+            if m["run"][when] != one["run"][when]:
+                fails.append(f"rank {r}: host state at {when} differs from "
+                             f"one process's")
+        g = dict(ffn=float(np.abs(m["ffn"] - one_ffn).max()),
+                 ffn_control=float(np.abs(m["ffn_control"] - one_ffn).max()),
+                 logits=tp_gap(m["logits"], one["logits"]),
+                 dropped=tp_gap(m["dropped_logits"], one["logits"]))
+        gaps[r] = g
+        if g["ffn"] > ulp:
+            fails.append(f"rank {r}: MoE FFN {g['ffn']:.4g} from one "
+                         f"process's, over one bf16 ULP {ulp:.4g}")
+        if g["ffn_control"] <= ulp:
+            fails.append(f"rank {r}: the shard-local-scale control passed "
+                         f"({g['ffn_control']:.4g} <= {ulp:.4g})")
+        if g["logits"] > tol:
+            fails.append(f"rank {r}: logits {g['logits']:.2%} > {tol:.0%}")
+        if g["dropped"] <= tol:
+            fails.append(f"rank {r}: the dropped-partial control passed "
+                         f"({g['dropped']:.2%})")
+        for arch in TP_SLAB_ARCHS:
+            got, want = rr["slab"][arch], slab_one[arch]
+            if not np.array_equal(np.asarray(got["tokens"]),
+                                  want["tokens"].numpy()):
+                fails.append(f"rank {r}: {arch} streams differ from one "
+                             f"process's")
+            if got["launches"] != want["launches"]:
+                fails.append(f"rank {r}: {arch} launches {got['launches']}, "
+                             f"one process {want['launches']}")
+    m0, m1 = ranks[0]["moe"], ranks[1]["moe"]
+    if m0["run"]["tokens"] != m1["run"]["tokens"]:
+        fails.append("the ranks' MoE streams differ")
+    agree = np.mean([a == b for s, t in zip(m0["run"]["tokens"],
+                                            one["run"]["tokens"])
+                     for a, b in zip(s, t)])
+    cap = moe_mod.expert_capacity(N_REQ, cfg)
+    wire = tp_wire_bytes(cfg, TP_RANKS, N_REQ, cap)
+    print(f"  {MOE_ARCH} W8A8, {cfg.n_layers} of 48 layers, experts split "
+          f"over {TP_RANKS} ranks ({smi}; processes sharing the card through "
+          f"gloo, no tensor-parallel speed):")
+    for rr in ranks:
+        m = rr["moe"]
+        print(f"  rank {m['rank']}: launches {m['launches']} in "
+              f"{m['forwards']} forwards (a forward: "
+              f"{tp_moe_per_forward(cfg, 'decode', True)} decode), expert "
+              f"blocks gate {m['w_gate']} down {m['w_down']}, layout "
+              f"{m['layout']}, in situ {m['in_situ']['calls']} max |diff| "
+              f"{m['in_situ']['max_abs_diff']}, memory GB (peak of the "
+              f"build, its shards, peak serving) "
+              + "/".join(f"{v:.3f}" for v in m["peak"].values()))
+        g = gaps[m["rank"]]
+        print(f"    layer 0's MoE FFN vs one process: {g['ffn']:.4g} (one "
+              f"bf16 ULP of max |y| {top:.4g}: {ulp:.4g}), shard-local-scale "
+              f"control {g['ffn_control']:.4g}; first-step logits "
+              f"{g['logits']:.2%} of max |logit| (limit {tol:.0%}), "
+              f"dropped-partial control {g['dropped']:.2%}")
+    print(f"  host state equal to one process's at step {TP_SNAP} and at the "
+          f"end; streams agree with one process's on {agree:.1%} of tokens; "
+          f"generated tok/s: one process {one['run']['gen_tok_s']:.1f}, "
+          f"tp {TP_RANKS} {m0['run']['gen_tok_s']:.1f}")
+    print(f"  bytes a rank sends a decode step at B {N_REQ}, capacity {cap} "
+          f"(from the shapes): " + ", ".join(f"{k} {v:,}"
+                                             for k, v in wire.items()))
+    for arch in TP_SLAB_ARCHS:
+        print(f"  {arch} W8A8, {TP_SLAB_LAYERS} layers, {n_req} x "
+              f"({prompt_len} + {new}) through generate(mesh=), whole params "
+              f"a rank: streams equal to one process's; launches "
+              f"{slab_one[arch]['launches']} a rank and in one process")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 13 families seconds: {seconds:.1f} (one process "
+          f"{one_s:.1f})")
+    if fails:
+        raise RuntimeError("phase 13 families: " + "; ".join(fails))
+    return dict(card=smi, gaps=gaps, ulp=ulp, max_abs_y=top, agree=agree,
+                wire_bytes=wire, seconds=seconds, one_process_s=one_s,
+                one_process=dict(run=one["run"],
+                                 slab={a: v["launches"]
+                                       for a, v in slab_one.items()}),
+                ranks=[dict(rank=rr["moe"]["rank"], **{
+                    k: v for k, v in rr["moe"].items()
+                    if k not in ("logits", "dropped_logits", "ffn",
+                                 "ffn_control", "rank")})
+                    for rr in ranks],
+                launches=m0["launches"])
+
+
+# ---------------------------------------------------------------------------
 # Phase 14: sharded (FSDP) training
 # ---------------------------------------------------------------------------
 FSDP_MESH = (1, 2)       # (data, model): two processes sharing cuda:0, gloo
@@ -4840,6 +5196,14 @@ def main(argv=None) -> int:
 def smoke(args) -> int:
     """Phases 1-16 (module docstring); raises on any failure."""
     t_all = time.perf_counter()
+    phase_s, last = {}, [t_all]
+
+    def lap(phase):
+        now = time.perf_counter()
+        phase_s[str(phase)] = round(now - last[0], 1)
+        last[0] = now
+        print(f"[phase {phase}] seconds: {phase_s[str(phase)]}")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -4857,6 +5221,7 @@ def smoke(args) -> int:
         k7_ptxas = k7_ptxas_report(procs)
     sass = k8_sass()
     gemm_sass = tc_sass()
+    lap(1)
 
     print("[phase 2] kernels vs plain versions at the serving shapes")
     timer, gen = Timer(), phase_gen(2)
@@ -4886,6 +5251,7 @@ def smoke(args) -> int:
     rows += k3_rows + check_k2(timer, gen)
     k2_splits = k2_split_sweep(timer, gen)
     gate(rows, "phase 2")
+    lap(2)
 
     served, engines = {}, {}
     for qmode in QMODES:
@@ -4896,10 +5262,12 @@ def smoke(args) -> int:
     print("[phase 3] the three modes' serving runs again, in turns")
     in_turns = serve_in_turns(engines)
     del engines
+    lap(3)
 
     print("[phase 4] the unfused path: camp_matmul(fused=False) at the "
           "serving shapes")
     unfused = unfused_path(timer, phase_gen(4))
+    lap(4)
 
     print("[phase 5] K8 flash attention through flash_attention, at the "
           "qwen2-0.5b, qwen3-0.6b and stablelm-12b shapes and hd 8-256 "
@@ -4907,27 +5275,32 @@ def smoke(args) -> int:
     flash = check_k8(phase_gen(5))
     gate(flash["rows"], "phase 5")
     torch.cuda.empty_cache()
+    lap(5)
 
     print("[phase 6] full-width qwen2-0.5b W8A8 dense-slab serving and "
           "float pages")
     dense = dense_serving(SEED)
     torch.cuda.empty_cache()
+    lap(6)
 
     print(f"[phase 7] stablelm-12b's heads (hd 160, 32/8) at full width, "
           f"{STABLELM_LAYERS} of 40 layers, W8A8 on the paged engine")
     stablelm = serve_stablelm(SEED)
     torch.cuda.empty_cache()
+    lap(7)
 
     print("[phase 8] speculative decoding: full-width qwen2-0.5b on the "
           "paged engine, n-gram and draft-model drafters")
     spec = speculative(SEED)
     torch.cuda.empty_cache()
+    lap(8)
 
-    print(f"[phase 9] MoE serving: {MOE_ARCH} at full width, W8A8 at full "
-          f"depth, W4A8 and W4A4 at {MOE_CUT_LAYERS} of 48 layers, on the "
-          f"paged engine")
+    print(f"[phase 9] MoE serving: {MOE_ARCH} at full width, W8A8 at "
+          f"{MOE_W8A8_LAYERS} of 48 layers, W4A8 and W4A4 at "
+          f"{MOE_CUT_LAYERS}, on the paged engine")
     moe = moe_serving(SEED, smi)
     torch.cuda.empty_cache()
+    lap(9)
 
     print(f"[phase 10] recurrent mixers and embedding inputs on the "
           f"dense-slab loop: jamba-v0.1-52b ({REC_LAYERS} of 32 layers) and "
@@ -4936,6 +5309,7 @@ def smoke(args) -> int:
           f"float embeddings")
     recurrent = recurrent_serving(SEED, smi)
     torch.cuda.empty_cache()
+    lap(10)
 
     print(f"[phase 11] training: full-width {TRAIN_ARCH} for {TRAIN_STEPS} "
           f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens with f32 moments, "
@@ -4943,22 +5317,35 @@ def smoke(args) -> int:
     trained = training(SEED, smi, timer, phase_gen(11))
     rows += trained["k7_rows"]
     torch.cuda.empty_cache()
+    lap(11)
 
     print(f"[phase 12] the autotune: {AUTOTUNE_ARCH}'s page size and chunk, "
           f"its GEMM plans in W8A8, W4A8 and W4A4 (bit for bit), the tuned "
           f"engine against the fixed one in turns")
     tuned = autotune_phase(SEED, timer, phase_gen(12), smi)
     torch.cuda.empty_cache()
+    lap(12)
 
     print(f"[phase 13] tensor-parallel serving: full-width {TP_ARCH} W8A8 "
           f"served by {TP_RANKS} ranks (processes sharing the card through "
           f"gloo) against one process; {TP_INDIV_RANKS} ranks, which do not "
           f"divide its kv heads")
-    k1_shards = tp_shard_k1(timer, phase_gen(13))
+    gen13 = phase_gen(13)
+    k1_shards = tp_shard_k1(timer, gen13)
     gate(k1_shards, "phase 13: K1 at the tp shard shapes")
     rows += k1_shards
     tp = tp_serving(SEED, smi)
     torch.cuda.empty_cache()
+    print(f"[phase 13] every model family under the mesh: {MOE_ARCH} W8A8 "
+          f"({TP_MOE_LAYERS} of 48 layers) with its experts split over "
+          f"{TP_RANKS} ranks; {' and '.join(TP_SLAB_ARCHS)} "
+          f"({TP_SLAB_LAYERS} layers) through generate(mesh=)")
+    moe_shards = tp_moe_kernels(timer, gen13)
+    gate(moe_shards, "phase 13: K1, K7 and K5 at the expert shard shapes")
+    rows += moe_shards
+    families = tp_families(SEED, smi)
+    torch.cuda.empty_cache()
+    lap(13)
 
     print("[phase 15] the examples on the card (quickstart, "
           "serve_quantized, fault_tolerance_demo) start, beside phase 14")
@@ -4976,6 +5363,7 @@ def smoke(args) -> int:
         raise
     print("[phase 15] the examples' results")
     examples = finish_examples(procs)
+    lap("14 + 15")
 
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
@@ -5014,6 +5402,7 @@ def smoke(args) -> int:
     counts["train int8"] = trained["int8 moments + int8 gradients"][
         "launches"]
     counts[f"tp{TP_RANKS} rank 0"] = tp["launches"]
+    counts[f"tp{TP_RANKS} moe rank 0"] = families["launches"]
     counts["fsdp rank 0"] = fsdp["launches"]
     kernels = []
     for key, meta in KERNELS.items():
@@ -5038,9 +5427,10 @@ def smoke(args) -> int:
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
                  recurrent=recurrent, training=trained, autotune=tuned,
-                 tensor_parallel=tp, fsdp=fsdp, examples=examples,
-                 kernels=kernels),
+                 tensor_parallel=tp, tp_families=families, fsdp=fsdp,
+                 examples=examples, kernels=kernels, phase_s=phase_s),
             indent=1))
+    print(f"[chip_smoke] seconds by phase: {phase_s}")
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

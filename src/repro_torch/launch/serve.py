@@ -50,12 +50,19 @@ a layer at a time and keeps only its shards
 (``init_quantized_params(mesh=)``), so no rank ever holds the whole
 model: column-parallel q/kv/gate/up,
 row-parallel wo/down (``--tp-int8-reduce``: an int8 payload on the wire),
-a vocabulary-sharded embedding and head, and the paged pool head-sharded.
+every MoE expert's gate/up columns and down rows (the down projection
+quantized with the whole row's scale), a vocabulary-sharded embedding and
+head, and the paged pool head-sharded. The recurrent and embedding-input
+archs serve on the dense slab with whole params on every rank (each
+rank builds them all), as the reference's ``generate`` drops the mesh.
 ``--tp-backend``: nccl (the default on cards: a card a rank) or gloo (the
 CPU's, or several ranks sharing one card). On the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --reduced --device cpu --qmode w8a8 --tp 2 --batch 2 \
       --prompt-len 16 --steps 4
+(every ``--arch``: moonshot-v1-16b-a3b and llama4-maverick-400b-a17b
+split their experts; jamba-v0.1-52b, rwkv6-7b, pixtral-12b and
+musicgen-large run whole on each rank).
 """
 from __future__ import annotations
 
@@ -75,7 +82,7 @@ from repro_torch.models import (init_params, init_quantized_params,
                                  quantize_params)
 from repro_torch.parallel.sharding import effective_model_shards
 from repro_torch.serving.engine import (ContinuousBatchingEngine, generate,
-                                       warm_gemm_autotune)
+                                       runs_dense_slab, warm_gemm_autotune)
 from repro_torch.serving.kv_cache import round_up
 from repro_torch.serving.spec_decode import SpecConfig
 
@@ -145,24 +152,29 @@ def _serve_rank(mesh, args) -> None:
         f"{tp_eff if tp_eff > 1 else 'replicated'}")
     say(f"[serve] {tp} ranks, {torch.distributed.get_backend(mesh.group)} "
         f"on {mesh.device}")
+    if runs_dense_slab(cfg):
+        say("[serve] dense slab: whole params on every rank")
     _serve(args, cfg, mesh.device, mesh, say)
 
 
 def _serve(args, cfg, device, mesh, say) -> None:
     """Build the weights and the prompts from the seed and serve them;
-    under ``mesh`` as one rank of it."""
+    under ``mesh`` as one rank of it (its shards, or whole params for a
+    dense-slab model)."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    if args.qmode != "none" or mesh is not None:
+    shard = mesh is not None and not runs_dense_slab(cfg)
+    if args.qmode != "none" or shard:
         params = init_quantized_params(cfg, args.qmode, generator=gen,
-                                       device=device, mesh=mesh)
+                                       device=device,
+                                       mesh=mesh if shard else None)
     else:
         params = init_params(cfg, generator=gen, device=device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     done = [what for what, on in (("PTQ to " + args.qmode,
                                    args.qmode != "none"),
-                                  ("shard", mesh is not None)) if on]
+                                  ("shard", shard)) if on]
     if done:
         say(f"[serve] init + {' + '.join(done)}, a layer at a time, in "
             f"{time.perf_counter()-t0:.2f}s")

@@ -123,12 +123,20 @@ def row_parallel_linear(x: torch.Tensor, w, *, mesh, axis: str = "model",
     with an int8 payload when ``quantized_reduce`` (default: the serve
     context's ``tp_int8_reduce`` option), and cast to x's dtype.
     """
+    y = linear(x, w, qmode=qmode, impl=impl).float()
+    return reduce_partials(y, mesh, axis, quantized_reduce).to(x.dtype)
+
+
+def reduce_partials(y: torch.Tensor, mesh, axis: str = "model",
+                    quantized_reduce: Optional[bool] = None
+                    ) -> torch.Tensor:
+    """The sum over the ranks of this rank's f32 partial ``y``: the f32
+    all-reduce, or with ``quantized_reduce`` (default: the serve context's
+    ``tp_int8_reduce`` option) an int8 payload on the wire."""
     if quantized_reduce is None:
         quantized_reduce = _tp_int8_reduce()
-    y = linear(x, w, qmode=qmode, impl=impl).float()
-    y = quantized_psum(y, mesh, axis) if quantized_reduce \
+    return quantized_psum(y, mesh, axis) if quantized_reduce \
         else psum(y, mesh, axis)
-    return y.to(x.dtype)
 
 
 def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float):

@@ -21,19 +21,45 @@ at M = the expert capacity.
   design and roundings. The float and weight-only modes take an einsum
   over the (dequantized) weights.
 
-The reference's sharding annotations (``logical(...)``) are no-ops on one
-device and are left out; they return with tensor-parallel serving.
+Under a serve-mode mesh whose layout shards the experts
+(:mod:`repro_torch.parallel.sharding`), a rank holds every expert's
+``expert_ff`` columns of ``w_gate`` / ``w_up`` (their (E, 1, N) scales
+sliced alike) and the matching rows of ``w_down``, as the reference's
+serve rules place them, and its GSPMD keeps the one-process meaning:
+
+* routing is not split: every rank routes the same tokens with the whole
+  router, so the slots agree and no token moves between ranks;
+* gate and up are column-parallel: each rank's K1/K4 per expert gives
+  the one-process values of its columns, bit for bit;
+* down is row-parallel with the **whole row's** activation scale, as
+  GSPMD computes it (the dense FFN's ``shard_map`` quantizes from the
+  rank's own rows instead): a MAX all-reduce of h's row absmax
+  (:func:`_row_absmax`), K7 over the rank's rows with one more column
+  holding it, then K5 / K6a / K6b per expert on the quantized block
+  (:func:`_down_partial`), f32 out;
+* each rank combines its f32 partials with the routing weights, and one
+  all-reduce of y (T, D) a layer sums them (f32, or the int8 wire of
+  ``tp_int8_reduce``): the combine is linear, so it moves T × D values
+  where the (E·C, D) slab would move E·C × D. The expert outputs are not
+  rounded to the activation dtype before the combine, as one process
+  rounds them; y is rounded once, after the sum.
+
+The reference's other sharding annotations (``logical(...)``) are GSPMD
+layout hints with no eager counterpart and are left out.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.quant import (QuantizedTensor, pack_int4,
                                     quantize_colwise)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import refuse_tf32
+from repro_torch.models.modules import reduce_partials, refuse_tf32
+from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.sharding import serve_tp, sharded
 
 MOE_MIN_CAPACITY = 8
 MOE_GROUP_SIZE = 4096  # tokens per routing group
@@ -119,6 +145,57 @@ def _expert_matmul(xe: torch.Tensor, w, qmode: str,
     return acc.to(xe.dtype)
 
 
+def _row_absmax(h2: torch.Tensor, mesh) -> torch.Tensor:
+    """h2 (M, F/tp), this rank's block of each row → (M, 1) the whole
+    row's absmax, in h2's dtype: the block's, MAX-reduced over the model
+    axis (exact: it is one of the row's values)."""
+    amax = h2.abs().amax(dim=-1, keepdim=True).float()
+    return all_reduce(amax, mesh, "model", op=dist.ReduceOp.MAX).to(h2.dtype)
+
+
+def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
+                  mesh) -> torch.Tensor:
+    """This rank's f32 partial of the down projection: h (..., E, C,
+    F/tp) its block of every expert's rows, ``w`` its (E, F/tp, D) rows →
+    (..., E, C, D) f32.
+
+    The integer modes quantize h with each whole row's scale
+    (:func:`_row_absmax`): K7 over all of the layer's rows at once, with
+    one more column holding the row's absmax, so each value is the one
+    one process quantizes; then K5 (int8 weights), K6a (w4a8) or K6b
+    (w4a4, h packed along K) per expert, f32 out. The float and
+    weight-only modes take an f32 einsum.
+    """
+    if not isinstance(w, QuantizedTensor) or qmode in ("w8a16", "w4a16",
+                                                        "none"):
+        wf = w.dequantize() if isinstance(w, QuantizedTensor) else w
+        return torch.einsum("...eck,ekn->...ecn", h.float(),
+                            wf.to(h.dtype).float())
+    lead = h.shape[:-3]
+    e, c, kk = h.shape[-3:]
+    h2 = h.reshape(-1, e, c, kk).transpose(0, 1).reshape(-1, kk)
+    rows = h2.shape[0] // e                                       # L*C
+    a4 = w.bits == 4 and qmode == "w4a4"
+    q, s = ops.quantize_rowwise(
+        torch.cat([h2, _row_absmax(h2, mesh)], dim=-1).contiguous(),
+        bits=4 if a4 else 8, impl=impl)
+    q = q[:, :-1]
+    q = (pack_int4(q.T).T if a4 else q).contiguous()
+    parts, kw = [], dict(out_dtype=torch.float32, impl=impl)
+    for ei in range(e):
+        a, sa = q[ei * rows:(ei + 1) * rows], s[ei * rows:(ei + 1) * rows]
+        if w.bits == 8:
+            parts.append(ops.gemm_i8(a, w.q[ei], sa, w.scale[ei], **kw))
+        elif a4:
+            parts.append(ops.gemm_a4w4(a, w.q[ei], kk, sa, w.scale[ei],
+                                       **kw))
+        else:
+            parts.append(ops.gemm_w4(a, w.q[ei], sa, w.scale[ei], **kw))
+    acc = torch.stack(parts)                                      # (E,L*C,N)
+    n = acc.shape[-1]
+    return acc.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+
+
 def _route(gates: torch.Tensor, k: int, cap: int):
     """gates: (G, S, E) f32 → (slots (G, S, k) long in [0, E·cap],
     weights (G, S, k) f32). Slot E·cap is the overflow sentinel."""
@@ -141,7 +218,9 @@ def _route(gates: torch.Tensor, k: int, cap: int):
 
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
             qmode: str = "none", impl: str = "auto"):
-    """x: (B, S, D) → (y (B, S, D), Switch load-balance aux loss)."""
+    """x: (B, S, D) → (y (B, S, D), Switch load-balance aux loss). Under
+    a serve-mode mesh whose layout shards the experts, this rank's
+    column and row blocks of them (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     t = b * s
@@ -169,7 +248,11 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     gate = _expert_matmul(xe, p["experts"]["w_gate"], qmode, impl)
     up = _expert_matmul(xe, p["experts"]["w_up"], qmode, impl)
     h = F.silu(gate.float()).to(x.dtype) * up
-    ye = _expert_matmul(h, p["experts"]["w_down"], qmode, impl)
+    mesh = serve_tp()[0] if sharded("experts") else None
+    if mesh is None:
+        ye = _expert_matmul(h, p["experts"]["w_down"], qmode, impl)
+    else:
+        ye = _down_partial(h, p["experts"]["w_down"], qmode, impl, mesh)
 
     # combine: gather each token's k expert outputs, weight, sum in f32
     ye_pad = torch.cat([ye.reshape(g, e * cap, d), ye.new_zeros(g, 1, d)],
@@ -177,7 +260,10 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     picked = torch.gather(ye_pad, 1, slots.reshape(g, sg * k, 1)
                           .expand(g, sg * k, d))
     picked = picked.reshape(g, sg, k, d).float()
-    y = torch.einsum("gskd,gsk->gsd", picked, weights).to(x.dtype)
+    y = torch.einsum("gskd,gsk->gsd", picked, weights)
+    if mesh is not None:               # the ranks' partials, once a layer
+        y = reduce_partials(y, mesh)
+    y = y.to(x.dtype)
 
     # load-balance aux (Switch): E · Σ_e fraction_e · mean_gate_e
     top1 = F.one_hot(gates.argmax(dim=-1), e).float()

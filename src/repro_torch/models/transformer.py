@@ -83,9 +83,10 @@ def init_quantized_params(cfg: ModelConfig, qmode: str, *,
     (full-width jamba-v0.1-52b is ~103 GB in bf16, ~52 GB at int8).
 
     With ``mesh`` (a serving mesh): this rank's
-    :class:`~repro_torch.parallel.sharding.RankShards`, each part sharded
-    (:func:`~repro_torch.parallel.sharding.shard_params`) before the next
-    is drawn, so a rank holds one whole layer at most besides its shards.
+    :class:`~repro_torch.parallel.sharding.RankShards`, each part (dense
+    and MoE layers alike) sharded (:func:`~repro_torch.parallel.sharding.
+    shard_params`) before the next is drawn, so a rank holds one whole
+    layer at most besides its shards.
     """
     device = resolve_device(device)
     gen = generator

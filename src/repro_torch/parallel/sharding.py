@@ -52,9 +52,10 @@ _CTX: contextvars.ContextVar[Optional["MeshCtx"]] = contextvars.ContextVar(
 # The parts of a serving tree a rank may hold as shards: "heads" the q/k/v
 # column shards (and biases) that give it its own heads, "wo" the
 # out projection's rows, "mlp" w_gate/w_up columns with w_down's rows,
-# "embedding" its block of vocabulary rows, "lm_head" an untied head's
-# block of vocabulary columns.
-PARTS = ("heads", "wo", "mlp", "embedding", "lm_head")
+# "experts" every expert's w_gate/w_up columns with its w_down rows (the
+# router whole), "embedding" its block of vocabulary rows, "lm_head" an
+# untied head's block of vocabulary columns.
+PARTS = ("heads", "wo", "mlp", "experts", "embedding", "lm_head")
 
 
 class MeshCtx:
@@ -361,9 +362,13 @@ def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
       weights stay whole;
     * a gated MLP whose ``w_down`` cannot be K-sharded (``tp_shardable``:
       a packed int4 shard needs an even number of rows) keeps ``w_gate``
-      and ``w_up`` whole too.
+      and ``w_up`` whole too; so do the experts, by their ``w_down``.
 
-    Every other spec is the reference's.
+    Every other spec is the reference's. Its patterns match an expert
+    stack's ``w_gate`` / ``w_up`` / ``w_down`` as the dense MLP's (the
+    first hit wins), so the expert dim stays whole: every rank holds a
+    column or row block of every expert, as under the reference's serve
+    rules on a (1, tp) mesh.
     """
     specs = params_pspecs(params, rules or make_rules("serve"), mesh)
     head_tp = effective_model_shards(mesh, cfg.n_kv_heads) > 1
@@ -373,27 +378,38 @@ def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
             for k in _ATTN:
                 if k in attn:
                     attn[k] = _replicated(attn[k])
-        mlp = layer.get("mlp")
-        if mlp is not None and not _is_sharded(mlp["w_down"]):
-            for k in ("w_gate", "w_up"):
-                mlp[k] = _replicated(mlp[k])
+        for ffn in (layer.get("mlp"), layer.get("moe", {}).get("experts")):
+            if ffn is not None and not _is_sharded(ffn["w_down"]):
+                for k in ("w_gate", "w_up"):
+                    ffn[k] = _replicated(ffn[k])
     return specs
+
+
+# (part, path in a layer of the leaf whose spec says whether it is sharded)
+_LAYER_PARTS = (("heads", ("attn", "wq")), ("wo", ("attn", "wo")),
+                ("mlp", ("mlp", "w_down")),
+                ("experts", ("moe", "experts", "w_down")))
 
 
 def _layout(specs) -> frozenset:
     """The :data:`PARTS` a :func:`serve_pspecs` tree shards; every layer
-    must shard alike."""
-    top = {part for part in ("embedding", "lm_head")
-           if part in specs and _is_sharded(specs[part])}
-    layers = {frozenset(
-        part for part, sub, key in (("heads", "attn", "wq"),
-                                    ("wo", "attn", "wo"),
-                                    ("mlp", "mlp", "w_down"))
-        if sub in layer and _is_sharded(layer[sub][key]))
-        for layer in specs.get("layers", [])}
-    if len(layers) > 1:
-        raise ValueError(f"layers shard apart: {sorted(map(sorted, layers))}")
-    return frozenset(top).union(*layers)
+    that holds a part must shard it alike (llama4's dense and MoE layers
+    alternate: its dense layers hold "mlp", its MoE layers "experts")."""
+    parts = {part for part in ("embedding", "lm_head")
+             if part in specs and _is_sharded(specs[part])}
+    for part, path in _LAYER_PARTS:
+        seen = set()
+        for layer in specs.get("layers", []):
+            node = layer
+            for key in path:
+                node = node.get(key) if isinstance(node, dict) else None
+            if node is not None:
+                seen.add(_is_sharded(node))
+        if len(seen) > 1:
+            raise ValueError(f"layers shard {part!r} apart")
+        if True in seen:
+            parts.add(part)
+    return frozenset(parts)
 
 
 def axes_of(entry) -> tuple:
@@ -434,27 +450,36 @@ def _slice(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 
 def dense_attention_decoder(cfg) -> bool:
-    """Attention mixers and dense FFNs only: the models a mesh of ranks
-    runs (MoE and recurrent ones are ROADMAP queue 1 item 10)."""
-    return not cfg.moe_experts and all(cfg.mixer_of(i) == "attn"
-                                       for i in range(cfg.n_layers))
+    """Attention mixers and dense FFNs only: the models the sharded
+    training step takes (MoE and recurrent ones under a train mesh are
+    ROADMAP queue 1 item 10c)."""
+    return not cfg.moe_experts and attention_only(cfg)
+
+
+def attention_only(cfg) -> bool:
+    """Every mixer is attention: the models whose params a serving mesh
+    holds as shards. Recurrent models serve on whole params (the dense
+    slab, ``serving.engine.generate``)."""
+    return all(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
 
 
 def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
     """This rank's local tree: every leaf sliced by :func:`serve_pspecs`.
 
     A QuantizedTensor column shard slices the payload and its (1, N) scale
-    together; a row shard slices the payload's (packed) K rows and keeps
-    the scale. Replicated leaves are kept as they are (the same tensors).
-    The result's ``layout`` lists the parts sharded. Any part of a params
-    tree (the top without its layers, one layer as ``{"layers": [...]}``)
-    shards alike.
+    (an expert stack's (E, 1, N)) together; a row shard slices the
+    payload's (packed) K rows and keeps the scale. Replicated leaves are
+    kept as they are (the same tensors). The result's ``layout`` lists the
+    parts sharded. Any part of a params tree (the top without its layers,
+    one layer as ``{"layers": [...]}``) shards alike. A recurrent model's
+    params are not held as shards (ROADMAP queue 1 item 10a, its second
+    step): that raises ``NotImplementedError``.
     """
-    if not dense_attention_decoder(cfg):
+    if not attention_only(cfg):
         raise NotImplementedError(
-            "tensor-parallel serving covers attention decoders with dense "
-            "FFNs; MoE and recurrent models under a mesh are ROADMAP queue 1 "
-            "item 10")
+            "recurrent params are not held as shards (ROADMAP queue 1 item "
+            "10a): generate(mesh=) and serve --tp run these models on whole "
+            "params on every rank")
     specs = serve_pspecs(params, mesh, cfg, rules)
 
     def walk(tree, spec):

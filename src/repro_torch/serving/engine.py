@@ -66,8 +66,11 @@ requests. It keeps this rank's shards of the params
 is), its kv heads of every page (``PagePool(mesh=)``), and runs every
 target forward inside a ``mode='serve'`` mesh context: column-parallel
 q/kv/gate/up, K2/K3 over the rank's heads, row-parallel wo/down with an
-f32 or (``tp_int8_reduce``) int8-wire all-reduce, a vocabulary-sharded
-embedding and head. The scheduler state is replicated; rank 0's sampled
+f32 or (``tp_int8_reduce``) int8-wire all-reduce, every expert's gate/up
+columns and down rows (the down projection quantized with the whole
+row's scale, one reduce a layer after the combine: :mod:`repro_torch.
+models.moe`), a vocabulary-sharded embedding and head. The scheduler
+state is replicated; rank 0's sampled
 tokens are broadcast every step, and the page size, chunk and pages per
 step are picked once, by rank 0, and broadcast. ``self.tp`` is the
 degree attention gets (1 when the model axis does not divide the kv
@@ -76,7 +79,9 @@ A speculative engine verifies under the mesh and drafts replicated, each
 rank holding the whole draft model; rank 0's draft ids and verdict are
 broadcast, so every rank's cache holds the KV of the same tokens.
 :func:`warm_gemm_autotune` with
-``tp=`` tunes the shard shapes.
+``tp=`` tunes the shard shapes. :func:`generate` under a mesh runs the
+recurrent and embedding-input models on the dense slab with whole params
+on every rank, as the reference's ``generate`` drops the mesh.
 """
 from __future__ import annotations
 
@@ -110,34 +115,28 @@ def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
     return init_caches(cfg, batch, max_len, kv_dtype=kv_dtype, device=device)
 
 
-def warm_gemm_autotune(cfg: ModelConfig, *, batch_sizes=(1, 8, 32),
-                       prefill_len: int = 0, measure=None, tp: int = 1,
-                       spec_gammas=()):
-    """Tune the fused GEMMs' launch plans (K1, K4) at the transformer's
-    serving shapes, so the request path finds them in the cache.
+def serving_gemm_shapes(cfg: ModelConfig, *, batch_sizes=(1, 8, 32),
+                        prefill_len: int = 0, tp: int = 1,
+                        spec_gammas=()) -> set:
+    """{(fused, m, n, k)}: the integer GEMMs :func:`warm_gemm_autotune`
+    tunes for ``cfg``.
 
     Decode runs one token a sequence (M = batch) and prefill M = batch ×
     prompt_len, over the same (K, N) weights: attention q/kv/out, the
     dense MLP's up/gate and down, the MoE experts' up/gate and down at the
     **expert-capacity M** (groups × capacity, as :mod:`repro_torch.models.
-    moe` launches them) and the untied lm head. Mixer-specific projections
-    (Mamba, RWKV) are not covered. Measured on the card, analytic on the
-    CPU (``measure`` as in :func:`repro_torch.core.autotune.tune`).
+    moe` launches them) and the untied lm head, all fused (K1, K4).
+    Mixer-specific projections (Mamba, RWKV) are not covered.
 
     ``tp > 1`` gives the tensor-parallel shard shapes instead: column-
-    parallel projections run (m, n/tp, k) a device and the row-parallel
-    out and down projections (m, n, k/tp). Shapes already in the cache are
-    skipped, so no shape is tuned twice.
+    parallel projections run (m, n/tp, k) a rank and the row-parallel
+    out and down projections (m, n, k/tp); the experts' down projection
+    then runs unfused (K7, then K5 / K6a / K6b at (m, d, expert_ff/tp):
+    the whole row's scale, ``moe._down_partial``).
 
     ``spec_gammas`` adds the speculative verify panels: each width
     M ∈ [2, γ+1] (drafters often propose fewer than γ tokens).
-
-    Returns [((m, n, k), plan), ...] for the shapes tuned now.
     """
-    kind = QMODE_KIND.get(cfg.qmode)
-    if kind is None:  # 'none' / weight-only: float matmul, nothing to tune
-        return []
-    a_in_bytes = dtype_of(cfg).itemsize      # x's type on the request path
     d, hd = cfg.d_model, cfg.hd
 
     def shard(k, n, *, row_parallel):
@@ -160,21 +159,43 @@ def warm_gemm_autotune(cfg: ModelConfig, *, batch_sizes=(1, 8, 32),
     ms = sorted({b * max(prefill_len, 1) for b in batch_sizes}
                 | set(batch_sizes)
                 | {m for g in spec_gammas for m in range(2, g + 2)})
-    shapes = {(m, n, k) for m in ms for (k, n) in proj}
+    shapes = {(True, m, n, k) for m in ms for (k, n) in proj}
     if cfg.moe_experts:
         # expert GEMMs run at M = groups × capacity, not M = tokens
-        eproj = (shard(d, cfg.expert_ff, row_parallel=False),
-                 shard(cfg.expert_ff, d, row_parallel=True))
+        gate = shard(d, cfg.expert_ff, row_parallel=False)
+        down = shard(cfg.expert_ff, d, row_parallel=True)
+        down_fused = down == (cfg.expert_ff, d)
         for m in ms:
             sg = routing_group_size(m)
-            em = (m // sg) * expert_capacity(sg, cfg)
-            shapes |= {(max(em, 1), n, k) for (k, n) in eproj}
+            em = max((m // sg) * expert_capacity(sg, cfg), 1)
+            shapes |= {(True, em, gate[1], gate[0]),
+                       (down_fused, em, down[1], down[0])}
+    return shapes
+
+
+def warm_gemm_autotune(cfg: ModelConfig, *, batch_sizes=(1, 8, 32),
+                       prefill_len: int = 0, measure=None, tp: int = 1,
+                       spec_gammas=()):
+    """Tune the integer GEMMs' launch plans at the transformer's serving
+    shapes (:func:`serving_gemm_shapes`), so the request path finds them
+    in the cache. Measured on the card, analytic on the CPU (``measure``
+    as in :func:`repro_torch.core.autotune.tune`). Shapes already in the
+    cache are skipped, so no shape is tuned twice.
+
+    Returns [((m, n, k), plan), ...] for the shapes tuned now.
+    """
+    kind = QMODE_KIND.get(cfg.qmode)
+    if kind is None:  # 'none' / weight-only: float matmul, nothing to tune
+        return []
+    a_in_bytes = dtype_of(cfg).itemsize      # x's type on the request path
     out = []
-    for (m, n, k) in sorted(shapes):
-        if autotune.has_cached(kind, m, n, k, fused=True,
+    for fused, m, n, k in sorted(serving_gemm_shapes(
+            cfg, batch_sizes=batch_sizes, prefill_len=prefill_len, tp=tp,
+            spec_gammas=spec_gammas), key=lambda s: (*s[1:], s[0])):
+        if autotune.has_cached(kind, m, n, k, fused=fused,
                                a_in_bytes=a_in_bytes):
             continue           # an earlier warmup already paid for it
-        plan = autotune.tune(kind, m, n, k, fused=True,
+        plan = autotune.tune(kind, m, n, k, fused=fused,
                              a_in_bytes=a_in_bytes, measure=measure,
                              save=False)
         out.append(((m, n, k), plan))
@@ -605,10 +626,17 @@ class ContinuousBatchingEngine:
 # ---------------------------------------------------------------------------
 # Batched generation entry points
 # ---------------------------------------------------------------------------
+def runs_dense_slab(cfg: ModelConfig) -> bool:
+    """Does :func:`generate` send ``cfg`` to the dense-slab loop (a
+    recurrent mixer, or float embedding inputs), as the reference does?"""
+    return cfg.embedding_inputs or any(cfg.mixer_of(i) != "attn"
+                                       for i in range(cfg.n_layers))
+
+
 def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
                     steps: int, seed: int = 0, sample: str = "greedy",
                     temperature: float = 1.0, max_len: Optional[int] = None,
-                    kv_dtype: Optional[str] = None, device=None,
+                    kv_dtype: Optional[str] = None, mesh=None, device=None,
                     impl: str = "auto") -> torch.Tensor:
     """The dense-slab loop: prompt (B, S) token ids, or (B, S, D) float
     embeddings for a model with ``embedding_inputs`` → (B, steps) new
@@ -617,7 +645,12 @@ def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
     at the shared position S + i, the generated ids fed back through the
     embedding table, as in the reference. The first token is greedy, as
     in the reference; decode step i samples with a generator seeded by
-    (seed, i)."""
+    (seed, i). Under ``mesh`` every rank runs the loop on whole params
+    and feeds back rank 0's tokens (broadcast each step), so the ranks'
+    streams agree under temperature sampling too."""
+    if isinstance(params, RankShards):
+        raise ValueError("the dense-slab loop runs on whole params; a "
+                         "RankShards tree holds one rank's shards")
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt).to(device)
     if not prompt.is_floating_point():
@@ -628,14 +661,21 @@ def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
     prefill = build_prefill_step(cfg, impl=impl)
     decode = build_decode_step(cfg, sample=sample, temperature=temperature,
                                impl=impl)
+    def agree(tok):
+        if mesh is None:
+            return tok
+        return torch.tensor(broadcast_ints(tok.reshape(-1).tolist(), mesh),
+                            dtype=tok.dtype, device=tok.device
+                            ).reshape(tok.shape)
     last, caches = prefill(params, prompt, caches)
-    tok = last.float().argmax(dim=-1)[:, None]
+    tok = agree(last.float().argmax(dim=-1)[:, None])
     out = [tok]
     for i in range(steps - 1):
         gen = None
         if sample != "greedy":
             gen = torch.Generator().manual_seed(seed * 1_000_003 + i)
         tok, caches = decode(params, caches, tok, s + i, gen)
+        tok = agree(tok)
         out.append(tok)
     return torch.cat(out, dim=1).cpu()
 
@@ -657,17 +697,14 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
     recurrent mixers or embedding inputs (a float (B, S, D) prompt) take
     the dense-slab loop, as in the reference (``max_len`` is that loop's
     slab length; ``spec`` is ignored there, since speculation needs the
-    paged cache's rollback; a mesh raises there)."""
+    paged cache's rollback). Under ``mesh`` those run on whole params on
+    every rank, as the reference's ``generate`` drops the mesh, with rank
+    0's tokens broadcast each step."""
     b, s = prompt.shape[:2]
-    if (cfg.embedding_inputs
-            or any(cfg.mixer_of(i) != "attn" for i in range(cfg.n_layers))):
-        if mesh is not None:
-            raise NotImplementedError(
-                "recurrent and embedding-input models under a mesh are not "
-                "ported (ROADMAP queue 1, item 10)")
+    if runs_dense_slab(cfg):
         return _generate_dense(params, cfg, prompt, steps=steps, seed=seed,
                                sample=sample, temperature=temperature,
-                               max_len=max_len, kv_dtype=kv_dtype,
+                               max_len=max_len, kv_dtype=kv_dtype, mesh=mesh,
                                device=device, impl=impl)
     ps = page_size or kvc.DEFAULT_PAGE_SIZE
     eng = ContinuousBatchingEngine(

@@ -251,3 +251,23 @@ def test_serve_tp_cpu_end_to_end(capfd):
     assert "[serve] mesh {'data': 1, 'model': 2}; kv-head sharding: " \
         "replicated" in out
     assert out.count("generated (2, 4)") == 1
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("moonshot-v1-16b-a3b", []),
+    ("moonshot-v1-16b-a3b", ["--tp-int8-reduce"]),
+    ("rwkv6-7b", [])], ids=["moonshot", "moonshot-int8-wire", "rwkv6"])
+def test_serve_tp_every_family_cpu_end_to_end(capfd, arch, flags):
+    """``--tp 2 --device cpu`` serves an MoE model with its experts split
+    over the ranks, and a recurrent one on whole params a rank (the dense
+    slab), printing the reference's mesh line."""
+    assert torch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--qmode", "w8a8", "--tp", "2", *flags,
+                             "--batch", "2", "--prompt-len", "16",
+                             "--steps", "4"]) == 0
+    out = capfd.readouterr().out
+    assert "[serve] mesh {'data': 1, 'model': 2}; kv-head sharding: " in out
+    assert out.count("generated (2, 4)") == 1
+    whole = "[serve] dense slab: whole params on every rank" in out
+    assert whole == (arch == "rwkv6-7b")
+    assert ("+ shard, a layer at a time" in out) == (not whole)

@@ -322,10 +322,41 @@ def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
         tmesh.pick_backend(2, torch.device("cpu"), "nccl")
 
 
-def test_moe_under_a_mesh_raises():
-    cfg = get_config("moonshot-v1-16b-a3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsh.shard_params({}, FakeMesh({"data": 1, "model": 2}), cfg)
+def test_shard_params_splits_every_expert():
+    """Reduced moonshot on a (1, 2) mesh: each rank holds every expert's
+    w_gate / w_up columns with their (E, 1, N) scales sliced alike, and
+    w_down's (packed) K rows with the whole scale; the router whole."""
+    from repro_torch.models import init_params, quantize_params
+    for qmode in ("none", "w8a8", "w4a8"):
+        cfg = get_config("moonshot-v1-16b-a3b", reduced=True, qmode=qmode)
+        full = quantize_params(init_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
+            cfg, qmode)
+        f = cfg.expert_ff
+        for rank in range(2):
+            got = tsh.shard_params(full, FakeMesh({"data": 1, "model": 2},
+                                                  rank), cfg)
+            assert "experts" in got.layout
+            for i, layer in enumerate(got["layers"]):
+                moe, whole = layer["moe"], full["layers"][i]["moe"]
+                assert torch.equal(moe["router"], whole["router"])
+                cols = slice(rank * f // 2, (rank + 1) * f // 2)
+                for k in ("w_gate", "w_up"):
+                    w, ww = moe["experts"][k], whole["experts"][k]
+                    if qmode == "none":
+                        assert torch.equal(w, ww[:, :, cols]), k
+                        continue
+                    assert w.shape == (cfg.moe_experts, cfg.d_model, f // 2)
+                    assert torch.equal(w.q, ww.q[:, :, cols]), k
+                    assert torch.equal(w.scale, ww.scale[:, :, cols]), k
+                w, ww = moe["experts"]["w_down"], whole["experts"]["w_down"]
+                if qmode == "none":
+                    assert torch.equal(w, ww[:, cols]), "w_down"
+                    continue
+                rows = ww.q.shape[1] // 2
+                assert w.shape == (cfg.moe_experts, f // 2, cfg.d_model)
+                assert torch.equal(w.q, ww.q[:, rank * rows:(rank + 1) * rows])
+                assert torch.equal(w.scale, ww.scale)
 
 
 # ---------------------------------------------------------------------------

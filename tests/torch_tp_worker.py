@@ -1,23 +1,30 @@
 """Rank bodies of the port's tensor-parallel CPU tests.
 
-``tests/test_torch_collectives.py`` and ``tests/test_torch_tp_serving.py``
-start these with :func:`repro_torch.launch.mesh.spawn_ranks` (gloo, one
+``tests/test_torch_collectives.py``, ``tests/test_torch_tp_serving.py``
+and ``tests/test_torch_tp_moe.py`` start these with :func:`repro_torch.launch.mesh.spawn_ranks` (gloo, one
 process a rank). This module imports neither ``jax`` nor the reference
 package: the parent computes the reference's outputs and hands the inputs
 over in a ``torch.save`` file; each rank returns its raw outputs, and the
 parent holds them against the reference.
 """
+import contextlib
+import os
+import time
+
 import torch
 
 from repro_torch.core.quant import QuantizedTensor
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.models import init_params
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.modules import linear, row_parallel_linear
 from repro_torch.models.transformer import forward
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.sharding import (make_rules, mesh_context,
+from repro_torch.parallel.sharding import (effective_model_shards,
+                                           make_rules, mesh_context,
                                            shard_params)
-from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.engine import ContinuousBatchingEngine, generate
 from repro_torch.serving.kv_cache import PagePool
 from repro_torch.serving.spec_decode import SpecConfig
 
@@ -187,4 +194,184 @@ def serving(mesh, path):
         params, cfg, inp["spec_prompts"], 10, mesh, ps=ps,
         spec=SpecConfig(method="draft", gamma=3, draft_cfg=cfg,
                         draft_params=draft))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE under a serving mesh, and the dense slab under one
+# ---------------------------------------------------------------------------
+FFN_SEED, FFN_SHAPE = 7, (2, 8)     # the MoE FFN's input: (B, S) tokens
+
+
+def first_logits(params, cfg, prompt, chunk, mesh, opts=None):
+    """The prompt's chunked paged prefill → its last row of logits (f32);
+    under ``mesh`` over this rank's shards and kv heads, with the serve
+    context's ``opts``."""
+    tp = effective_model_shards(mesh, cfg.n_kv_heads) if mesh else 1
+    pool = PagePool(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                    head_dim=cfg.hd, num_pages=64, page_size=8,
+                    quantized=True, dtype=torch.float32,
+                    mesh=mesh if tp > 1 else None)
+
+    def scope():
+        if mesh is None:
+            return contextlib.nullcontext()
+        return mesh_context(mesh, make_rules("serve"), mode="serve",
+                            opts=opts, layout=params.layout)
+    return chunked_prefill(params, cfg, pool, prompt, chunk, 0, scope)[-1][0]
+
+
+@contextlib.contextmanager
+def record_calls(target, name):
+    """Record every call of ``target.name`` → a list of (args, kwargs,
+    output)."""
+    inner, calls = getattr(target, name), []
+
+    def call(*a, **kw):
+        out = inner(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+    setattr(target, name, call)
+    try:
+        yield calls
+    finally:
+        setattr(target, name, inner)
+
+
+def moe_ffn_case(mesh, cfg, params, local):
+    """The first MoE layer's FFN on one input, one process and this
+    rank: the gate / up outputs (this rank's and one process's columns),
+    y of both, and y of the shard-local-scale control (h quantized from
+    the rank's own rows, as the dense FFN's row-parallel down does)."""
+    i = next(j for j in range(cfg.n_layers) if cfg.ffn_of(j) == "moe")
+    x = torch.randn(FFN_SHAPE + (cfg.d_model,), generator=torch.Generator(
+        ).manual_seed(FFN_SEED)).to(getattr(torch, cfg.dtype))
+    kw = dict(qmode=cfg.qmode)
+    with record_calls(moe_mod, "_expert_matmul") as calls:
+        one, _ = moe_mod.moe_ffn(params["layers"][i]["moe"], cfg, x, **kw)
+    whole = [out for _, _, out in calls[:2]]
+    scope = mesh_context(mesh, make_rules("serve"), mode="serve",
+                         layout=local.layout)
+    with scope, record_calls(moe_mod, "_expert_matmul") as calls:
+        tp, _ = moe_mod.moe_ffn(local["layers"][i]["moe"], cfg, x, **kw)
+    n, r = calls[0][2].shape[-1], mesh.coords["model"]
+    cols = [out[..., r * n:(r + 1) * n] for out in whole]
+    inner = moe_mod._row_absmax
+    moe_mod._row_absmax = lambda h2, m: h2.abs().amax(dim=-1, keepdim=True)
+    try:
+        with mesh_context(mesh, make_rules("serve"), mode="serve",
+                          layout=local.layout):
+            control, _ = moe_mod.moe_ffn(local["layers"][i]["moe"], cfg, x,
+                                         **kw)
+    finally:
+        moe_mod._row_absmax = inner
+    return {"gate_up_equal": [torch.equal(out, want) for (_, _, out), want
+                              in zip(calls[:2], cols)],
+            "gate_n": n, "one": one.float(), "tp": tp.float(),
+            "control": control.float()}
+
+
+GEMMS = {"gemm_i8_fused": True, "gemm_w4_fused": True,
+         "gemm_a4w4_fused": True, "gemm_i8": False, "gemm_w4": False,
+         "gemm_a4w4": False}
+
+
+@contextlib.contextmanager
+def expert_gemms():
+    """Record (fused, m, n, k) of every integer GEMM the MoE FFNs launch
+    (``ops``' wrappers, called from inside ``moe_ffn``) and each FFN's
+    token count."""
+    shapes, tokens, inner = set(), [], moe_mod.moe_ffn
+    saved = {name: getattr(ops, name) for name in GEMMS}
+    depth = [0]
+
+    def ffn(p, cfg, x, **kw):
+        tokens.append(x.shape[0] * x.shape[1])
+        depth[0] += 1
+        try:
+            return inner(p, cfg, x, **kw)
+        finally:
+            depth[0] -= 1
+
+    def wrap(name):
+        def call(a, b, *rest, **kw):
+            if depth[0]:
+                k = rest[0] if name == "gemm_a4w4" else a.shape[-1]
+                shapes.add((GEMMS[name], a.shape[0], b.shape[-1], k))
+            return saved[name](a, b, *rest, **kw)
+        return call
+    moe_mod.moe_ffn = ffn
+    for name in GEMMS:
+        setattr(ops, name, wrap(name))
+    try:
+        yield shapes, tokens
+    finally:
+        moe_mod.moe_ffn = inner
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def moe_case(mesh, case, inp):
+    """One MoE model under ``mesh``: the engine's streams and host state
+    (and with the int8 wire), the first-step logits, the FFN check, this
+    rank's expert blocks; for moonshot in f32 an n-gram speculative run."""
+    cfg, params = inp["moe"][case]
+    local = shard_params(params, mesh, cfg)
+    layer = next(lp for lp in local["layers"] if "moe" in lp)["moe"]
+    out = {"layout": sorted(local.layout),
+           "w_gate": tuple(layer["experts"]["w_gate"].shape),
+           "w_down": tuple(layer["experts"]["w_down"].shape)}
+    ps, prompts = inp["page_size"], inp["moe_prompts"]
+    with expert_gemms() as (shapes, tokens):
+        out["engine"] = run_engine(local, cfg, prompts, inp["moe_new"], mesh,
+                                   ps=ps, snap_at=inp["moe_snap"])
+    out["expert_gemms"], out["moe_tokens"] = sorted(shapes), tokens
+    out["first"] = first_logits(local, cfg, prompts[0], inp["chunk"], mesh)
+    out["ffn"] = moe_ffn_case(mesh, cfg, params, local)
+    if cfg.qmode == "w8a8":
+        out["wire"] = run_engine(local, cfg, prompts, inp["moe_new"], mesh,
+                                 ps=ps, tp_int8_reduce=True)
+        out["wire_first"] = first_logits(local, cfg, prompts[0],
+                                         inp["chunk"], mesh,
+                                         opts={"tp_int8_reduce": True})
+    if case == inp["spec_case"]:
+        out["spec"] = run_engine(local, cfg, inp["spec_prompts"], 10, mesh,
+                                 ps=ps, spec=SpecConfig(method="ngram",
+                                                        gamma=3))
+        out["spec_base"] = run_engine(local, cfg, inp["spec_prompts"], 10,
+                                      mesh, ps=ps)
+    return out
+
+
+def moe_serving(mesh, path):
+    """Four ranks: two (1, 2) meshes (ranks 0-1 and 2-3) each take half
+    of the tp 2 MoE cases and of the dense-slab models through
+    ``generate(mesh=)``; then all four the tp 4 MoE cases. The ranks start
+    while the parent still builds the inputs: they wait for ``path``."""
+    torch.set_num_threads(1)
+    deadline = time.monotonic() + 240
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no inputs at {path}")
+        time.sleep(0.05)
+    inp = torch.load(path, weights_only=False)
+    r = mesh.rank
+    pairs = [torch.distributed.new_group([0, 1]),
+             torch.distributed.new_group([2, 3])]
+    group = pairs[r // 2]
+    pair = RankMesh({"data": 1, "model": 2}, r % 2, group, {"model": group},
+                    mesh.device)
+    out = {"tp2": {c: moe_case(pair, c, inp) for c in inp["tp2"][r // 2]},
+           "dense_slab": {}}
+    for name in inp["slab"][r // 2]:
+        cfg, params, prompt, steps = inp["slab_cases"][name]
+        out["dense_slab"][name] = generate(params, cfg, prompt, steps=steps,
+                                           mesh=pair, device="cpu")
+    # temperature with a seed of each rank's own: the ranks follow rank 0
+    cfg, params, prompt, steps = inp["slab_cases"][inp["slab"][r // 2][0]]
+    kw = dict(steps=steps, sample="temperature", seed=r % 2, device="cpu")
+    out["slab_temp"] = {"tokens": generate(params, cfg, prompt, mesh=pair,
+                                           **kw),
+                        "own": generate(params, cfg, prompt, **kw)}
+    out["tp4"] = {c: moe_case(mesh, c, inp) for c in inp["tp4"]}
     return out

@@ -9,7 +9,12 @@ reference (``repro``), at its configuration (qwen2-0.5b, 2 layers, d 64,
 steps' logits over a replicated pool; and per engine case (ENGINE: the
 prefix-sharing mix; INDIV: d 60, 6/3 heads; QUANT: w8a8; SPEC: n-gram
 gamma 3 and its plain twin) the greedy streams, the page accounting at a
-mid-flight step and at the end, and ``spec_summary()``.
+mid-flight step and at the end, and ``spec_summary()``. Under ``moe``, per
+MoE case (:data:`MOE_ARCHS` reduced × :data:`MOE_QMODES`: qmode none in
+f32, w8a8 in the config's bf16): the replicated engine's greedy streams
+and accounting on :func:`moe_prompts`, the first prompt's first-step
+logits (its chunked paged prefill's last row) and the weights' SHA-256.
+``tests/test_torch_tp_moe.py`` holds the port's MoE serving mesh to them.
 ``tests/test_torch_tp_serving.py`` holds four gloo ranks of the port to
 that file, on the same numpy prompts and the reference's own weights
 carried across. The reference engine runs eagerly and compiles every new
@@ -38,6 +43,11 @@ INDIV = dict(SMALL, d_model=60, n_heads=6, n_kv_heads=3)
 CASES = {"engine": ("small", 6, 4, None), "indiv": ("indiv", 6, 2, None),
          "quant": ("quant", 6, None, None), "spec": ("small", 10, None, 3),
          "spec_base": ("small", 10, None, None)}
+# the MoE engine cases: the reduced configs, (qmode, dtype override); new
+# tokens a request and the mid-flight step
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
+MOE_QMODES = (("none", "float32"), ("w8a8", None))
+MOE_NEW, MOE_SNAP = 6, 3
 
 
 def weight_digest(tree) -> str:
@@ -76,6 +86,38 @@ def models():
             params = quantize_params(params, cfg, cfg.qmode)
         out[name] = (cfg, params, over)
     return out
+
+
+def moe_overrides(qmode, dtype) -> dict:
+    """``get_config`` keywords of one MoE case (either package's)."""
+    return dict(reduced=True, qmode=qmode,
+                **({} if dtype is None else {"dtype": dtype}))
+
+
+def moe_models():
+    """"arch/qmode" → (jax cfg, jax params, ``get_config`` keywords) of
+    every MoE case, the weights from PRNGKey(0)."""
+    import jax
+    from repro.configs import get_config
+    from repro.models import init_params, quantize_params
+    out = {}
+    for arch in MOE_ARCHS:
+        for qmode, dtype in MOE_QMODES:
+            over = moe_overrides(qmode, dtype)
+            cfg = get_config(arch, **over)
+            params = init_params(jax.random.PRNGKey(0), cfg)
+            if qmode != "none":
+                params = quantize_params(params, cfg, qmode)
+            out[f"{arch}/{qmode}"] = (cfg, params, over)
+    return out
+
+
+def moe_prompts():
+    """Three prompts of 11, 17 and 23 tokens (1, 2 and 2 chunks)."""
+    import jax
+    return [np.asarray(jax.random.randint(jax.random.PRNGKey(50 + i),
+                                          (11 + 6 * i,), 0, 512))
+            for i in range(3)]
 
 
 def prompts():
@@ -129,8 +171,8 @@ def engine_case(cfg, params, prompt_list, new, snap_at, gamma):
             "spec": eng.spec_summary() if spec is not None else None}
 
 
-def prefill_decode(cfg, params, prompt):
-    """Chunked paged prefill and ``STEPS`` ragged decode steps over a
+def prefill_decode(cfg, params, prompt, steps=STEPS):
+    """Chunked paged prefill and ``steps`` ragged decode steps over a
     replicated pool → (each chunk's last logits, each step's logits)."""
     import jax.numpy as jnp
     from repro.models.transformer import forward
@@ -139,7 +181,7 @@ def prefill_decode(cfg, params, prompt):
                     head_dim=cfg.hd, num_pages=64, page_size=PS,
                     quantized=True, dtype=jnp.float32)
     s = len(prompt)
-    pool.reserve(0, s + STEPS)
+    pool.reserve(0, s + steps)
     pre, pos = [], 0
     while pos < s:
         c = min(CHUNK, s - pos)
@@ -156,7 +198,7 @@ def prefill_decode(cfg, params, prompt):
         pos += c
     tok = jnp.asarray(pre[-1].argmax(-1)[:, None], jnp.int32)
     dec = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         pool.ensure_writable(0, pool.lens[0] // PS)
         tables, lengths = pool.batch_tables([0])
         caches = [{"attn": pool.layer_cache(i, tables, lengths)}
@@ -189,6 +231,9 @@ def load() -> dict:
     for k in ("prefill", "decode"):
         rec[k] = [np.asarray(a, np.float32) for a in rec[k]]
     rec["cases"] = _int_keys(rec["cases"])
+    rec["moe"] = _int_keys(rec["moe"])
+    for case in rec["moe"].values():
+        case["first"] = np.asarray(case["first"], np.float32)
     return rec
 
 
@@ -211,6 +256,15 @@ def main() -> int:
         out["cases"][name] = engine_case(cfg, params, ps[name], new,
                                          snap_at, gamma)
         print(name, out["cases"][name]["tokens"], flush=True)
+    out["moe"] = {}
+    for name, (cfg, params, _) in moe_models().items():
+        case = engine_case(cfg, params, moe_prompts(), MOE_NEW, MOE_SNAP,
+                           None)
+        pre, _ = prefill_decode(cfg, params, moe_prompts()[0], steps=0)
+        case["first"] = pre[-1][0].tolist()
+        case["digest"] = weight_digest(jax_to_numpy(params))
+        out["moe"][name] = case
+        print(name, case["tokens"], flush=True)
     autotune.clear_cache(disk=True)
     JSON_PATH.write_text(json.dumps(out, indent=None) + "\n")
     print(f"wrote {JSON_PATH}")
