@@ -98,8 +98,8 @@ Phases (any failure exits non-zero and prints no result):
    spans; (c) a draft model with the target's own weights; (d) the serve
    CLI's default draft (the reduced qwen2-0.5b, weights from the seed + 1),
    gamma 'auto', its pool sized so every sequence drafts; (e) (a) in W4A8
-   and W4A4 (K4); (f) (a) at temperature 0.9, twice with one seed, which
-   must give one stream. Each greedy stream equals the plain engine's or
+   and W4A4 (K4); (f) (a) at temperature 0.9 with the n-gram drafter, and
+   with the self-draft twice with one seed, which must give one stream. Each greedy stream equals the plain engine's or
    first differs where the speculative token lies within one bf16 ULP of
    the plain row's maximum (a near-tie, ``SPEC_FLIP_ULPS``); an accept-all
    control with the reduced draft must fail that check. Every run launches K1 (K4) 7 times
@@ -107,8 +107,7 @@ Phases (any failure exits non-zero and prints no result):
    never; every pool is free after it, its invariants holding; gamma
    'auto' re-picks at least once. Every K1 and K2 call of one request
    (verify panels at C 5 from mid-page q_starts, the draft's C 1 feeds)
-   held against its plain version in situ; (a) and (b) plain and
-   speculative in turns; (b) under the profiler.
+   held against its plain version in situ; (b) under the profiler.
 9. MoE serving: moonshot-v1-16b-a3b (48 layers, d 2,048, 16/16 heads of
    128, 64 experts top-6 of d_ff 1,408, vocab 163,840) at full width,
    12 of its 48 layers (``MOE_W8A8_LAYERS``), in W8A8, random weights from
@@ -229,26 +228,36 @@ Phases (any failure exits non-zero and prints no result):
    layers each, 2 × (256 + 8) through ``generate(mesh=)`` (whole params
    on each rank): greedy streams equal to one process's bit for bit, K1
    launches equal.
-14. Sharded (FSDP) training: qwen3-0.6b at full width (d 1,024, vocab
-   151,936, bf16), ``FSDP_LAYERS`` (8) of its 28 layers, int8 moments
-   and int8 gradients, on a (data 1, model 2) mesh of ranks, two
-   processes on the one card joined through gloo, each holding its block
-   of every sharded leaf of the state; ``FSDP_STEPS`` steps of 2 x 512
-   tokens a rank against one process from the same state and batches:
-   the first step's loss and grad_norm within ``FSDP_FIRST_RTOL``, every
-   loss within ``FSDP_LOSS_RTOL``, the moment scales after the first step
-   of the leaves the mesh splits within ``FSDP_SCALE_TOL`` of the leaf's
-   largest; K7 exactly 3 times a leaf a step on each rank, every K7 call
-   of the last step in situ (exact); three controls from the initial
-   shards that must land outside those limits: moments quantized with a
-   block-local absmax (the scales, one step), rank 1's gradient left out
-   of the reduce (the first step's grad_norm) and rank 1's AdamW update
-   zeroed for all the steps (every loss); a save from the shards (rank 0
-   writes), restored into one process byte for byte the state the ranks
-   hold (a CRC a leaf), whose next step's loss and grad_norm lie within
-   ``FSDP_FIRST_RTOL`` of the ranks' same step; each rank's
-   peak memory, the bytes a rank sends a step from the shapes, step times
-   (two processes time-sharing one card: no sharded speed).
+14. Sharded (FSDP) training, one layer gathered at a time (its gather
+   and reduce counted: gloo calls and bytes a rank sends a step), every
+   entry of ``FSDP_FAMILIES`` at full width with int8 moments and int8
+   gradients, two processes on the one card joined through gloo, each
+   holding its block of every sharded leaf of the state, ``FSDP_STEPS``
+   steps of 2 x 512 tokens a rank against one process from the same
+   state and batches: qwen3-0.6b (d 1,024, vocab 151,936, bf16),
+   ``FSDP_LAYERS`` (4) of its 28 layers, on (data 1, model 2);
+   moonshot-v1-16b-a3b (64 experts top-6, vocab 163,840, untied), 2 of its
+   48 layers on (data 1, model 2), its routing groups spanning both ranks;
+   rwkv6-7b, 2 of 32 layers, on (data 2, model 1) (its batch binds data
+   only). Each: the first step's loss and grad_norm within
+   ``FSDP_FIRST_RTOL``, the losses of its gated steps (every step
+   within ``FSDP_LOSS_RTOL``; moonshot's first two within
+   ``FSDP_MOE_LOSS_RTOL``; rwkv6: every grad_norm too); K7 exactly 3 times a leaf a step on each rank, every
+   K7 call of the last step in situ (exact); controls that must land
+   outside those limits: rank 1's gradient left out of the reduce (the
+   first step) and rank 1's first AdamW update zeroed (the second loss).
+   moonshot: layer 0's routing in the first forward equal to one
+   process's at all but ``FSDP_ROUTE_SHARE`` of the picks (control:
+   routing counted on a rank's own tokens), and at every later step
+   printed; each rank's peak memory over the steps beside the
+   shape-derived peaks of gathering the whole params once a step and a
+   layer at a time (``fsdp_peak_gb``): below the first by at least half
+   the predicted saving. qwen3: the moment scales after the first step of
+   the leaves the mesh splits within ``FSDP_SCALE_TOL`` of the leaf's
+   largest (control: moments quantized with a block-local absmax); a save
+   from the shards (rank 0 writes), restored into one process byte for
+   byte the state the ranks hold (a CRC a leaf), whose next step's loss
+   and grad_norm lie within ``FSDP_FIRST_RTOL`` of the ranks' same step.
 15. The examples on the card (``examples/torch/``: quickstart,
    serve_quantized, fault_tolerance_demo), each in a process of its own,
    started together before phase 14 and running beside it: each exits 0
@@ -318,12 +327,16 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.transformer import init_quantized_params  # noqa: E402
-from repro_torch.launch.mesh import spawn_ranks  # noqa: E402
+from repro_torch.launch.mesh import RankMesh, spawn_ranks  # noqa: E402
 from repro_torch.launch.mesh import AXES  # noqa: E402
+from repro_torch.parallel import collectives  # noqa: E402
+from repro_torch.parallel import fsdp as fsdp_mod  # noqa: E402
 from repro_torch.parallel.sharding import (axes_of, gather_tree,  # noqa: E402
                                            make_rules, mesh_context, named,
                                            shard_params, shard_tree,
                                            train_state_pspecs)
+from repro_torch.parallel.sharding import (  # noqa: E402
+    block_shape as sharding_block_shape)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
 from repro_torch.serving import kv_cache as kvc  # noqa: E402
 from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa: E402
@@ -342,7 +355,6 @@ from repro_torch.train import build_train_step, init_train_state  # noqa: E402
 adamw_mod = importlib.import_module("repro_torch.optim.adamw")
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
-from repro_torch.train import train_step as step_mod  # noqa: E402
 from repro_torch.train.train_step import (_int8_compress,  # noqa: E402
                                           param_specs, value_and_grad)
 from repro_torch.tree import leaves, leaves_with_path, tree_map  # noqa: E402
@@ -2364,7 +2376,9 @@ SPEC_PATTERN, SPEC_REPEATS, SPEC_NEW = 8, 8, 48
 SPEC_SPAN = 64
 SPEC_TEMPERATURE = 0.9
 SITU_NEW = 8             # new tokens of the in-situ request
-SPEC_PROFILE_STEPS = 4   # engine steps of (b) profiled, after its prefill
+SPEC_PROFILE_STEPS = 2   # engine steps of (b) profiled, after its prefill
+#                          (4 took 37.3 s, mostly the trace's parse, with
+#                          28 verify forwards in the window)
 # Greedy parity between the speculative and the plain engine. A verify
 # panel reads K2 where plain decoding reads K3, and their float orders
 # differ, so one context's logits differ a little between the two engines,
@@ -2564,11 +2578,12 @@ def speculative(seed: int):
     (b) n-gram, gamma 4, phase 3's mix of repeated spans; (c) a draft
     model with the target's own weights; (d) the serve CLI's default draft
     (reduced qwen2-0.5b, weights from seed + 1), gamma 'auto'; (e) (a) in
-    W4A8 and W4A4; (f) (a) at temperature 0.9, twice with one seed. Greedy
-    parity with the plain engine (the near-tie rule, and an accept-all
-    control that must fail it), launches held to the forwards, pools free
-    after every run, every K1/K2 call of one request in situ, (a) and (b)
-    in turns, (b) profiled."""
+    W4A8 and W4A4; (f) (a) at temperature 0.9 with the n-gram drafter and
+    with the self-draft (its proposals sampled from the q it returns),
+    twice with one seed. Greedy parity with the plain engine (the near-tie
+    rule, and an accept-all control that must fail it), launches held to
+    the forwards, pools free after every run, every K1/K2 call of one
+    request in situ, (b) profiled."""
     from repro_torch.core import autotune
     tmp = tempfile.TemporaryDirectory()
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(Path(tmp.name)
@@ -2632,31 +2647,17 @@ def speculative(seed: int):
     spec_run(make(pa[:, :40], 6, reduced), pa[:, :40], 6)
     lap("first use")
 
-    # (a) and (b): one untimed run of each kind keeps its logit rows for
-    # the parity check; then plain and speculative in turns (plain, spec,
-    # spec, plain; times recorded, not claimed), nothing recorded, each
-    # giving the stream of its recorded run
-    base, turns = {}, {}
+    # (a) and (b): a plain and a speculative run of each, their logit
+    # rows kept for the parity check (untimed: phase 3 times serving)
+    base = {}
     for label, prompts, new in (("(a) n-gram", pa, SPEC_NEW),
                                 ("(b) n-gram", pb, NEW)):
         recorded = {kind: spec_run(make(prompts, new, spec), prompts, new,
                                    rows=True)
                     for kind, spec in (("plain", None), ("spec", ngram))}
-        tok_s = {"plain": [], "spec": []}
-        for kind in ("plain", "spec", "spec", "plain"):
-            run = spec_run(make(prompts, new, ngram if kind == "spec"
-                                else None), prompts, new)
-            if run["streams"] != recorded[kind]["streams"]:
-                raise RuntimeError(f"{label}: a timed {kind} run gave "
-                                   f"another stream")
-            tok_s[kind].append(len(prompts) * new / run["wall_s"])
-        print(f"  in turns, {label}: generated tok/s plain "
-              f"{tok_s['plain'][0]:.1f}, spec {tok_s['spec'][0]:.1f}, spec "
-              f"{tok_s['spec'][1]:.1f}, plain {tok_s['plain'][1]:.1f}")
         report(label, recorded["spec"], recorded["plain"])
-        base[label[:3]], turns[label] = recorded["plain"], tok_s
+        base[label[:3]] = recorded["plain"]
         lap(label)
-    out["in_turns"] = turns
 
     retunes = {"n": 0}
     pick = autotune.get_spec_gamma
@@ -2711,23 +2712,26 @@ def speculative(seed: int):
         del qparams
         lap(label)
 
-    # (f) temperature: one seed, one stream; with the self-draft too, whose
-    # proposals are sampled from the q they return
-    for label, spec in (("n-gram", ngram), ("self-draft", strong)):
-        t1, t2 = (spec_run(make(pa, SPEC_NEW, spec, sample="temperature",
-                                temperature=SPEC_TEMPERATURE, seed=seed + 5),
-                           pa, SPEC_NEW) for _ in range(2))
-        same = t1["streams"] == t2["streams"]
-        s1 = t1["summary"]
+    # (f) temperature: the n-gram drafter (no q: draft_q None) once, and
+    # the self-draft, whose proposals are sampled from the q they return,
+    # twice with one seed: one stream
+    for label, spec, runs in (("n-gram", ngram, 1), ("self-draft", strong,
+                                                      2)):
+        t = [spec_run(make(pa, SPEC_NEW, spec, sample="temperature",
+                           temperature=SPEC_TEMPERATURE, seed=seed + 5),
+                      pa, SPEC_NEW) for _ in range(runs)]
+        same = all(x["streams"] == t[0]["streams"] for x in t)
+        s1 = t[0]["summary"]
         print(f"  (f) temperature {SPEC_TEMPERATURE}, {label}: "
               f"{s1['spec_steps']} verify steps, accepted {s1['accepted']} "
-              f"of {s1['proposed']}; the same seed gives the same stream: "
-              f"{same}")
+              f"of {s1['proposed']}" + (
+                  f"; the same seed gives the same stream: {same}"
+                  if runs > 1 else ""))
         if not same:
             raise RuntimeError(f"temperature, {label}: one seed gave two "
                                f"streams")
         out[f"(f) temperature, {label}"] = dict(
-            same_stream=same,
+            same_stream=same if runs > 1 else None,
             summary={k: v for k, v in s1.items() if k != "per_request"})
     lap("(f) temperature")
 
@@ -2761,6 +2765,7 @@ def speculative(seed: int):
     eng.run()
     check_pools(eng)
     lap("(b) profiled")
+
     print("  phase 8 seconds: " + ", ".join(f"{k} {v:.1f}"
                                             for k, v in laps.items()))
     out["seconds"] = laps
@@ -4761,35 +4766,72 @@ def tp_families(seed: int, smi: str, device: str = "cuda"):
 # ---------------------------------------------------------------------------
 FSDP_MESH = (1, 2)       # (data, model): two processes sharing cuda:0, gloo
 FSDP_BATCH, FSDP_STEPS = 4, 4      # 4 rows of TRAIN_SEQ: 2 x 512 a rank
-# full width, depth cut to 8 of the 28 layers: at full depth the phase
-# took 102.0 s of its 90 s budget, and at 14 layers (81.1 s) the whole
-# script took 1,178.8 s of its 1,200 s (NVIDIA H100 80GB HBM3, 700 W);
-# the gather, reduce and checkpoint scale with the parameters
-FSDP_LAYERS = 8
-FSDP_TIMEOUT_S = 420.0   # the spawned group's limit; the phase aims at 90 s
+# qwen3-0.6b at full width, depth cut to 4 of the 28 layers: at full
+# depth the phase took 102.0 s of its 90 s budget, and at 14 layers (81.1
+# s) the whole script took 1,178.8 s of its 1,200 s (NVIDIA H100 80GB
+# HBM3, 700 W); at 8 layers it took 69.8 s gathering a layer at a time,
+# and the other families need the room; the gather, reduce and checkpoint
+# scale with the parameters
+FSDP_LAYERS = 4
+FSDP_TIMEOUT_S = 600.0   # the spawned group's limit; the phase aims at 300 s
 # Sharded against one process from the same state and batches, bf16. The
-# ranks' gradients are the one process's summed over two row blocks in
-# another order, each block's backward running its bf16 matmuls at
-# another M, so bf16 roundings differ and compound through the layers.
-# From the same state (the first step) only that separates them; after
-# it the two trajectories drift apart (AdamW's normalized updates
-# turn a last-bit difference of a near-zero gradient into a full step),
-# which moves the later grad_norms by up to ~10% (printed) but the losses
-# far less. Each limit has a control that must land outside it. Measured
-# at these 8 layers (NVIDIA H100 80GB HBM3, 700 W): first step 1.06e-4,
-# losses 9.1e-5, scales 1.14e-2; the controls 0.287 (dropped gradient)
-# and 0.677 (local absmax).
+# ranks' gradients are the one process's summed over their row blocks in
+# another order, so bf16 roundings differ and compound through the
+# layers. From the same state (the first step) only that separates them;
+# after it the two trajectories drift apart (AdamW's normalized updates
+# turn a last-bit difference of a near-zero gradient into a full step).
+# qwen3's later grad_norms moved by up to ~10% (printed), its losses far
+# less; moonshot's capacity routing turns a last-bit difference into other
+# picks and drops, so only its first two losses are gated and its later
+# steps are printed beside layer 0's routing at each (NVIDIA H100 80GB
+# HBM3, 700 W: losses 1.4e-3-8.6e-3 apart at steps 2-3, grad_norm up to
+# 61%, layer 0's first routing equal at every pick); rwkv6 matched at
+# every printed digit. Each limit has a control that must land outside.
 FSDP_FIRST_RTOL = 5e-4   # a step from one state: the first step's loss
 #                          and grad_norm (control: rank 1's gradient left
 #                          out of the reduce), and the restored one's
 #                          against the ranks' step from the saved state
-FSDP_LOSS_RTOL = 5e-4    # every step's loss (control: rank 1's AdamW
-#                          update zeroed for every step)
+FSDP_LOSS_RTOL = 5e-4    # the gated steps' losses, and with ``norms``
+#                          every grad_norm (control: rank 1's first AdamW
+#                          update zeroed)
+# moonshot's second loss: one process alone, run twice, gave it 3.3e-4
+# apart (its step is not deterministic, and the capacity routing turns
+# that into other picks: 8% of layer 0's after one update), and the ranks
+# 1.5e-5-5.3e-4 from one process in 7 runs (NVIDIA H100 80GB HBM3, 700
+# W; tools/fsdp_moe_spread.py); the zeroed-update control 3.7e-3-4.5e-3
+FSDP_MOE_LOSS_RTOL = 1.5e-3
 # the moment scales after the first step of the leaves whose last dim the
 # mesh splits, as a share of the leaf's largest scale (control: those
 # moments quantized with each block's own absmax): 16 bf16 ULPs, as the
 # gradients' compounded bf16 roundings move a row's absmax by several
 FSDP_SCALE_TOL = 2.0 ** -4
+# layer 0's routing in the first forward: the share of the ranks' (token,
+# top-k pick) slots that differ from one process's. Each rank's router
+# input comes from attention over its own rows, so bf16 roundings may
+# flip a near-tie pick now and then; rank-local counting (the control)
+# moves every later rank's picks.
+FSDP_ROUTE_SHARE = 0.01
+# Every family under a train mesh, each gathering one layer at a time,
+# one entry a model: its depth, its (data, model) mesh over the spawned
+# ranks, the steps whose loss is gated (``losses``) and their limit
+# (``loss_rtol``), whether every grad_norm is gated (``norms``), and two
+# checks of qwen3's alone: the moment scales of the leaves the mesh
+# splits (``scales``) and a checkpoint restored into one process
+# (``checkpoint``). moonshot-v1-16b-a3b's routing groups span the ranks
+# (2 x 2 x 512 tokens make one group of 2,048 over both); rwkv6-7b runs
+# on (data 2, model 1): its batch binds data only, so (1, 2) would split
+# nothing of it.
+FSDP_FAMILIES = {
+    TRAIN_ARCH: dict(layers=FSDP_LAYERS, mesh=FSDP_MESH, losses=FSDP_STEPS,
+                     loss_rtol=FSDP_LOSS_RTOL, norms=False, scales=True,
+                     checkpoint=True),
+    "moonshot-v1-16b-a3b": dict(layers=2, mesh=(1, 2), losses=2,
+                                loss_rtol=FSDP_MOE_LOSS_RTOL, norms=False,
+                                scales=False, checkpoint=False),
+    "rwkv6-7b": dict(layers=2, mesh=(2, 1), losses=FSDP_STEPS,
+                     loss_rtol=FSDP_LOSS_RTOL, norms=True, scales=False,
+                     checkpoint=False),
+}
 
 
 def _moment_scales(tree):
@@ -4804,154 +4846,43 @@ def state_crcs(state) -> list:
                        .cpu().numpy()) for x in leaves(state)]
 
 
-def fsdp_split_leaves(cfg) -> list:
-    """For each params leaf, in leaf order: does ``FSDP_MESH`` split its
+def fsdp_split_leaves(cfg, mesh_shape) -> list:
+    """For each params leaf, in leaf order: does ``mesh_shape`` split its
     last dim (so that its int8 rows need the MAX over the split)?"""
-    mesh = types.SimpleNamespace(shape=dict(zip(AXES, FSDP_MESH)))
+    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)))
     specs, _ = param_specs(cfg, make_rules("train", family=cfg.family), mesh)
     return [adamw_mod.row_max_of(spec, mesh) is not None
             for spec in leaves(specs)]
 
 
-def fsdp_wire_bytes(cfg, mesh_shape) -> dict:
-    """Bytes a rank sends a step on a mesh whose batch and sharded leaves
-    split over all its p ranks (``FSDP_MESH``), from the shapes: ring
-    collectives send (p - 1)/p of the payload for an all-gather or a
-    reduce-scatter, 2(p - 1)/p for an all-reduce. The params are gathered
-    in their dtype, the gradients reduced in f32, the row absmax of every
-    block of split rows MAX-reduced three times (gradient, m, v)."""
-    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)))
-    specs, shapes = param_specs(cfg, make_rules("train", family=cfg.family),
-                                mesh)
-    p = mesh_shape[0] * mesh_shape[1]
-    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-
-    def ways(entry):
-        return int(np.prod([mesh.shape[a] for a in axes_of(entry)]))
-    out = dict(gather=0.0, reduce=0.0, row_max=0.0)
-    for spec, shape in zip(leaves(specs), leaves(shapes)):
-        n = int(np.prod(shape))
-        if int(np.prod([ways(e) for e in spec])) > 1:
-            out["gather"] += (p - 1) / p * n * item
-            out["reduce"] += (p - 1) / p * n * 4
-        else:
-            out["reduce"] += 2 * (p - 1) / p * n * 4
-        if spec and ways(spec[-1]) > 1:
-            rows = n // shape[-1]
-            out["row_max"] += 3 * 2 * (p - 1) / p * rows * 4
-    out["norm_and_loss"] = 2 * (p - 1) / p * 4 * (len(leaves(specs)) + 1)
-    out["total"] = sum(out.values())
-    return out
+def step_traffic(step) -> dict:
+    """A sharded step's collectives as its ``fsdp.Step`` counted them:
+    calls and the bytes a rank sends (ring algorithms) of the forward
+    gathers, the recompute gathers and the reduces."""
+    return dict(calls=dict(step.calls), sent=dict(step.sent),
+                peak_whole_gb=step.peak_whole / 1e9)
 
 
-def fsdp_rank(mesh, job):
-    """One rank of phase 14: the seed's full-width state sharded by the
-    train specs, ``FSDP_STEPS`` steps on its rows (each step's K7 launches
-    counted, the last step's K7 calls in situ), the moment scales after
-    the first step, the three controls from the initial shards, a save
-    (with the CRCs of the whole state it writes) and one more step."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(TRAIN_ARCH, n_layers=FSDP_LAYERS)
-    opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
-    rules = make_rules("train", family=cfg.family)
-    data = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ,
-                           seed=job["seed"])
-    torch.cuda.reset_peak_memory_stats()
+def dropped_rank_1():
+    """The dropped-gradient control: rank 1's whole gradients zeroed
+    before every reduce (``fsdp.reduce_blocks``) until the context ends."""
+    reduce_blocks = fsdp_mod.reduce_blocks
 
-    def batch(s):
-        b = data.batch_at(s)
-        return shard_batch(b, mesh=mesh, specs=batch_specs(b, rules, mesh))
+    def dropped(step, grads, specs):
+        if step.mesh.rank == 1:
+            grads = [torch.zeros_like(g) for g in grads]
+        return reduce_blocks(step, grads, specs)
+    return patched(fsdp_mod, "reduce_blocks", dropped)
 
-    def one_step(state, s):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch(s))
-        loss, norm = float(m["loss"]), float(m["grad_norm"])
-        torch.cuda.synchronize()
-        return state, loss, norm, (time.perf_counter() - t0) * 1e3
 
-    out = dict(rank=mesh.rank, loss=[], grad_norm=[], step_ms=[], k7=[])
-    with mesh_context(mesh, rules, mode="train"):
-        full = train_state(cfg, opt, job["seed"])
-        n_leaves = len(leaves(full["params"]))
-        sh = named(train_state_pspecs(full, rules, mesh), mesh)
-        state0 = shard_tree(full, sh)
-        del full
-        torch.cuda.empty_cache()
-        gc.collect()
-        out["shards_gb"] = torch.cuda.memory_allocated() / 1e9
-        scale_sh = _moment_scales(sh["opt"]["m"])
-        split = fsdp_split_leaves(cfg)
-
-        def scales(state):
-            """The moment scales of the leaves the mesh splits."""
-            return [[x for x, cut in zip(leaves(gather_tree(
-                _moment_scales(state["opt"][k]), scale_sh)), split) if cut]
-                for k in ("m", "v")]
-        state, calls = state0, []
-        for s in range(FSDP_STEPS):
-            reset_counts()
-            with (k7_checked(calls) if s == FSDP_STEPS - 1
-                  else contextlib.nullcontext()):
-                state, loss, norm, ms = one_step(state, s)
-            out["k7"].append(read_counts()["K7"])
-            out["loss"].append(loss)
-            out["grad_norm"].append(norm)
-            out["step_ms"].append(ms)
-            if s == 0:
-                out["scales"] = scales(state)
-        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        out["n_leaves"] = n_leaves
-        out["in_situ"] = dict(calls=len(calls),
-                              exact=all(c["exact"] for c in calls),
-                              longest_row=max(c["shape"][-1] for c in calls))
-        # controls, each one step from the initial shards
-        row_max_of = adamw_mod.row_max_of
-        adamw_mod.row_max_of = lambda spec, m: None
-        try:
-            st, *_ = one_step(state0, 0)
-            out["control_local_absmax"] = scales(st)
-        finally:
-            adamw_mod.row_max_of = row_max_of
-        reduce_grads = step_mod.reduce_grads
-
-        def dropped(grads, specs, m, axes, shards):
-            if m.rank == 1:
-                grads = tree_map(torch.zeros_like, grads)
-            return reduce_grads(grads, specs, m, axes, shards)
-        step_mod.reduce_grads = dropped
-        try:
-            _, loss, norm, _ = one_step(state0, 0)
-            out["control_dropped"] = dict(loss=loss, grad_norm=norm)
-        finally:
-            step_mod.reduce_grads = reduce_grads
-
-        def zeroed(grads, opt_state, params, **kw):
-            updates, opt_state = opt.update(grads, opt_state, params, **kw)
-            if mesh.rank == 1:
-                updates = tree_map(torch.zeros_like, updates)
-            return updates, opt_state
-        bad_step = build_train_step(cfg, adamw_mod.Optimizer(opt.init, zeroed),
-                                    compress_grads="int8")
-        st, out["control_update"] = state0, []
-        for s in range(FSDP_STEPS):
-            st, m = bad_step(st, batch(s))
-            out["control_update"].append(float(m["loss"]))
-        del state0, st
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        ckpt_lib.save(job["dir"], state, FSDP_STEPS, shardings=sh)
-        out["save_s"] = time.perf_counter() - t0
-        whole = gather_tree(state, sh)
-        if mesh.rank == 0:
-            out["crcs"] = state_crcs(whole)
-        del whole
-        _, loss, norm, _ = one_step(state, FSDP_STEPS)
-        out["next"] = dict(loss=loss, grad_norm=norm)
-    if mesh.rank:
-        out.pop("scales")
-        out.pop("control_local_absmax")
-    return out
+@contextlib.contextmanager
+def patched(mod, name, value):
+    old = getattr(mod, name)
+    setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        setattr(mod, name, old)
 
 
 def _rel_gap(got, want) -> float:
@@ -4967,82 +4898,433 @@ def _scale_gap(got, want) -> float:
 
 
 def fsdp_training(seed: int, smi: str):
-    """Phase 14: full-width qwen3-0.6b, int8 moments and int8 gradients,
-    on ``FSDP_MESH`` ranks against one process from the same state and
-    batches; then the ranks' checkpoint restored into one process, byte for
-    byte the state they saved, for the step they took after it. Every
+    """Phase 14: each of ``FSDP_FAMILIES`` at full width, int8 moments and
+    int8 gradients, on its mesh of ranks against one process from the
+    same state and batches (every one-process run first, then one spawn
+    of the ranks for every entry: a process takes ~8 s to reach the
+    card); the checkpoint entry's save restored into one process. Every
     failure raises."""
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH, n_layers=FSDP_LAYERS)
+    one = {arch: family_one_process(arch, seed) for arch in FSDP_FAMILIES}
+    with tempfile.TemporaryDirectory(prefix="fsdp-") as d:
+        ck = os.path.join(d, "ck")
+        ranks = spawn_ranks(fsdp_phase_rank, math.prod(FSDP_MESH),
+                            init_dir=d, backend="gloo", device="cuda",
+                            args=(dict(seed=seed, dir=ck),),
+                            timeout=FSDP_TIMEOUT_S, shape=FSDP_MESH)
+        elastic = restored_step(ck, seed)
+    parts = {arch: family_report(arch, one[arch], [r[arch] for r in ranks],
+                                 smi, elastic if spec["checkpoint"]
+                                 else None)
+             for arch, spec in FSDP_FAMILIES.items()}
+    seconds = time.perf_counter() - t0
+    print(f"  phase 14 seconds: {seconds:.1f} (one spawn of "
+          f"{len(ranks)} ranks for every part)")
+    return dict(card=smi, families=parts, seconds=seconds)
+
+
+def restored_step(path: str, seed: int) -> dict:
+    """The checkpoint entry's save at ``path`` restored into one process:
+    its bytes, the restore's seconds, a CRC a leaf, and the loss and
+    grad_norm of its next step (batch ``FSDP_STEPS``)."""
+    arch = next(a for a, v in FSDP_FAMILIES.items() if v["checkpoint"])
+    cfg = get_config(arch, n_layers=FSDP_FAMILIES[arch]["layers"])
     opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
+    t1 = time.perf_counter()
+    restored = ckpt_lib.restore(path, train_state(cfg, opt, seed))
+    out = dict(restore_s=time.perf_counter() - t1,
+               bytes=sum(f.stat().st_size for f in Path(path).rglob("*.npz")),
+               crcs=state_crcs(restored))
     data = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ, seed=seed)
-    torch.cuda.reset_peak_memory_stats()
+    _, m = step(restored, shard_batch(data.batch_at(FSDP_STEPS),
+                                      device="cuda"))
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    del restored
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_phase_rank(mesh, job):
+    """One rank of phase 14: each of ``FSDP_FAMILIES`` on its own mesh over
+    the spawned ``FSDP_MESH`` processes."""
+    out = {}
+    for arch in FSDP_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch] = fsdp_family_rank(family_mesh(mesh, arch),
+                                     dict(job, arch=arch))
+    return out
+
+
+def family_mesh(mesh, arch):
+    """``arch``'s mesh (``FSDP_FAMILIES``) over the ranks of ``mesh``, each
+    rank at its own place: the axis longer than one spans them all."""
+    shape = FSDP_FAMILIES[arch]["mesh"]
+    if tuple(mesh.shape[a] for a in AXES) == shape:
+        return mesh
+    if math.prod(shape) != mesh.shape["data"] * mesh.shape["model"] or \
+            min(shape) != 1:
+        raise ValueError(f"{arch}'s mesh {shape} over {mesh.shape}")
+    live = [a for a, n in zip(AXES, shape) if n > 1]
+    return RankMesh(dict(zip(AXES, shape)), mesh.rank, mesh.group,
+                    {a: mesh.group for a in live}, mesh.device)
+
+
+class RoutedLayer0(Exception):
+    """Raised by :func:`first_route` with ``stop``: every rank stops its
+    step where layer 0 has routed, at the same collective."""
+
+
+@contextlib.contextmanager
+def first_route(record: list, stop: bool = False):
+    """The first MoE routing call inside (layer 0's, in the forward):
+    its slots and the mask of this rank's tokens on the grid (None in one
+    process), as numpy, into ``record``; with ``stop``, the step ends
+    there (:class:`RoutedLayer0`, caught here)."""
+    inner = moe_mod._route
+
+    def call(gates, k, cap, mask=None, offsets=None):
+        slots, weights = inner(gates, k, cap, mask, offsets)
+        if not record:
+            record.append(dict(
+                cap=cap, slots=slots.reshape(-1, k).cpu().numpy(),
+                mask=None if mask is None
+                else mask.reshape(-1).bool().cpu().numpy()))
+            if stop:
+                raise RoutedLayer0
+        return slots, weights
+    try:
+        with patched(moe_mod, "_route", call):
+            yield
+    except RoutedLayer0:
+        pass
+
+
+def route_share(one: dict, ranks: list, record, experts=False) -> float:
+    """The share of the ranks' layer-0 picks (``record(rank)``: its
+    :func:`first_route` record) whose slot (with ``experts``: whose
+    expert, a dropped pick's being none) differs from one process's
+    (``one``) at the same token. One pick moved to another expert moves
+    the slots of the later picks of both experts."""
+    want, differ, total = one["slots"], 0, 0
+    if experts:
+        want = want // one["cap"]
+    for r in ranks:
+        rec = record(r)
+        got = rec["slots"][rec["mask"]]
+        if experts:
+            got = got // rec["cap"]
+        lo = r["batch_index"] * len(got)
+        differ += int((got != want[lo:lo + len(got)]).sum())
+        total += got.size
+    return differ / total
+
+
+UPDATE_F32_COPIES = 8
+
+
+def fsdp_peak_gb(cfg, mesh_shape) -> dict:
+    """A rank's peak device memory (GB) from the shapes, in two designs,
+    with int8 moments and gradients in the params' dtype: its shards
+    (params, moments: an int8 a value and an f32 scale a row, twice)
+    plus, at the worst point of a step,
+
+    * ``whole_step`` (the whole params gathered once a step): the whole
+      params and the whole gradients during the backward; then at the
+      reduce the whole gradients, their f32 copy laid out a block a
+      member for the reduce-scatter, and the f32 blocks it returns;
+    * ``per_layer``: the largest part gathered at once (a layer, or a
+      top-level leaf): its whole params and gradients, their f32 copy
+      and the f32 block; the reduced gradient blocks held meanwhile;
+    * the update, in both: the old params and moments, the gradient
+      blocks, the updates and the new moments as they fill, and
+      ``UPDATE_F32_COPIES`` f32 copies of the largest block (g, m, v,
+      their quotients, the update, the quantizer's input with its absmax
+      column).
+
+    Activations are left out (they are small beside these at 2 x 512
+    tokens a rank)."""
+    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)),
+                                 coords={a: 0 for a in AXES})
+    specs, shapes = param_specs(cfg, make_rules("train", family=cfg.family),
+                                mesh)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+
+    def blk(shape, spec):
+        return math.prod(sharding_block_shape(shape, spec, mesh))
+
+    def size(tree_shapes):
+        return sum(math.prod(x) for x in leaves(tree_shapes))
+    blocks = [blk(x, sp) for x, sp in zip(leaves(shapes), leaves(specs))]
+    rows = [math.prod(sharding_block_shape(x, sp, mesh)[:-1]) if x else 1
+            for x, sp in zip(leaves(shapes), leaves(specs))]
+    params = sum(blocks) * item
+    moments = 2 * sum(n + 4 * r for n, r in zip(blocks, rows))
+    grads = params
+    total = size(shapes)
+    n = mesh_shape[0] * mesh_shape[1]
+    parts = [size(layer) for layer in shapes["layers"]] + [
+        math.prod(v) for k, v in shapes.items() if k != "layers"]
+    part = max(parts)
+    update = (2 * (params + moments) + grads
+              + UPDATE_F32_COPIES * 4 * max(blocks))
+    whole_step = params + moments + max(
+        2 * total * item, total * item + 4 * total + 4 * total / n)
+    per_layer = params + moments + grads + (
+        2 * part * item + 4 * part + 4 * part / n)
+    return {k: v / 1e9 for k, v in dict(
+        whole_step=max(whole_step, update), per_layer=max(per_layer, update),
+        shards=params + moments).items()}
+
+
+def sharded_loss(cfg, state, batch, mesh, rules) -> float:
+    """The loss of this rank's shards on the ranks' rows of ``batch`` (a
+    forward, each part gathered where it is used, as the step does)."""
+    specs, _ = param_specs(cfg, rules, mesh)
+    with torch.no_grad(), fsdp_mod.sharded_step(mesh, specs, batch.axes,
+                                                batch.shards):
+        lval = loss_fn(state["params"], cfg, batch)
+    return float(collectives.all_reduce(lval, mesh, batch.axes)
+                 / batch.shards)
+
+
+def fsdp_family_rank(mesh, job):
+    """One rank of an entry of phase 14: the seed's full-width state
+    sharded by its family's train specs; the controls from those shards
+    (rank 1's gradient dropped from the reduce; for an MoE model, layer 0
+    routed on counts of the rank's own tokens alone; with ``scales``, the
+    moments quantized with each block's own absmax); then ``FSDP_STEPS``
+    steps on its rows (K7 counted, the last step's K7 calls in situ,
+    layer 0's routing at each step, the first step's collectives and
+    split moment scales), with after the first the zeroed-update control
+    (rank 1 keeping its initial params beside the ranks' new moments: the
+    second step's loss), and the peak memory over the steps after the
+    first (the initial shards are held until the control has run); with
+    ``checkpoint``, a save from the shards (rank 0 writes the whole
+    leaves; their CRCs) and one more step."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = FSDP_FAMILIES[job["arch"]]
+    cfg = get_config(job["arch"], n_layers=spec["layers"])
+    opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
+    rules = make_rules("train", family=cfg.family)
+    data = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ,
+                           seed=job["seed"])
+
+    def batch(s):
+        b = data.batch_at(s)
+        return shard_batch(b, mesh=mesh, specs=batch_specs(b, rules, mesh))
+
+    def one_step(state, s):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch(s))
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        return state, loss, norm, (time.perf_counter() - t1) * 1e3
+
+    out = dict(rank=mesh.rank, loss=[], grad_norm=[], step_ms=[], k7=[])
+    with mesh_context(mesh, rules, mode="train"):
+        full = train_state(cfg, opt, job["seed"])
+        out["n_leaves"] = len(leaves(full["params"]))
+        sh = named(train_state_pspecs(full, rules, mesh), mesh)
+        state0 = shard_tree(full, sh)
+        del full
+        if spec["scales"]:
+            scale_sh = _moment_scales(sh["opt"]["m"])
+            split = fsdp_split_leaves(cfg, spec["mesh"])
+
+            def scales(state):
+                """The moment scales of the leaves the mesh splits."""
+                return [[x for x, cut in zip(leaves(gather_tree(
+                    _moment_scales(state["opt"][k]), scale_sh)), split)
+                    if cut] for k in ("m", "v")]
+            with patched(adamw_mod, "row_max_of", lambda spec, m: None):
+                st, *_ = one_step(state0, 0)
+            out["control_local_absmax"] = scales(st)
+            del st
+        with dropped_rank_1():
+            _, loss, norm, _ = one_step(state0, 0)
+        out["control_dropped"] = dict(loss=loss, grad_norm=norm)
+        if cfg.moe_experts:
+            def own_counts(counts, g0, groups, rank, split):
+                return moe_mod.split_offsets(counts[None], 0)
+            routes = []           # the first forward, to layer 0's routing
+            with patched(moe_mod, "_exchange_offsets", own_counts), \
+                    first_route(routes, stop=True):
+                step(state0, batch(0))
+            out["control_route"] = routes[0]
+        calls, state = [], state0
+        out["routes"] = []        # layer 0's routing at each step
+        for s in range(FSDP_STEPS):
+            reset_counts()
+            routes = []
+            with contextlib.ExitStack() as inside:
+                if s == FSDP_STEPS - 1:
+                    inside.enter_context(k7_checked(calls))
+                if cfg.moe_experts:
+                    inside.enter_context(first_route(routes))
+                state, loss, norm, ms = one_step(state, s)
+            out["routes"] += routes
+            out["k7"].append(read_counts()["K7"])
+            out["loss"].append(loss)
+            out["grad_norm"].append(norm)
+            out["step_ms"].append(ms)
+            if s == 0:
+                out["traffic"] = step_traffic(step.last)
+                out["batch_index"] = step.last.batch_index()
+                if spec["scales"]:
+                    out["scales"] = scales(state)
+                kept = state0["params"] if mesh.rank == 1 else state["params"]
+                out["control_update"] = sharded_loss(
+                    cfg, {**state, "params": kept}, batch(1), mesh, rules)
+                del state0, kept
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                out["shards_gb"] = torch.cuda.memory_allocated() / 1e9
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["in_situ"] = dict(calls=len(calls),
+                              exact=all(c["exact"] for c in calls),
+                              max_abs_err=max(c["max_abs_err"]
+                                              for c in calls),
+                              longest_row=max(c["shape"][-1] for c in calls))
+        if spec["checkpoint"]:
+            t1 = time.perf_counter()
+            ckpt_lib.save(job["dir"], state, FSDP_STEPS, shardings=sh)
+            out["save_s"] = time.perf_counter() - t1
+            whole = gather_tree(state, sh)
+            if mesh.rank == 0:
+                out["crcs"] = state_crcs(whole)
+            del whole
+            _, loss, norm, _ = one_step(state, FSDP_STEPS)
+            out["next"] = dict(loss=loss, grad_norm=norm)
+    if mesh.rank:
+        out.pop("scales", None)
+        out.pop("control_local_absmax", None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def row_blocks(cfg, mesh_shape) -> int:
+    """How many distinct row blocks ``mesh_shape`` splits a
+    ``FSDP_BATCH``-row batch into under ``cfg``'s train rules."""
+    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)))
+    batch = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, 1).batch_at(0)
+    spec = batch_specs(batch, make_rules("train", family=cfg.family),
+                       mesh)["labels"][0]
+    return math.prod(mesh.shape[a] for a in axes_of(spec))
+
+
+def family_one_process(arch: str, seed: int) -> dict:
+    """One process's ``FSDP_STEPS`` steps of ``arch`` from the seed's
+    state, the reference of its sharded part. A model without experts
+    takes the ranks' row blocks as micro-batches (``grad_accum``): the
+    sharded step sums the blocks' gradients, and the bf16 matmuls round
+    otherwise at another M (rwkv6's first grad_norm moved 5.3e-3 with the
+    rows on an H100); its first step on the whole batch is printed
+    beside. An MoE model routes the whole batch's groups, as its ranks
+    do. With ``scales``, the first step's moment scales of the leaves the
+    entry's mesh splits."""
+    spec = FSDP_FAMILIES[arch]
+    cfg = get_config(arch, n_layers=spec["layers"])
+    accum = 1 if cfg.moe_experts else row_blocks(cfg, spec["mesh"])
+    opt, whole_step = train_setup(cfg, True, FSDP_STEPS + 1)
+    step = build_train_step(cfg, opt, grad_accum=accum, compress_grads="int8")
+    data = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ, seed=seed)
+    one = dict(accum=accum)
+    if accum > 1:
+        _, m = whole_step(train_state(cfg, opt, seed),
+                          shard_batch(data.batch_at(0), device="cuda"))
+        one["whole_batch_first"] = dict(loss=float(m["loss"]),
+                                        grad_norm=float(m["grad_norm"]))
+        gc.collect()
+        torch.cuda.empty_cache()
     state = train_state(cfg, opt, seed)
-    one = dict(loss=[], grad_norm=[], step_ms=[])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one.update(loss=[], grad_norm=[], step_ms=[])
+    routes = []                   # layer 0's routing at each step
     for s in range(FSDP_STEPS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        state, m = step(state, shard_batch(data.batch_at(s), device="cuda"))
+        rec = []
+        with (first_route(rec) if cfg.moe_experts
+              else contextlib.nullcontext()):
+            state, m = step(state, shard_batch(data.batch_at(s),
+                                               device="cuda"))
+        routes += rec
         one["loss"].append(float(m["loss"]))
         one["grad_norm"].append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         one["step_ms"].append((time.perf_counter() - t1) * 1e3)
-        if s == 0:
-            split = fsdp_split_leaves(cfg)
+        if s == 0 and spec["scales"]:
+            split = fsdp_split_leaves(cfg, spec["mesh"])
             one["scales"] = [[x.cpu().numpy() for x, cut in zip(leaves(
                 _moment_scales(state["opt"][k])), split) if cut]
                 for k in ("m", "v")]
     one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del state
+    gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="fsdp-") as d:
-        ranks = spawn_ranks(fsdp_rank, FSDP_MESH[0] * FSDP_MESH[1],
-                            init_dir=d, backend="gloo", device="cuda",
-                            args=(dict(seed=seed, dir=os.path.join(d, "ck")),),
-                            timeout=FSDP_TIMEOUT_S, shape=FSDP_MESH)
-        t1 = time.perf_counter()
-        restored = ckpt_lib.restore(os.path.join(d, "ck"),
-                                               train_state(cfg, opt, seed))
-        restore_s = time.perf_counter() - t1
-        ckpt_bytes = sum(f.stat().st_size for f in Path(d).rglob("*.npz"))
-    restored_crcs = state_crcs(restored)
-    _, m = step(restored, shard_batch(data.batch_at(FSDP_STEPS),
-                                      device="cuda"))
-    elastic = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
-    del restored
-    torch.cuda.empty_cache()
+    one["routes"] = routes
+    return one
 
+
+def family_report(arch: str, one: dict, ranks: list, smi: str,
+                  elastic: dict = None) -> dict:
+    """Phase 14's gates and printout for one entry: its ranks' results
+    against one process's (``family_one_process``) and, for the
+    checkpoint entry, against its save restored into one process
+    (``elastic``: :func:`restored_step`); raises on any failure."""
+    cfg = get_config(arch, n_layers=FSDP_FAMILIES[arch]["layers"])
+    spec = FSDP_FAMILIES[arch]
+    routes = one.pop("routes")
     r0 = ranks[0]
-    wire = fsdp_wire_bytes(cfg, FSDP_MESH)
     first = max(_rel_gap(r0[k][0], one[k][0]) for k in ("loss", "grad_norm"))
+    n = spec["losses"]
     gaps = dict(
         first_step=first,
-        loss=max(_rel_gap(a, b) for a, b in zip(r0["loss"], one["loss"])),
-        scales=_scale_gap(r0["scales"], one["scales"]),
-        restored=max(_rel_gap(elastic[k], r0["next"][k])
-                     for k in ("loss", "grad_norm")),
+        loss=max(_rel_gap(a, b) for a, b in
+                 zip(r0["loss"][:n], one["loss"][:n])),
         grad_norm=max(_rel_gap(a, b) for a, b in
                       zip(r0["grad_norm"], one["grad_norm"])),
-        control_local_absmax=_scale_gap(r0["control_local_absmax"],
-                                        one["scales"]),
-        control_dropped=_rel_gap(r0["control_dropped"]["grad_norm"],
-                                 one["grad_norm"][0]),
-        control_update=max(_rel_gap(a, b) for a, b in
-                           zip(r0["control_update"], one["loss"])))
-    fails = []
-    for k, tol in (("first_step", FSDP_FIRST_RTOL), ("loss", FSDP_LOSS_RTOL),
-                   ("scales", FSDP_SCALE_TOL),
-                   ("restored", FSDP_FIRST_RTOL)):
-        if not gaps[k] <= tol:
-            fails.append(f"{k} gap {gaps[k]:.3g} > {tol:g}")
-    if gaps["control_local_absmax"] <= FSDP_SCALE_TOL:
-        fails.append("the block-local absmax control passed")
-    if gaps["control_dropped"] <= FSDP_FIRST_RTOL:
-        fails.append("the dropped-rank control passed")
-    if gaps["control_update"] <= FSDP_LOSS_RTOL:
-        fails.append("the zeroed-update control passed")
-    if restored_crcs != r0["crcs"]:
-        bad = [i for i, (a, b) in enumerate(zip(restored_crcs, r0["crcs"]))
+        control_dropped=max(_rel_gap(r0["control_dropped"][k], one[k][0])
+                            for k in ("loss", "grad_norm")),
+        control_update=_rel_gap(r0["control_update"], one["loss"][1]))
+    if n < FSDP_STEPS:
+        gaps["later_losses"] = max(_rel_gap(a, b) for a, b in
+                                   zip(r0["loss"][n:], one["loss"][n:]))
+    gated = [("first_step", FSDP_FIRST_RTOL), ("loss", spec["loss_rtol"])]
+    if spec["norms"]:
+        gated.append(("grad_norm", FSDP_LOSS_RTOL))
+    controls = [("control_dropped", FSDP_FIRST_RTOL),
+                ("control_update", spec["loss_rtol"])]
+    shares = [[route_share(routes[s], ranks, lambda r: r["routes"][s], e)
+               for e in (True, False)] for s in range(len(routes))]
+    if cfg.moe_experts:
+        gaps["route_share"] = shares[0][1]
+        gaps["control_route_share"] = route_share(
+            routes[0], ranks, lambda r: r["control_route"])
+        gated.append(("route_share", FSDP_ROUTE_SHARE))
+        controls.append(("control_route_share", FSDP_ROUTE_SHARE))
+    if spec["scales"]:
+        gaps["scales"] = _scale_gap(r0["scales"], one["scales"])
+        gaps["control_local_absmax"] = _scale_gap(r0["control_local_absmax"],
+                                                  one["scales"])
+        gated.append(("scales", FSDP_SCALE_TOL))
+        controls.append(("control_local_absmax", FSDP_SCALE_TOL))
+    if elastic is not None:
+        gaps["restored"] = max(_rel_gap(elastic[k], r0["next"][k])
+                               for k in ("loss", "grad_norm"))
+        gated.append(("restored", FSDP_FIRST_RTOL))
+    fails = [f"{k} gap {gaps[k]:.3g} > {tol:g}" for k, tol in gated
+             if not gaps[k] <= tol]
+    fails += [f"the {k} passed ({gaps[k]:.3g})" for k, tol in controls
+              if gaps[k] <= tol]
+    if elastic is not None and elastic["crcs"] != r0["crcs"]:
+        bad = [i for i, (a, b) in enumerate(zip(elastic["crcs"], r0["crcs"]))
                if a != b]
         fails.append(f"the restored state differs from the saved one in "
                      f"{len(bad)} of {len(r0['crcs'])} leaves: {bad[:8]}")
@@ -5055,51 +5337,83 @@ def fsdp_training(seed: int, smi: str):
             fails.append(f"rank {r['rank']}: K7 in situ {r['in_situ']}")
         if (r["loss"], r["grad_norm"]) != (r0["loss"], r0["grad_norm"]):
             fails.append(f"rank {r['rank']}'s metrics differ from rank 0's")
-    seconds = time.perf_counter() - t0
-    print(f"  {TRAIN_ARCH} full width, {cfg.n_layers} of 28 layers, int8 "
-          f"moments + int8 gradients, {FSDP_MESH} mesh of ranks (processes "
-          f"time-sharing one card through gloo: no sharded speed); {smi}")
+    peak = fsdp_peak_gb(cfg, spec["mesh"])
+    limit = peak["whole_step"] - 0.5 * (peak["whole_step"]
+                                        - peak["per_layer"])
+    measured = max(r["peak_gb"] for r in ranks)
+    if cfg.moe_experts and not measured <= limit:
+        fails.append(f"a rank's peak {measured:.2f} GB is not below the "
+                     f"whole-step design's {peak['whole_step']:.2f} by half "
+                     f"the predicted saving (limit {limit:.2f} GB)")
+    total = get_config(arch).n_layers
+    print(f"  {arch} full width, {cfg.n_layers} of {total} layers, int8 "
+          f"moments + int8 gradients, {spec['mesh']} mesh of ranks "
+          f"(processes time-sharing one card through gloo: no sharded "
+          f"speed); one process with grad_accum {one['accum']}; {smi}")
+    if "whole_batch_first" in one:
+        w = one["whole_batch_first"]
+        print(f"  one process's first step on the whole batch: loss "
+              f"{w['loss']:.6f}, grad_norm {w['grad_norm']:.6f} (gaps to "
+              f"the ranks' {_rel_gap(r0['loss'][0], w['loss']):.3g}, "
+              f"{_rel_gap(r0['grad_norm'][0], w['grad_norm']):.3g})")
     for s in range(FSDP_STEPS):
         print(f"  step {s}: loss {r0['loss'][s]:.6f} (one process "
-              f"{one['loss'][s]:.6f}), grad_norm {r0['grad_norm'][s]:.6f} "
-              f"({one['grad_norm'][s]:.6f}); ms rank 0 {r0['step_ms'][s]:.0f}"
-              f", rank 1 {ranks[1]['step_ms'][s]:.0f}, one process "
-              f"{one['step_ms'][s]:.0f}")
-    print(f"  gaps (limits: first and restored step {FSDP_FIRST_RTOL:g}, "
-          f"every loss {FSDP_LOSS_RTOL:g} relative; scales "
-          f"{FSDP_SCALE_TOL:g} of a leaf's largest; grad_norm after the "
-          f"first step printed): "
+              f"{one['loss'][s]:.6f}, gap "
+              f"{_rel_gap(r0['loss'][s], one['loss'][s]):.3g}), grad_norm "
+              f"{r0['grad_norm'][s]:.6f} ({one['grad_norm'][s]:.6f}, gap "
+              f"{_rel_gap(r0['grad_norm'][s], one['grad_norm'][s]):.3g})"
+              + (f", layer 0's picks apart from one process's: experts "
+                 f"{shares[s][0]:.3%}, slots {shares[s][1]:.3%}"
+                 if shares else "") + "; ms "
+              + " / ".join(f"{r['step_ms'][s]:.0f}" for r in ranks)
+              + f", one process {one['step_ms'][s]:.0f}")
+    print("  gaps (limits: " + ", ".join(f"{k} {tol:g}" for k, tol in gated)
+          + f"; loss over steps 0-{n - 1}; scales a share of a leaf's "
+          f"largest, the rest relative; controls must exceed theirs; the "
+          f"rest printed): "
           + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
     print(f"  K7 {r0['k7']} a step a rank ({r0['n_leaves']} leaves x 3), in "
           f"situ (last step) {r0['in_situ']['calls']} calls "
           f"{'exact' if r0['in_situ']['exact'] else 'FAIL'} (rows up to "
           f"{r0['in_situ']['longest_row']:,})")
-    print(f"  memory GB: a rank's shards " + " / ".join(
-        f"{r['shards_gb']:.3f}" for r in ranks) + ", peak " + " / ".join(
-        f"{r['peak_gb']:.3f}" for r in ranks)
-        + f"; one process peak {one['peak_gb']:.3f}")
-    print(f"  bytes a rank sends a step (from the shapes): "
-          + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in wire.items()))
-    print(f"  checkpoint {ckpt_bytes:,} bytes: save {r0['save_s']:.1f} s "
-          f"(gather, rank 0 writes), restore into one process "
-          f"{restore_s:.1f} s, {len(r0['crcs'])} leaves "
-          f"{'byte for byte' if restored_crcs == r0['crcs'] else 'DIFFERENT'}"
-          f" the saved state; its next step loss {elastic['loss']:.6f}, "
-          f"grad_norm {elastic['grad_norm']:.6f} (the ranks' step "
-          f"{FSDP_STEPS}: {r0['next']['loss']:.6f}, "
-          f"{r0['next']['grad_norm']:.6f})")
-    print(f"  phase 14 seconds: {seconds:.1f}")
+    print(f"  memory GB a rank: shards " + " / ".join(
+        f"{r['shards_gb']:.3f}" for r in ranks) + ", peak over steps 1-3 "
+        + " / ".join(f"{r['peak_gb']:.3f}" for r in ranks)
+        + f" (predicted from the shapes: per layer "
+          f"{peak['per_layer']:.3f}, whole-step design "
+          f"{peak['whole_step']:.3f}, shards {peak['shards']:.3f}"
+        + (f"; limit {limit:.3f}" if cfg.moe_experts else "")
+        + f"); one process peak {one['peak_gb']:.3f}")
+    wire = r0["traffic"]
+    print(f"  a step's collectives a rank (gloo calls / GB sent): "
+          + ", ".join(f"{k} {wire['calls'][k]} / {wire['sent'][k] / 1e9:.3f}"
+                      for k in wire["calls"])
+          + f"; whole params held at once at most "
+            f"{wire['peak_whole_gb']:.3f} GB")
+    if elastic is not None:
+        same = elastic["crcs"] == r0["crcs"]
+        print(f"  checkpoint {elastic['bytes']:,} bytes: save "
+              f"{r0['save_s']:.1f} s (gather, rank 0 writes), restore into "
+              f"one process {elastic['restore_s']:.1f} s, "
+              f"{len(r0['crcs'])} leaves "
+              f"{'byte for byte' if same else 'DIFFERENT'} the saved "
+              f"state; its next step loss {elastic['loss']:.6f}, "
+              f"grad_norm {elastic['grad_norm']:.6f} (the ranks' step "
+              f"{FSDP_STEPS}: {r0['next']['loss']:.6f}, "
+              f"{r0['next']['grad_norm']:.6f})")
+    print(f"  {arch} part seconds on the ranks: {r0['seconds']:.1f}")
     if fails:
-        raise RuntimeError("phase 14: " + "; ".join(fails))
+        raise RuntimeError(f"phase 14 ({arch}): " + "; ".join(fails))
     for r in ranks:
-        r.pop("scales", None)
-        r.pop("control_local_absmax", None)
-        r.pop("crcs", None)
-    one.pop("scales")
-    return dict(card=smi, ranks=ranks, one_process=one, elastic=elastic,
-                gaps=gaps, wire_bytes=wire, ckpt_bytes=ckpt_bytes,
-                restore_s=restore_s, seconds=seconds,
-                launches={"K7": sum(r0["k7"])})
+        for k in ("routes", "control_route", "scales", "control_local_absmax",
+                  "crcs"):
+            r.pop(k, None)
+    one.pop("scales", None)
+    return dict(card=smi, ranks=ranks, one_process=one, gaps=gaps,
+                route_share_by_step=shares, predicted_peak_gb=peak,
+                peak_limit_gb=limit, launches={"K7": sum(r0["k7"])},
+                **({} if elastic is None else dict(elastic={
+                    k: v for k, v in elastic.items() if k != "crcs"})))
 
 
 # ---------------------------------------------------------------------------
@@ -5351,11 +5665,13 @@ def smoke(args) -> int:
           "serve_quantized, fault_tolerance_demo) start, beside phase 14")
     procs = start_examples()
     try:
-        print(f"[phase 14] sharded training: full-width {TRAIN_ARCH}, "
-              f"{FSDP_LAYERS} layers, on a {FSDP_MESH} mesh of ranks "
+        print(f"[phase 14] sharded training at full width, one layer "
+              f"gathered at a time: "
+              + ", ".join(f"{a} ({v['layers']} layers, {v['mesh']})"
+                          for a, v in FSDP_FAMILIES.items()) + " "
               f"(processes sharing the card through gloo), int8 moments and "
-              f"gradients, against one process; the checkpoint restored "
-              f"into one process")
+              f"gradients, against one process; {TRAIN_ARCH}'s checkpoint "
+              f"restored into one process")
         fsdp = fsdp_training(SEED, smi)
         torch.cuda.empty_cache()
     except BaseException:
@@ -5403,7 +5719,8 @@ def smoke(args) -> int:
         "launches"]
     counts[f"tp{TP_RANKS} rank 0"] = tp["launches"]
     counts[f"tp{TP_RANKS} moe rank 0"] = families["launches"]
-    counts["fsdp rank 0"] = fsdp["launches"]
+    for arch, part in fsdp["families"].items():
+        counts[f"fsdp {arch} rank 0"] = part["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]

@@ -11,7 +11,10 @@ numpy and yields the reference's batches bit for bit.
   mesh of ranks, only this rank's rows (:class:`RankBatch`), by the specs
   ``spec_for`` gives the batch's dims (:func:`batch_specs`): the batch
   binds ``("data", "model")`` in training (recurrent families ``data``
-  only), and rows the mesh does not divide stay replicated.
+  only), and rows the mesh does not divide stay replicated. With
+  ``grad_accum=k`` a rank holds its block of each of the k global
+  micro-batches, in order, as the reference's micro-batch i is global
+  rows [i·GB/k, (i+1)·GB/k) (an MoE layer routes over each).
 * **background prefetch**: a depth-2 thread prefetcher overlaps host data
   generation with device steps.
 
@@ -71,30 +74,43 @@ class RankBatch(dict):
 
     ``axes``: the mesh axes the rows are split over (empty: every rank
     holds the whole batch); ``shards``: how many distinct row blocks the
-    mesh holds. The sharded train step reduces its gradients over
-    ``axes`` and divides by ``shards``, so replicated rows count once.
+    mesh holds; ``micro``: how many micro-batches the rows hold (this
+    rank's block of each, in order). The sharded train step reduces its
+    gradients over ``axes`` and divides by ``shards``, so replicated rows
+    count once.
     """
 
-    def __init__(self, rows: dict, axes: tuple, shards: int):
+    def __init__(self, rows: dict, axes: tuple, shards: int,
+                 micro: int = 1):
         super().__init__(rows)
         self.axes, self.shards = tuple(axes), int(shards)
+        self.micro = int(micro)
 
 
-def batch_specs(batch: dict, rules, mesh) -> dict:
+def batch_specs(batch: dict, rules, mesh, grad_accum: int = 1) -> dict:
     """The spec of each array of a host batch: dims named ``("batch",
-    "seq")`` (embedding inputs: ``+ ("embed",)``)."""
+    "seq")`` (embedding inputs: ``+ ("embed",)``); with ``grad_accum``,
+    of each of its micro-batches."""
     names = ("batch", "seq", "embed")
-    return {k: spec_for(np.shape(v), names[:np.ndim(v)], rules, mesh)
+
+    def shape(v):
+        gb = np.shape(v)[0]
+        if gb % grad_accum:
+            raise ValueError(f"batch {gb} does not split into {grad_accum} "
+                             "micro-batches")
+        return (gb // grad_accum,) + np.shape(v)[1:]
+    return {k: spec_for(shape(v), names[:np.ndim(v)], rules, mesh)
             for k, v in batch.items()}
 
 
 def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
-                device=None) -> dict:
+                device=None, grad_accum: int = 1) -> dict:
     """A host batch of numpy arrays → tensors on ``device`` (default: the
     card; see :func:`repro_torch.device.resolve_device`; on a mesh, the
-    mesh's device). With ``mesh`` and ``specs`` (:func:`batch_specs`):
-    this rank's block of every array, as a :class:`RankBatch`; every
-    array's batch dim must bind the same axes."""
+    mesh's device). With ``mesh`` and ``specs`` (:func:`batch_specs` with
+    the same ``grad_accum``): this rank's block of every array, of each
+    micro-batch in turn, as a :class:`RankBatch`; every array's batch
+    dim must bind the same axes."""
     if mesh is None:
         if specs is not None:
             raise ValueError("specs without a mesh")
@@ -111,9 +127,17 @@ def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
     shards = 1
     for a in axes:
         shards *= mesh.shape[a]
-    return RankBatch({k: block_view(torch.from_numpy(np.asarray(v)),
-                                    specs[k], mesh).contiguous().to(device)
-                      for k, v in batch.items()}, axes, shards)
+
+    def rows_of(v, spec):
+        v = torch.from_numpy(np.asarray(v))
+        if v.shape[0] % grad_accum:
+            raise ValueError(f"batch {v.shape[0]} does not split into "
+                             f"{grad_accum} micro-batches")
+        return torch.cat([block_view(x, spec, mesh)
+                          for x in v.chunk(grad_accum)]).contiguous().to(
+                              device)
+    return RankBatch({k: rows_of(v, specs[k]) for k, v in batch.items()},
+                     axes, shards, grad_accum)
 
 
 class Prefetcher:

@@ -58,7 +58,9 @@ from repro_torch.core.quant import (QuantizedTensor, pack_int4,
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import reduce_partials, refuse_tf32
-from repro_torch.parallel.collectives import all_reduce
+from repro_torch.parallel.collectives import (all_reduce, gather_blocks,
+                                              psum_grad)
+from repro_torch.parallel.fsdp import batch_split
 from repro_torch.parallel.sharding import serve_tp, sharded
 
 MOE_MIN_CAPACITY = 8
@@ -196,9 +198,15 @@ def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
     return acc.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
 
 
-def _route(gates: torch.Tensor, k: int, cap: int):
+def _route(gates: torch.Tensor, k: int, cap: int, mask=None, offsets=None):
     """gates: (G, S, E) f32 → (slots (G, S, k) long in [0, E·cap],
-    weights (G, S, k) f32). Slot E·cap is the overflow sentinel."""
+    weights (G, S, k) f32). Slot E·cap is the overflow sentinel.
+
+    ``mask`` (G, S) bool: the tokens of this rank's run (the others hold
+    no token here and take no slot); ``offsets`` (G, k, E) int32: for
+    each level the picks of the group's tokens that come before this
+    rank's run in slot order (:func:`split_offsets`). Without them the
+    group is whole here, as in one process."""
     g, s, e = gates.shape
     order = torch.sort(gates, dim=-1, descending=True, stable=True)
     topv, topi = order.values[..., :k], order.indices[..., :k]
@@ -207,6 +215,10 @@ def _route(gates: torch.Tensor, k: int, cap: int):
     slots = []
     for j in range(k):
         oh = F.one_hot(topi[:, :, j], e).to(torch.int32)          # (G,S,E)
+        if mask is not None:
+            oh = oh * mask[..., None]
+        if offsets is not None:
+            counts = offsets[:, j]
         pos_all = torch.cumsum(oh, dim=1, dtype=torch.int32) - 1 \
             + counts[:, None]
         pos = torch.gather(pos_all, -1, topi[:, :, j:j + 1])[..., 0]
@@ -216,22 +228,73 @@ def _route(gates: torch.Tensor, k: int, cap: int):
     return torch.stack(slots, dim=-1), topv
 
 
+def level_counts(gates: torch.Tensor, k: int, mask=None) -> torch.Tensor:
+    """gates (G, S, E) → (G, k, E) int32: how many of the tokens (those in
+    ``mask``) pick each expert at each top-k level."""
+    e = gates.shape[-1]
+    topi = torch.sort(gates, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+    oh = F.one_hot(topi, e).to(torch.int32)                     # (G,S,k,E)
+    if mask is not None:
+        oh = oh * mask[..., None, None]
+    return oh.sum(dim=1, dtype=torch.int32)
+
+
+def split_offsets(counts: torch.Tensor, rank: int) -> torch.Tensor:
+    """counts (R, G, k, E): every rank's :func:`level_counts` of the global
+    groups, ranks in token order → (G, k, E) int32, rank ``rank``'s
+    offsets: at level j, the whole group's picks at levels < j plus the
+    earlier ranks' at level j. A pick's slot is then this offset plus its
+    place among the rank's own picks, as one process's cumsum over the
+    whole group gives it (every level's positions follow the earlier
+    levels' totals, never another position)."""
+    total = counts.sum(dim=0, dtype=torch.int32)                 # (G,k,E)
+    before = torch.cumsum(total, dim=1, dtype=torch.int32) - total
+    return before + counts[:rank].sum(dim=0, dtype=torch.int32)
+
+
+def run_grid(first: int, t: int, sg: int):
+    """A run of ``t`` tokens of the global token array from token
+    ``first`` on, laid on the grid of the routing groups of ``sg`` tokens
+    it meets: (first group, groups, the run's first cell in the grid's
+    flattened (groups, sg) cells)."""
+    g0 = first // sg
+    return g0, (first + t - 1) // sg - g0 + 1, first - g0 * sg
+
+
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
             qmode: str = "none", impl: str = "auto"):
     """x: (B, S, D) → (y (B, S, D), Switch load-balance aux loss). Under
     a serve-mode mesh whose layout shards the experts, this rank's
-    column and row blocks of them (module docstring)."""
+    column and row blocks of them; under a sharded train step whose rows
+    are split over ranks, this rank's rows of the global batch (module
+    docstring)."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     t = b * s
-    sg = routing_group_size(t)
-    g = t // sg
+    split = batch_split()
+    n, rank = (1, 0) if split is None else split[2:]
+    sg = routing_group_size(n * t)
     cap = expert_capacity(sg, cfg)
     refuse_tf32(x, "the MoE router")
 
-    xg = x.reshape(g, sg, d)
+    if split is None:
+        g, cells = t // sg, None
+        xg = x.reshape(g, sg, d)
+    else:         # this rank's tokens on the grid of the groups they meet
+        g0, g, lo = run_grid(rank * t, t, sg)
+        cells = torch.arange(lo, lo + t, device=x.device)
+        xg = x.new_zeros(g * sg, d).index_copy(0, cells, x.reshape(t, d))
+        xg = xg.reshape(g, sg, d)
     gates = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
-    slots, weights = _route(gates, k, cap)                        # (G,S,k)
+    if split is None:
+        slots, weights = _route(gates, k, cap)                    # (G,S,k)
+    else:
+        mask = torch.zeros(g * sg, dtype=torch.int32, device=x.device)
+        mask = mask.index_fill(0, cells, 1).reshape(g, sg)
+        slots, weights = _route(gates, k, cap, mask, _exchange_offsets(
+            level_counts(gates, k, mask), g0, n * t // sg, rank, split))
+        slots = torch.where(mask[..., None].bool(), slots, e * cap)
 
     # slot → token map; the sentinel token index sg reads a zero row
     tok_for_slot = torch.full((g, e * cap + 1), sg, dtype=torch.long,
@@ -267,6 +330,25 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     # load-balance aux (Switch): E · Σ_e fraction_e · mean_gate_e
     top1 = F.one_hot(gates.argmax(dim=-1), e).float()
-    aux = e * torch.sum(top1.reshape(t, e).mean(dim=0)
-                        * gates.reshape(t, e).mean(dim=0))
-    return y.reshape(b, s, d), aux
+    if split is None:
+        aux = e * torch.sum(top1.reshape(t, e).mean(dim=0)
+                            * gates.reshape(t, e).mean(dim=0))
+        return y.reshape(b, s, d), aux
+    # the global batch's means: the ranks' sums, summed (and so their
+    # gradients, in the backward), over its token count
+    sums = torch.stack([top1.reshape(-1, e)[cells].sum(dim=0),
+                        gates.reshape(-1, e)[cells].sum(dim=0)])
+    frac, mean_gate = psum_grad(sums, split[0], split[1]) / (n * t)
+    aux = e * torch.sum(frac * mean_gate)
+    return y.reshape(-1, d)[cells].reshape(b, s, d), aux
+
+
+def _exchange_offsets(counts, g0: int, groups: int, rank: int, split):
+    """This rank's :func:`split_offsets` from its ``counts`` (its groups
+    from ``g0`` on): every rank's counts of the ``groups`` global groups,
+    all-gathered as int32 over the batch axes, one call a layer."""
+    mesh, axes = split[:2]
+    mine = counts.new_zeros((groups,) + tuple(counts.shape[1:]))
+    mine[g0:g0 + counts.shape[0]] = counts
+    every = torch.stack(gather_blocks(mine, mesh, axes))
+    return split_offsets(every, rank)[g0:g0 + counts.shape[0]]

@@ -38,6 +38,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (chunked_xent, gated_mlp, linear,
                                         rms_norm)
 from repro_torch.parallel.collectives import all_gather_last, psum
+from repro_torch.parallel.fsdp import whole
 from repro_torch.parallel.sharding import (RankShards, serve_tp, shard_params,
                                            sharded)
 
@@ -147,7 +148,11 @@ def _block(lp: dict, cfg: ModelConfig, i: int, h: torch.Tensor,
            qmode: str, impl: str):
     """One residual block → (h, new_cache, aux). ``cache``: the layer's
     dict (``attn`` / ``mamba`` / ``rwkv_tm``, and ``rwkv_cm`` beside a
-    channel mix) or None; aux is None unless the FFN is MoE."""
+    channel mix) or None; aux is None unless the FFN is MoE. Under a
+    sharded train step ``lp`` holds this rank's blocks, gathered here
+    (:func:`~repro_torch.parallel.fsdp.whole`), inside the block's
+    checkpoint."""
+    lp = whole(lp, ("layers", i))
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
     mixer = cfg.mixer_of(i)
     key = {"attn": "attn", "mamba": "mamba", "rwkv": "rwkv_tm"}[mixer]
@@ -203,6 +208,10 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     With ``cfg.remat``, no caches and grad enabled, each block runs under
     a checkpoint: its activations are recomputed in the backward pass, as
     the reference's ``jax.checkpoint`` per block.
+
+    Under a sharded train step (:mod:`repro_torch.parallel.fsdp`)
+    ``params`` holds this rank's blocks: each block gathers its layer
+    where it runs and each top-level leaf is gathered around its use.
     """
     qmode = cfg.qmode if qmode is None else qmode
     b, s = inputs.shape[:2]
@@ -220,8 +229,8 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
         # token ids past the vocabulary take its last row, as the
         # reference's gather clamps them (a narrow-vocabulary draft model
         # reads the target's tokens)
-        h = embed(params["embedding"], inputs.clamp(max=cfg.vocab_size - 1)
-                  ).to(dtype_of(cfg))
+        h = embed(whole(params["embedding"], ("embedding",)),
+                  inputs.clamp(max=cfg.vocab_size - 1)).to(dtype_of(cfg))
     new_caches = [] if caches is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     remat = cfg.remat and caches is None and torch.is_grad_enabled()
@@ -238,7 +247,8 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
             new_caches.append(c_new)
         if aux is not None:
             aux_total = aux_total + aux
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(h, whole(params["final_norm"], ("final_norm",)),
+                 cfg.norm_eps)
     if return_hidden:
         return h, new_caches, aux_total
     if last_logits_only:
@@ -273,7 +283,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     ``MOE_AUX_COEF`` × the aux loss for MoE configs. The head is streamed
     (:func:`chunked_xent`): the (B, S, V) logits are never held whole."""
     h, _, aux = forward(params, cfg, batch["inputs"], return_hidden=True)
-    head = params["embedding"].T if cfg.tie_embeddings else params["lm_head"]
+    head = (whole(params["embedding"], ("embedding",)).T
+            if cfg.tie_embeddings else whole(params["lm_head"], ("lm_head",)))
     loss = chunked_xent(h, head, batch["labels"])
     if cfg.moe_experts:
         loss = loss + MOE_AUX_COEF * aux

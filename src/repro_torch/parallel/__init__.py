@@ -1,5 +1,6 @@
 """Distribution layer: logical-axis sharding rules, the mesh context, one
-rank's shards, and the collectives over a serving mesh."""
+rank's shards, the collectives over a mesh, and flat FSDP's gather and
+reduce of one layer at a time (``fsdp``)."""
 from repro_torch.parallel.sharding import (  # noqa: F401
     PARTS,
     MeshCtx,

@@ -27,7 +27,9 @@ reduce-scatters blocks over one axis or both:
 * :func:`gather_blocks` — every rank's block along the axes, in the
   group's order (a parameter made whole);
 * :func:`reduce_scatter` — the sum over the ranks of each rank's block
-  (a gradient reduced to this rank's shard).
+  (a gradient reduced to this rank's shard);
+* :func:`psum_grad` — a sum whose backward sums too (the MoE aux loss's
+  per-expert sums over the global batch).
 
 Every call takes tensors on the rank's device as they are: NCCL and gloo
 both take CUDA tensors for these calls (gloo stages them through host
@@ -106,6 +108,26 @@ def reduce_scatter(blocks: Sequence[torch.Tensor], mesh, axis: Axes
     out = torch.empty_like(blocks[0], memory_format=torch.contiguous_format)
     dist.reduce_scatter(out, [b.contiguous() for b in blocks], group=group)
     return out
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+def psum_grad(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axis``, differentiable: the
+    backward sums the ranks' output gradients alike, so each rank's
+    ``x`` gets the gradient of every rank's use of the sum (the one
+    process's gradient, summed again once the step reduces the ranks'
+    parameter gradients and divides by their count)."""
+    return _PsumGrad.apply(x, mesh, _axes(axis))
 
 
 def psum(y: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:

@@ -26,7 +26,8 @@ train state as this rank's block along every sharded dim, on both axes:
 :func:`train_state_pspecs` gives the specs of a whole state,
 :class:`NamedSharding` pairs a spec with its mesh (as the reference's), and
 :func:`shard_tree` / :func:`gather_tree` cut a whole tree into this rank's
-shards and make shards whole again.
+shards and make shards whole again (the checkpoints; the step gathers one
+layer at a time, :mod:`repro_torch.parallel.fsdp`).
 
 Outside a :func:`mesh_context` every helper is a no-op, so the same model
 code runs single-device unchanged.
@@ -442,18 +443,18 @@ def block_view(x: torch.Tensor, spec: tuple, mesh, coords=None
     return x
 
 
+def block_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of the block of a whole ``shape`` that a rank holds under
+    ``spec``."""
+    return tuple(d // _block(e, mesh.coords, mesh)[1]
+                 for d, e in zip(shape, spec))
+
+
 def _slice(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of ``x`` under ``spec``, copied out so that the
     full tensor's storage can be freed."""
     return block_view(x, spec, mesh).clone(
         memory_format=torch.contiguous_format)
-
-
-def dense_attention_decoder(cfg) -> bool:
-    """Attention mixers and dense FFNs only: the models the sharded
-    training step takes (MoE and recurrent ones under a train mesh are
-    ROADMAP queue 1 item 10c)."""
-    return not cfg.moe_experts and attention_only(cfg)
 
 
 def attention_only(cfg) -> bool:

@@ -101,8 +101,9 @@ def run(train_step: Callable, state: Any, data, *, steps: int,
         batch = data.batch_at(step)
         if mesh is None:
             return shard_batch(batch, device=device)
-        return shard_batch(batch, mesh=mesh, device=device,
-                           specs=batch_specs(batch, ctx.rules, mesh))
+        k = getattr(train_step, "grad_accum", 1)
+        return shard_batch(batch, mesh=mesh, device=device, grad_accum=k,
+                           specs=batch_specs(batch, ctx.rules, mesh, k))
 
     monitor = StragglerMonitor(factor=straggler_factor)
     history = {"loss": [], "step_time": [], "straggler_steps": []}

@@ -11,26 +11,30 @@ Port of ``repro/train/train_step.py``.
 
 Under a train :func:`~repro_torch.parallel.sharding.mesh_context` (flat
 FSDP on a (data, model) mesh of ranks, the counterpart of the reference's
-GSPMD step under ``make_rules("train")``) the state holds this rank's
-blocks of the params and moments (:func:`~repro_torch.parallel.sharding.
-shard_tree` by :func:`~repro_torch.parallel.sharding.train_state_pspecs`)
-and the batch is this rank's rows (``shard_batch(mesh=)``). A step:
+GSPMD step under ``make_rules("train", family=...)``, every model family)
+the state holds this rank's blocks of the params and moments
+(:func:`~repro_torch.parallel.sharding.shard_tree` by
+:func:`~repro_torch.parallel.sharding.train_state_pspecs`) and the batch
+is this rank's rows of each global micro-batch (``shard_batch(mesh=,
+grad_accum=)``). A step:
 
-1. gathers the whole params (every leaf, once a step);
-2. computes the loss and gradients on this rank's rows (``grad_accum``
-   splits them);
-3. reduces each gradient to this rank's block, summed over the ranks
-   that hold distinct rows and divided by their count (rows a batch
-   replicates count once), and the loss alike (:func:`reduce_grads`);
-4. compresses the reduced gradient blocks with each whole row's absmax
+1. computes the loss and gradients on this rank's rows inside
+   :func:`~repro_torch.parallel.fsdp.sharded_step`: each block gathers its
+   layer where it runs (again in its recompute), each top-level leaf is
+   gathered around its use, and each gather's backward reduces its whole
+   gradients to this rank's blocks, summed over the ranks that hold
+   distinct rows and divided by their count (rows a batch replicates
+   count once; :func:`~repro_torch.parallel.fsdp.reduce_blocks`). An MoE
+   layer routes the global micro-batch's groups (its counts exchanged
+   over the batch axes, its aux loss over the global tokens);
+2. reduces the loss alike;
+3. compresses the reduced gradient blocks with each whole row's absmax
    (``int8``), and runs AdamW on the blocks (``update(specs=)``).
 
-Dense attention decoders only: an MoE model (routing groups form over the
-global token array) or a recurrent one raises ``NotImplementedError``.
+No rank holds the whole params or the whole gradient tree.
 """
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
@@ -42,11 +46,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.optim.adamw import (Optimizer, RowMax, global_norm,
                                      row_max_of)
-from repro_torch.launch.mesh import AXES
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.sharding import (active_ctx, block_view,
-                                           dense_attention_decoder,
-                                           gather_tree, live_axes, named,
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.sharding import (active_ctx, block_shape,
                                            params_pspecs)
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -81,48 +83,6 @@ def param_specs(cfg: ModelConfig, rules, mesh):
             tree_map(lambda p: tuple(p.shape), meta))
 
 
-def check_trainable_sharded(cfg: ModelConfig) -> None:
-    """Raise for a model the sharded step does not cover."""
-    if not dense_attention_decoder(cfg):
-        raise NotImplementedError(
-            "sharded training covers dense attention decoders; MoE and "
-            "recurrent models under a mesh are ROADMAP queue 1 item 10")
-
-
-def reduce_grads(grads, specs, mesh, batch_axes: tuple, shards: int):
-    """This rank's block of every mean gradient: its block of each leaf
-    summed in f32 over the ranks along ``batch_axes`` (those holding
-    distinct rows), divided by ``shards``, in the leaf's dtype. The leaves
-    those axes shard are reduce-scattered (each member of the group gets
-    its own block), the others all-reduced: one call each, over one flat
-    buffer."""
-    live = tuple(a for a in AXES if a in batch_axes and mesh.shape[a] > 1)
-    gs, ss = leaves(grads), leaves(specs)
-    scatter = [i for i, s in enumerate(ss)
-               if set(live) & set(live_axes(s, mesh))]
-    whole = sorted(set(range(len(gs))) - set(scatter))
-    n = int(math.prod(mesh.shape[a] for a in live))
-    out = [None] * len(gs)
-
-    def flat(idx, coords=None):
-        return torch.cat([block_view(gs[i], ss[i], mesh, coords)
-                          .float().reshape(-1) for i in idx])
-
-    def place(idx, total):
-        shapes = [block_view(gs[i], ss[i], mesh).shape for i in idx]
-        pieces = total.split([math.prod(x) for x in shapes])
-        for i, shape, piece in zip(idx, shapes, pieces):
-            out[i] = div_exact(piece.view(shape), shards).to(gs[i].dtype)
-
-    if scatter:
-        place(scatter, coll.reduce_scatter(
-            [flat(scatter, mesh.member_coords(live, j)) for j in range(n)],
-            mesh, live))
-    if whole:
-        place(whole, coll.all_reduce(flat(whole), mesh, live))
-    return unflatten(grads, out)
-
-
 def value_and_grad(loss: Callable, params, cfg: ModelConfig, batch: dict):
     """(loss, gradients in params' structure and dtypes) of
     ``loss(params, cfg, batch)``; a leaf the loss does not reach gets a
@@ -145,9 +105,12 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
 
     ``batch['inputs']``: (GB, S) (or (GB, S, D) for embedding-input
     models), ``batch['labels']``: (GB, S), tensors on the state's device.
-    With ``grad_accum=k`` the leading dim is split into k micro-batches.
-    ``metrics``: ``loss`` and ``grad_norm`` (f32 tensors; reading one is
-    the caller's host sync).
+    With ``grad_accum=k`` the leading dim is split into k micro-batches
+    (under a train mesh: this rank's rows of each, ``shard_batch(...,
+    grad_accum=k)``). ``metrics``: ``loss`` and ``grad_norm`` (f32
+    tensors; reading one is the caller's host sync). After a sharded
+    step, ``train_step.last`` is its :class:`~repro_torch.parallel.fsdp.
+    Step` (the collectives' counts and the peak of whole bytes).
     """
     if compress_grads not in (None, "int8"):
         raise ValueError(f"compress_grads={compress_grads!r}: None or 'int8'")
@@ -175,27 +138,29 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         return lval, grads
 
     def sharded_step(state, batch, ctx):
-        check_trainable_sharded(cfg)
         if not isinstance(batch, RankBatch):
             raise TypeError("under a train mesh the step takes this rank's "
                             "rows: shard_batch(batch, mesh=, specs=)")
+        if batch.micro != grad_accum:
+            raise ValueError(f"the batch was sharded for {batch.micro} "
+                             f"micro-batches, the step takes {grad_accum}")
         mesh = ctx.mesh
         key = (id(mesh), repr(sorted(ctx.rules.items())))
         if key not in specs_of:
             specs_of.clear()
             specs_of[key] = param_specs(cfg, ctx.rules, mesh)
         specs, shapes = specs_of[key]
-        with torch.no_grad():
-            params = gather_tree(state["params"], named(specs, mesh))
-        if [tuple(p.shape) for p in leaves(params)] != leaves(shapes):
+        if [tuple(p.shape) for p in leaves(state["params"])] != [
+                block_shape(x, spec, mesh)
+                for x, spec in zip(leaves(shapes), leaves(specs))]:
             raise ValueError("under a train mesh the state holds this "
                              "rank's shards (shard_tree by "
                              "train_state_pspecs)")
-        lval, grads = local_grads(params, batch)
-        del params
+        with fsdp.sharded_step(mesh, specs, batch.axes,
+                               batch.shards) as step:
+            lval, grads = local_grads(state["params"], batch)
+        train_step.last = step
         with torch.no_grad():
-            grads = reduce_grads(grads, specs, mesh, batch.axes,
-                                 batch.shards)
             lval = div_exact(coll.all_reduce(lval, mesh, batch.axes),
                              batch.shards)
             if compress_grads == "int8":
@@ -225,4 +190,6 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
         return ({"params": new_params, "opt": opt_state,
                  "step": state["step"] + 1}, metrics)
 
+    train_step.last = None
+    train_step.grad_accum = grad_accum    # the loop shards batches by it
     return train_step

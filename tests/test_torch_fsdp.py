@@ -255,6 +255,16 @@ def test_loop_stops_where_rank_0_stops(run):
         assert r["signal_rank0"] == dict(steps=2, saved=[2])
 
 
-def test_moe_and_recurrent_models_refuse_a_train_mesh(run):
+def test_moe_and_recurrent_models_take_a_sharded_step(run):
+    """Reduced moonshot, jamba and rwkv6 take a sharded step on (2, 2)
+    under their own train rules: loss and grad_norm within METRIC_RTOL of
+    one process's from the same state and batch
+    (``tests/test_torch_fsdp_families.py`` holds them to the
+    reference)."""
     for r in run["ranks"]:
-        assert all(r["refused"].values()), r["refused"]
+        assert set(r["families"]) == {"moonshot-v1-16b-a3b",
+                                      "jamba-v0.1-52b", "rwkv6-7b"}
+        for arch, got in r["families"].items():
+            for key, (sharded, one) in got.items():
+                assert np.isfinite(sharded), (arch, key)
+                assert _rel(sharded, one) <= METRIC_RTOL, (arch, key)

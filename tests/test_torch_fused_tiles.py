@@ -148,8 +148,11 @@ def fused_model(x32, b, qmode, xb, plan=None, split_scales=False):
         return acc, s
     # the control: every split quantizes its own K range with a scale from
     # that range alone; the flush reads split 0's (the block that writes
-    # the workspace's scales)
-    acc = torch.zeros(m, n, dtype=torch.int32)
+    # the workspace's scales). The ranges are disjoint and every group of
+    # the control takes the division (elementwise), so the quantized
+    # ranges side by side go through the model once: the split-ordered
+    # int32 sums of the per-range products are that one product's.
+    a_q = np.zeros((m, k), np.int8)
     for z in range(splits):
         lo, hi = z * per * BK, min(k, (z + 1) * per * BK)
         if lo >= k:
@@ -157,12 +160,10 @@ def fused_model(x32, b, qmode, xb, plan=None, split_scales=False):
         s_z, r_z = row_scales(x32, qmax, lo, hi)
         if z == 0:
             s = s_z
-        part = np.zeros_like(x32)
-        part[:, lo:hi] = x32[:, lo:hi]
-        a_q = quantize_rows(part, s_z, r_z, qmax, xb, exact=True)
-        acc_z, _ = model(torch.from_numpy(a_q), torch.from_numpy(b), m, k, n,
-                         w4, plan=(mt, splits, per))
-        acc += acc_z
+        a_q[:, lo:hi] = quantize_rows(x32[:, lo:hi], s_z, r_z, qmax, xb,
+                                      exact=True)
+    acc, _ = model(torch.from_numpy(a_q), torch.from_numpy(b), m, k, n, w4,
+                   plan=(mt, splits, per))
     return acc, s
 
 
@@ -181,9 +182,17 @@ def inputs(m, k, n, qmode, dt, seed):
     return jx, wq, jnp.asarray(bias, jdt)
 
 
+@functools.lru_cache(maxsize=None)
+def jitted(qmode, out_dtype, epilogue):
+    """The jitted reference GEMM, one a (qmode, dtype, epilogue): JAX
+    keeps its compiled shapes, so a case another test compiled is not
+    compiled again."""
+    return jax.jit(functools.partial(JAX_FUSED[qmode], impl="xla",
+                                     out_dtype=out_dtype, epilogue=epilogue))
+
+
 def reference(qmode, jx, wq, jbias, epilogue):
-    run = jax.jit(functools.partial(JAX_FUSED[qmode], impl="xla",
-                                    out_dtype=jx.dtype, epilogue=epilogue))
+    run = jitted(qmode, jx.dtype, epilogue)
     return to_numpy(run(jx, wq.q, wq.scale,
                         bias=jbias if epilogue == "bias" else None))
 

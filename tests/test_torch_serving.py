@@ -121,13 +121,6 @@ def test_engine_rejects_oversized_request_and_unported_options(model):
     eng.submit(torch.zeros(8, dtype=torch.long), 32)  # 5 pages, pool has 2
     with pytest.raises(RuntimeError):
         eng.run()
-    # every model serves under a mesh; MoE and recurrent models under a
-    # train mesh are not ported (refused before any collective)
-    from repro_torch.train.train_step import check_trainable_sharded
-    for arch in ("moonshot-v1-16b-a3b", "jamba-v0.1-52b", "rwkv6-7b"):
-        with pytest.raises(NotImplementedError, match="MoE and recurrent"):
-            check_trainable_sharded(get_config(arch, reduced=True))
-    check_trainable_sharded(cfg)
     # speculative decoding is ported: a window below 1 is refused
     with pytest.raises(ValueError, match="gamma"):
         ContinuousBatchingEngine(tp, cfg, device="cpu",

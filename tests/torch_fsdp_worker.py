@@ -22,7 +22,7 @@ from repro_torch.optim.adamw import global_norm, int8_moment_quant, row_max_of
 from repro_torch.parallel.sharding import (gather_tree, make_rules,
                                            mesh_context, named, shard_leaf,
                                            shard_tree, train_state_pspecs)
-from repro_torch.train import build_train_step
+from repro_torch.train import build_train_step, init_train_state
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import loop
 from repro_torch.train.train_step import _int8_compress, param_specs
@@ -132,6 +132,25 @@ def signal_run(mesh, state, sh, step, data, who: int, at: int, d):
     return dict(steps=len(hist["loss"]), saved=ckpt.all_steps(d))
 
 
+FAMILIES = ("moonshot-v1-16b-a3b", "jamba-v0.1-52b", "rwkv6-7b")
+
+
+def family_step(mesh, arch, batch):
+    """(loss, grad_norm) of one step of the reduced ``arch`` on this
+    rank's rows, and of one process on the whole batch."""
+    cfg = get_config(arch, reduced=True, dtype="float32")
+    rules = make_rules("train", family=cfg.family)
+    opt = adamw(lr=LR)
+    step = build_train_step(cfg, opt)
+    full = init_train_state(cfg, opt, device="cpu")
+    _, one = step(full, shard_batch(batch, device="cpu"))
+    with mesh_context(mesh, rules, mode="train"):
+        sh = named(train_state_pspecs(full, rules, mesh), mesh)
+        _, m = step(shard_tree(full, sh), shard_batch(
+            batch, mesh=mesh, specs=batch_specs(batch, rules, mesh)))
+    return {k: (float(m[k]), float(one[k])) for k in ("loss", "grad_norm")}
+
+
 def run_all(mesh, path):
     torch.set_num_threads(1)
     inp = torch.load(path, weights_only=False)
@@ -196,17 +215,10 @@ def run_all(mesh, path):
             whole_params = full["params"]
         out["quant"] = quant_checks(mesh, whole_params)
         out["norm"] = norm_check(mesh, whole_params)
-        # MoE and recurrent models under a train mesh
-        refused = {}
-        for arch in ("moonshot-v1-16b-a3b", "jamba-v0.1-52b", "rwkv6-7b"):
-            c = get_config(arch, reduced=True, dtype="float32")
-            try:
-                build_train_step(c, adamw(lr=LR))({"params": {}}, None)
-            except NotImplementedError:
-                refused[arch] = True
-            else:
-                refused[arch] = False
-        out["refused"] = refused
+    # MoE and recurrent models take a sharded step (their own rules),
+    # against one process from the same state and batch
+    out["families"] = {arch: family_step(mesh, arch, inp["batches"][0])
+                       for arch in FAMILIES}
     # elastic: the (2, 2) save onto a (1, 2) mesh
     if pair is not None:
         cfg, opt, step = setup(True)

@@ -1,18 +1,26 @@
-"""Phase 9's seconds at full depth and at its cut, beside phase 13's MoE
-and dense-slab parts, in one call on the card.
+"""Seconds of chosen phases of ``chip_smoke.py`` in one call on the card:
+what a cut saves beside what new parts take.
 
-    python3 tools/phase_budget.py [--layers 48,12] [--out results.json]
+    python3 tools/phase_budget.py [--parts 9,13] [--layers 48,12]
+                                  [--out results.json]
 
-Builds the kernels as ``chip_smoke.py`` does, then runs, in this order,
-``chip_smoke.moe_serving`` (phase 9) with the W8A8 model at each of
-``--layers`` (the first its full depth, the last ``chip_smoke``'s cut),
-and phase 13's second part: K1 / K7 / K5 at a tp 2 rank's expert shard
-shapes (``tp_moe_kernels``) and ``tp_families`` (moonshot's experts split
-over 2 ranks, rwkv6-7b and pixtral-12b through ``generate(mesh=)``). Each
-part's checks gate as they do in ``chip_smoke.py``. It prints every
-part's seconds, the card's name and power limit, and what the cut saves
-against what the new parts take. Needs a CUDA card; imports nothing of
-JAX.
+Builds the kernels as ``chip_smoke.py`` does, then runs each part of
+``--parts`` in turn:
+
+* ``8``: phase 8, speculative decoding (``chip_smoke.speculative``, which
+  prints its own laps);
+* ``9``: phase 9 (``chip_smoke.moe_serving``) with the W8A8 model at each
+  of ``--layers`` (the first its full depth, the last ``chip_smoke``'s
+  cut);
+* ``13``: phase 13's second part: K1 / K7 / K5 at a tp 2 rank's expert
+  shard shapes (``tp_moe_kernels``) and ``tp_families``;
+* ``14``: phase 14 (``fsdp_training``: qwen3-0.6b, then moonshot-v1-16b-a3b
+  and rwkv6-7b under a train mesh, one layer gathered at a time, in one
+  spawn of two ranks).
+
+Each part's checks gate as they do in ``chip_smoke.py``. It prints every
+part's seconds and the card's name and power limit. Needs a CUDA card;
+imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ import chip_smoke as cs  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parts", default="9,13",
+                    help="comma-separated: 8, 9, 13, 14")
     ap.add_argument("--layers", default=f"48,{cs.MOE_W8A8_LAYERS}",
                     help="phase 9's W8A8 depths, in turn")
     ap.add_argument("--out", help="also write the seconds here (JSON)")
@@ -55,31 +65,39 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         cs.build.build_all()
         seconds["build"] = time.perf_counter() - t0
-        for layers in (int(n) for n in args.layers.split(",")):
-            print(f"[phase 9] W8A8 at {layers} of 48 layers")
+        parts, results = args.parts.split(","), {}
+
+        def timed(label, fn, *fn_args):
+            print(f"[{label}]")
             t0 = time.perf_counter()
-            cs.moe_serving(cs.SEED, smi, layers)
-            seconds[f"phase 9, W8A8 at {layers}"] = time.perf_counter() - t0
+            results[label] = fn(*fn_args)
+            seconds[label] = time.perf_counter() - t0
             torch.cuda.empty_cache()
-        print("[phase 13] every model family under the mesh")
-        t0 = time.perf_counter()
-        rows = cs.tp_moe_kernels(cs.Timer(), cs.phase_gen(13))
-        cs.gate(rows, "K1, K7 and K5 at the expert shard shapes")
-        families = cs.tp_families(cs.SEED, smi)
-        seconds["phase 13 families"] = time.perf_counter() - t0
-    depths = [k for k in seconds if k.startswith("phase 9")]
-    saved = seconds[depths[0]] - seconds[depths[-1]]
+        if "8" in parts:
+            timed("phase 8", cs.speculative, cs.SEED)
+        if "9" in parts:
+            for layers in (int(n) for n in args.layers.split(",")):
+                timed(f"phase 9, W8A8 at {layers}", cs.moe_serving, cs.SEED,
+                      smi, layers)
+        if "13" in parts:
+            def families():
+                rows = cs.tp_moe_kernels(cs.Timer(), cs.phase_gen(13))
+                cs.gate(rows, "K1, K7 and K5 at the expert shard shapes")
+                return cs.tp_families(cs.SEED, smi)
+            timed("phase 13 families", families)
+        if "14" in parts:
+            timed("phase 14", cs.fsdp_training, cs.SEED, smi)
     print(f"[phase_budget] {smi}; seconds: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    print(f"[phase_budget] the cut saves {saved:.1f} s; phase 13's new "
-          f"parts take {seconds['phase 13 families']:.1f} s")
+    depths = [k for k in seconds if k.startswith("phase 9")]
+    if len(depths) > 1:
+        print(f"[phase_budget] phase 9's cut saves "
+              f"{seconds[depths[0]] - seconds[depths[-1]]:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=smi, seconds=seconds, saved=saved,
-            families={k: v for k, v in families.items()
-                      if k not in ("ranks", "one_process")}),
-            indent=1, default=str))
+            card=smi, seconds=seconds, results=results), indent=1,
+            default=str))
     return 0
 
 
