@@ -224,10 +224,26 @@ Phases (any failure exits non-zero and prints no result):
    rank's own rows (as the dense FFN does) must miss that; first-step
    logits within W8A8's ``LOGIT_TOL`` of one process's, a dropped-partial
    control outside; a rank's memory and the bytes it sends a decode step
-   from the shapes. Then rwkv6-7b and pixtral-12b W8A8 at full width, 4
-   layers each, 2 × (256 + 8) through ``generate(mesh=)`` (whole params
-   on each rank): greedy streams equal to one process's bit for bit, K1
-   launches equal.
+   from the shapes. Then the dense slab on shards (``dense_slab_mesh``):
+   first K5 (and K6a / K6b) with int32 out, the dense slab's row-parallel
+   shards (``INT32_SHAPES``), exact against the plain dot, beside the
+   flushed K5 and ``_int_mm``; then one spawn of 4 ranks on the card,
+   each part against one process on the same inputs: (b) qwen2-0.5b
+   W8A8 at full width and depth under the decode rules on (1, 4), 8 ×
+   (512 + 8), its int8 slab split along the sequence (2 kv heads, 4
+   ranks: 144 positions a rank, whole pages): prefill logits bit for bit,
+   layer 0's attention at the first decode step within one bf16 ULP +
+   2^-8·Σp|v| of one process's elementwise (``att_gap``), the control
+   that drops rank 1's partial from the merge outside; then ranks 0-1 as
+   a (1, 2) mesh run (a) rwkv6-7b (4 layers), jamba-v0.1-52b (8 of 32:
+   one attention and 4 MoE layers) and pixtral-12b (4) W8A8 at full
+   width through ``generate(mesh=)`` on their shards, 2 × (256 + 8),
+   streams equal to one process's, a rank's bytes below the whole's,
+   every decode forward launching K1, K7 and K5; beside them ranks 2-3 as
+   a (2, 1) mesh run (c) moonshot-v1-16b-a3b W8A8 (4 of 48 layers) under
+   the decode rules, 8 × (128 + 4): layer 0's MoE FFN on each rank's rows
+   bit for bit one process's, with half of one process's expert GEMMs
+   (K1), the streams equal. Each prints its gloo calls a decode step.
 14. Sharded (FSDP) training, one layer gathered at a time (its gather
    and reduce counted: gloo calls and bytes a rank sends a step), every
    entry of ``FSDP_FAMILIES`` at full width with int8 moments and int8
@@ -323,6 +339,8 @@ from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue  # noqa:
 from repro_torch.kernels.ref import quantize_rowwise_ref  # noqa: E402
 from repro_torch.models import init_params, quantize_params  # noqa: E402
 from repro_torch.models import frontend  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import modules as modules_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -331,10 +349,11 @@ from repro_torch.launch.mesh import RankMesh, spawn_ranks  # noqa: E402
 from repro_torch.launch.mesh import AXES  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.parallel import fsdp as fsdp_mod  # noqa: E402
-from repro_torch.parallel.sharding import (axes_of, gather_tree,  # noqa: E402
-                                           make_rules, mesh_context, named,
-                                           shard_params, shard_tree,
-                                           train_state_pspecs)
+from repro_torch.parallel.sharding import (axes_of, batch_block,  # noqa: E402
+                                           gather_tree, make_rules,
+                                           mesh_context, named, shard_params,
+                                           shard_tree, train_state_pspecs,
+                                           tree_bytes)
 from repro_torch.parallel.sharding import (  # noqa: E402
     block_shape as sharding_block_shape)
 from repro_torch.serving import engine as engine_mod  # noqa: E402
@@ -4458,9 +4477,6 @@ def tp_serving(seed: int, smi: str, device: str = "cuda"):
 # ---------------------------------------------------------------------------
 TP_MOE_LAYERS = 4        # moonshot-v1-16b-a3b W8A8: full width, 4 of 48
 TP_MOE_NEW = 8           # new tokens a request of phase 3's 8 prompts
-TP_SLAB_ARCHS = ("rwkv6-7b", "pixtral-12b")   # W8A8, whole params a rank
-TP_SLAB_LAYERS = 4
-TP_SLAB_MIX = (2, 256, 8)    # requests, prompt tokens, new tokens
 TP_FFN_TOKENS = 32       # layer 0's MoE FFN check: (1, 32, d) input
 # A tp 2 rank's expert GEMMs of moonshot: K1 at the gate/up column shards
 # (K d 2,048, N 704 of 1,408), K7 over a layer's E·C rows of its 704 down
@@ -4517,12 +4533,13 @@ def tp_moe_ffn(local, cfg, x, mesh):
             return moe_mod.moe_ffn(local["layers"][0]["moe"], cfg, x,
                                    qmode=cfg.qmode)[0].float().cpu()
     y = run()
-    inner = moe_mod._row_absmax
-    moe_mod._row_absmax = lambda h2, m: h2.abs().amax(dim=-1, keepdim=True)
+    inner = modules_mod.row_absmax
+    modules_mod.row_absmax = lambda h2, m: h2.abs().amax(dim=-1,
+                                                         keepdim=True)
     try:
         return y, run()
     finally:
-        moe_mod._row_absmax = inner
+        modules_mod.row_absmax = inner
 
 
 def tp_moe_part(mesh, job):
@@ -4575,32 +4592,10 @@ def tp_moe_part(mesh, job):
     return out
 
 
-def tp_slab_part(mesh, job):
-    """Each dense-slab model through ``generate(mesh=)`` on whole params
-    (built a layer at a time, as one process builds them): the streams
-    and the launches."""
-    out = {}
-    for arch in TP_SLAB_ARCHS:
-        cfg = get_config(arch, qmode="w8a8", n_layers=TP_SLAB_LAYERS)
-        params = build_layerwise(cfg, "w8a8", job["seed"])
-        prompts = job["slab_prompts"][arch].to("cuda")
-        generate(params, cfg, prompts[:1, :16], steps=2, mesh=mesh,
-                 device="cuda")                               # warm
-        reset_counts()
-        toks = generate(params, cfg, prompts, steps=TP_SLAB_MIX[2],
-                        mesh=mesh, device="cuda")
-        out[arch] = dict(tokens=toks, launches={
-            k: v for k, v in read_counts().items() if v})
-        del params
-        torch.cuda.empty_cache()
-    return out
-
-
 def tp_families_rank(mesh, job):
-    """One rank of phase 13's second spawn: the MoE part, then the
-    dense-slab part."""
+    """One rank of phase 13's second spawn: the MoE part."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    return dict(moe=tp_moe_part(mesh, job), slab=tp_slab_part(mesh, job))
+    return dict(moe=tp_moe_part(mesh, job))
 
 
 def ulp_bf16(x: float) -> float:
@@ -4610,9 +4605,8 @@ def ulp_bf16(x: float) -> float:
 
 def tp_families(seed: int, smi: str, device: str = "cuda"):
     """Phase 13's second part: moonshot-v1-16b-a3b W8A8 (4 of 48 layers)
-    with its experts split over 2 ranks, and rwkv6-7b and pixtral-12b
-    through ``generate(mesh=)``, each against one process on the same
-    inputs. Every failure raises."""
+    with its experts split over 2 ranks on the paged engine, against one
+    process on the same inputs. Every failure raises."""
     t0 = time.perf_counter()
     cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=TP_MOE_LAYERS)
     params = build_layerwise(cfg, "w8a8", seed, device=device)
@@ -4635,22 +4629,8 @@ def tp_families(seed: int, smi: str, device: str = "cuda"):
                                  qmode="w8a8")[0].float().cpu()
     del params
     torch.cuda.empty_cache()
-    n_req, prompt_len, new = TP_SLAB_MIX
-    slab_prompts, slab_one = {}, {}
-    for arch in TP_SLAB_ARCHS:
-        scfg = get_config(arch, qmode="w8a8", n_layers=TP_SLAB_LAYERS)
-        slab_prompts[arch] = rec_inputs(scfg, torch.Generator(
-            device=device).manual_seed(seed + 1), n_req, prompt_len)
-        sparams = build_layerwise(scfg, "w8a8", seed, device=device)
-        reset_counts()
-        slab_one[arch] = dict(tokens=generate(
-            sparams, scfg, slab_prompts[arch], steps=new, device=device),
-            launches={k: v for k, v in read_counts().items() if v})
-        del sparams
-        torch.cuda.empty_cache()
     one_s = time.perf_counter() - t0
-    job = dict(seed=seed, prompts=prompts.cpu(), ffn_x=ffn_x.cpu(),
-               slab_prompts={a: p.cpu() for a, p in slab_prompts.items()})
+    job = dict(seed=seed, prompts=prompts.cpu(), ffn_x=ffn_x.cpu())
     with tempfile.TemporaryDirectory(prefix="tp-families-") as d:
         ranks = spawn_ranks(tp_families_rank, TP_RANKS, init_dir=d,
                             backend="gloo", device=device, args=(job,),
@@ -4695,15 +4675,6 @@ def tp_families(seed: int, smi: str, device: str = "cuda"):
         if g["dropped"] <= tol:
             fails.append(f"rank {r}: the dropped-partial control passed "
                          f"({g['dropped']:.2%})")
-        for arch in TP_SLAB_ARCHS:
-            got, want = rr["slab"][arch], slab_one[arch]
-            if not np.array_equal(np.asarray(got["tokens"]),
-                                  want["tokens"].numpy()):
-                fails.append(f"rank {r}: {arch} streams differ from one "
-                             f"process's")
-            if got["launches"] != want["launches"]:
-                fails.append(f"rank {r}: {arch} launches {got['launches']}, "
-                             f"one process {want['launches']}")
     m0, m1 = ranks[0]["moe"], ranks[1]["moe"]
     if m0["run"]["tokens"] != m1["run"]["tokens"]:
         fails.append("the ranks' MoE streams differ")
@@ -4738,11 +4709,6 @@ def tp_families(seed: int, smi: str, device: str = "cuda"):
     print(f"  bytes a rank sends a decode step at B {N_REQ}, capacity {cap} "
           f"(from the shapes): " + ", ".join(f"{k} {v:,}"
                                              for k, v in wire.items()))
-    for arch in TP_SLAB_ARCHS:
-        print(f"  {arch} W8A8, {TP_SLAB_LAYERS} layers, {n_req} x "
-              f"({prompt_len} + {new}) through generate(mesh=), whole params "
-              f"a rank: streams equal to one process's; launches "
-              f"{slab_one[arch]['launches']} a rank and in one process")
     seconds = time.perf_counter() - t0
     print(f"  phase 13 families seconds: {seconds:.1f} (one process "
           f"{one_s:.1f})")
@@ -4750,15 +4716,468 @@ def tp_families(seed: int, smi: str, device: str = "cuda"):
         raise RuntimeError("phase 13 families: " + "; ".join(fails))
     return dict(card=smi, gaps=gaps, ulp=ulp, max_abs_y=top, agree=agree,
                 wire_bytes=wire, seconds=seconds, one_process_s=one_s,
-                one_process=dict(run=one["run"],
-                                 slab={a: v["launches"]
-                                       for a, v in slab_one.items()}),
+                one_process=dict(run=one["run"]),
                 ranks=[dict(rank=rr["moe"]["rank"], **{
                     k: v for k, v in rr["moe"].items()
                     if k not in ("logits", "dropped_logits", "ffn",
                                  "ffn_control", "rank")})
                     for rr in ranks],
                 launches=m0["launches"])
+
+
+# ---------------------------------------------------------------------------
+# Phase 13 (continued): the dense slab on shards
+# ---------------------------------------------------------------------------
+# (a) the serve rules on (1, 2): full width, W8A8, each rank on its shards
+SLAB_LAYERS = {"rwkv6-7b": 4, "jamba-v0.1-52b": 8, "pixtral-12b": 4}
+SLAB_MIX = (2, 256, 8)       # requests, prompt tokens, new tokens
+# (b) the decode rules on (1, 4): qwen2-0.5b at full width and depth, its
+# int8 slab split along the sequence (4 ranks do not divide 2 kv heads)
+SEQ_ARCH = TP_ARCH
+SEQ_RANKS = 4
+SEQ_MIX = (8, 512, 8)
+# (c) the decode rules on (2, 1): moonshot's experts split over data
+EXPERT_LAYERS = 4
+EXPERT_MIX = (8, 128, 4)
+EXPERT_FFN_SHAPE = (8, 32)   # layer 0's MoE check: (8, 32, d) input
+SLAB_TIMEOUT_S = 420.0
+# K5 with int32 out (no flush) at the dense slab's row-parallel shards, (M,
+# K, N): rwkv6 / jamba w_down at tp 2 (K 7,168 of 14,336, N 4,096; M a
+# decode batch of 2 and a 2 x 256 prefill), pixtral's wo (K 2,048 of
+# 4,096, N 5,120), qwen2-0.5b's w_down at tp 4 (K 1,216 of 4,864, N 896;
+# M 8 and 8 x 520); K6a / K6b at one shape each (their CPU paths)
+INT32_SHAPES = {"i8": ((2, 7168, 4096), (512, 7168, 4096), (2, 2048, 5120),
+                       (8, 1216, 896), (4160, 1216, 896)),
+                "w4": ((8, 1216, 896),), "a4w4": ((8, 1216, 896),)}
+# one bf16 ULP of max |out| plus 2u·max|v| (u = 2^-8): the split softmax
+# rounds each rank's exponentials to bf16 before the value product where
+# one process rounds the normalised probabilities, so each product term
+# may move by a relative 2u; the sums then differ by at most 2u·Σp|v|
+SEQ_ATT_U = 2.0 ** -8
+
+
+def int32_sums(timer, gen):
+    """K5 (and K6a / K6b) with int32 out against their plain versions (the
+    exact dot), at ``INT32_SHAPES``: exact; library ``_int_mm``; beside
+    them the same kernel flushed to bf16 (``flushed_ms``)."""
+    rows = []
+    for kind, shapes in INT32_SHAPES.items():
+        key, kernel, plain = UNFUSED[kind]
+
+        def library(a, w, s_a, s_b, **kw):
+            k = w.shape[0] * (1 if kind == "i8" else 2)
+            a_q = unpack_int4(a.T, k).T if kind == "a4w4" else a
+            b_q = w if kind == "i8" else unpack_int4(w, k)
+            return int_mm(a_q.contiguous(), b_q)
+        for m, k, n in shapes:
+            args = _unfused_inputs(gen, kind, m, k, n)
+            kw = dict(out_dtype=torch.int32, epilogue="none", bias=None,
+                      operand=None)
+            row = gemm_case(timer, key, kernel, plain, library, args, kw,
+                            2.0 * m * n * k, dict(m=m, k=k, n=n))
+            flushed = timer(lambda: kernel(*args, **dict(
+                kw, out_dtype=torch.bfloat16)))
+            print(f"    flushed to bf16: ms={flushed:.4f}")
+            rows.append(dict(row, int32=True, flushed_ms=flushed))
+    return rows
+
+
+@contextlib.contextmanager
+def gloo_calls():
+    """Count this process's collective calls (the functions
+    ``parallel.collectives`` calls); yields the count dict."""
+    dist = torch.distributed
+    names = ("all_reduce", "all_gather", "broadcast", "all_to_all_single",
+             "reduce_scatter")
+    saved = {n: getattr(dist, n) for n in names}
+    seen = {"calls": 0}
+
+    def wrap(fn):
+        def call(*a, **kw):
+            seen["calls"] += 1
+            return fn(*a, **kw)
+        return call
+    for n, fn in saved.items():
+        setattr(dist, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+@contextlib.contextmanager
+def per_forward(seen):
+    """The kernel launches and collective calls (``seen``) of every forward
+    the dense slab's steps run (``engine.forward``)."""
+    recs, inner = [], engine_mod.forward
+
+    def call(*a, **kw):
+        before, calls = read_counts(), seen["calls"]
+        out = inner(*a, **kw)
+        after = read_counts()
+        recs.append(dict(decode=kw.get("cache_pos") is not None,
+                         calls=seen["calls"] - calls,
+                         launches={k: after[k] - before[k] for k in after
+                                   if after[k] != before[k]}))
+        return out
+    engine_mod.forward = call
+    try:
+        yield recs
+    finally:
+        engine_mod.forward = inner
+
+
+def slab_loop(params, cfg, prompts, new, mesh=None, rules=None,
+              kv_dtype=None, seen=None):
+    """The dense-slab loop through ``build_prefill_step`` /
+    ``build_decode_step`` (greedy), one process or this rank (its rows,
+    caches, in ``slab_context``) → (tokens, prefill logits, caches, the
+    forwards' records)."""
+    b, s = prompts.shape[:2]
+    rules = rules or make_rules("serve")
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        scope = engine_mod.slab_context(mesh, params.layout, rules)
+        prompts = batch_block(prompts, mesh, rules)
+    caches = init_serve_caches(cfg, b, s + new, kv_dtype=kv_dtype,
+                               device="cuda", mesh=mesh, rules=rules)
+    prefill, decode = build_prefill_step(cfg), build_decode_step(cfg)
+    seen = seen if seen is not None else {"calls": 0}
+    with scope, per_forward(seen) as recs:
+        last, caches = prefill(params, prompts, caches)
+        tok = last.float().argmax(dim=-1)[:, None]
+        toks = [tok]
+        for i in range(new - 1):
+            tok, caches = decode(params, caches, tok, s + i)
+            toks.append(tok)
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1).cpu(), last.float().cpu(), caches, recs
+
+
+@contextlib.contextmanager
+def first_call(mod, name, when=lambda a, kw: True):
+    """Record the first call of ``mod.name`` that ``when`` accepts (args,
+    kwargs, output)."""
+    inner, got = getattr(mod, name), []
+
+    def call(*a, **kw):
+        out = inner(*a, **kw)
+        if not got and when(a, kw):
+            got.append((a, kw, out))
+        return out
+    setattr(mod, name, call)
+    try:
+        yield got
+    finally:
+        setattr(mod, name, inner)
+
+
+def sum_pv(q, k, v, q_pos, k_pos, *, k_len):
+    """Σ_t p_t |v_t| of ``attention._grouped_attn``'s call, elementwise in
+    its output's shape (B,S,KV,G,hd), f32: the bound's weight."""
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) \
+        * (q.shape[-1] ** -0.5)
+    mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] < k_len)
+    p = torch.softmax(torch.where(mask[None, None, None], scores,
+                                  torch.full_like(scores, -1e30)), dim=-1)
+    return torch.einsum("bkgst,btkh->bskgh", p, v.float().abs())
+
+
+def att_gap(got, want, spv) -> float:
+    """The largest share of the bound ``one bf16 ULP of |want| +
+    SEQ_ATT_U·Σp|v|`` that ``got`` takes, elementwise (≤ 1: within)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30)))
+                     - 7)
+    return float(((got - want).abs() / (ulp + SEQ_ATT_U * spv)).max())
+
+
+def slab_part_a(mesh, job):
+    """(a) A (1, 2) rank: each model built from the seed a layer at a
+    time, keeping its shards, through ``generate(mesh=)``."""
+    out = {}
+    for arch, layers in SLAB_LAYERS.items():
+        cfg = get_config(arch, qmode="w8a8", n_layers=layers)
+        local = init_quantized_params(
+            cfg, "w8a8", generator=torch.Generator(device="cuda").manual_seed(
+                job["seed"]), device="cuda", mesh=mesh)
+        prompts = job["slab_prompts"][arch].to("cuda")
+        generate(local, cfg, prompts[:1, :16], steps=2, mesh=mesh,
+                 device="cuda")                                 # warm
+        reset_counts()
+        with gloo_calls() as seen, per_forward(seen) as recs:
+            toks = generate(local, cfg, prompts, steps=SLAB_MIX[2],
+                            mesh=mesh, device="cuda")
+        dec = [r for r in recs if r["decode"]]
+        out[arch] = dict(tokens=toks, layout=sorted(local.layout),
+                         bytes=tree_bytes(local),
+                         whole_bytes=local.whole_bytes,
+                         launches={k: v for k, v in read_counts().items()
+                                   if v},
+                         decode_calls=dec[-1]["calls"] + 1,   # + the tokens
+                         decode_launches=dec[-1]["launches"])
+        del local
+        torch.cuda.empty_cache()
+    return out
+
+
+def slab_part_b(mesh, job):
+    """(b) A (1, 4) rank under the decode rules: qwen2-0.5b's shards, its
+    block of the int8 slab's positions; layer 0's attention at the first
+    decode step and the control that drops rank 1's partial there."""
+    cfg = get_config(SEQ_ARCH, qmode="w8a8")
+    rules = make_rules("decode")
+    local = init_quantized_params(
+        cfg, "w8a8", generator=torch.Generator(device="cuda").manual_seed(
+            job["seed"]), device="cuda", mesh=mesh)
+    prompts = job["seq_prompts"].to("cuda")
+    slab_loop(local, cfg, prompts[:, :32], 2, mesh, rules, "int8")  # warm
+    reset_counts()
+    with gloo_calls() as seen, first_call(attn_mod, "seq_split_attn") as att:
+        toks, last, caches, recs = slab_loop(local, cfg, prompts,
+                                             SEQ_MIX[2], mesh, rules,
+                                             "int8", seen)
+    (a, kw, y), = att
+    control = attn_mod.seq_split_attn(*a, **dict(kw, drop_rank=1))
+    c = caches[0]["attn"]
+    slab = sum(tree_bytes(cc["attn"]) for cc in caches)
+    dec = [r for r in recs if r["decode"]]
+    return dict(tokens=toks, prefill_logits=last, att=y.float().cpu(),
+                control=control.float().cpu(),
+                slab=dict(k=tuple(c.k.shape), start=c.start,
+                          k_scale=tuple(c.k_scale.shape), bytes=slab),
+                launches={k: v for k, v in read_counts().items() if v},
+                decode_calls=dec[-1]["calls"],
+                decode_launches=dec[-1]["launches"],
+                layout=sorted(local.layout))
+
+
+def slab_part_c(mesh, job):
+    """(c) A (2, 1) rank under the decode rules: moonshot's experts
+    split over data (each rank's E/2 experts over every rank's slots):
+    layer 0's MoE FFN on its rows (its K1 launches counted), the
+    stream."""
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=EXPERT_LAYERS)
+    rules = make_rules("decode")
+    local = init_quantized_params(
+        cfg, "w8a8", generator=torch.Generator(device="cuda").manual_seed(
+            job["seed"]), device="cuda", mesh=mesh)
+    x = batch_block(job["expert_x"].to("cuda"), mesh, rules)
+    with engine_mod.slab_context(mesh, local.layout, rules):
+        moe_mod.moe_ffn(local["layers"][0]["moe"], cfg, x, qmode="w8a8")
+        reset_counts()
+        y, _ = moe_mod.moe_ffn(local["layers"][0]["moe"], cfg, x,
+                               qmode="w8a8")
+        torch.cuda.synchronize()
+        ffn_k1 = read_counts()["K1"]
+    prompts = job["expert_prompts"].to("cuda")
+    slab_loop(local, cfg, prompts[:, :16], 2, mesh, rules)            # warm
+    reset_counts()
+    with gloo_calls() as seen:
+        toks, last, _, recs = slab_loop(local, cfg, prompts, EXPERT_MIX[2],
+                                        mesh, rules, seen=seen)
+    dec = [r for r in recs if r["decode"]]
+    return dict(tokens=toks, ffn=y.float().cpu(), ffn_k1=ffn_k1,
+                launches={k: v for k, v in read_counts().items() if v},
+                decode_calls=dec[-1]["calls"],
+                decode_launches=dec[-1]["launches"])
+
+
+def slab_rank(mesh, job):
+    """One rank of the dense-slab spawn, four ranks on one card through
+    gloo: (b) on the whole (1, 4) mesh; then ranks 0-1 run (a) as a (1, 2)
+    mesh while ranks 2-3 run (c) as a (2, 1) mesh."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": mesh.rank, "b": slab_part_b(mesh, job)}
+    torch.cuda.empty_cache()
+    pairs = [torch.distributed.new_group([0, 1]),
+             torch.distributed.new_group([2, 3])]
+    r = mesh.rank
+    group = pairs[r // 2]
+    if r < 2:
+        pair = RankMesh({"data": 1, "model": 2}, r, group, {"model": group},
+                        mesh.device)
+        out["a"] = slab_part_a(pair, job)
+    else:
+        pair = RankMesh({"data": 2, "model": 1}, r - 2, group,
+                        {"data": group}, mesh.device)
+        out["c"] = slab_part_c(pair, job)
+    return out
+
+
+def slab_one_process(seed: int, device: str = "cuda"):
+    """The one-process runs the dense-slab spawn is held against, and its
+    inputs."""
+    one, job = {"a": {}}, dict(seed=seed, slab_prompts={})
+    n_req, prompt_len, new = SLAB_MIX
+    for arch, layers in SLAB_LAYERS.items():
+        cfg = get_config(arch, qmode="w8a8", n_layers=layers)
+        prompts = rec_inputs(cfg, torch.Generator(device=device).manual_seed(
+            seed + 1), n_req, prompt_len)
+        job["slab_prompts"][arch] = prompts.cpu()
+        params = build_layerwise(cfg, "w8a8", seed, device=device)
+        reset_counts()
+        one["a"][arch] = dict(
+            tokens=generate(params, cfg, prompts, steps=new, device=device),
+            launches={k: v for k, v in read_counts().items() if v},
+            whole_bytes=tree_bytes(params))
+        del params
+        torch.cuda.empty_cache()
+    cfg = get_config(SEQ_ARCH, qmode="w8a8")
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, SEQ_MIX[:2], generator=gen,
+                            device=device)
+    job["seq_prompts"] = prompts.cpu()
+    params = build_layerwise(cfg, "w8a8", seed, device=device)
+    # the first call with a k_len is layer 0's at the first decode step
+    with first_call(attn_mod, "_grouped_attn",
+                    lambda a, kw: "k_len" in kw) as att:
+        toks, last, caches, _ = slab_loop(params, cfg, prompts, SEQ_MIX[2],
+                                          kv_dtype="int8")
+    (a, kw, y), = att
+    one["b"] = dict(tokens=toks, prefill_logits=last, att=y.float().cpu(),
+                    sum_pv=sum_pv(*a, **kw).cpu(),
+                    slab_bytes=sum(tree_bytes(c["attn"]) for c in caches))
+    del params, caches
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=EXPERT_LAYERS)
+    x = torch.randn(EXPERT_FFN_SHAPE + (cfg.d_model,), generator=gen,
+                    device=device).to(torch.bfloat16)
+    job["expert_x"] = x.cpu()
+    prompts = torch.randint(0, cfg.vocab_size, EXPERT_MIX[:2], generator=gen,
+                            device=device)
+    job["expert_prompts"] = prompts.cpu()
+    params = build_layerwise(cfg, "w8a8", seed, device=device)
+    moe_mod.moe_ffn(params["layers"][0]["moe"], cfg, x, qmode="w8a8")
+    reset_counts()
+    y, _ = moe_mod.moe_ffn(params["layers"][0]["moe"], cfg, x, qmode="w8a8")
+    torch.cuda.synchronize()
+    ffn_k1 = read_counts()["K1"]
+    toks, _, _, _ = slab_loop(params, cfg, prompts, EXPERT_MIX[2])
+    one["c"] = dict(tokens=toks, ffn=y.float().cpu(), ffn_k1=ffn_k1)
+    del params
+    torch.cuda.empty_cache()
+    return one, job
+
+
+def dense_slab_mesh(seed: int, smi: str, device: str = "cuda"):
+    """Phase 13's third part: (a) rwkv6-7b, jamba-v0.1-52b and pixtral-12b
+    on their shards under the serve rules, (1, 2); (b) qwen2-0.5b under the
+    decode rules on (1, 4), its int8 slab split along the sequence; (c)
+    moonshot-v1-16b-a3b under the decode rules on (2, 1), its experts split
+    over data; each against one process on the same inputs. Four ranks
+    share the card through gloo. Every failure raises."""
+    t0 = time.perf_counter()
+    one, job = slab_one_process(seed, device)
+    one_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="slab-") as d:
+        ranks = spawn_ranks(slab_rank, SEQ_RANKS, init_dir=d, backend="gloo",
+                            device=device, args=(job,),
+                            timeout=SLAB_TIMEOUT_S, shape=(1, SEQ_RANKS))
+    fails = []
+    print(f"  {smi}; four processes time-sharing one card through gloo: no "
+          f"tensor-parallel speed")
+    n_req, prompt_len, new = SLAB_MIX
+    for arch, layers in SLAB_LAYERS.items():
+        want = one["a"][arch]
+        for rr in ranks[:2]:
+            got, r = rr["a"][arch], rr["rank"]
+            if not np.array_equal(np.asarray(got["tokens"]),
+                                  want["tokens"].numpy()):
+                fails.append(f"(a) {arch} rank {r}: streams differ from one "
+                             f"process's")
+            if not got["bytes"] < got["whole_bytes"] == want["whole_bytes"]:
+                fails.append(f"(a) {arch} rank {r}: {got['bytes']} bytes of "
+                             f"{got['whole_bytes']} (one process "
+                             f"{want['whole_bytes']})")
+            if not {"K1", "K5", "K7"} <= set(got["decode_launches"]):
+                fails.append(f"(a) {arch} rank {r}: a decode forward "
+                             f"launched {got['decode_launches']}")
+        g = ranks[0]["a"][arch]
+        print(f"  (a) {arch} W8A8, {layers} layers, {n_req} x ({prompt_len} "
+              f"+ {new}), serve rules on (1, 2): a rank holds "
+              f"{g['bytes'] / 1e9:.3f} GB of {g['whole_bytes'] / 1e9:.3f} "
+              f"(layout {g['layout']}); streams equal to one process's; a "
+              f"decode step {g['decode_calls']} gloo calls, launches "
+              f"{g['decode_launches']} (one process's run: "
+              f"{want['launches']}, a rank's {g['launches']})")
+    n_req, prompt_len, new = SEQ_MIX
+    b_one = one["b"]
+    gaps = {}
+    for rr in ranks:
+        b, r = rr["b"], rr["rank"]
+        k = b["slab"]["k"]
+        if k[2] % 16 or b["slab"]["start"] != r * k[2] or \
+                b["slab"]["k_scale"][2] * 16 != k[2]:
+            fails.append(f"(b) rank {r}: slab {b['slab']}")
+        if not np.array_equal(b["prefill_logits"],
+                              b_one["prefill_logits"].numpy()):
+            fails.append(f"(b) rank {r}: prefill logits differ from one "
+                         f"process's")
+        gaps[r] = {k: att_gap(torch.as_tensor(b[k]), b_one["att"],
+                              b_one["sum_pv"]) for k in ("att", "control")}
+        if gaps[r]["att"] > 1.0:
+            fails.append(f"(b) rank {r}: layer 0's attention at {gaps[r]['att']:.3g} "
+                         f"of its bound")
+        if gaps[r]["control"] <= 1.0:
+            fails.append(f"(b) rank {r}: the dropped-partial control passed "
+                         f"({gaps[r]['control']:.3g} of the bound)")
+    b0 = ranks[0]["b"]
+    b_layers = get_config(SEQ_ARCH).n_layers
+    agree = float(np.mean(b0["tokens"] == b_one["tokens"].numpy()))
+    print(f"  (b) {SEQ_ARCH} W8A8, {b_layers} layers, {n_req} x ({prompt_len} + "
+          f"{new}), decode rules on (1, {SEQ_RANKS}): int8 slab {b0['slab']['k']} "
+          f"a rank from positions {[rr['b']['slab']['start'] for rr in ranks]}, "
+          f"{b0['slab']['bytes'] / 1e6:.2f} MB a rank of "
+          f"{b_one['slab_bytes'] / 1e6:.2f} MB; prefill logits equal to one "
+          f"process's; layer 0's attention at the first decode step "
+          + ", ".join(f"rank {r} {g['att']:.3g}" for r, g in gaps.items())
+          + " of its bound (one bf16 ULP + 2^-8 Σp|v|), the dropped-partial "
+          "control " + ", ".join(f"{g['control']:.3g}" for g in gaps.values())
+          + f"; streams agree with one process's on {agree:.1%} of tokens; a "
+          f"decode step {b0['decode_calls']} gloo calls, launches "
+          f"{b0['decode_launches']}")
+    n_req, prompt_len, new = EXPERT_MIX
+    c_one = one["c"]
+    rows = c_one["ffn"].shape[0] // 2
+    for rr in ranks[2:]:
+        c, r = rr["c"], rr["rank"] - 2
+        mine = slice(r * rows, (r + 1) * rows)
+        if not np.array_equal(c["ffn"], c_one["ffn"][mine].numpy()):
+            fails.append(f"(c) data rank {r}: layer 0's MoE FFN differs from "
+                         f"one process's")
+        if 2 * c["ffn_k1"] != c_one["ffn_k1"]:
+            fails.append(f"(c) data rank {r}: {c['ffn_k1']} expert GEMMs, one "
+                         f"process {c_one['ffn_k1']}")
+        if not np.array_equal(c["tokens"], c_one["tokens"][
+                n_req // 2 * r:n_req // 2 * (r + 1)].numpy()):
+            fails.append(f"(c) data rank {r}: streams differ from one "
+                         f"process's")
+    c0 = ranks[2]["c"]
+    print(f"  (c) {MOE_ARCH} W8A8, {EXPERT_LAYERS} of 48 layers, {n_req} x "
+          f"({prompt_len} + {new}), decode rules on (2, 1): layer 0's MoE "
+          f"FFN on {EXPERT_FFN_SHAPE} tokens equal to one process's rows bit "
+          f"for bit; expert GEMMs (K1) a rank {c0['ffn_k1']} against one "
+          f"process's {c_one['ffn_k1']}; streams equal; a decode step "
+          f"{c0['decode_calls']} gloo calls, launches {c0['decode_launches']}")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 13 dense slab seconds: {seconds:.1f} (one process "
+          f"{one_s:.1f})")
+    if fails:
+        raise RuntimeError("phase 13 dense slab: " + "; ".join(fails))
+    return dict(card=smi, seconds=seconds, one_process_s=one_s,
+                att_gaps=gaps, agree=agree,
+                a={a: {k: v for k, v in ranks[0]["a"][a].items()
+                       if k != "tokens"} for a in SLAB_LAYERS},
+                b={k: v for k, v in b0.items()
+                   if k not in ("tokens", "prefill_logits", "att",
+                                "control")},
+                c={k: v for k, v in c0.items() if k not in ("tokens", "ffn")},
+                one_process_c_k1=c_one["ffn_k1"],
+                launches={"slab (1, 4) rank 0": b0["launches"],
+                          "slab (2, 1) rank 0": c0["launches"],
+                          **{f"slab {a} (1, 2) rank 0": ranks[0]["a"][a][
+                              "launches"] for a in SLAB_LAYERS}})
 
 
 # ---------------------------------------------------------------------------
@@ -5652,12 +6071,21 @@ def smoke(args) -> int:
     torch.cuda.empty_cache()
     print(f"[phase 13] every model family under the mesh: {MOE_ARCH} W8A8 "
           f"({TP_MOE_LAYERS} of 48 layers) with its experts split over "
-          f"{TP_RANKS} ranks; {' and '.join(TP_SLAB_ARCHS)} "
-          f"({TP_SLAB_LAYERS} layers) through generate(mesh=)")
+          f"{TP_RANKS} ranks on the paged engine")
     moe_shards = tp_moe_kernels(timer, gen13)
     gate(moe_shards, "phase 13: K1, K7 and K5 at the expert shard shapes")
     rows += moe_shards
     families = tp_families(SEED, smi)
+    torch.cuda.empty_cache()
+    print(f"[phase 13] the dense slab on shards: "
+          f"{', '.join(SLAB_LAYERS)} under the serve rules on (1, 2); "
+          f"{SEQ_ARCH} under the decode rules on (1, {SEQ_RANKS}), its int8 "
+          f"slab split along the sequence; {MOE_ARCH} on (2, 1), its experts "
+          f"split over data")
+    int32_rows = int32_sums(timer, gen13)
+    gate(int32_rows, "phase 13: K5 / K6a / K6b with int32 out")
+    rows += int32_rows
+    slab = dense_slab_mesh(SEED, smi)
     torch.cuda.empty_cache()
     lap(13)
 
@@ -5719,6 +6147,7 @@ def smoke(args) -> int:
         "launches"]
     counts[f"tp{TP_RANKS} rank 0"] = tp["launches"]
     counts[f"tp{TP_RANKS} moe rank 0"] = families["launches"]
+    counts.update(slab["launches"])
     for arch, part in fsdp["families"].items():
         counts[f"fsdp {arch} rank 0"] = part["launches"]
     kernels = []
@@ -5744,7 +6173,8 @@ def smoke(args) -> int:
                  serving=served, in_turns=in_turns, unfused=unfused,
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
                  recurrent=recurrent, training=trained, autotune=tuned,
-                 tensor_parallel=tp, tp_families=families, fsdp=fsdp,
+                 tensor_parallel=tp, tp_families=families, dense_slab=slab,
+                 fsdp=fsdp,
                  examples=examples, kernels=kernels, phase_s=phase_s),
             indent=1))
     print(f"[chip_smoke] seconds by phase: {phase_s}")

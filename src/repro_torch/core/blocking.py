@@ -15,7 +15,9 @@ and takes at run time:
   its own sums, no flush kernel) and, for the fused kernels,
   ``SCALE_KERNEL`` (the row scales from a scale pass kernel rather than
   the block's own warps). ``SPLIT_SCALES`` is a control that is wrong on
-  purpose and never part of a plan.
+  purpose and never part of a plan; ``NO_FLUSH`` (the int32 sums as the
+  output of K5 / K6a / K6b, for a sum over ranks before the flush) is
+  set by the call, never by a plan.
 
 A plan is those four numbers (:class:`PlanConfig`).
 :func:`choose_plan` is the analytic pick, the seed that the autotune
@@ -39,6 +41,8 @@ FLUSH_IN_BLOCK = 1    # one split: the product block flushes its own sums
 SCALE_KERNEL = 2      # fused: row scales from a scale pass kernel
 SPLIT_SCALES = 4      # fused: each block's scales from its own K range
                       # (wrong on purpose: chip_smoke.py's control)
+NO_FLUSH = 8          # pre-quantized A: the int32 sums are the output
+                      # (set by the call, never part of a plan)
 # the fused kernels' row tiles whose scales come from the scale pass (at
 # the others each block reduces its own rows of x): the faster choice per
 # row tile at the serving shapes (PERF.md)

@@ -91,7 +91,9 @@
 // grid has finished and its stores are visible, so the second launch's
 // latency hides behind the product. A call launches one to three device
 // kernels: the scale pass (fused, MT 32 and 128), the product, the flush
-// kernel (unless the product block flushes).
+// kernel (unless the product block flushes). With kNoFlush (pre-quantized
+// A only: K5, K6a, K6b with int32 out) nothing flushes: the planes are the
+// output, for a sum over ranks before the one flush.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -123,6 +125,11 @@ enum Flags {
   // Wrong on purpose: chip_smoke.py launches it to show that the exact
   // check rejects a scale that did not see the whole row.
   kSplitScales = 4,
+  // the int32 sums are the output: each split's stay in its workspace
+  // plane and no flush kernel runs (kernels/camp_gemm.py adds the planes).
+  // A row-parallel product on the dense slab reduces them over the ranks
+  // before its one flush, as GSPMD reduces the reference's int32 dot.
+  kNoFlush = 8,
 };
 
 template <bool W4, int MT>
@@ -693,7 +700,7 @@ int launch_instance(TcArgs& t, int splits, cudaStream_t stream) {
     err = cudaLaunchKernelEx(&l.cfg, kernel, t);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (t.flags & kFlushInBlock) return 0;
+  if (t.flags & (kFlushInBlock | kNoFlush)) return 0;
   const long total = (long)g.M * g.N;
   const long need = (total + FLUSH_THREADS - 1) / FLUSH_THREADS;
   Launch l(dim3(static_cast<unsigned>(need < 8192 ? need : 8192)),
@@ -739,8 +746,9 @@ inline int smem_bytes(bool w4, int mt) {
 // (QMAX 0), packed int4 (QMAX 0, A4) or x quantized to [-QMAX, QMAX]. Its
 // arguments: the flush's (camp_gemm_common.cuh's GemmArgs; K is the
 // logical K), then the int32 workspace of splits x M x N partial sums
-// (NULL where the block flushes), the row tile MT (8, 32 or 128), the
-// number of splits, the K steps a split and the Flags
+// (NULL where the block flushes; with kNoFlush, pre-quantized A only, the
+// output), the row tile MT (8, 32 or 128), the number of splits, the K
+// steps a split and the Flags
 // (kernels/camp_gemm.py::launch_gemm binds it). `sa` holds the row scales
 // of int8 or packed A, or receives those of x (M f32 in the workspace).
 #define CAMP_GEMM_TC_ENTRY(NAME, W4, QMAX, A4)                                \
@@ -758,8 +766,10 @@ inline int smem_bytes(bool w4, int mt) {
                            out_bf16,  M,         N,   K,        stages,      \
                            n_stages};                                        \
     const bool in_block = (flags & camp_tc::kFlushInBlock) != 0;             \
-    if (splits < 1 || (in_block && splits != 1) ||                           \
-        (!in_block && ws == nullptr) || sa == nullptr || (A4 && K % 2))      \
+    const bool no_flush = (flags & camp_tc::kNoFlush) != 0;                  \
+    if (splits < 1 || (in_block && (splits != 1 || no_flush)) ||             \
+        (no_flush && QMAX != 0) || (!in_block && ws == nullptr) ||           \
+        sa == nullptr || (A4 && K % 2))                                      \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     camp_tc::TcArgs t{};                                                     \
     t.g = g;                                                                 \

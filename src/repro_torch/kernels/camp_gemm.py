@@ -6,7 +6,10 @@ int8 A (M, K) with row scales (M, 1) times int8 B (K, N) with column scales
 (1, N), accumulated in int32 and flushed as ``acc · (s_a · s_b)`` followed
 by the epilogue stages (:func:`repro_torch.kernels.ref.flush_ref`). It is
 the unfused path's GEMM: ``quantize_rowwise`` (K7) then this kernel equals
-the fused K1 bit for bit.
+the fused K1 bit for bit. With ``out_dtype=torch.int32`` K5, K6a and K6b
+return the int32 sums unflushed (``NO_FLUSH``): a row-parallel product on
+the dense slab sums them over the ranks, exactly, and flushes once
+(:func:`flush`), as GSPMD reduces the reference's int32 dot.
 
 * :func:`camp_gemm_i8_ref` is the plain PyTorch version.
 * :func:`camp_gemm_i8` is the wrapper: a CPU tensor goes to the plain
@@ -30,8 +33,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import autotune
-from repro_torch.core.blocking import (FLUSH_IN_BLOCK, SCALE_KERNEL,
-                                       PlanConfig, choose_plan, tc_flags)
+from repro_torch.core.blocking import (FLUSH_IN_BLOCK, NO_FLUSH,
+                                       SCALE_KERNEL, PlanConfig,
+                                       choose_plan, tc_flags)
 from repro_torch.kernels import build
 from repro_torch.kernels.epilogue import EPILOGUE_STAGES, validate_epilogue
 from repro_torch.kernels.ref import dot_i32, flush_ref
@@ -105,7 +109,12 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     split) and ``flags`` (default :func:`tc_flags`) shape the launch, with
     one int32 workspace: the fused kernels' M row scales (f32), then each
     split's partial sums, (splits, M, N), unless the product block
-    flushes."""
+    flushes. ``out_dtype=torch.int32`` (pre-quantized A only): no flush,
+    the planes added are the output."""
+    if out_dtype == torch.int32:
+        return _launch_acc(lib, symbol, a, a_scale, b, b_scale, k,
+                           epilogue=epilogue, bias=bias, operand=operand,
+                           plan=plan, flags=flags)
     stages = validate_epilogue(epilogue, bias, operand)
     m, n, dev = a.shape[0], b.shape[1], a.device
     check_tensor("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,),
@@ -126,12 +135,7 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    fn = _fns.get(symbol)
-    if fn is None:
-        fn = getattr(build.load(lib), symbol)
-        fn.argtypes = _ARGTYPES
-        fn.restype = _INT
-        _fns[symbol] = fn
+    fn = _symbol_fn(lib, symbol)
 
     def bf16(t):
         return int(t is not None and t.dtype == torch.bfloat16)
@@ -160,11 +164,65 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     return out
 
 
+def _symbol_fn(lib: str, symbol: str):
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(build.load(lib), symbol)
+        fn.argtypes = _ARGTYPES
+        fn.restype = _INT
+        _fns[symbol] = fn
+    return fn
+
+
+def _launch_acc(lib, symbol, a, a_scale, b, b_scale, k, *, epilogue, bias,
+                operand, plan, flags):
+    """:func:`launch_gemm` with int32 out: the product kernel alone, its
+    splits' planes added (int32: exact) → (M, N) int32."""
+    if a_scale is None:
+        raise ValueError("int32 out takes pre-quantized A (K5, K6a, K6b)")
+    if validate_epilogue(epilogue, bias, operand):
+        raise ValueError("int32 out has no flush: epilogue 'none' only")
+    m, n, dev = a.shape[0], b.shape[1], a.device
+    check_tensor("a_scale", a_scale, (m, 1), (torch.float32,), dev)
+    check_tensor("b_scale", b_scale.reshape(1, -1), (1, n), (torch.float32,),
+                 dev)
+    mt, splits, per = plan
+    if flags is None:
+        flags = tc_flags(m, n, plan, sms_of(a), False)
+    flags = (flags & ~FLUSH_IN_BLOCK) | NO_FLUSH
+    ws = torch.empty((splits, m, n), dtype=torch.int32, device=dev)
+    if m == 0 or n == 0:
+        return ws.sum(dim=0, dtype=torch.int32)
+    args = [a.data_ptr(), 0, a_scale.data_ptr(), b.data_ptr(),
+            b_scale.data_ptr(), None, 0, None, 0, ws.data_ptr(), 0, m, n, k,
+            0, 0, ws.data_ptr(), mt, splits, per, flags]
+    rc = _symbol_fn(lib, symbol)(*args,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
+    return ws[0] if splits == 1 else ws.sum(dim=0, dtype=torch.int32)
+
+
+def flush(acc: torch.Tensor, a_scale, b_scale, *, out_dtype=torch.float32
+          ) -> torch.Tensor:
+    """The flush of int32 sums that K5 / K6a / K6b returned unflushed and
+    the ranks added: acc (..., M, N), ``a_scale`` (..., M, 1), ``b_scale``
+    (..., 1, N) → ``acc · (s_a · s_b)`` in ``out_dtype``, elementwise: the
+    kernels' flush with no stage (``camp::flush_one``,
+    :func:`~repro_torch.kernels.ref.flush_ref`) bit for bit."""
+    return (acc.float() * (a_scale * b_scale)).to(out_dtype)
+
+
 def camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale, *, out_dtype=torch.float32,
                      epilogue: str = "none", bias=None, operand=None,
                      dot=dot_i32):
     """Plain version: exact int32 dot (or ``dot``, e.g. the hybrid
-    decomposition) → flush → stages."""
+    decomposition) → flush → stages; ``out_dtype=torch.int32``: the dot
+    unflushed."""
+    if out_dtype == torch.int32:
+        if validate_epilogue(epilogue, bias, operand):
+            raise ValueError("int32 out has no flush: epilogue 'none' only")
+        return dot(a_q, b_q)
     return flush_ref(dot(a_q, b_q), a_scale, b_scale, out_dtype=out_dtype,
                      epilogue=epilogue, bias=bias, operand=operand)
 
@@ -175,8 +233,8 @@ def camp_gemm_i8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
                  operand: Optional[torch.Tensor] = None,
                  plan: Optional[PlanConfig] = None) -> torch.Tensor:
     """int8 A (M, K), scales (M, 1) f32 × int8 B (K, N), scales (1, N) f32
-    → (M, N) in ``out_dtype`` (bf16 or f32). ``plan`` (a CUDA tensor
-    only) overrides the autotune's."""
+    → (M, N) in ``out_dtype`` (bf16 or f32; int32: the sums unflushed).
+    ``plan`` (a CUDA tensor only) overrides the autotune's."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     if a_q.device.type == "cpu":

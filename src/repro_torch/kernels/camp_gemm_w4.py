@@ -8,7 +8,8 @@ along K, low nibble = even k, both sign-extended
 * ``camp_gemm_w4`` (K6a): int8 A (M, K) × packed B (K//2, N);
 * ``camp_gemm_a4w4`` (K6b): packed A (M, K//2) × packed B (K//2, N).
 
-Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages). Both
+Both flush like K5 (``acc · (s_a · s_b)`` then the epilogue stages), or
+return the int32 sums unflushed for ``out_dtype=torch.int32``, as K5. Both
 CUDA kernels (``csrc/camp_gemm.cu``) are instances of K5's tensor-core
 template (``csrc/camp_gemm_tc.cuh``) under the autotune's plan (kinds
 ``w4`` and ``a4w4`` of :func:`repro_torch.core.autotune.get_plan`, or
@@ -30,9 +31,9 @@ import torch
 from repro_torch.core.quant import unpack_int4
 from repro_torch.core import autotune
 from repro_torch.core.blocking import PlanConfig
-from repro_torch.kernels.camp_gemm import (check_tensor, launch_gemm,
-                                           require_cuda)
-from repro_torch.kernels.ref import dot_i32, flush_ref
+from repro_torch.kernels.camp_gemm import (camp_gemm_i8_ref, check_tensor,
+                                           launch_gemm, require_cuda)
+from repro_torch.kernels.ref import dot_i32
 
 launches_w4 = 0       # kernel launches through camp_gemm_w4
 launches_a4w4 = 0     # kernel launches through camp_gemm_a4w4
@@ -41,22 +42,24 @@ launches_a4w4 = 0     # kernel launches through camp_gemm_a4w4
 def camp_gemm_w4_ref(a_q, b_packed, a_scale, b_scale, *,
                      out_dtype=torch.float32, epilogue: str = "none",
                      bias=None, operand=None, dot=dot_i32):
-    """Plain version: unpack B, exact int32 dot (or ``dot``) → flush."""
+    """Plain version: unpack B, exact int32 dot (or ``dot``) → flush (K5's
+    plain version; int32 out: the dot unflushed)."""
     b_q = unpack_int4(b_packed, a_q.shape[1])
-    return flush_ref(dot(a_q, b_q), a_scale, b_scale, out_dtype=out_dtype,
-                     epilogue=epilogue, bias=bias, operand=operand)
+    return camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale, out_dtype=out_dtype,
+                            epilogue=epilogue, bias=bias, operand=operand,
+                            dot=dot)
 
 
 def camp_gemm_a4w4_ref(a_packed, b_packed, a_scale, b_scale, *,
                        out_dtype=torch.float32, epilogue: str = "none",
                        bias=None, operand=None):
-    """Plain version: unpack A along K and B along K → int32 dot → flush."""
+    """Plain version: unpack A along K and B along K → int32 dot → flush
+    (K5's plain version; int32 out: the dot unflushed)."""
     k = 2 * a_packed.shape[1]
     a_q = unpack_int4(a_packed.T, k).T
     b_q = unpack_int4(b_packed, k)
-    return flush_ref(dot_i32(a_q, b_q), a_scale, b_scale,
-                     out_dtype=out_dtype, epilogue=epilogue, bias=bias,
-                     operand=operand)
+    return camp_gemm_i8_ref(a_q, b_q, a_scale, b_scale, out_dtype=out_dtype,
+                            epilogue=epilogue, bias=bias, operand=operand)
 
 
 def _packed_shapes(a, b_packed, k, what):

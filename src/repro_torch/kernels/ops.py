@@ -25,14 +25,17 @@ plan and ignore it.
 The ``gemm_*_fused`` family quantizes the activations inside the GEMM (K1,
 K4); ``quantize_rowwise`` (K7) followed by ``gemm_i8`` (K5), ``gemm_w4``
 (K6a) or ``gemm_a4w4`` (K6b) is the unfused composition, equal to the
-fused path bit for bit.
+fused path bit for bit. With ``out_dtype=torch.int32`` those three return
+their int32 sums unflushed; ``flush`` (elementwise, the kernels' flush)
+scales them once the ranks of a row-parallel product have added them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import hybrid
-from repro_torch.kernels.camp_gemm import camp_gemm_i8, camp_gemm_i8_ref
+from repro_torch.kernels.camp_gemm import (camp_gemm_i8,  # noqa: F401
+                                           camp_gemm_i8_ref, flush)
 from repro_torch.kernels.camp_gemm_fused import (camp_gemm_fused_w4a4,
                                                  camp_gemm_fused_w4a4_ref,
                                                  camp_gemm_fused_w4a8,
@@ -107,7 +110,8 @@ def gemm_a4w4_fused(x, b_packed, b_scale, *, out_dtype=torch.float32,
 def gemm_i8(a_q, b_q, a_scale, b_scale, *, out_dtype=torch.float32,
             impl: str = "auto", epilogue: str = "none", bias=None,
             operand=None, plan=None):
-    """int8 GEMM: (M,K) int8 × (K,N) int8 → (M,N) with the scale flush."""
+    """int8 GEMM: (M,K) int8 × (K,N) int8 → (M,N) with the scale flush
+    (``out_dtype=torch.int32``: the int32 sums, unflushed)."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias,
               operand=operand)
     impl = check_impl(impl, a_q)

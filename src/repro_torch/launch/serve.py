@@ -53,8 +53,12 @@ row-parallel wo/down (``--tp-int8-reduce``: an int8 payload on the wire),
 every MoE expert's gate/up columns and down rows (the down projection
 quantized with the whole row's scale), a vocabulary-sharded embedding and
 head, and the paged pool head-sharded. The recurrent and embedding-input
-archs serve on the dense slab with whole params on every rank (each
-rank builds them all), as the reference's ``generate`` drops the mesh.
+archs serve on the dense slab on shards too, as the reference's serve
+places them under the serve rules (RWKV heads and channel-mix blocks,
+Mamba's block of d_inner, attention heads, experts, vocabulary), with
+the row-parallel projections quantized from the whole row, as GSPMD
+runs them; rank 0 prints the bytes a rank holds beside the whole
+model's.
 ``--tp-backend``: nccl (the default on cards: a card a rank) or gloo (the
 CPU's, or several ranks sharing one card). On the CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
@@ -62,7 +66,7 @@ CPU's, or several ranks sharing one card). On the CPU:
       --prompt-len 16 --steps 4
 (every ``--arch``: moonshot-v1-16b-a3b and llama4-maverick-400b-a17b
 split their experts; jamba-v0.1-52b, rwkv6-7b, pixtral-12b and
-musicgen-large run whole on each rank).
+musicgen-large run on the dense slab, each rank on its shards).
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.models import (init_params, init_quantized_params,
                                  quantize_params)
-from repro_torch.parallel.sharding import effective_model_shards
+from repro_torch.parallel.sharding import effective_model_shards, tree_bytes
 from repro_torch.serving.engine import (ContinuousBatchingEngine, generate,
                                        runs_dense_slab, warm_gemm_autotune)
 from repro_torch.serving.kv_cache import round_up
@@ -152,18 +156,15 @@ def _serve_rank(mesh, args) -> None:
         f"{tp_eff if tp_eff > 1 else 'replicated'}")
     say(f"[serve] {tp} ranks, {torch.distributed.get_backend(mesh.group)} "
         f"on {mesh.device}")
-    if runs_dense_slab(cfg):
-        say("[serve] dense slab: whole params on every rank")
     _serve(args, cfg, mesh.device, mesh, say)
 
 
 def _serve(args, cfg, device, mesh, say) -> None:
     """Build the weights and the prompts from the seed and serve them;
-    under ``mesh`` as one rank of it (its shards, or whole params for a
-    dense-slab model)."""
+    under ``mesh`` as one rank of it, on its shards."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
-    shard = mesh is not None and not runs_dense_slab(cfg)
+    shard = mesh is not None
     if args.qmode != "none" or shard:
         params = init_quantized_params(cfg, args.qmode, generator=gen,
                                        device=device,
@@ -178,6 +179,10 @@ def _serve(args, cfg, device, mesh, say) -> None:
     if done:
         say(f"[serve] init + {' + '.join(done)}, a layer at a time, in "
             f"{time.perf_counter()-t0:.2f}s")
+    if shard and runs_dense_slab(cfg):
+        say(f"[serve] dense slab on shards: {tree_bytes(params):,} bytes a "
+            f"rank of {params.whole_bytes:,} whole (layout "
+            f"{sorted(params.layout)})")
 
     spec = None
     if args.spec_method != "off":

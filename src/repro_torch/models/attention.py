@@ -23,20 +23,32 @@ chunk × T instead of T × T.
 Grouped computation never repeats KV heads: q is viewed as (B, S, KV, G,
 hd).
 
-Under a serve-mode mesh whose layout shards the heads (the model axis
+Under a serving mesh whose layout shards the heads (the model axis
 divides the kv heads: ``effective_model_shards`` > 1), a rank holds its
 column shards of wq/wk/wv (and their biases), so its projections yield
 its own heads; the paged branches run K2/K3 over them through the ``_tp``
-wrappers, and the out projection is row-parallel
-(:func:`repro_torch.models.modules.row_parallel_linear`) when the layout
-shards ``wo``, else the heads are gathered for the whole ``wo``.
-Otherwise attention runs replicated on whole weights.
+wrappers, the dense slab holds the rank's kv heads, and the out
+projection is row-parallel (:func:`repro_torch.models.modules.row_linear`:
+shard-local scales on the paged engine, the whole row's on the dense
+slab) when the layout shards ``wo``, else the heads are gathered for the
+whole ``wo``. Otherwise attention runs replicated on whole weights.
+
+**A sequence-split slab.** Under the dense slab's prefill / decode rules,
+where the model axis does not divide the kv heads, each rank's
+:class:`DenseKVCache` holds its block of positions (``start``, whole
+pages of an int8 slab). Prefill attends over the fresh k/v, as the
+reference does, and writes the positions the rank owns; a decode step
+appends on the owner of ``cache_pos`` only, and
+:func:`seq_split_attn` merges the ranks' partial softmaxes: a MAX
+all-reduce of the row maxima, then one SUM all-reduce of the rescaled
+denominators and numerators.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_tp)
@@ -44,9 +56,9 @@ from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
                                                paged_prefill_attention_tp)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (apply_rope, linear, rms_norm,
-                                        rope_freqs, row_parallel_linear)
-from repro_torch.parallel.collectives import all_gather_last
-from repro_torch.parallel.sharding import serve_tp, sharded
+                                        rope_freqs, row_linear)
+from repro_torch.parallel.collectives import all_gather_last, all_reduce
+from repro_torch.parallel.sharding import dense_ctx, sharded, tp_mesh
 from repro_torch.serving.kv_cache import (DEFAULT_PAGE_SIZE, DenseKVCache,
                                           PagedDecodeCache, PagedPrefillCache)
 
@@ -91,6 +103,41 @@ def _grouped_attn(q, k, v, q_pos, k_pos, *, k_len=None):
     return torch.einsum("bkgst,btkh->bskgh", probs, v).to(q.dtype)
 
 
+def seq_split_attn(q, k, v, q_pos, k_pos, *, k_len, mesh, axes,
+                   drop_rank=None):
+    """:func:`_grouped_attn` over a slab whose positions are split over
+    the ranks along ``axes``: q (B,S,KV,G,hd) whole on every rank, k, v
+    (B,T/n,KV,hd) this rank's block at positions ``k_pos``.
+
+    Each rank scores its own positions (masked by ``k_len`` and
+    causality) in f32; a MAX all-reduce gives every row's maximum; each
+    rank's exponentials (the probabilities before their norm) are stored
+    in q's dtype before the value product, as ``_grouped_attn`` stores the
+    probabilities, and one SUM all-reduce adds the ranks' denominators
+    and f32 numerators. The one-process result up to f32 rounding.
+    ``drop_rank`` (a control) leaves that rank's partial out of the sum.
+    """
+    hd = q.shape[-1]
+    scores = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) \
+        * (hd ** -0.5)
+    mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] < k_len)
+    scores = torch.where(mask[None, None, None], scores,
+                         torch.full_like(scores, _NEG))
+    top = all_reduce(scores.amax(dim=-1, keepdim=True), mesh, axes,
+                     op=dist.ReduceOp.MAX)
+    ex = torch.exp(scores - top)
+    num = torch.einsum("bkgst,btkh->bskgh", ex.to(q.dtype).float(),
+                       v.float())
+    den = ex.sum(dim=-1).permute(0, 3, 1, 2)                   # (B,S,KV,G)
+    part = torch.cat([num.reshape(-1), den.reshape(-1)])
+    if drop_rank is not None and mesh.rank == drop_rank:
+        part = torch.zeros_like(part)
+    part = all_reduce(part, mesh, axes)
+    num, den = part.split([num.numel(), den.numel()])
+    return (num.view(q.shape) / den.view(q.shape[:-1])[..., None]
+            ).to(q.dtype)
+
+
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, cache=None,
               cache_pos: Optional[int] = None, qmode: str = "none",
@@ -102,7 +149,7 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     g = h_all // kv_all
     # head-sharded TP applies when every kv shard holds whole head groups
     # (the layout's "heads"); h and kv are then this rank's heads
-    mesh, tp = serve_tp()
+    mesh, tp = tp_mesh()
     head_tp = sharded("heads")
     h, kv = (h_all // tp, kv_all // tp) if head_tp else (h_all, kv_all)
 
@@ -120,8 +167,7 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
     def out_proj(out):
         if sharded("wo"):
-            return row_parallel_linear(out, p["wo"], mesh=mesh, qmode=qmode,
-                                       impl=impl)
+            return row_linear(out, p["wo"], qmode=qmode, impl=impl)
         if head_tp:
             out = all_gather_last(out, mesh)         # wo kept whole
         return linear(out, p["wo"], qmode=qmode, impl=impl)
@@ -163,14 +209,21 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
         else:           # decode: append at cache_pos, attend over the slab
             new_cache = cache.append(k_t, v_t, cache_pos)
             k_all, v_all = new_cache.read(x.dtype)               # (B,T,KV,hd)
-            k_pos = torch.arange(k_all.shape[1], device=x.device)
+            k_pos = cache.start + torch.arange(k_all.shape[1],
+                                               device=x.device)
             k_len = cache_pos + 1
 
     qg = q.reshape(b, s, kv, g, hd)
     chunk = cfg.attn_q_chunk
     if cache is not None and s == 1:
         q_pos = torch.full((1,), cache_pos, device=x.device)
-        out = _grouped_attn(qg, k_all, v_all, q_pos, k_pos, k_len=k_len)
+        if cache.seq_axes:     # this rank's block of the slab's positions
+            out = seq_split_attn(qg, k_all, v_all, q_pos, k_pos,
+                                 k_len=k_len, mesh=cache_mesh(),
+                                 axes=cache.seq_axes)
+        else:
+            out = _grouped_attn(qg, k_all, v_all, q_pos, k_pos,
+                                k_len=k_len)
     elif chunk and s > chunk:
         if s % chunk:
             raise ValueError(f"sequence {s} is not a multiple of "
@@ -181,6 +234,15 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _grouped_attn(qg, k_all, v_all, k_pos, k_pos)
     return out_proj(out.reshape(b, s, h * hd)), new_cache
+
+
+def cache_mesh():
+    """The mesh of the dense-slab context a sequence-split slab runs in."""
+    ctx = dense_ctx()
+    if ctx is None:
+        raise RuntimeError("a sequence-split KV slab runs inside its "
+                           "dense-slab mesh context")
+    return ctx.mesh
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,

@@ -4,20 +4,28 @@ the training loss (softmax cross entropy, streamed over the vocabulary).
 Port of ``repro/models/modules.py``. Under a serving mesh
 (:mod:`repro_torch.parallel.sharding`) a rank holds its shards of the
 weights: the gated MLP's gate/up columns and down rows, reduced by
-:func:`row_parallel_linear`.
+:func:`row_linear`. That is :func:`row_parallel_linear` on the paged
+engine (``mode="serve"``: x quantized from the rank's own K shard, the
+reference's ``shard_map`` body) and :func:`whole_row_linear` on the dense
+slab (``mode="dense"``: each row's scale the whole row's, as GSPMD runs
+the reference's plain ``linear`` on sharded operands).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.camp import camp_matmul, weight_bits
-from repro_torch.core.quant import QuantizedTensor, div_exact
+from repro_torch.core.quant import QuantizedTensor, div_exact, pack_int4
+from repro_torch.kernels import ops
 from repro_torch.kernels.epilogue import apply_epilogue, parse_epilogue
-from repro_torch.parallel.collectives import psum, quantized_psum
-from repro_torch.parallel.sharding import active_ctx, serve_tp, sharded
+from repro_torch.parallel.collectives import (all_reduce, psum,
+                                              quantized_psum)
+from repro_torch.parallel.sharding import (active_ctx, dense_ctx, sharded,
+                                           tp_mesh)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -71,13 +79,8 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
         # of 'none' (or one whose weight bits disagree with the payload) is
         # remapped to the mode matching the weight, keeping the requested
         # activation treatment (weight-only stays weight-only).
-        if qmode == "none" or weight_bits(qmode) != w.bits:
-            if qmode.endswith("a16"):
-                qmode = "w8a16" if w.bits == 8 else "w4a16"
-            else:
-                qmode = "w8a8" if w.bits == 8 else "w4a8"
-        return camp_matmul(x, w, qmode=qmode, impl=impl, epilogue=epi,
-                           bias=bias, operand=operand)
+        return camp_matmul(x, w, qmode=_act_qmode(w, qmode), impl=impl,
+                           epilogue=epi, bias=bias, operand=operand)
     y = torch.matmul(x, w.to(x.dtype))
     if epi != "none":
         y = apply_epilogue(
@@ -127,6 +130,90 @@ def row_parallel_linear(x: torch.Tensor, w, *, mesh, axis: str = "model",
     return reduce_partials(y, mesh, axis, quantized_reduce).to(x.dtype)
 
 
+def row_absmax(h2: torch.Tensor, mesh, axis: str = "model"
+               ) -> torch.Tensor:
+    """h2 (M, K/tp), this rank's block of each row → (M, 1) the whole
+    row's absmax, in h2's dtype: the block's, MAX-reduced over ``axis``
+    (exact: it is one of the row's values)."""
+    amax = h2.abs().amax(dim=-1, keepdim=True).float()
+    return all_reduce(amax, mesh, axis, op=dist.ReduceOp.MAX).to(h2.dtype)
+
+
+def quantize_whole_rows(h2: torch.Tensor, mesh, *, a4: bool,
+                        impl: str = "auto"):
+    """This rank's (M, K/tp) block of each row, quantized as one process
+    quantizes the whole row: K7 over the block with one more column
+    holding the row's absmax (:func:`row_absmax`), so the scale and every
+    value are the whole row's, bit for bit → (int8 q (M, K/tp), packed
+    along K for ``a4`` (w4a4), f32 scales (M, 1))."""
+    q, s = ops.quantize_rowwise(
+        torch.cat([h2, row_absmax(h2, mesh)], dim=-1).contiguous(),
+        bits=4 if a4 else 8, impl=impl)
+    q = q[:, :-1]
+    return (pack_int4(q.T).T if a4 else q).contiguous(), s
+
+
+def _act_qmode(w, qmode: str) -> str:
+    """The mode :func:`linear` runs a quantized ``w`` in (the weight's
+    bits decide the kernel family)."""
+    if qmode == "none" or weight_bits(qmode) != w.bits:
+        if qmode.endswith("a16"):
+            return "w8a16" if w.bits == 8 else "w4a16"
+        return "w8a8" if w.bits == 8 else "w4a8"
+    return qmode
+
+
+def gemm_acc(q: torch.Tensor, s: torch.Tensor, w: QuantizedTensor, k: int,
+             *, a4: bool, impl: str = "auto") -> torch.Tensor:
+    """The int32 sums of pre-quantized rows ``q`` (packed along K for
+    ``a4``) times ``w``, unflushed: K5 (int8 weights), K6a (w4a8) or K6b
+    (w4a4) with int32 out."""
+    kw = dict(out_dtype=torch.int32, impl=impl)
+    if w.bits == 8:
+        return ops.gemm_i8(q, w.q, s, w.scale, **kw)
+    if a4:
+        return ops.gemm_a4w4(q, w.q, k, s, w.scale, **kw)
+    return ops.gemm_w4(q, w.q, s, w.scale, **kw)
+
+
+def whole_row_linear(x: torch.Tensor, w, *, mesh, axis: str = "model",
+                     qmode: str = "none", impl: str = "auto"
+                     ) -> torch.Tensor:
+    """The dense slab's row-parallel ``x @ W``, as GSPMD runs the
+    reference's plain ``linear`` on a K-sharded W: ``x`` (..., K/tp) this
+    rank's columns, ``w`` its (K/tp, N) rows → the whole (..., N) in x's
+    dtype, on every rank of ``axis``.
+
+    The integer modes quantize x with each whole row's scale
+    (:func:`quantize_whole_rows`: every value the one one process
+    quantizes), take K5 / K6a / K6b's int32 sums unflushed
+    (:func:`gemm_acc`), add them over the ranks (int32: exact) and flush
+    once: one process's K1 / K4 output, bit for bit. The float and
+    weight-only modes add the ranks' f32 partials and round once."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    mode = _act_qmode(w, qmode) if isinstance(w, QuantizedTensor) else None
+    if mode in ("w8a8", "w4a8", "w4a4"):
+        q, s = quantize_whole_rows(x2, mesh, a4=mode == "w4a4", impl=impl)
+        acc = all_reduce(gemm_acc(q, s, w, k, a4=mode == "w4a4", impl=impl),
+                         mesh, axis)
+        y = ops.flush(acc, s, w.scale, out_dtype=x.dtype)
+    else:
+        wf = w.dequantize().to(x.dtype) if mode else w.to(x.dtype)
+        y = psum(x2.float() @ wf.float(), mesh, axis).to(x.dtype)
+    return y.reshape(*lead, -1)
+
+
+def row_linear(x: torch.Tensor, w, *, qmode: str = "none",
+               impl: str = "auto") -> torch.Tensor:
+    """The row-parallel projection of a rank holding W's K rows under a
+    serving mesh context: :func:`whole_row_linear` on the dense slab,
+    :func:`row_parallel_linear` on the paged engine."""
+    mesh, _ = tp_mesh()
+    fn = whole_row_linear if dense_ctx() is not None else row_parallel_linear
+    return fn(x, w, mesh=mesh, qmode=qmode, impl=impl)
+
+
 def reduce_partials(y: torch.Tensor, mesh, axis: str = "model",
                     quantized_reduce: Optional[bool] = None
                     ) -> torch.Tensor:
@@ -169,17 +256,16 @@ def gated_mlp(x: torch.Tensor, p: dict, *, qmode: str = "none",
 
     The gate applies SiLU in its flush, the up projection multiplies by the
     activated gate in its flush, and the down projection is plain. Under a
-    serve-mode mesh whose layout shards the MLP, a rank holds its d_ff
+    serving mesh whose layout shards the MLP, a rank holds its d_ff
     columns of gate/up and the matching rows of ``w_down``
     (:func:`~repro_torch.parallel.sharding.shard_params` shards the three
-    together): the down projection is then row-parallel, one all-reduce
-    per MLP.
+    together): the down projection is then row-parallel
+    (:func:`row_linear`), one all-reduce per MLP.
     """
     g = linear(x, p["w_gate"], qmode=qmode, impl=impl, epilogue="silu")
     h = linear(x, p["w_up"], qmode=qmode, impl=impl, epilogue="mul", operand=g)
     if sharded("mlp"):
-        return row_parallel_linear(h, p["w_down"], mesh=serve_tp()[0],
-                                   qmode=qmode, impl=impl)
+        return row_linear(h, p["w_down"], qmode=qmode, impl=impl)
     return linear(h, p["w_down"], qmode=qmode, impl=impl)
 
 

@@ -34,7 +34,7 @@ serve rules place them, and its GSPMD keeps the one-process meaning:
 * down is row-parallel with the **whole row's** activation scale, as
   GSPMD computes it (the dense FFN's ``shard_map`` quantizes from the
   rank's own rows instead): a MAX all-reduce of h's row absmax
-  (:func:`_row_absmax`), K7 over the rank's rows with one more column
+  (``modules.row_absmax``), K7 over the rank's rows with one more column
   holding it, then K5 / K6a / K6b per expert on the quantized block
   (:func:`_down_partial`), f32 out;
 * each rank combines its f32 partials with the routing weights, and one
@@ -44,24 +44,40 @@ serve rules place them, and its GSPMD keeps the one-process meaning:
   rounded to the activation dtype before the combine, as one process
   rounds them; y is rounded once, after the sum.
 
+On the dense slab (``engine.slab_context``, ``mode="dense"``) the down
+projection keeps GSPMD's meaning exactly (:func:`_down_whole`): each
+expert's int32 sums of the whole-row-scaled rows are added over the model
+ranks before one flush, and the combine reads one process's expert
+outputs. Under the dense slab's prefill / decode rules the batch splits
+over data (``sharding.data_split``): each rank lays its tokens on the
+grid of the global routing groups (:func:`run_grid`,
+:func:`split_offsets`, as a sharded train step does), and where the data
+ranks divide the experts (:func:`expert_split`) one all-to-all sends
+every rank's slots of expert block j to data rank j, which runs the
+GEMMs of its E/data experts over every rank's slots, and a second one
+brings the outputs back for the combine (the eager counterpart of the
+reference's ``logical(xe, "moe_group", "expert", ...)``). The expert
+weights stay whole over data, as the reference places them.
+
 The reference's other sharding annotations (``logical(...)``) are GSPMD
 layout hints with no eager counterpart and are left out.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.quant import (QuantizedTensor, pack_int4,
                                     quantize_colwise)
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import reduce_partials, refuse_tf32
-from repro_torch.parallel.collectives import (all_reduce, gather_blocks,
-                                              psum_grad)
+from repro_torch.models.modules import (gemm_acc, quantize_whole_rows,
+                                        reduce_partials, refuse_tf32)
+from repro_torch.parallel.collectives import (all_reduce, all_to_all,
+                                              gather_blocks, psum_grad)
 from repro_torch.parallel.fsdp import batch_split
-from repro_torch.parallel.sharding import serve_tp, sharded
+from repro_torch.parallel.sharding import (data_split, dense_ctx, sharded,
+                                           tp_mesh)
 
 MOE_MIN_CAPACITY = 8
 MOE_GROUP_SIZE = 4096  # tokens per routing group
@@ -147,14 +163,6 @@ def _expert_matmul(xe: torch.Tensor, w, qmode: str,
     return acc.to(xe.dtype)
 
 
-def _row_absmax(h2: torch.Tensor, mesh) -> torch.Tensor:
-    """h2 (M, F/tp), this rank's block of each row → (M, 1) the whole
-    row's absmax, in h2's dtype: the block's, MAX-reduced over the model
-    axis (exact: it is one of the row's values)."""
-    amax = h2.abs().amax(dim=-1, keepdim=True).float()
-    return all_reduce(amax, mesh, "model", op=dist.ReduceOp.MAX).to(h2.dtype)
-
-
 def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
                   mesh) -> torch.Tensor:
     """This rank's f32 partial of the down projection: h (..., E, C,
@@ -162,10 +170,10 @@ def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
     (..., E, C, D) f32.
 
     The integer modes quantize h with each whole row's scale
-    (:func:`_row_absmax`): K7 over all of the layer's rows at once, with
-    one more column holding the row's absmax, so each value is the one
-    one process quantizes; then K5 (int8 weights), K6a (w4a8) or K6b
-    (w4a4, h packed along K) per expert, f32 out. The float and
+    (``modules.quantize_whole_rows``): K7 over all of the layer's rows at
+    once, with one more column holding the row's absmax, so each value is
+    the one one process quantizes; then K5 (int8 weights), K6a (w4a8) or
+    K6b (w4a4, h packed along K) per expert, f32 out. The float and
     weight-only modes take an f32 einsum.
     """
     if not isinstance(w, QuantizedTensor) or qmode in ("w8a16", "w4a16",
@@ -178,11 +186,7 @@ def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
     h2 = h.reshape(-1, e, c, kk).transpose(0, 1).reshape(-1, kk)
     rows = h2.shape[0] // e                                       # L*C
     a4 = w.bits == 4 and qmode == "w4a4"
-    q, s = ops.quantize_rowwise(
-        torch.cat([h2, _row_absmax(h2, mesh)], dim=-1).contiguous(),
-        bits=4 if a4 else 8, impl=impl)
-    q = q[:, :-1]
-    q = (pack_int4(q.T).T if a4 else q).contiguous()
+    q, s = quantize_whole_rows(h2, mesh, a4=a4, impl=impl)
     parts, kw = [], dict(out_dtype=torch.float32, impl=impl)
     for ei in range(e):
         a, sa = q[ei * rows:(ei + 1) * rows], s[ei * rows:(ei + 1) * rows]
@@ -196,6 +200,43 @@ def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
     acc = torch.stack(parts)                                      # (E,L*C,N)
     n = acc.shape[-1]
     return acc.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+
+
+def _down_whole(h: torch.Tensor, w, qmode: str, impl: str,
+                mesh) -> torch.Tensor:
+    """The dense slab's down projection, as GSPMD runs the reference's
+    expert einsum on K-sharded rows: h (..., E, C, F/tp) this rank's block
+    of every expert's rows, ``w`` its (E, F/tp, D) rows → the whole (...,
+    E, C, D) in h's dtype on every rank of the model axis.
+
+    The integer modes quantize h with each whole row's scale (K7 once over
+    the layer's rows), take K5 / K6a / K6b's int32 sums unflushed per
+    expert, add them over the ranks (exact) and flush: one process's
+    expert outputs, bit for bit. The float and weight-only modes add f32
+    partials (:func:`_down_partial`) and round once."""
+    if not isinstance(w, QuantizedTensor) or qmode in ("w8a16", "w4a16",
+                                                        "none"):
+        return reduce_partials(_down_partial(h, w, qmode, impl, mesh),
+                               mesh).to(h.dtype)
+    lead = h.shape[:-3]
+    e, c, kk = h.shape[-3:]
+    h2 = h.reshape(-1, e, c, kk).transpose(0, 1).reshape(-1, kk)
+    rows = h2.shape[0] // e                                       # L*C
+    a4 = w.bits == 4 and qmode == "w4a4"
+    q, s = quantize_whole_rows(h2, mesh, a4=a4, impl=impl)
+    acc = torch.stack([gemm_acc(q[ei * rows:(ei + 1) * rows],
+                                s[ei * rows:(ei + 1) * rows],
+                                QuantizedTensor(q=w.q[ei], scale=w.scale[ei],
+                                                bits=w.bits,
+                                                shape=tuple(w.shape[1:])),
+                                kk, a4=a4, impl=impl)
+                       for ei in range(e)])                       # (E,L*C,N)
+    acc = all_reduce(acc, mesh, "model")
+    y = ops.flush(acc, s.reshape(e, rows, 1), w.scale,
+                  out_dtype=torch.float32)
+    n = y.shape[-1]
+    return y.reshape(e, -1, c, n).transpose(0, 1).reshape(
+        *lead, e, c, n).to(h.dtype)
 
 
 def _route(gates: torch.Tensor, k: int, cap: int, mask=None, offsets=None):
@@ -265,14 +306,15 @@ def run_grid(first: int, t: int, sg: int):
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
             qmode: str = "none", impl: str = "auto"):
     """x: (B, S, D) → (y (B, S, D), Switch load-balance aux loss). Under
-    a serve-mode mesh whose layout shards the experts, this rank's
-    column and row blocks of them; under a sharded train step whose rows
-    are split over ranks, this rank's rows of the global batch (module
-    docstring)."""
+    a serving mesh whose layout shards the experts, this rank's column
+    and row blocks of them; under a sharded train step, or a dense-slab
+    context whose rules split the batch over data, this rank's rows of
+    the global batch, and in the second case the dispatch slab split by
+    expert over the data ranks (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     t = b * s
-    split = batch_split()
+    split = batch_split() or data_split()
     n, rank = (1, 0) if split is None else split[2:]
     sg = routing_group_size(n * t)
     cap = expert_capacity(sg, cfg)
@@ -308,14 +350,23 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     idx = tok_for_slot[:, :e * cap, None].expand(g, e * cap, d)
     xe = torch.gather(xpad, 1, idx).reshape(g, e, cap, d)
 
-    gate = _expert_matmul(xe, p["experts"]["w_gate"], qmode, impl)
-    up = _expert_matmul(xe, p["experts"]["w_up"], qmode, impl)
+    ep = expert_split(cfg)
+    experts = p["experts"]
+    if ep is not None:       # this data rank's experts, every rank's slots
+        xe, experts = _to_expert_ranks(xe, experts, ep, t, sg)
+    gate = _expert_matmul(xe, experts["w_gate"], qmode, impl)
+    up = _expert_matmul(xe, experts["w_up"], qmode, impl)
     h = F.silu(gate.float()).to(x.dtype) * up
-    mesh = serve_tp()[0] if sharded("experts") else None
+    mesh = tp_mesh()[0] if sharded("experts") else None
     if mesh is None:
-        ye = _expert_matmul(h, p["experts"]["w_down"], qmode, impl)
+        ye = _expert_matmul(h, experts["w_down"], qmode, impl)
+    elif dense_ctx() is not None:     # GSPMD's: the slab whole, then combine
+        ye = _down_whole(h, experts["w_down"], qmode, impl, mesh)
+        mesh = None
     else:
-        ye = _down_partial(h, p["experts"]["w_down"], qmode, impl, mesh)
+        ye = _down_partial(h, experts["w_down"], qmode, impl, mesh)
+    if ep is not None:       # the slots' outputs back to their tokens' rank
+        ye = _from_expert_ranks(ye, ep, g)
 
     # combine: gather each token's k expert outputs, weight, sum in f32
     ye_pad = torch.cat([ye.reshape(g, e * cap, d), ye.new_zeros(g, 1, d)],
@@ -341,6 +392,64 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     frac, mean_gate = psum_grad(sums, split[0], split[1]) / (n * t)
     aux = e * torch.sum(frac * mean_gate)
     return y.reshape(-1, d)[cells].reshape(b, s, d), aux
+
+
+def expert_split(cfg: ModelConfig):
+    """Under a dense-slab context whose rules split the batch over data
+    (:func:`~repro_torch.parallel.sharding.data_split`): (mesh, data axes,
+    their rank count n, this rank's index), when n divides the experts:
+    each data rank then runs the expert GEMMs of its E/n experts; else
+    None (every rank runs every expert on its own slots)."""
+    split = data_split()
+    if split is None or cfg.moe_experts % split[2]:
+        return None
+    return split
+
+
+def _expert_block(w, lo: int, hi: int):
+    """Experts [lo, hi) of an (E, K, N) stack, as views."""
+    if isinstance(w, QuantizedTensor):
+        return QuantizedTensor(q=w.q[lo:hi], scale=w.scale[lo:hi],
+                               bits=w.bits, shape=(hi - lo, *w.shape[1:]))
+    return w[lo:hi]
+
+
+def _grid_rows(t: int, sg: int, n: int) -> int:
+    """The most groups any of the ``n`` ranks' runs of ``t`` tokens meets
+    (every rank's block of the all-to-all is padded to it)."""
+    return max(run_grid(r * t, t, sg)[1] for r in range(n))
+
+
+def _to_expert_ranks(xe: torch.Tensor, experts: dict, ep, t: int, sg: int):
+    """xe (G, E, C, D): this rank's dispatch slab (its tokens' slots
+    filled, the rest zero) → (every data rank's slots of this rank's
+    experts, stacked (n·Gmax, E/n, C, D), and those experts' weights).
+
+    One all-to-all over the data axes: block j (experts [j·E/n, (j+1)·E/n)
+    of every group, padded to the most groups a rank meets) goes to data
+    rank j. Every output row of an expert's GEMM depends on its input row
+    alone (rowwise quantization, integer sums), so each slot's output is
+    one process's."""
+    mesh, axes, n, me = ep
+    g, e, c, d = xe.shape
+    gmax = _grid_rows(t, sg, n)
+    el = e // n
+    pad = xe.new_zeros(gmax, e, c, d)
+    pad[:g] = xe
+    blocks = [pad[:, j * el:(j + 1) * el] for j in range(n)]
+    got = all_to_all(blocks, mesh, axes)
+    mine = {k: _expert_block(w, me * el, (me + 1) * el)
+            for k, w in experts.items()}
+    return torch.cat(got, dim=0), mine
+
+
+def _from_expert_ranks(ye: torch.Tensor, ep, g: int) -> torch.Tensor:
+    """ye (n·Gmax, E/n, C, D') this rank's experts' outputs of every data
+    rank's slots → this rank's slab (G, E, C, D'): block r goes back to
+    data rank r, and the blocks received stack by expert."""
+    mesh, axes, n, _ = ep
+    got = all_to_all(list(ye.chunk(n, dim=0)), mesh, axes)
+    return torch.cat(got, dim=1)[:g]
 
 
 def _exchange_offsets(counts, g0: int, groups: int, rank: int, split):

@@ -15,6 +15,14 @@ C·LW_MAX (80 < 88 = log(f32 max) at C 32). Decode (S 1) is one step.
 
 The projections go through the CAMP pipeline when quantized; the WKV
 contractions are f32 and must not run in TF32 on the card.
+
+Under a serving mesh whose layout shards the time mix ("rwkv_tm"), a rank
+holds the wr/wk/wv/wg columns of its heads: it runs the WKV state ``s``
+(B, H/tp, hd, hd) and the per-head norm of its own heads, and gathers y
+for the whole ``out_proj`` (every value one process's). Sharding the
+channel mix ("rwkv_cm"), it holds the w_gate and receptance w_up columns
+and w_down's rows: relu² of its d_ff block, the down projection
+row-parallel (``modules.row_linear``), the receptance gathered.
 """
 from __future__ import annotations
 
@@ -24,7 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.modules import group_norm_heads, linear, refuse_tf32
+from repro_torch.models.modules import (group_norm_heads, linear, refuse_tf32,
+                                        row_linear)
+from repro_torch.parallel.collectives import all_gather_last
+from repro_torch.parallel.sharding import sharded, tp_mesh
 
 LW_MAX = 2.5
 _MIX = ("r", "w", "k", "v", "g")
@@ -132,6 +143,12 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
+    heads = slice(0, h)                      # this rank's heads
+    mesh, tp = tp_mesh() if sharded("rwkv_tm") else (None, 1)
+    if mesh is not None:
+        h //= tp
+        heads = slice(mesh.coords["model"] * h, (mesh.coords["model"] + 1) * h)
+    cols = slice(heads.start * hd, heads.stop * hd)
 
     if cache is not None:
         x_prev_tok = cache["x_prev"][:, None]
@@ -147,13 +164,13 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     lw_raw = p["w0"].float() + torch.tanh(
         linear(mixed["w"], p["w_lora_a"]).float()) @ p["w_lora_b"].float()
-    lw = -torch.clamp(torch.exp(lw_raw), 1e-4, LW_MAX)        # (B,S,D), ≤ 0
+    lw = -torch.clamp(torch.exp(lw_raw[..., cols]), 1e-4, LW_MAX)  # ≤ 0
 
     rh, kh, vh = (t.reshape(b, s, h, hd).float() for t in (r, k, v))
     lwh = lw.reshape(b, s, h, hd)
     s0 = (cache["s"] if cache is not None
           else x.new_zeros(b, h, hd, hd, dtype=torch.float32))
-    u = p["u"].float()
+    u = p["u"][heads].float()
 
     if s == 1:
         y, s_fin = _wkv6_step(rh, kh, vh, lwh, u, s0)
@@ -163,8 +180,11 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
             chunk -= 1
         y, s_fin = _wkv6_chunked(rh, kh, vh, lwh, u, s0, chunk)
 
-    y = group_norm_heads(y, p["g_norm_scale"], p["g_norm_bias"], cfg.norm_eps)
-    y = y.reshape(b, s, d).to(x.dtype) * g
+    y = group_norm_heads(y, p["g_norm_scale"][heads], p["g_norm_bias"][heads],
+                         cfg.norm_eps)
+    y = y.reshape(b, s, h * hd).to(x.dtype) * g
+    if mesh is not None:                       # out_proj is whole
+        y = all_gather_last(y, mesh)
     out = linear(y, p["out_proj"], qmode=qmode, impl=impl)
     new_cache = None
     if cache is not None:
@@ -220,9 +240,13 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     xr = x + sx * p["maa_r"].to(x.dtype)
     k = linear(xk, p["w_gate"], qmode=qmode, impl=impl)
     k = F.relu(k.float()).square().to(x.dtype)
-    v = linear(k, p["w_down"], qmode=qmode, impl=impl)
-    rgate = torch.sigmoid(
-        linear(xr, p["w_up"], qmode=qmode, impl=impl).float())
+    r = linear(xr, p["w_up"], qmode=qmode, impl=impl)
+    if sharded("rwkv_cm"):          # this rank's d_ff block, its r columns
+        v = row_linear(k, p["w_down"], qmode=qmode, impl=impl)
+        r = all_gather_last(r, tp_mesh()[0])
+    else:
+        v = linear(k, p["w_down"], qmode=qmode, impl=impl)
+    rgate = torch.sigmoid(r.float())
     y = (rgate * v.float()).to(x.dtype)
     new_cache = {"x_prev": x[:, -1]} if cache is not None else None
     return y, new_cache

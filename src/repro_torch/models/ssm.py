@@ -15,6 +15,13 @@ The GEMMs (in/x/out projections) go through the CAMP pipeline when
 quantized; ``dt_proj`` stays a float matmul, as in the reference. The
 recurrence is f32 elementwise code plus one f32 contraction, which must
 not run in TF32 on the card.
+
+Under a serving mesh whose layout shards the layer ("mamba"), a rank
+holds its block of d_inner of ``conv_w`` and ``A_log``: it takes its x/z
+columns of the whole ``in_proj``'s output, runs the conv and the scan on
+its block (state ``h`` (B, di/tp, N), window ``conv`` (B, cw-1, di/tp)),
+and gathers the block for the whole ``x_proj`` and ``out_proj`` (every
+value one process's).
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import linear, refuse_tf32
+from repro_torch.parallel.collectives import all_gather_last
+from repro_torch.parallel.sharding import sharded, tp_mesh
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
@@ -122,16 +131,27 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     di, n, r = cfg.d_inner, cfg.ssm_state_dim, cfg.dt_rank
     f32 = torch.float32
 
+    own = slice(0, di)                  # this rank's block of d_inner
+    mesh, tp = tp_mesh() if sharded("mamba") else (None, 1)
+    if mesh is not None:
+        blk = di // tp
+        idx = mesh.coords["model"]
+        own = slice(idx * blk, (idx + 1) * blk)
+        di = blk
+
     xz = linear(x, p["in_proj"], qmode=qmode, impl=impl)
-    x_in, z = xz[..., :di], xz[..., di:]
+    x_in, z = xz[..., own], xz[..., cfg.d_inner:][..., own]
 
     prev_conv = cache["conv"] if cache is not None else None
-    x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"], prev_conv)
+    x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"][own],
+                                 prev_conv)
     x_c = F.silu(x_c.float()).to(x.dtype)
 
-    dbc = linear(x_c, p["x_proj"], qmode=qmode, impl=impl)
+    x_all = x_c if mesh is None else all_gather_last(x_c, mesh)
+    dbc = linear(x_all, p["x_proj"], qmode=qmode, impl=impl)
     dt, bm, cm = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
-    dt = linear(dt, p["dt_proj"]).float() + p["dt_bias"].float()
+    dt = linear(dt, p["dt_proj"])[..., own].float() \
+        + p["dt_bias"][own].float()
     dt = torch.logaddexp(dt, torch.zeros((), dtype=f32, device=x.device))
 
     a_mat = -torch.exp(p["A_log"])                                 # (di, N)
@@ -151,9 +171,11 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         h_all, h = _ssm_scan_segment(dec[:, sl], bu[:, sl], h)
         ys.append(torch.einsum("bsdn,bsn->bsd", h_all, cmf[:, sl]))
     y = torch.cat(ys, dim=1)
-    y = y + p["D"].float() * x_c.float()
+    y = y + p["D"][own].float() * x_c.float()
     y = (y * F.silu(z.float())).to(x.dtype)
 
+    if mesh is not None:                       # out_proj is whole
+        y = all_gather_last(y, mesh)
     out = linear(y, p["out_proj"], qmode=qmode, impl=impl)
     new_cache = {"h": h, "conv": new_conv} if cache is not None else None
     return out, new_cache

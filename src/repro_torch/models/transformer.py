@@ -14,12 +14,13 @@ expert); the same forward then routes through the CAMP kernels.
 states (one recomputed checkpoint per block when ``cfg.remat``), the
 streamed cross entropy over the head, and the MoE aux loss.
 
-Under a serve-mode mesh (:mod:`repro_torch.parallel.sharding`) whose
-layout shards the vocabulary ("vocab" → model), a rank holds its block of
-embedding rows: the lookup takes the ids in its block and an all-reduce
-sums the ranks' rows (exact: one addend is not zero), and the head (tied,
-or an untied ``lm_head`` holding its block of columns) computes this
-rank's logit columns and gathers them in rank order.
+Under a serving mesh (:mod:`repro_torch.parallel.sharding`; the paged
+engine's or the dense slab's) whose layout shards the vocabulary
+("vocab" → model), a rank holds its block of embedding rows: the lookup
+takes the ids in its block and an all-reduce sums the ranks' rows (exact:
+one addend is not zero), and the head (tied, or an untied ``lm_head``
+holding its block of columns) computes this rank's logit columns and
+gathers them in rank order.
 """
 from __future__ import annotations
 
@@ -39,8 +40,8 @@ from repro_torch.models.modules import (chunked_xent, gated_mlp, linear,
                                         rms_norm)
 from repro_torch.parallel.collectives import all_gather_last, psum
 from repro_torch.parallel.fsdp import whole
-from repro_torch.parallel.sharding import (RankShards, serve_tp, shard_params,
-                                           sharded)
+from repro_torch.parallel.sharding import (RankShards, shard_params, sharded,
+                                           tp_mesh)
 
 MOE_AUX_COEF = 0.01   # weight of the MoE aux loss in training
 
@@ -105,7 +106,8 @@ def init_quantized_params(cfg: ModelConfig, qmode: str, *,
     if mesh is None:
         return params
     return RankShards(params, params.layout.union(
-        *(tree.layout for tree in layers)))
+        *(tree.layout for tree in layers)), params.whole_bytes
+        + sum(tree.whole_bytes for tree in layers))
 
 
 def init_layer(cfg: ModelConfig, i: int, gen: torch.Generator,
@@ -257,18 +259,18 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     logits = linear(h, head, qmode="none" if cfg.tie_embeddings else qmode,
                     impl=impl)
     if sharded("embedding" if cfg.tie_embeddings else "lm_head"):
-        logits = all_gather_last(logits, serve_tp()[0])  # vocab-sharded
+        logits = all_gather_last(logits, tp_mesh()[0])   # vocab-sharded
     return logits, new_caches, aux_total
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``table[ids]``; under a serve-mode mesh whose layout shards the
+    """``table[ids]``; under a serving mesh whose layout shards the
     embedding (``table`` this rank's block of vocabulary rows), the rows
     of the ids in the block, zeros elsewhere, summed over the ranks in f32
     (exact)."""
     if not sharded("embedding"):
         return table[ids]
-    mesh, _ = serve_tp()
+    mesh, _ = tp_mesh()
     rows = table.shape[0]
     local = ids - mesh.coords["model"] * rows
     mine = (local >= 0) & (local < rows)

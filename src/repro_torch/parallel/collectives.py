@@ -16,8 +16,13 @@ or a tuple of them. Serving reduces over the model axis:
 * :func:`int8_allreduce_mean` — the int8-compressed mean all-reduce of a
   gradient;
 * :func:`all_gather_last` and :func:`broadcast_ints` — the vocabulary
-  gather of the head's columns and rank 0's host decisions (sampled
-  tokens, the engine's page size), which the replicated scheduler needs.
+  gather of the head's columns (and of any column-split activation the
+  next op needs whole) and rank 0's host decisions (sampled tokens, the
+  engine's page size), which the replicated scheduler needs;
+* :func:`all_reduce` with ``op=MAX`` — a row's global absmax
+  (``modules.row_absmax``) and the sequence-split softmax's row maxima;
+* :func:`all_to_all` — the dense slab's expert-parallel MoE: each data
+  rank's dispatch slab to the ranks of its experts, and back.
 
 Sharded training (:mod:`repro_torch.train.train_step`) gathers and
 reduce-scatters blocks over one axis or both:
@@ -167,6 +172,26 @@ def all_gather_last(x: torch.Tensor, mesh, axis: str = "model"
     """Every rank's ``x`` concatenated along the last dim, in rank order
     (a column-sharded output made whole)."""
     return torch.cat(_gather(x, mesh, axis), dim=-1)
+
+
+def all_to_all(blocks: Sequence[torch.Tensor], mesh, axis: Axes
+               ) -> List[torch.Tensor]:
+    """Block ``j`` of this rank's ``blocks`` (one a member of the group
+    over ``axis``, in its order; all of one shape and dtype) to member
+    ``j`` → the block each member sent this rank, in the group's order.
+
+    One ``all_to_all_single`` of the blocks' bytes (gloo takes it on the
+    CPU and on a card), so any dtype travels bit for bit."""
+    group = _group(mesh, axis)
+    if group is None:
+        return [blocks[0]]
+    shape, dtype = blocks[0].shape, blocks[0].dtype
+    send = torch.cat([b.contiguous().reshape(-1).view(torch.uint8)
+                      for b in blocks])
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return [part.view(dtype).reshape(shape)
+            for part in recv.chunk(len(blocks))]
 
 
 def broadcast_ints(values: Sequence[int], mesh, axis: Axes = "model"

@@ -18,8 +18,25 @@ eager counterpart and is not ported: a rank's tensors are its own shards.
 
 Which weights a rank holds as shards is decided once, by
 :func:`serve_pspecs`; :func:`shard_params` records the decision as the
-tree's ``layout`` (a set of :data:`PARTS`), the serve-mode
+tree's ``layout`` (a set of :data:`PARTS`), the serving
 :func:`mesh_context` carries it, and the model code asks :func:`sharded`.
+
+Two serving modes run on shards, and the model code tells them apart:
+
+* ``mode="serve"``, the paged engine's, the reference's explicit
+  ``shard_map`` tensor parallelism: a row-parallel projection quantizes
+  its input from the rank's own K shard (``modules.row_parallel_linear``);
+* ``mode="dense"``, the dense slab's (``build_prefill_step`` /
+  ``build_decode_step`` and ``generate(mesh=)``), where the reference
+  runs plain model code on sharded operands and GSPMD keeps the one-
+  process meaning: a row-parallel projection takes the whole row's
+  activation scale (``modules.whole_row_linear``), and the rules in the
+  context decide the rest. Under ``make_rules("serve")`` the rows stay
+  whole on every rank; under ``make_rules("prefill" | "decode")`` a
+  (data, model) mesh splits the batch over data (:func:`data_split`), the
+  KV slab over model by kv heads or else by positions
+  (:func:`cache_pspecs`, ``serving.kv_cache.DenseKVCache.start``), and
+  the MoE dispatch slab by expert over data (``models.moe``).
 
 Training (flat FSDP under ``make_rules("train")``) keeps every leaf of the
 train state as this rank's block along every sharded dim, on both axes:
@@ -55,8 +72,13 @@ _CTX: contextvars.ContextVar[Optional["MeshCtx"]] = contextvars.ContextVar(
 # out projection's rows, "mlp" w_gate/w_up columns with w_down's rows,
 # "experts" every expert's w_gate/w_up columns with its w_down rows (the
 # router whole), "embedding" its block of vocabulary rows, "lm_head" an
-# untied head's block of vocabulary columns.
-PARTS = ("heads", "wo", "mlp", "experts", "embedding", "lm_head")
+# untied head's block of vocabulary columns; "mamba" the Mamba conv_w
+# columns and A_log rows (its block of d_inner), "rwkv_tm" the RWKV time
+# mix's wr/wk/wv/wg columns (its heads), "rwkv_cm" the channel mix's
+# w_gate and receptance w_up columns with w_down's rows.
+PARTS = ("heads", "wo", "mlp", "experts", "embedding", "lm_head", "mamba",
+         "rwkv_tm", "rwkv_cm")
+MODES = ("train", "serve", "dense")
 
 
 class MeshCtx:
@@ -64,6 +86,8 @@ class MeshCtx:
                  mode: str = "train",
                  opts: Optional[Mapping[str, Any]] = None,
                  layout: frozenset = frozenset()):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
         self.mesh = mesh
         self.rules = dict(rules)
         self.mode = mode
@@ -111,13 +135,54 @@ def serve_tp() -> tuple:
     return ctx.mesh, size
 
 
+def dense_ctx() -> Optional[MeshCtx]:
+    """The active dense-slab mesh context (``mode="dense"``), else None."""
+    ctx = active_ctx()
+    return ctx if ctx is not None and ctx.mode == "dense" else None
+
+
+def tp_mesh() -> tuple:
+    """(mesh, model_axis_size) of an active serving context, the paged
+    engine's (``mode="serve"``) or the dense slab's (``mode="dense"``),
+    whose model axis is longer than one; else (None, 1)."""
+    ctx = active_ctx()
+    if ctx is None or ctx.mode not in ("serve", "dense"):
+        return None, 1
+    size = dict(ctx.mesh.shape).get("model", 1)
+    return (ctx.mesh, size) if size > 1 else (None, 1)
+
+
 def sharded(part: str) -> bool:
     """Does this rank hold ``part`` (one of :data:`PARTS`) as shards? Only
-    inside a serve-mode mesh context whose layout lists it."""
+    inside a serving mesh context (either mode) whose layout lists it."""
     if part not in PARTS:
         raise ValueError(f"unknown part {part!r}: one of {PARTS}")
-    mesh, _ = serve_tp()
+    mesh, _ = tp_mesh()
     return mesh is not None and part in active_ctx().layout
+
+
+def data_split():
+    """Under a dense-slab context whose rules split the batch over a data
+    axis longer than one: (mesh, the batch's axes, their rank count, this
+    rank's index among them), the tuple ``parallel.fsdp.batch_split``
+    gives a sharded train step; None otherwise. A rank's rows are then
+    its block of the global batch (:func:`batch_block`)."""
+    ctx = dense_ctx()
+    if ctx is None:
+        return None
+    axes = tuple(a for a in AXES if a in ctx.rules.get("batch", ())
+                 and ctx.mesh.shape[a] > 1)
+    if not axes:
+        return None
+    idx, n = _block(axes, ctx.mesh.coords, ctx.mesh)
+    return ctx.mesh, axes, n, idx
+
+
+def batch_block(x: torch.Tensor, mesh, rules) -> torch.Tensor:
+    """This rank's rows of a global batch ``x`` (dim 0 named "batch")
+    under ``rules``: a view."""
+    spec = spec_for(x.shape[:1], ("batch",), rules, mesh)
+    return block_view(x, spec + (None,) * (x.ndim - 1), mesh)
 
 
 def effective_model_shards(mesh, n_kv_heads: int) -> int:
@@ -333,11 +398,13 @@ def params_pspecs(params_tree: Any, rules: Mapping[str, Sequence[str]],
 class RankShards(dict):
     """A params tree holding one rank's shards (:func:`shard_params`'s
     output); the engine takes it as it is. ``layout``: the :data:`PARTS`
-    it holds as shards."""
+    it holds as shards; ``whole_bytes``: the bytes of the whole tree it
+    was cut from (:func:`tree_bytes`)."""
 
-    def __init__(self, tree, layout=frozenset()):
+    def __init__(self, tree, layout=frozenset(), whole_bytes: int = 0):
         super().__init__(tree)
         self.layout = frozenset(layout)
+        self.whole_bytes = int(whole_bytes)
 
 
 _ATTN = ("wq", "wk", "wv", "wq_bias", "wk_bias", "wv_bias", "wo")
@@ -365,14 +432,25 @@ def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
       a packed int4 shard needs an even number of rows) keeps ``w_gate``
       and ``w_up`` whole too; so do the experts, by their ``w_down``.
 
+    * a recurrent part whose leaves do not all split keeps them all
+      whole: an RWKV time mix whose wr/wk/wv/wg columns would cut a head
+      (the rank computes whole heads), an RWKV channel mix whose
+      w_gate/w_up/w_down do not all split, a Mamba layer whose conv_w and
+      A_log do not both split.
+
     Every other spec is the reference's. Its patterns match an expert
     stack's ``w_gate`` / ``w_up`` / ``w_down`` as the dense MLP's (the
     first hit wins), so the expert dim stays whole: every rank holds a
     column or row block of every expert, as under the reference's serve
-    rules on a (1, tp) mesh.
+    (and prefill / decode) rules. The recurrent specs that result: RWKV
+    wr/wk/wv/wg by columns, its out_proj, time_maa_w* and w_lora_* whole,
+    the channel mix's w_gate / w_up by columns and w_down by rows; Mamba
+    conv_w by columns and A_log by rows, its in/x/dt/out projections
+    whole.
     """
     specs = params_pspecs(params, rules or make_rules("serve"), mesh)
     head_tp = effective_model_shards(mesh, cfg.n_kv_heads) > 1
+    tp = dict(mesh.shape).get("model", 1)
     for layer in specs.get("layers", []):
         attn = layer.get("attn")
         if attn is not None and not head_tp:
@@ -383,13 +461,27 @@ def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
             if ffn is not None and not _is_sharded(ffn["w_down"]):
                 for k in ("w_gate", "w_up"):
                     ffn[k] = _replicated(ffn[k])
+        whole_heads = (cfg.d_model // tp) % cfg.rwkv_head_dim == 0
+        for key, names, ok in (
+                ("rwkv_tm", ("wr", "wk", "wv", "wg"), whole_heads),
+                ("rwkv_cm", ("w_gate", "w_up", "w_down"), True),
+                ("mamba", ("conv_w", "A_log"), True)):
+            part = layer.get(key)
+            if part is None:
+                continue
+            if not (ok and all(_is_sharded(part[k]) for k in names)):
+                for k in names:
+                    part[k] = _replicated(part[k])
     return specs
 
 
 # (part, path in a layer of the leaf whose spec says whether it is sharded)
 _LAYER_PARTS = (("heads", ("attn", "wq")), ("wo", ("attn", "wo")),
                 ("mlp", ("mlp", "w_down")),
-                ("experts", ("moe", "experts", "w_down")))
+                ("experts", ("moe", "experts", "w_down")),
+                ("mamba", ("mamba", "conv_w")),
+                ("rwkv_tm", ("rwkv_tm", "wr")),
+                ("rwkv_cm", ("rwkv_cm", "w_down")))
 
 
 def _layout(specs) -> frozenset:
@@ -457,13 +549,6 @@ def _slice(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         memory_format=torch.contiguous_format)
 
 
-def attention_only(cfg) -> bool:
-    """Every mixer is attention: the models whose params a serving mesh
-    holds as shards. Recurrent models serve on whole params (the dense
-    slab, ``serving.engine.generate``)."""
-    return all(cfg.mixer_of(i) == "attn" for i in range(cfg.n_layers))
-
-
 def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
     """This rank's local tree: every leaf sliced by :func:`serve_pspecs`.
 
@@ -472,15 +557,10 @@ def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
     payload's (packed) K rows and keeps the scale. Replicated leaves are
     kept as they are (the same tensors). The result's ``layout`` lists the
     parts sharded. Any part of a params tree (the top without its layers,
-    one layer as ``{"layers": [...]}``) shards alike. A recurrent model's
-    params are not held as shards (ROADMAP queue 1 item 10a, its second
-    step): that raises ``NotImplementedError``.
+    one layer as ``{"layers": [...]}``) shards alike; every family does
+    (``rules``: the serve rules by default; the prefill and decode rules
+    place the weights alike).
     """
-    if not attention_only(cfg):
-        raise NotImplementedError(
-            "recurrent params are not held as shards (ROADMAP queue 1 item "
-            "10a): generate(mesh=) and serve --tp run these models on whole "
-            "params on every rank")
     specs = serve_pspecs(params, mesh, cfg, rules)
 
     def walk(tree, spec):
@@ -490,7 +570,8 @@ def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
             return [walk(v, s) for v, s in zip(tree, spec)]
         return shard_leaf(tree, spec, mesh)
 
-    return RankShards(walk(params, specs), _layout(specs))
+    return RankShards(walk(params, specs), _layout(specs),
+                      tree_bytes(params))
 
 
 def _qt(q, scale, like: QuantizedTensor) -> QuantizedTensor:
@@ -512,6 +593,85 @@ def shard_leaf(leaf, spec, mesh):
         return _qt(_slice(leaf.q, spec.q, mesh),
                    _slice(leaf.scale, spec.scale, mesh), leaf)
     return _slice(leaf, spec, mesh)
+
+
+# The logical names of the dense slab's caches, by leaf name (the
+# reference's ``launch/dryrun.py::_CACHE_AXES``).
+_CACHE_AXES = {
+    "k": ("batch", "kv_heads", "seq_kv", None),
+    "v": ("batch", "kv_heads", "seq_kv", None),
+    "kv_scale": ("batch", "kv_heads", None),
+    "h": ("batch", "ssm_inner", None),
+    "conv": ("batch", None, "ssm_inner"),
+    "s": ("batch", "heads", None, None),
+    "x_prev": ("batch", None),
+}
+
+
+def _is_slab(node) -> bool:
+    return all(hasattr(node, a) for a in ("k", "v", "k_scale", "v_scale",
+                                          "page_size"))
+
+
+def cache_pspecs(tree: Any, rules: Mapping[str, Sequence[str]], mesh) -> Any:
+    """Spec tree of the dense slab's caches (``serving.engine.
+    init_serve_caches``' tree; the shapes are read, so meta tensors do),
+    as the reference's ``launch/dryrun.py::cache_pspecs`` gives it: a
+    ``DenseKVCache`` becomes ``{"k", "v", "k_scale", "v_scale"}`` (the
+    scales None for a float slab), every state by its leaf name. Under
+    ``spec_for`` a kv slab binds the model axis to its kv heads when it
+    divides them, else (the prefill / decode rules) to its positions.
+    The reference's per-page scales name no sequence dim, so its spec
+    keeps them whole; a rank's slab holds the scales of its own pages
+    (``DenseKVCache.start``)."""
+    def leaf(x, name):
+        names = _CACHE_AXES.get(name, (None,) * x.ndim)
+        return spec_for(x.shape, names, rules, mesh)
+
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        if _is_slab(node):
+            return {"k": leaf(node.k, "k"), "v": leaf(node.v, "v"),
+                    **{f"{c}_scale": None if getattr(node, f"{c}_scale")
+                       is None else leaf(getattr(node, f"{c}_scale"),
+                                         "kv_scale") for c in "kv"}}
+        return leaf(node, name)
+
+    return walk(tree)
+
+
+def tree_bytes(tree: Any) -> int:
+    """The bytes of a tree's tensors (QuantizedTensor payloads and scales
+    counted, a leaf shared by two paths once)."""
+    seen, total = set(), 0
+
+    def add(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor) and id(x) not in seen:
+            seen.add(id(x))
+            total += x.numel() * x.element_size()
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        elif isinstance(node, QuantizedTensor):
+            add(node.q)
+            add(node.scale)
+        elif _is_slab(node):
+            for a in ("k", "v", "k_scale", "v_scale"):
+                add(getattr(node, a))
+        else:
+            add(node)
+
+    walk(tree)
+    return total
 
 
 def live_axes(spec, mesh) -> tuple:

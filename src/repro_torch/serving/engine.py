@@ -80,8 +80,12 @@ rank holding the whole draft model; rank 0's draft ids and verdict are
 broadcast, so every rank's cache holds the KV of the same tokens.
 :func:`warm_gemm_autotune` with
 ``tp=`` tunes the shard shapes. :func:`generate` under a mesh runs the
-recurrent and embedding-input models on the dense slab with whole params
-on every rank, as the reference's ``generate`` drops the mesh.
+recurrent and embedding-input models on the dense slab on this rank's
+shards (:func:`slab_context`), as the reference's ``serve`` places them
+under the serve rules and GSPMD runs them; :func:`build_prefill_step` and
+:func:`build_decode_step` run the same way under the prefill / decode
+rules on a (data, model) mesh (rows over data, the KV slab by kv heads or
+by positions over model, the MoE slab by expert over data).
 """
 from __future__ import annotations
 
@@ -99,8 +103,10 @@ from repro_torch.kernels.camp_gemm_fused import KIND as QMODE_KIND
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import expert_capacity, routing_group_size
 from repro_torch.models.transformer import dtype_of, forward, init_caches
-from repro_torch.parallel.collectives import broadcast_ints
-from repro_torch.parallel.sharding import (RankShards, effective_model_shards,
+from repro_torch.parallel.collectives import broadcast_ints, gather_blocks
+from repro_torch.parallel.sharding import (RankShards, batch_block,
+                                           block_shape, cache_pspecs,
+                                           effective_model_shards,
                                            make_rules, mesh_context,
                                            shard_params)
 from repro_torch.serving import kv_cache as kvc
@@ -108,11 +114,36 @@ from repro_torch.serving import spec_decode as sd
 
 
 def init_serve_caches(cfg: ModelConfig, batch: int, max_len: int,
-                      kv_dtype: Optional[str] = None, device=None) -> list:
+                      kv_dtype: Optional[str] = None, device=None, *,
+                      mesh=None, rules=None) -> list:
     """Dense KV and recurrent-state caches; ``kv_dtype='int8'`` stores
     attention KV quantized with per-page dynamic scales (see
-    :mod:`repro_torch.serving.kv_cache`)."""
-    return init_caches(cfg, batch, max_len, kv_dtype=kv_dtype, device=device)
+    :mod:`repro_torch.serving.kv_cache`).
+
+    Under ``mesh``: this rank's blocks of the caches of the global
+    ``batch``, placed by :func:`~repro_torch.parallel.sharding.
+    cache_pspecs` under ``rules`` (default the serve rules): the rows
+    over data (the prefill / decode rules), a KV slab's kv heads over
+    model where it divides them, else its positions (the prefill / decode
+    rules; ``DenseKVCache.rank_block``), the Mamba state and conv window
+    by d_inner and the WKV state by heads."""
+    if mesh is None:
+        return init_caches(cfg, batch, max_len, kv_dtype=kv_dtype,
+                           device=device)
+    device = resolve_device(device)
+    whole = init_caches(cfg, batch, max_len, kv_dtype=kv_dtype,
+                        device="meta")
+    specs = cache_pspecs(whole, rules or make_rules("serve"), mesh)
+
+    def block(node, spec):
+        if isinstance(node, dict):
+            return {k: block(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, kvc.DenseKVCache):
+            return node.rank_block(spec, mesh, device)
+        return torch.zeros(block_shape(node.shape, spec, mesh),
+                           dtype=node.dtype, device=device)
+
+    return [block(c, s) for c, s in zip(whole, specs)]
 
 
 def serving_gemm_shapes(cfg: ModelConfig, *, batch_sizes=(1, 8, 32),
@@ -633,6 +664,18 @@ def runs_dense_slab(cfg: ModelConfig) -> bool:
                                        for i in range(cfg.n_layers))
 
 
+def slab_context(mesh, layout, rules=None):
+    """The dense slab's mesh context (``mode="dense"``) for a rank
+    holding the params of ``layout`` (a :class:`RankShards` tree's) under
+    ``rules`` (default the serve rules; ``make_rules("prefill" |
+    "decode")`` the reference's dense-slab TP). :func:`build_prefill_step`
+    and :func:`build_decode_step` run inside it on this rank's shards, its
+    rows (:func:`~repro_torch.parallel.sharding.batch_block`) and its
+    caches (:func:`init_serve_caches` ``(mesh=, rules=)``)."""
+    return mesh_context(mesh, rules or make_rules("serve"), mode="dense",
+                        layout=layout)
+
+
 def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
                     steps: int, seed: int = 0, sample: str = "greedy",
                     temperature: float = 1.0, max_len: Optional[int] = None,
@@ -645,39 +688,56 @@ def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
     at the shared position S + i, the generated ids fed back through the
     embedding table, as in the reference. The first token is greedy, as
     in the reference; decode step i samples with a generator seeded by
-    (seed, i). Under ``mesh`` every rank runs the loop on whole params
-    and feeds back rank 0's tokens (broadcast each step), so the ranks'
-    streams agree under temperature sampling too."""
-    if isinstance(params, RankShards):
-        raise ValueError("the dense-slab loop runs on whole params; a "
-                         "RankShards tree holds one rank's shards")
+    (seed, i).
+
+    Under ``mesh`` a rank holds its shards of the params under the serve
+    rules (a whole tree is cut by :func:`~repro_torch.parallel.sharding.
+    shard_params`; a :class:`RankShards` tree is taken as it is), its
+    blocks of the caches, and runs the loop in :func:`slab_context`, where
+    GSPMD's meaning holds: the row-parallel projections take the whole
+    row's scale. The ranks along the model axis feed back rank 0's tokens
+    (broadcast each step), so their streams agree under temperature
+    sampling too; a data axis splits the rows, gathered at the end."""
     device = resolve_device(device)
     prompt = torch.as_tensor(prompt).to(device)
     if not prompt.is_floating_point():
         prompt = prompt.long()
     b, s = prompt.shape[:2]
+    rules = make_rules("serve")
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        if not isinstance(params, RankShards):
+            params = shard_params(params, mesh, cfg, rules)
+        scope = slab_context(mesh, params.layout, rules)
+        prompt = batch_block(prompt, mesh, rules)
     caches = init_serve_caches(cfg, b, max_len or (s + steps),
-                               kv_dtype=kv_dtype, device=device)
+                               kv_dtype=kv_dtype, device=device, mesh=mesh,
+                               rules=rules)
     prefill = build_prefill_step(cfg, impl=impl)
     decode = build_decode_step(cfg, sample=sample, temperature=temperature,
                                impl=impl)
+
     def agree(tok):
         if mesh is None:
             return tok
         return torch.tensor(broadcast_ints(tok.reshape(-1).tolist(), mesh),
                             dtype=tok.dtype, device=tok.device
                             ).reshape(tok.shape)
-    last, caches = prefill(params, prompt, caches)
-    tok = agree(last.float().argmax(dim=-1)[:, None])
-    out = [tok]
-    for i in range(steps - 1):
-        gen = None
-        if sample != "greedy":
-            gen = torch.Generator().manual_seed(seed * 1_000_003 + i)
-        tok, caches = decode(params, caches, tok, s + i, gen)
-        tok = agree(tok)
-        out.append(tok)
-    return torch.cat(out, dim=1).cpu()
+    with scope:
+        last, caches = prefill(params, prompt, caches)
+        tok = agree(last.float().argmax(dim=-1)[:, None])
+        out = [tok]
+        for i in range(steps - 1):
+            gen = None
+            if sample != "greedy":
+                gen = torch.Generator().manual_seed(seed * 1_000_003 + i)
+            tok, caches = decode(params, caches, tok, s + i, gen)
+            tok = agree(tok)
+            out.append(tok)
+    out = torch.cat(out, dim=1)
+    if mesh is not None and mesh.shape["data"] > 1:
+        out = torch.cat(gather_blocks(out, mesh, "data"))
+    return out.cpu()
 
 
 def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
@@ -697,9 +757,11 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, *, steps: int,
     recurrent mixers or embedding inputs (a float (B, S, D) prompt) take
     the dense-slab loop, as in the reference (``max_len`` is that loop's
     slab length; ``spec`` is ignored there, since speculation needs the
-    paged cache's rollback). Under ``mesh`` those run on whole params on
-    every rank, as the reference's ``generate`` drops the mesh, with rank
-    0's tokens broadcast each step."""
+    paged cache's rollback). Under ``mesh`` those run on this rank's
+    shards of the params and caches (:func:`_generate_dense`), as the
+    reference's ``serve`` places them and GSPMD runs them, with rank 0's
+    tokens broadcast each step; ``tp_int8_reduce`` is the paged engine's
+    (GSPMD's dense slab has no int8 wire)."""
     b, s = prompt.shape[:2]
     if runs_dense_slab(cfg):
         return _generate_dense(params, cfg, prompt, steps=steps, seed=seed,

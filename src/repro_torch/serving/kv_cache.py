@@ -29,6 +29,11 @@ every layer's pages per step; ``writeback`` only re-binds the view's tensors
 dense serving path (the loop that recurrent mixers need, and the plain
 baseline of the paged engine). int8 slabs carry one scale per (batch, head,
 page); appending a token requantizes its page. It too updates in place.
+Under a serving mesh a rank's slab holds its block of the rows and of the
+kv heads, or, under the prefill / decode rules where the model axis does
+not divide the kv heads, its block of the positions from ``start`` on
+(``seq_axes`` the mesh axes they split over): whole pages of an int8
+slab, with their scales.
 
 The int8 conversion divides by 127 and by the scale with correctly rounded
 divisions, as the reference's eagerly-run cache ops do (see
@@ -52,7 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import div_exact
-from repro_torch.parallel.sharding import effective_model_shards
+from repro_torch.parallel.sharding import (_block, axes_of,
+                                           effective_model_shards)
 
 INT8_AMAX = 127.0
 SCALE_EPS = 1e-8          # floor so all-zero rows dequantize to exact zeros
@@ -116,24 +122,35 @@ def _quantize_pages(x: torch.Tensor, page_size: int):
 class DenseKVCache:
     """(B, KV, T, hd) KV slab, updated in place. int8 storage carries
     per-page scales ``k_scale``/``v_scale`` (B, KV, T // page_size) f32;
-    float storage has None."""
+    float storage has None. ``start``: the first position the slab holds
+    (a rank's block of a sequence-split slab; 0 otherwise), ``seq_axes``:
+    the mesh axes its positions split over (empty: the slab is whole
+    along the sequence)."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor]
     v_scale: Optional[torch.Tensor]
     page_size: int
+    start: int = 0
+    seq_axes: tuple = ()
 
     @classmethod
     def init(cls, batch: int, n_kv_heads: int, max_len: int, head_dim: int,
              dtype, *, quantized: bool = False,
-             page_size: int = DEFAULT_PAGE_SIZE, device=None
-             ) -> "DenseKVCache":
-        """Zero slabs; an int8 slab is padded to whole pages."""
+             page_size: int = DEFAULT_PAGE_SIZE, device=None,
+             start: int = 0, seq_axes: tuple = ()) -> "DenseKVCache":
+        """Zero slabs of ``max_len`` positions from ``start`` on; an int8
+        slab is padded to whole pages (a block of a sequence-split one
+        must start on a page)."""
+        kw = dict(page_size=page_size, start=start, seq_axes=tuple(seq_axes))
         if not quantized:
             shape = (batch, n_kv_heads, max_len, head_dim)
             return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                        v=torch.zeros(shape, dtype=dtype, device=device),
-                       k_scale=None, v_scale=None, page_size=page_size)
+                       k_scale=None, v_scale=None, **kw)
+        if start % page_size:
+            raise ValueError(f"an int8 slab block starts on a page: start "
+                             f"{start}, page {page_size}")
         t = round_up(max_len, page_size)
         shape = (batch, n_kv_heads, t, head_dim)
         sshape = (batch, n_kv_heads, t // page_size)
@@ -143,7 +160,27 @@ class DenseKVCache:
                               device=device)
         return cls(k=torch.zeros(shape, dtype=torch.int8, device=device),
                    v=torch.zeros(shape, dtype=torch.int8, device=device),
-                   k_scale=scales(), v_scale=scales(), page_size=page_size)
+                   k_scale=scales(), v_scale=scales(), **kw)
+
+    def rank_block(self, spec: dict, mesh, device=None) -> "DenseKVCache":
+        """This rank's zero block of this whole slab (its shapes are read:
+        a meta slab does) under ``spec`` (its :func:`~repro_torch.
+        parallel.sharding.cache_pspecs` entry): its rows, its kv heads,
+        or its positions. Split positions are padded so that every rank
+        holds as many whole pages (an int8 slab), from ``start`` on."""
+        b, kv, t, hd = self.k.shape
+        (_, nb), (_, nh), (idx, n) = (_block(e, mesh.coords, mesh)
+                                      for e in spec["k"][:3])
+        blk, start = t, 0
+        if n > 1:
+            ps = self.page_size
+            blk = round_up(t, ps * n) // n if self.quantized else t // n
+            start = idx * blk
+        return DenseKVCache.init(
+            b // nb, kv // nh, blk, hd, self.k.dtype,
+            quantized=self.quantized, page_size=self.page_size,
+            device=device, start=start,
+            seq_axes=axes_of(spec["k"][2]) if n > 1 else ())
 
     @property
     def quantized(self) -> bool:
@@ -155,30 +192,39 @@ class DenseKVCache:
 
     def write_prefill(self, k_t: torch.Tensor, v_t: torch.Tensor
                       ) -> "DenseKVCache":
-        """Fill positions [0, S) from (B, KV, S, hd) keys/values; an int8
-        slab quantizes whole pages, zero-padded past S."""
-        s = k_t.shape[2]
+        """Fill positions [0, S) from (B, KV, S, hd) keys/values (those of
+        them the slab holds); an int8 slab quantizes whole pages,
+        zero-padded past S."""
+        s, lo = k_t.shape[2], self.start
         if not self.quantized:
-            self.k[:, :, :s] = k_t
-            self.v[:, :, :s] = v_t
+            hi = min(s, lo + self.max_len) if self.seq_axes else s
+            if hi > lo:
+                self.k[:, :, :hi - lo] = k_t[:, :, lo:hi]
+                self.v[:, :, :hi - lo] = v_t[:, :, lo:hi]
             return self
         ps = self.page_size
         t = round_up(s, ps)
+        hi = min(t, lo + self.max_len) if self.seq_axes else t
+        if hi <= lo:
+            return self
         for slab, scales, x in ((self.k, self.k_scale, k_t),
                                 (self.v, self.v_scale, v_t)):
             if t != s:
                 x = F.pad(x.float(), (0, 0, 0, t - s))
-            q, sc = _quantize_pages(x, ps)
-            slab[:, :, :t] = q
-            scales[:, :, :t // ps] = sc
+            q, sc = _quantize_pages(x[:, :, lo:hi], ps)
+            slab[:, :, :hi - lo] = q
+            scales[:, :, :(hi - lo) // ps] = sc
         return self
 
     def append(self, k_t: torch.Tensor, v_t: torch.Tensor, pos: int
                ) -> "DenseKVCache":
         """Write one token (B, KV, 1, hd) at position ``pos``. An int8 slab
         dequantizes the token's page, inserts the token (positions past it
-        become zero), and requantizes the page with a new scale."""
-        pos = int(pos)
+        become zero), and requantizes the page with a new scale. A block
+        of a sequence-split slab writes only a position it holds."""
+        pos = int(pos) - self.start
+        if self.seq_axes and not 0 <= pos < self.max_len:
+            return self
         if not self.quantized:
             self.k[:, :, pos] = k_t[:, :, 0]
             self.v[:, :, pos] = v_t[:, :, 0]

@@ -14,9 +14,11 @@ architecture, and with jamba-v0.1-52b, rwkv6-7b and pixtral-12b (the CPU
 smokes); for pixtral-12b and jamba both commands hand ``generate`` a
 prompt of the same shape (float embeddings for pixtral).
 """
+import re
 import sys
 
 import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -259,8 +261,9 @@ def test_serve_tp_cpu_end_to_end(capfd):
     ("rwkv6-7b", [])], ids=["moonshot", "moonshot-int8-wire", "rwkv6"])
 def test_serve_tp_every_family_cpu_end_to_end(capfd, arch, flags):
     """``--tp 2 --device cpu`` serves an MoE model with its experts split
-    over the ranks, and a recurrent one on whole params a rank (the dense
-    slab), printing the reference's mesh line."""
+    over the ranks, and a recurrent one on the dense slab, each rank on
+    its shards (it prints their bytes beside the whole model's), printing
+    the reference's mesh line."""
     assert torch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                              "--qmode", "w8a8", "--tp", "2", *flags,
                              "--batch", "2", "--prompt-len", "16",
@@ -268,6 +271,10 @@ def test_serve_tp_every_family_cpu_end_to_end(capfd, arch, flags):
     out = capfd.readouterr().out
     assert "[serve] mesh {'data': 1, 'model': 2}; kv-head sharding: " in out
     assert out.count("generated (2, 4)") == 1
-    whole = "[serve] dense slab: whole params on every rank" in out
-    assert whole == (arch == "rwkv6-7b")
-    assert ("+ shard, a layer at a time" in out) == (not whole)
+    slab = re.search(r"\[serve\] dense slab on shards: ([\d,]+) bytes a "
+                     r"rank of ([\d,]+) whole", out)
+    assert (slab is not None) == (arch == "rwkv6-7b")
+    if slab:
+        mine, whole = (int(g.replace(",", "")) for g in slab.groups())
+        assert 0 < mine < whole
+    assert "+ shard, a layer at a time" in out

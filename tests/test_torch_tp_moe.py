@@ -27,7 +27,7 @@ one-process engine on the same inputs:
   plain stream; ``warm_gemm_autotune(tp=)`` covers every expert GEMM the
   forwards launched (the down projection unfused: K7, then K5/K6a/K6b);
 * reduced jamba, rwkv6, pixtral and musicgen through ``generate(mesh=)``
-  on 2 ranks (whole params) give ``tests/recurrent_reference.json``'s
+  on 2 ranks, each on its shards, give ``tests/recurrent_reference.json``'s
   streams, and a temperature run whose ranks hold other seeds follows
   rank 0's tokens.
 """
@@ -333,13 +333,17 @@ def test_warm_gemm_autotune_covers_the_expert_shards(runs):
 
 @pytest.mark.parametrize("arch", list(SLAB_QMODE))
 def test_dense_slab_under_a_mesh_matches_recording(runs, arch):
+    """Each rank holds its shards (fewer bytes than the whole model) and
+    the streams are the recording's."""
     ranks, *_, slab = runs
     want = slab[arch][4]
     pair = next(i for i, archs in enumerate(SLAB) if arch in archs)
     for r in (2 * pair, 2 * pair + 1):
         got = ranks[r]["dense_slab"][arch]
-        assert got.shape == (len(want), REC_STEPS)
-        assert got.tolist() == want, (arch, r)
+        assert got["layout"], (arch, r, "no part held as shards")
+        assert got["bytes"] < got["whole_bytes"], (arch, r)
+        assert got["tokens"].shape == (len(want), REC_STEPS)
+        assert got["tokens"].tolist() == want, (arch, r)
 
 
 def test_dense_slab_follows_rank_0s_tokens(runs):

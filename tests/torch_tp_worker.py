@@ -17,13 +17,14 @@ from repro_torch.core.quant import QuantizedTensor
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.models import init_params
+from repro_torch.models import modules
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.modules import linear, row_parallel_linear
 from repro_torch.models.transformer import forward
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (effective_model_shards,
                                            make_rules, mesh_context,
-                                           shard_params)
+                                           shard_params, tree_bytes)
 from repro_torch.serving.engine import ContinuousBatchingEngine, generate
 from repro_torch.serving.kv_cache import PagePool
 from repro_torch.serving.spec_decode import SpecConfig
@@ -256,15 +257,15 @@ def moe_ffn_case(mesh, cfg, params, local):
         tp, _ = moe_mod.moe_ffn(local["layers"][i]["moe"], cfg, x, **kw)
     n, r = calls[0][2].shape[-1], mesh.coords["model"]
     cols = [out[..., r * n:(r + 1) * n] for out in whole]
-    inner = moe_mod._row_absmax
-    moe_mod._row_absmax = lambda h2, m: h2.abs().amax(dim=-1, keepdim=True)
+    inner = modules.row_absmax
+    modules.row_absmax = lambda h2, m: h2.abs().amax(dim=-1, keepdim=True)
     try:
         with mesh_context(mesh, make_rules("serve"), mode="serve",
                           layout=local.layout):
             control, _ = moe_mod.moe_ffn(local["layers"][i]["moe"], cfg, x,
                                          **kw)
     finally:
-        moe_mod._row_absmax = inner
+        modules.row_absmax = inner
     return {"gate_up_equal": [torch.equal(out, want) for (_, _, out), want
                               in zip(calls[:2], cols)],
             "gate_n": n, "one": one.float(), "tp": tp.float(),
@@ -346,7 +347,8 @@ def moe_case(mesh, case, inp):
 def moe_serving(mesh, path):
     """Four ranks: two (1, 2) meshes (ranks 0-1 and 2-3) each take half
     of the tp 2 MoE cases and of the dense-slab models through
-    ``generate(mesh=)``; then all four the tp 4 MoE cases. The ranks start
+    ``generate(mesh=)`` on this rank's shards; then all four the tp 4 MoE
+    cases. The ranks start
     while the parent still builds the inputs: they wait for ``path``."""
     torch.set_num_threads(1)
     deadline = time.monotonic() + 240
@@ -365,8 +367,12 @@ def moe_serving(mesh, path):
            "dense_slab": {}}
     for name in inp["slab"][r // 2]:
         cfg, params, prompt, steps = inp["slab_cases"][name]
-        out["dense_slab"][name] = generate(params, cfg, prompt, steps=steps,
-                                           mesh=pair, device="cpu")
+        local = shard_params(params, pair, cfg)
+        out["dense_slab"][name] = dict(
+            tokens=generate(local, cfg, prompt, steps=steps, mesh=pair,
+                            device="cpu"),
+            layout=sorted(local.layout), bytes=tree_bytes(local),
+            whole_bytes=local.whole_bytes)
     # temperature with a seed of each rank's own: the ranks follow rank 0
     cfg, params, prompt, steps = inp["slab_cases"][inp["slab"][r // 2][0]]
     kw = dict(steps=steps, sample="temperature", seed=r % 2, device="cpu")

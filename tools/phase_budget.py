@@ -14,6 +14,8 @@ Builds the kernels as ``chip_smoke.py`` does, then runs each part of
   cut);
 * ``13``: phase 13's second part: K1 / K7 / K5 at a tp 2 rank's expert
   shard shapes (``tp_moe_kernels``) and ``tp_families``;
+* ``13s``: phase 13's third part: K5 / K6a / K6b with int32 out
+  (``int32_sums``) and the dense slab on shards (``dense_slab_mesh``);
 * ``14``: phase 14 (``fsdp_training``: qwen3-0.6b, then moonshot-v1-16b-a3b
   and rwkv6-7b under a train mesh, one layer gathered at a time, in one
   spawn of two ranks).
@@ -44,7 +46,7 @@ import chip_smoke as cs  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parts", default="9,13",
-                    help="comma-separated: 8, 9, 13, 14")
+                    help="comma-separated: 8, 9, 13, 13s, 14")
     ap.add_argument("--layers", default=f"48,{cs.MOE_W8A8_LAYERS}",
                     help="phase 9's W8A8 depths, in turn")
     ap.add_argument("--out", help="also write the seconds here (JSON)")
@@ -85,6 +87,12 @@ def main(argv=None) -> int:
                 cs.gate(rows, "K1, K7 and K5 at the expert shard shapes")
                 return cs.tp_families(cs.SEED, smi)
             timed("phase 13 families", families)
+        if "13s" in parts:
+            def dense_slab():
+                rows = cs.int32_sums(cs.Timer(), cs.phase_gen(13))
+                cs.gate(rows, "K5 / K6a / K6b with int32 out")
+                return cs.dense_slab_mesh(cs.SEED, smi)
+            timed("phase 13 dense slab", dense_slab)
         if "14" in parts:
             timed("phase 14", cs.fsdp_training, cs.SEED, smi)
     print(f"[phase_budget] {smi}; seconds: "
