@@ -231,7 +231,9 @@ Phases (any failure exits non-zero and prints no result):
    each part against one process on the same inputs: (b) qwen2-0.5b
    W8A8 at full width and depth under the decode rules on (1, 4), 8 ×
    (512 + 8), its int8 slab split along the sequence (2 kv heads, 4
-   ranks: 144 positions a rank, whole pages): prefill logits bit for bit,
+   ranks: 144 positions a rank, whole pages) and its attention in the
+   reference's column blocks (the dense slab's ``"attn_cols"``, as for
+   jamba and pixtral in (a)): prefill logits bit for bit,
    layer 0's attention at the first decode step within one bf16 ULP +
    2^-8·Σp|v| of one process's elementwise (``att_gap``), the control
    that drops rank 1's partial from the merge outside; then ranks 0-1 as
@@ -281,7 +283,21 @@ Phases (any failure exits non-zero and prints no result):
    equalities (the unfused int8 GEMM's CUDA kernel equal to its plain
    version, the speculative greedy stream equal to the plain one, the
    resumed training equal to the uninterrupted run).
-16. Report: a ``kernels`` JSON line (each kernel's launches on every path
+16. The dry run against the card (``src/repro_torch/launch/dryrun.py``),
+   in one spawned process holding a fake process group of 256 ranks:
+   rank 0's step of each of ``DRYRUN_CELLS`` (qwen2-0.5b x decode_32k
+   W8A8, full depth; qwen3-0.6b x train_4k, 2 of 28 layers) first on the
+   meta device (the dry run's prediction: argument and peak bytes, the
+   kernels' meta rules), then on the card from the same arguments made
+   real (collectives of the fake group move nothing), after one warm
+   step: the card's argument bytes equal the prediction's exactly, the
+   predicted peak lies within ``DRYRUN_PEAK_RTOL`` +
+   ``DRYRUN_PEAK_ATOL`` of ``torch.cuda.max_memory_allocated`` (reset
+   before the step), its two parts (what is resident at the reset, and
+   the step's own bytes above it) each within ``DRYRUN_PART_RTOL`` +
+   ``DRYRUN_PART_ATOL`` of the card's with a control outside, and K1, K5
+   and K7 launched.
+17. Report: a ``kernels`` JSON line (each kernel's launches on every path
    that ran it: K7's main path is the int8 training run), the card's name
    and power limit, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -301,6 +317,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import dataclasses
 import gc
 import importlib
 import json
@@ -4927,9 +4945,11 @@ def slab_part_b(mesh, job):
     decode step and the control that drops rank 1's partial there."""
     cfg = get_config(SEQ_ARCH, qmode="w8a8")
     rules = make_rules("decode")
-    local = init_quantized_params(
-        cfg, "w8a8", generator=torch.Generator(device="cuda").manual_seed(
-            job["seed"]), device="cuda", mesh=mesh)
+    with mesh_context(mesh, rules, mode="dense"):     # the slab's shards
+        local = init_quantized_params(
+            cfg, "w8a8", generator=torch.Generator(
+                device="cuda").manual_seed(job["seed"]), device="cuda",
+            mesh=mesh)
     prompts = job["seq_prompts"].to("cuda")
     slab_loop(local, cfg, prompts[:, :32], 2, mesh, rules, "int8")  # warm
     reset_counts()
@@ -5909,6 +5929,236 @@ def finish_examples(runs: dict):
     return dict(runs=out, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry run against the card
+# ---------------------------------------------------------------------------
+# (arch, shape, qmode, layers: None for full depth) of the cells whose
+# rank-0 step the meta run predicts and the card then runs
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "w8a8", None),
+                ("qwen3-0.6b", "train_4k", "none", 2))
+DRYRUN_PEAK_RTOL = 0.05            # predicted peak vs the card's ...
+DRYRUN_PEAK_ATOL = 64 * 2**20      # ... within 5% + 64 MiB
+# The peak's two parts, each against the card's within 1% + 2 MiB (the
+# gaps measured on the H100 were under 1.8 MiB): what is resident at the
+# reset (the arguments and the cuBLAS workspaces) and the step's own
+# bytes above it (its live peak and kernel temporaries). A control
+# must fall outside each: the resident part without its workspaces, the
+# step without its temporaries (its new outputs alone) and, where it
+# has some, without its kernel temporaries.
+DRYRUN_PART_RTOL = 0.01
+DRYRUN_PART_ATOL = 2 * 2**20
+DRYRUN_KERNELS = ("K1", "K5", "K7")
+DRYRUN_TIMEOUT_S = 240.0
+
+
+def materialize(tree, device, gen: torch.Generator):
+    """A meta tree (the dry run's arguments) as real tensors on
+    ``device``, the same structure and shapes: floats ~ N(0, 0.02²), int8
+    payloads uniform in [-127, 127], every other integer zero (token ids,
+    labels, counters). A tensor shared by two paths stays shared."""
+    memo = {}
+
+    def leaf(t):
+        if id(t) not in memo:
+            if t.is_floating_point():
+                x = (torch.randn(t.shape, generator=gen, device=device)
+                     * 0.02).to(t.dtype)
+            elif t.dtype == torch.int8:
+                x = torch.randint(-127, 128, t.shape, generator=gen,
+                                  device=device, dtype=torch.int8)
+            else:
+                x = torch.zeros(t.shape, dtype=t.dtype, device=device)
+            memo[id(t)] = x
+        return memo[id(t)]
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            return leaf(node)
+        if isinstance(node, dict):        # RankShards, RankBatch keep theirs
+            new = copy.copy(node)
+            for k, v in node.items():
+                new[k] = walk(v)
+            return new
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if dataclasses.is_dataclass(node):
+            return dataclasses.replace(node, **{
+                f.name: walk(getattr(node, f.name))
+                for f in dataclasses.fields(node) if f.init})
+        return node
+    return walk(tree)
+
+
+def dryrun_card_cells(conn, cells) -> None:
+    """Phase 16's body, in a spawned process of its own (the fake
+    process group is global to a process): for each cell, rank 0's step
+    on the meta device under the 256-rank fake group (the dry run's
+    prediction, ``launch/dryrun.py::measure``), then the same step on the
+    card from the same arguments made real; the card's peak
+    (``max_memory_allocated``, reset after a warm step) beside the
+    prediction."""
+    try:
+        t_in = time.perf_counter()
+        # the card's context comes up beside the meta runs
+        cuda_up = threading.Thread(target=torch.cuda.init, daemon=True)
+        cuda_up.start()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.configs.shapes import SHAPES
+        from repro_torch.launch import dryrun as dr
+        from repro_torch.launch.mesh import fake_production_mesh
+        from repro_torch.parallel.sharding import make_rules, tree_bytes
+        mesh = fake_production_mesh(False)
+        setup_s = time.perf_counter() - t_in
+        out = []
+        for arch, shape_name, qmode, layers in cells:
+            t0 = time.perf_counter()
+            shape = SHAPES[shape_name]
+            cfg = get_config(arch, qmode=qmode,
+                             **({"n_layers": layers} if layers else {}))
+            rules = make_rules(shape.kind, family=cfg.family)
+            grad = (torch.enable_grad if shape.kind == "train"
+                    else torch.no_grad)
+            with grad():
+                run, args = dr.build_cell(cfg, shape, mesh, rules, qmode)
+                pred = dr.measure(run, args)
+            meta_s = time.perf_counter() - t0
+            cuda_up.join()
+            dev_args = materialize(args, "cuda", torch.Generator(
+                device="cuda").manual_seed(SEED))
+            del args
+            card_args = tree_bytes(list(dev_args))
+            with grad():
+                warm = run(*dev_args)
+                del warm
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - t0 - meta_s
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                for mod, name in COUNTERS.values():
+                    setattr(mod, name, 0)
+                t1 = time.perf_counter()
+                res = run(*dev_args)
+                torch.cuda.synchronize()
+                step_s = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: getattr(mod, name)
+                        for k, (mod, name) in COUNTERS.items()}
+            del res, dev_args
+            torch.cuda.empty_cache()
+            out.append(dict(
+                arch=arch, shape=shape_name, qmode=qmode,
+                layers=layers or cfg.n_layers, n_layers=cfg.n_layers,
+                predicted=pred["memory"], kernels=pred["kernels"],
+                collectives=pred["collectives"], cost=pred["cost"],
+                card_argument_bytes=card_args, card_base_bytes=base,
+                card_peak_bytes=peak, launches=launches,
+                setup_s=setup_s, meta_s=meta_s, warm_s=warm_s,
+                step_s=step_s, seconds=time.perf_counter() - t0))
+        conn.send(("ok", out))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+
+
+def dryrun_parts(c) -> dict:
+    """The predicted peak's two parts against the card's, each with its
+    gap, its limit and its controls' gaps: ``resident`` (the arguments and
+    the cuBLAS workspaces, against ``memory_allocated`` at the reset) and
+    ``step`` (the bytes above it, against ``max_memory_allocated`` less
+    that)."""
+    m, t = c["predicted"], c["predicted"]["terms"]
+    card_step = c["card_peak_bytes"] - c["card_base_bytes"]
+    resident = m["argument_bytes"] + t["cublas_workspace_bytes"]
+    step = m["peak_bytes"] - resident
+    controls = {"no temporaries": m["output_bytes"] - m["alias_bytes"]}
+    if t["kernel_temp_bytes"]:
+        controls["no kernel temporaries"] = step - t["kernel_temp_bytes"]
+    parts = {}
+    for name, pred, card, ctl in (
+            ("resident", resident, c["card_base_bytes"],
+             {"no workspaces": m["argument_bytes"]}
+             if t["cublas_workspace_bytes"] else {}),
+            ("step", step, card_step, controls)):
+        parts[name] = dict(
+            predicted=pred, card=card, gap=pred - card,
+            limit=DRYRUN_PART_RTOL * card + DRYRUN_PART_ATOL,
+            controls={k: v - card for k, v in ctl.items()})
+    return parts
+
+
+def dryrun_phase(smi: str, cells=DRYRUN_CELLS):
+    """Phase 16: the dry run's meta model of rank 0's step held against
+    the card. Gates: the card's argument bytes equal the meta run's
+    exactly; the predicted peak within ``DRYRUN_PEAK_RTOL`` +
+    ``DRYRUN_PEAK_ATOL`` of the card's, and each of its parts within
+    ``DRYRUN_PART_RTOL`` + ``DRYRUN_PART_ATOL`` with its controls outside
+    (:func:`dryrun_parts`); K1, K5 and K7 launched."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=dryrun_card_cells, args=(child, cells),
+                       daemon=True)
+    proc.start()
+    try:
+        if not parent.poll(DRYRUN_TIMEOUT_S):
+            raise RuntimeError(f"phase 16 gave no result in "
+                               f"{DRYRUN_TIMEOUT_S:g} s")
+        status, out = parent.recv()
+    finally:
+        proc.join(10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status != "ok":
+        raise RuntimeError(f"phase 16 failed:\n{out}")
+    fails, launched = [], {}
+    print(f"  card: {smi}")
+    for c in out:
+        m = c["predicted"]
+        gap = m["peak_bytes"] - c["card_peak_bytes"]
+        limit = DRYRUN_PEAK_RTOL * c["card_peak_bytes"] + DRYRUN_PEAK_ATOL
+        c["peak_gap_bytes"], c["peak_limit_bytes"] = gap, limit
+        c["parts"] = dryrun_parts(c)
+        for name, part in c["parts"].items():
+            print(f"    {name}: predicted {part['predicted'] / 2**20:.2f} "
+                  f"MiB, card {part['card'] / 2**20:.2f} MiB, gap "
+                  f"{part['gap'] / 2**20:+.2f} of +-"
+                  f"{part['limit'] / 2**20:.2f} MiB; controls "
+                  + ", ".join(f"{k} {g / 2**20:+.2f}"
+                              for k, g in part["controls"].items()))
+            if abs(part["gap"]) > part["limit"]:
+                fails.append(f"{c['arch']}: {name} {part['gap'] / 2**20:+.2f}"
+                             f" MiB off, limit {part['limit'] / 2**20:.2f}")
+            for k, g in part["controls"].items():
+                if abs(g) <= part["limit"]:
+                    fails.append(f"{c['arch']}: {name}'s control '{k}' "
+                                 f"passed ({g / 2**20:+.2f} MiB)")
+        for k, n in c["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+        print(f"  {c['arch']} x {c['shape']} ({c['qmode']}, {c['layers']} "
+              f"layers): arguments meta {m['argument_bytes']:,} / card "
+              f"{c['card_argument_bytes']:,} B; peak predicted "
+              f"{m['peak_bytes'] / 2**20:.1f} MiB, card "
+              f"{c['card_peak_bytes'] / 2**20:.1f} MiB (resident at the "
+              f"reset {c['card_base_bytes'] / 2**20:.1f} MiB), gap "
+              f"{gap / 2**20:+.1f} of +-{limit / 2**20:.1f} MiB; meta "
+              f"{c['meta_s']:.1f} s, arguments made real and a warm step "
+              f"{c['warm_s']:.1f} s, card step {c['step_s']:.2f} s (the "
+              f"process's setup {c['setup_s']:.1f} s); "
+              f"launches {({k: n for k, n in c['launches'].items() if n})}")
+        if c["card_argument_bytes"] != m["argument_bytes"]:
+            fails.append(f"{c['arch']}: argument bytes apart")
+        if abs(gap) > limit:
+            fails.append(f"{c['arch']}: peak {gap / 2**20:+.1f} MiB off, "
+                         f"limit {limit / 2**20:.1f}")
+    missing = [k for k in DRYRUN_KERNELS if not launched.get(k)]
+    if missing:
+        fails.append(f"not launched: {missing}")
+    if fails:
+        raise RuntimeError("phase 16: " + "; ".join(fails))
+    return dict(cells=out, card=smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement here (JSON)")
@@ -5927,7 +6177,7 @@ def main(argv=None) -> int:
 
 
 def smoke(args) -> int:
-    """Phases 1-16 (module docstring); raises on any failure."""
+    """Phases 1-17 (module docstring); raises on any failure."""
     t_all = time.perf_counter()
     phase_s, last = {}, [t_all]
 
@@ -6109,6 +6359,14 @@ def smoke(args) -> int:
     examples = finish_examples(procs)
     lap("14 + 15")
 
+    print("[phase 16] the dry run against the card: rank 0's step of "
+          + ", ".join(f"{a} x {s} ({q}{f', {n} layers' if n else ''})"
+                      for a, s, q, n in DRYRUN_CELLS)
+          + " on the meta device under a 256-rank fake process group, then "
+          "on the card")
+    dry = dryrun_phase(smi)
+    lap(16)
+
     # one headline row per kernel: the decode gate GEMM (K1, K4), the
     # prefill down projection (K5, K6), the widest K7 in bf16, the K3 bf16
     # batch, the K2 chunk at q_start 512 in bf16, K8 at prefill_32k's
@@ -6174,8 +6432,8 @@ def smoke(args) -> int:
                  dense=dense, stablelm=stablelm, spec=spec, moe=moe,
                  recurrent=recurrent, training=trained, autotune=tuned,
                  tensor_parallel=tp, tp_families=families, dense_slab=slab,
-                 fsdp=fsdp,
-                 examples=examples, kernels=kernels, phase_s=phase_s),
+                 fsdp=fsdp, examples=examples, dryrun=dry,
+                 kernels=kernels, phase_s=phase_s),
             indent=1))
     print(f"[chip_smoke] seconds by phase: {phase_s}")
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")

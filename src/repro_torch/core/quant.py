@@ -98,10 +98,16 @@ def dequantize_rowwise(q: torch.Tensor, scale: torch.Tensor,
 
 
 def quantize_colwise(w: torch.Tensor, bits: int = 8):
-    """Symmetric per-column quantization of (K, N) → scale (1, N) f32."""
+    """Symmetric per-column quantization of (..., K, N) → scale (..., 1,
+    N) f32 (each leading index a matrix of its own). On meta (a dry
+    run's weights) the shapes alone."""
     qmax = _qmax(bits)
+    if w.is_meta:
+        return (torch.empty(w.shape, dtype=torch.int8, device="meta"),
+                torch.empty((*w.shape[:-2], 1, w.shape[-1]),
+                            dtype=torch.float32, device="meta"))
     w32 = w.float()
-    absmax = w32.abs().amax(dim=0, keepdim=True)
+    absmax = w32.abs().amax(dim=-2, keepdim=True)
     scale = torch.where(absmax == 0.0, torch.ones_like(absmax),
                         div_exact(absmax, qmax))
     q = torch.clamp(torch.round(w32 / scale), -qmax, qmax)

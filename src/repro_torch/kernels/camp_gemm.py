@@ -13,7 +13,9 @@ the dense slab sums them over the ranks, exactly, and flushes once
 
 * :func:`camp_gemm_i8_ref` is the plain PyTorch version.
 * :func:`camp_gemm_i8` is the wrapper: a CPU tensor goes to the plain
-  version; a CUDA tensor launches ``csrc/camp_gemm.cu`` (or raises).
+  version; a CUDA tensor launches ``csrc/camp_gemm.cu`` (or raises); a
+  meta tensor runs the kernel's meta rule (:mod:`repro_torch.kernels.
+  meta`: the same outputs and workspace allocated, nothing launched).
   ``launches`` counts kernel launches.
 * :func:`launch_gemm` binds the C signature of the tensor-core template
   ``csrc/camp_gemm_tc.cuh`` (K1, K4, K5, K6a, K6b): the flush's arguments
@@ -35,8 +37,8 @@ import torch
 from repro_torch.core import autotune
 from repro_torch.core.blocking import (FLUSH_IN_BLOCK, NO_FLUSH,
                                        SCALE_KERNEL, PlanConfig,
-                                       choose_plan, tc_flags)
-from repro_torch.kernels import build
+                                       choose_plan, sm_count, tc_flags)
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.epilogue import EPILOGUE_STAGES, validate_epilogue
 from repro_torch.kernels.ref import dot_i32, flush_ref
 
@@ -68,7 +70,10 @@ def tc_smem_bytes(w4: bool, mt: int) -> int:
 
 
 def sms_of(a: torch.Tensor) -> int:
-    """SMs of the card that ``a`` lies on."""
+    """SMs of the card that ``a`` lies on (a meta tensor: the current
+    card's, or the H100's where there is none)."""
+    if a.is_meta:
+        return sm_count()
     index = (a.device.index if a.device.index is not None
              else torch.cuda.current_device())
     return build.sm_count(index)
@@ -94,7 +99,8 @@ def check_tensor(name, t, shape, dtypes, device):
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
+    """Raise unless ``t`` is on a card, or on meta (the meta rule)."""
+    if t.device.type not in ("cuda", "meta"):
         raise ValueError(f"{what}: no kernel for {t.device}")
 
 
@@ -135,6 +141,17 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
+    mt, splits, per = plan
+    fused = a_scale is None
+    if flags is None:
+        flags = tc_flags(m, n, plan, sms_of(a), fused)
+    rows = -(-m // 4) * 4 if fused else 0    # planes 16-byte aligned
+    planes = 0 if flags & FLUSH_IN_BLOCK else splits * m * n
+    ws = torch.empty(rows + planes, dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        meta.record(symbol, 2.0 * m * n * k,
+                    meta.nbytes(a, a_scale, b, b_scale, bias, operand, out))
+        return out
     fn = _symbol_fn(lib, symbol)
 
     def bf16(t):
@@ -143,21 +160,12 @@ def launch_gemm(lib: str, symbol: str, a, a_scale, b, b_scale, k: int, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    args = [a.data_ptr(), bf16(a), ptr(a_scale), b.data_ptr(),
-            b_scale.data_ptr(), ptr(bias), bf16(bias), ptr(operand),
-            bf16(operand), out.data_ptr(), bf16(out), m, n, k, code,
-            len(stages)]
-    mt, splits, per = plan
-    fused = a_scale is None
-    if flags is None:
-        flags = tc_flags(m, n, plan, sms_of(a), fused)
-    rows = -(-m // 4) * 4 if fused else 0    # planes 16-byte aligned
-    planes = 0 if flags & FLUSH_IN_BLOCK else splits * m * n
-    ws = torch.empty(rows + planes, dtype=torch.int32, device=dev)
-    if fused:
-        args[2] = ws.data_ptr()
-    args += [ws.data_ptr() + 4 * rows if planes else None, mt, splits, per,
-             flags]
+    args = [a.data_ptr(), bf16(a), ws.data_ptr() if fused else ptr(a_scale),
+            b.data_ptr(), b_scale.data_ptr(), ptr(bias), bf16(bias),
+            ptr(operand), bf16(operand), out.data_ptr(), bf16(out), m, n, k,
+            code, len(stages),
+            ws.data_ptr() + 4 * rows if planes else None, mt, splits, per,
+            flags]
     rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
@@ -193,6 +201,10 @@ def _launch_acc(lib, symbol, a, a_scale, b, b_scale, k, *, epilogue, bias,
     ws = torch.empty((splits, m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return ws.sum(dim=0, dtype=torch.int32)
+    if dev.type == "meta":
+        meta.record(symbol, 2.0 * m * n * k,
+                    meta.nbytes(a, a_scale, b, b_scale, ws))
+        return ws[0] if splits == 1 else ws.sum(dim=0, dtype=torch.int32)
     args = [a.data_ptr(), 0, a_scale.data_ptr(), b.data_ptr(),
             b_scale.data_ptr(), None, 0, None, 0, ws.data_ptr(), 0, m, n, k,
             0, 0, ws.data_ptr(), mt, splits, per, flags]
@@ -248,7 +260,7 @@ def camp_gemm_i8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     plan = plan or autotune.get_plan("i8", m, n, k)
     out = launch_gemm("camp_gemm", "camp_gemm_i8", a_q, a_scale, b_q,
                       b_scale, k, plan=plan[:3], flags=plan.flags, **kw)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         global launches
         launches += 1
     return out

@@ -14,7 +14,8 @@ for the flush.
 * ``camp_gemm_fused_*_ref`` are the plain PyTorch versions. The CPU tests
   use them, and ``chip_smoke.py`` holds the kernels against them.
 * ``camp_gemm_fused_*`` are the wrappers: a CPU tensor goes to the plain
-  version; a CUDA tensor launches ``csrc/camp_gemm_fused.cu`` (or raises):
+  version; a meta tensor runs the meta rule (:mod:`repro_torch.kernels.
+  meta`); a CUDA tensor launches ``csrc/camp_gemm_fused.cu`` (or raises):
   the tensor-core template of K5/K6a with x quantized on chip, under the
   autotune's plan (:func:`repro_torch.core.autotune.get_plan`, fused) or
   ``plan=``, one to three device kernels a call
@@ -121,7 +122,7 @@ def camp_gemm_fused_w8a8(x: torch.Tensor, b_q: torch.Tensor,
     if x.device.type == "cpu":
         return camp_gemm_fused_w8a8_ref(x, b_q, b_scale, **kw)
     out = _fused_cuda("w8a8", x, b_q, b_scale, kw, plan)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         global launches
         launches += 1
     return out
@@ -139,7 +140,7 @@ def camp_gemm_fused_w4a8(x: torch.Tensor, b_packed: torch.Tensor,
     if x.device.type == "cpu":
         return camp_gemm_fused_w4a8_ref(x, b_packed, b_scale, **kw)
     out = _fused_cuda("w4a8", x, b_packed, b_scale, kw, plan)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         global launches_w4a8
         launches_w4a8 += 1
     return out
@@ -157,7 +158,7 @@ def camp_gemm_fused_w4a4(x: torch.Tensor, b_packed: torch.Tensor,
     if x.device.type == "cpu":
         return camp_gemm_fused_w4a4_ref(x, b_packed, b_scale, **kw)
     out = _fused_cuda("w4a4", x, b_packed, b_scale, kw, plan)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         global launches_w4a4
         launches_w4a4 += 1
     return out

@@ -18,8 +18,9 @@ a K step never splits a packed byte, and the nibbles are unpacked into
 int8 in shared memory (B from its TMA-loaded stage; K6b's packed A from
 registers, one K step ahead).
 
-Each wrapper takes its plain version (``*_ref``) for a CPU tensor and
-launches the kernel for a CUDA tensor (or raises); ``launches_w4`` and
+Each wrapper takes its plain version (``*_ref``) for a CPU tensor,
+launches the kernel for a CUDA tensor (or raises) and runs the kernel's
+meta rule for a meta tensor (:mod:`repro_torch.kernels.meta`); ``launches_w4`` and
 ``launches_a4w4`` count kernel launches.
 """
 from __future__ import annotations
@@ -91,7 +92,7 @@ def camp_gemm_w4(a_q: torch.Tensor, b_packed: torch.Tensor,
     plan = plan or autotune.get_plan("w4", m, n, k)
     out = launch_gemm("camp_gemm", "camp_gemm_w4", a_q, a_scale, b_packed,
                       b_scale, k, plan=plan[:3], flags=plan.flags, **kw)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         global launches_w4
         launches_w4 += 1
     return out
@@ -120,7 +121,7 @@ def camp_gemm_a4w4(a_packed: torch.Tensor, b_packed: torch.Tensor,
     out = launch_gemm("camp_gemm", "camp_gemm_a4w4", a_packed, a_scale,
                       b_packed, b_scale, 2 * k2, plan=plan[:3],
                       flags=plan.flags, **kw)
-    if out.numel():
+    if out.numel() and out.is_cuda:
         global launches_a4w4
         launches_a4w4 += 1
     return out

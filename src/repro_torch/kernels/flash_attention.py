@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ops import check_impl
 
 _NEG = -1e30
@@ -133,6 +133,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Wrapper of the CUDA kernel; a CPU tensor goes to the plain version."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)
+    meta.no_rule("flash_attention (K8)", q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     check_inputs(q, k, v)
@@ -154,6 +155,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
                     block_k: int = 512, impl: str = "auto"):
     """Dense flash attention; see the module docstring. ``block_q`` and
     ``block_k`` block the plain version; the kernel picks its own tiles."""
+    meta.no_rule("flash_attention (K8)", q)
     if check_impl(impl, q) == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal)
     return flash_attention_reference(q, k, v, causal=causal, block_q=block_q,

@@ -9,9 +9,14 @@ Port of ``repro/kernels/ops.py``. Every op takes ``impl``:
   ``chip_smoke.py`` use it to hold the kernels against their plain versions;
 * ``'hybrid'`` — the plain version with the integer product built from the
   paper's §3 hybrid-multiplier decomposition (:mod:`repro_torch.core.
-  hybrid`), on any device; bit-exact with 'torch'. As in the reference,
-  a4w4 has no decomposition and quantize has none to make, so those take
-  the plain version.
+  hybrid`), on any device but meta; bit-exact with 'torch'. As in the
+  reference, a4w4 has no decomposition and quantize has none to make, so
+  those take the plain version.
+
+A meta tensor takes the kernel's route ('auto' and 'cuda' alike), where
+the wrapper runs the kernel's meta rule (:mod:`repro_torch.kernels.meta`)
+in place of a launch: the dry run models the card's kernel path. It never
+takes a plain version ('torch' or 'hybrid' on one raises).
 
 A CUDA tensor reaches a plain version only when 'torch' or 'hybrid' is
 asked for: a kernel that fails to build or launch raises.
@@ -52,9 +57,15 @@ VALID_IMPLS = ("auto", "cuda", "torch", "hybrid")
 
 
 def check_impl(impl: str, x: torch.Tensor) -> str:
-    """Validate ``impl`` against the tensor's device; 'auto' → the device's."""
+    """Validate ``impl`` against the tensor's device; 'auto' → the device's
+    ('cuda' for a meta tensor: the kernel's meta rule)."""
     if impl not in VALID_IMPLS:
         raise ValueError(f"impl={impl!r} not in {VALID_IMPLS}")
+    if x.is_meta:
+        if impl in ("torch", "hybrid"):
+            raise ValueError(f"impl={impl!r} on a meta tensor: the dry run "
+                             "models the card's kernels, not a plain version")
+        return "cuda"
     if impl == "cuda" and not x.is_cuda:
         raise ValueError(f"impl='cuda' needs a CUDA tensor, got {x.device}")
     if impl == "auto":

@@ -35,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ops import check_impl
 
 _NEG = -1e30
@@ -155,6 +155,7 @@ def paged_attention_cuda(q, k_pages, v_pages, k_scale, v_scale, tables,
         return paged_attention_reference(q, k_pages, v_pages, k_scale,
                                          v_scale, tables, lengths,
                                          sm_scale=sm_scale)
+    meta.no_rule("paged_attention (K3)", q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     b, kv, g, hd = q.shape
@@ -200,6 +201,7 @@ def paged_attention(q, k_pages, v_pages, k_scale, v_scale, tables, lengths,
     Float pages (``k_scale`` None) take the plain version, as in the
     reference, whose kernel reads int8 pages only; ``impl='cuda'`` on them
     raises."""
+    meta.no_rule("paged_attention (K3)", q)
     if impl == "cuda" and k_scale is None:
         raise ValueError("impl='cuda': the kernel reads int8 pages only; "
                          "float pages take the plain version")

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ops import check_impl
 from repro_torch.kernels.paged_attention import (TILE, check_head_shards,
                                                  check_pages, plan_for,
@@ -91,6 +91,7 @@ def paged_prefill_cuda(q, k_pages, v_pages, k_scale, v_scale, table, *,
         return paged_prefill_reference(q, k_pages, v_pages, k_scale, v_scale,
                                        table, q_start=q_start,
                                        sm_scale=sm_scale)
+    meta.no_rule("paged_prefill_attention (K2)", q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for {q.device}")
     kv, c, g, hd = q.shape
@@ -138,6 +139,7 @@ def paged_prefill_attention(q, k_pages, v_pages, k_scale, v_scale, table, *,
     Float pages (``k_scale`` None) take the plain version, as in the
     reference, whose kernel reads int8 pages only; ``impl='cuda'`` on them
     raises."""
+    meta.no_rule("paged_prefill_attention (K2)", q)
     if impl == "cuda" and k_scale is None:
         raise ValueError("impl='cuda': the kernel reads int8 pages only; "
                          "float pages take the plain version")

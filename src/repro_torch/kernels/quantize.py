@@ -7,8 +7,10 @@ A zero row comes out as (0, 1). The f32 chain is the fused GEMMs'
 (:func:`repro_torch.kernels.ref.quantize_rowwise_ref`, its plain version),
 so the unfused quantize → GEMM path equals the fused kernels bit for bit.
 
-:func:`quantize_rowwise_kernel` takes the plain version for a CPU tensor
-and launches ``csrc/quantize.cu`` for a CUDA tensor (or raises);
+:func:`quantize_rowwise_kernel` takes the plain version for a CPU tensor,
+launches ``csrc/quantize.cu`` for a CUDA tensor (or raises) and runs the
+meta rule for a meta tensor (:mod:`repro_torch.kernels.meta`: q and the
+scales allocated, 3·M·K operations recorded);
 ``launches`` counts kernel launches. :func:`team_size` picks how many of
 the kernel's threads take one row. :func:`quantize_lastdim` runs it over
 the rows of any tensor's last axis: the training path's int8 moments,
@@ -22,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quant import _qmax
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.camp_gemm import (FLOATS, check_tensor,
                                            require_cuda, sms_of)
 from repro_torch.kernels.ref import quantize_rowwise_ref
@@ -75,6 +77,9 @@ def quantize_rowwise_kernel(x: torch.Tensor, *, bits: int = 8):
     q = torch.empty((m, k), dtype=torch.int8, device=dev)
     s = torch.empty((m, 1), dtype=torch.float32, device=dev)
     if m == 0:
+        return q, s
+    if dev.type == "meta":
+        meta.record("quantize_rowwise", 3.0 * m * k, meta.nbytes(x, q, s))
         return q, s
     team = team_size(m, k, x.element_size(), sms_of(x))
     rc = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),

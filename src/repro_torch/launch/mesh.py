@@ -13,7 +13,12 @@ joined to the others through ``torch.distributed``:
   data axis); a serving mesh of ``tp`` ranks is ``make_mesh((1, tp))``;
 * :func:`spawn_ranks` starts the rank processes (the ``spawn`` start
   method), runs a function in each and returns their results, failing
-  loudly on any error or past its timeout.
+  loudly on any error or past its timeout;
+* :func:`fake_production_mesh` is rank 0's view of the production mesh
+  (the reference's ``make_production_mesh``) in a process of its own,
+  under a fake process group of the production world size: collectives
+  take tensors and move nothing (the dry run, :mod:`repro_torch.launch.
+  dryrun`).
 
 Backends: NCCL where each rank has a card of its own; gloo on the CPU, or
 on one card shared by several ranks when the caller asks for it (NCCL
@@ -245,3 +250,42 @@ def spawn_ranks(fn: Callable[..., Any], world: int, *, init_dir: str,
         raise RuntimeError("rank failure:\n" + "\n".join(
             f"--- rank {r} ---\n{tb}" for r, tb in sorted(errors.items())))
     return [got[r] for r in range(world)]
+
+
+def production_shape(multi_pod: bool = False) -> tuple:
+    """The (data, model) shape of the production mesh: (16, 16) on one
+    pod; (32, 16) on two, where the reference's (pod, data, model) is (2,
+    16, 16). Every serve, prefill and decode rule binds ``pod`` only
+    together with ``data`` (``parallel.sharding.make_rules``), so a
+    rank's blocks are the same on both."""
+    return (32, 16) if multi_pod else (16, 16)
+
+
+def fake_production_mesh(multi_pod: bool = False, *, device="meta"
+                         ) -> RankMesh:
+    """Rank 0's :class:`RankMesh` of :func:`production_shape` under a fake
+    process group (``torch.testing._internal.distributed.fake_pg``) of its
+    world size, joined here unless this process has joined it already:
+    every collective takes tensors of any device and moves nothing. The
+    process group is global to a process, so each mesh shape runs in a
+    process of its own (a joined group of another size raises)."""
+    d, m = production_shape(multi_pod)
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=d * m)
+    elif (dist.get_backend() != "fake"
+          or dist.get_world_size() != d * m):
+        raise RuntimeError(
+            f"this process joined a {dist.get_backend()} group of "
+            f"{dist.get_world_size()} ranks; the {d} x {m} mesh needs a fake "
+            "one of its own (run each mesh shape in a process of its own)")
+    if (d, m) not in _FAKE:       # the subgroups, made once a process
+        _FAKE[(d, m)] = make_mesh((d, m), device="cpu")
+    mesh = _FAKE[(d, m)]
+    return RankMesh(mesh.shape, mesh.rank, mesh.group, mesh.groups,
+                    resolve_device(device))
+
+
+_FAKE: dict = {}
+

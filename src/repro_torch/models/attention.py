@@ -31,7 +31,14 @@ wrappers, the dense slab holds the rank's kv heads, and the out
 projection is row-parallel (:func:`repro_torch.models.modules.row_linear`:
 shard-local scales on the paged engine, the whole row's on the dense
 slab) when the layout shards ``wo``, else the heads are gathered for the
-whole ``wo``. Otherwise attention runs replicated on whole weights.
+whole ``wo``. Otherwise the paged engine runs attention replicated on
+whole weights, and the dense slab holds the layout's ``"attn_cols"``
+(the reference's specs, which split q/k/v by columns whatever the
+heads): it runs every head from the rank's column blocks, each
+projection's block of columns gathered whole (an all-gather over model),
+and ``wo`` takes the rank's block of the attention output's columns as
+its rows (:func:`~repro_torch.models.modules.row_linear`); every value
+is one process's, bit for bit, in the integer modes.
 
 **A sequence-split slab.** Under the dense slab's prefill / decode rules,
 where the model axis does not divide the kv heads, each rank's
@@ -151,11 +158,15 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     # (the layout's "heads"); h and kv are then this rank's heads
     mesh, tp = tp_mesh()
     head_tp = sharded("heads")
+    cols = sharded("attn_cols")
     h, kv = (h_all // tp, kv_all // tp) if head_tp else (h_all, kv_all)
 
     def proj(name, heads):
-        return linear(x, p[name], p.get(name + "_bias"), qmode=qmode,
-                      impl=impl).reshape(b, s, heads, hd)
+        y = linear(x, p[name], p.get(name + "_bias"), qmode=qmode,
+                   impl=impl)
+        if cols and y.shape[-1] < heads * hd:        # this rank's columns
+            y = all_gather_last(y, mesh)
+        return y.reshape(b, s, heads, hd)
 
     q, k, v = proj("wq", h), proj("wk", kv), proj("wv", kv)
     if cfg.qk_norm:
@@ -166,6 +177,11 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k, cos, sin)
 
     def out_proj(out):
+        rows = p["wo"].shape[0]
+        if cols and rows < h * hd:                   # wo's row block
+            r = mesh.coords["model"]
+            return row_linear(out[..., r * rows:(r + 1) * rows], p["wo"],
+                              qmode=qmode, impl=impl)
         if sharded("wo"):
             return row_linear(out, p["wo"], qmode=qmode, impl=impl)
         if head_tp:

@@ -122,11 +122,10 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> dict:
 def quantize_expert_weight(w: torch.Tensor, bits: int) -> QuantizedTensor:
     """(E, K, N) → per-expert per-output-channel quantization, 4-bit
     payloads packed along each expert's K."""
-    qs, scales = zip(*(quantize_colwise(m, bits) for m in w))
-    if bits == 4:
-        qs = [pack_int4(q) for q in qs]
-    return QuantizedTensor(q=torch.stack(qs), scale=torch.stack(scales),
-                           bits=bits, shape=tuple(w.shape))
+    q, scale = quantize_colwise(w, bits)          # each expert's columns
+    if bits == 4:                                 # along each expert's K
+        q = pack_int4(q.transpose(0, 1)).transpose(0, 1).contiguous()
+    return QuantizedTensor(q=q, scale=scale, bits=bits, shape=tuple(w.shape))
 
 
 def _dequant_expert(w: QuantizedTensor) -> torch.Tensor:
@@ -399,9 +398,17 @@ def expert_split(cfg: ModelConfig):
     (:func:`~repro_torch.parallel.sharding.data_split`): (mesh, data axes,
     their rank count n, this rank's index), when n divides the experts:
     each data rank then runs the expert GEMMs of its E/n experts; else
-    None (every rank runs every expert on its own slots)."""
+    None (every rank runs every expert on its own slots). Rules that put
+    the experts over the model axis raise ``NotImplementedError``."""
     split = data_split()
-    if split is None or cfg.moe_experts % split[2]:
+    if split is None:
+        return None
+    if "model" in dense_ctx().rules.get("expert", ()):
+        raise NotImplementedError(
+            "experts over the model axis on the dense slab (the rules' "
+            "'expert': ('model',)); the port splits them over data: ROADMAP "
+            "item 12b")
+    if cfg.moe_experts % split[2]:
         return None
     return split
 

@@ -17,9 +17,12 @@ The reference's ``logical`` (a GSPMD layout hint on an activation) has no
 eager counterpart and is not ported: a rank's tensors are its own shards.
 
 Which weights a rank holds as shards is decided once, by
-:func:`serve_pspecs`; :func:`shard_params` records the decision as the
-tree's ``layout`` (a set of :data:`PARTS`), the serving
-:func:`mesh_context` carries it, and the model code asks :func:`sharded`.
+:func:`serve_pspecs`, for the path that runs the shards
+(:func:`for_dense_slab`: attention the model axis does not divide is
+whole on the paged engine, column blocks on the dense slab);
+:func:`shard_params` records the decision as the tree's ``layout`` (a set
+of :data:`PARTS`), the serving :func:`mesh_context` carries it, and the
+model code asks :func:`sharded`.
 
 Two serving modes run on shards, and the model code tells them apart:
 
@@ -75,9 +78,12 @@ _CTX: contextvars.ContextVar[Optional["MeshCtx"]] = contextvars.ContextVar(
 # untied head's block of vocabulary columns; "mamba" the Mamba conv_w
 # columns and A_log rows (its block of d_inner), "rwkv_tm" the RWKV time
 # mix's wr/wk/wv/wg columns (its heads), "rwkv_cm" the channel mix's
-# w_gate and receptance w_up columns with w_down's rows.
+# w_gate and receptance w_up columns with w_down's rows; "attn_cols" (the
+# dense slab's, where the model axis does not divide the kv heads) the
+# q/k/v column blocks of the reference's specs, gathered after the
+# projection, with wo's row block.
 PARTS = ("heads", "wo", "mlp", "experts", "embedding", "lm_head", "mamba",
-         "rwkv_tm", "rwkv_cm")
+         "rwkv_tm", "rwkv_cm", "attn_cols")
 MODES = ("train", "serve", "dense")
 
 
@@ -421,13 +427,31 @@ def _is_sharded(spec) -> bool:
     return any(a is not None for a in s)
 
 
+def runs_dense_slab(cfg) -> bool:
+    """Does ``serving.engine.generate`` send ``cfg`` to the dense-slab
+    loop (a recurrent mixer, or float embedding inputs), as the reference
+    does? Every other config runs on the paged engine."""
+    return cfg.embedding_inputs or any(cfg.mixer_of(i) != "attn"
+                                       for i in range(cfg.n_layers))
+
+
+def for_dense_slab(cfg) -> bool:
+    """Are shards cut now for the dense slab: inside its mesh context
+    (``mode="dense"``), or of a config only the dense slab serves
+    (:func:`runs_dense_slab`)? Otherwise they are the paged engine's."""
+    return dense_ctx() is not None or runs_dense_slab(cfg)
+
+
 def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
     """:func:`params_pspecs` under the serve rules, made to match what a
     rank computes eagerly, where GSPMD would gather:
 
     * attention whose kv heads the model axis does not divide
-      (``effective_model_shards`` 1) runs replicated, so its q/k/v/o
-      weights stay whole;
+      (``effective_model_shards`` 1) runs replicated on the paged engine,
+      so its q/k/v/o weights stay whole there. The dense slab
+      (:func:`for_dense_slab`) keeps the reference's specs: the rank's
+      q/k/v columns, gathered after the projection, and wo's rows (the
+      ``"attn_cols"`` part: ``models.attention``);
     * a gated MLP whose ``w_down`` cannot be K-sharded (``tp_shardable``:
       a packed int4 shard needs an even number of rows) keeps ``w_gate``
       and ``w_up`` whole too; so do the experts, by their ``w_down``.
@@ -449,11 +473,12 @@ def serve_pspecs(params: Any, mesh, cfg, rules=None) -> Any:
     whole.
     """
     specs = params_pspecs(params, rules or make_rules("serve"), mesh)
-    head_tp = effective_model_shards(mesh, cfg.n_kv_heads) > 1
+    whole_attn = (effective_model_shards(mesh, cfg.n_kv_heads) == 1
+                  and not for_dense_slab(cfg))
     tp = dict(mesh.shape).get("model", 1)
     for layer in specs.get("layers", []):
         attn = layer.get("attn")
-        if attn is not None and not head_tp:
+        if attn is not None and whole_attn:
             for k in _ATTN:
                 if k in attn:
                     attn[k] = _replicated(attn[k])
@@ -550,7 +575,10 @@ def _slice(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 
 def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
-    """This rank's local tree: every leaf sliced by :func:`serve_pspecs`.
+    """This rank's local tree: every leaf sliced by :func:`serve_pspecs`
+    (the paged engine's, or under :func:`for_dense_slab` the dense
+    slab's: attention whose kv heads the model axis does not divide whole
+    on the one, in the reference's column blocks on the other).
 
     A QuantizedTensor column shard slices the payload and its (1, N) scale
     (an expert stack's (E, 1, N)) together; a row shard slices the
@@ -562,6 +590,10 @@ def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
     place the weights alike).
     """
     specs = serve_pspecs(params, mesh, cfg, rules)
+    layout = _layout(specs)
+    if effective_model_shards(mesh, cfg.n_kv_heads) == 1 \
+            and layout & {"heads", "wo"}:       # the dense slab's columns
+        layout = (layout - {"heads", "wo"}) | {"attn_cols"}
 
     def walk(tree, spec):
         if isinstance(tree, dict):
@@ -570,8 +602,7 @@ def shard_params(params: Any, mesh, cfg, rules=None) -> RankShards:
             return [walk(v, s) for v, s in zip(tree, spec)]
         return shard_leaf(tree, spec, mesh)
 
-    return RankShards(walk(params, specs), _layout(specs),
-                      tree_bytes(params))
+    return RankShards(walk(params, specs), layout, tree_bytes(params))
 
 
 def _qt(q, scale, like: QuantizedTensor) -> QuantizedTensor:

@@ -108,7 +108,7 @@ from repro_torch.parallel.sharding import (RankShards, batch_block,
                                            block_shape, cache_pspecs,
                                            effective_model_shards,
                                            make_rules, mesh_context,
-                                           shard_params)
+                                           runs_dense_slab, shard_params)
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import spec_decode as sd
 
@@ -348,6 +348,10 @@ class ContinuousBatchingEngine:
         self.tp = effective_model_shards(mesh, cfg.n_kv_heads)
         if mesh is not None and not isinstance(params, RankShards):
             params = shard_params(params, mesh, cfg, self.rules)
+        if mesh is not None and "attn_cols" in params.layout:
+            raise ValueError("the paged engine runs attention the model "
+                             "axis does not divide on whole weights; these "
+                             "shards were cut for the dense slab")
         self.params = params
         ps, prefill_chunk, pages_per_step = self._pick_pages(
             page_size, prefill_chunk, pages_per_step)
@@ -657,13 +661,6 @@ class ContinuousBatchingEngine:
 # ---------------------------------------------------------------------------
 # Batched generation entry points
 # ---------------------------------------------------------------------------
-def runs_dense_slab(cfg: ModelConfig) -> bool:
-    """Does :func:`generate` send ``cfg`` to the dense-slab loop (a
-    recurrent mixer, or float embedding inputs), as the reference does?"""
-    return cfg.embedding_inputs or any(cfg.mixer_of(i) != "attn"
-                                       for i in range(cfg.n_layers))
-
-
 def slab_context(mesh, layout, rules=None):
     """The dense slab's mesh context (``mode="dense"``) for a rank
     holding the params of ``layout`` (a :class:`RankShards` tree's) under
@@ -674,6 +671,17 @@ def slab_context(mesh, layout, rules=None):
     caches (:func:`init_serve_caches` ``(mesh=, rules=)``)."""
     return mesh_context(mesh, rules or make_rules("serve"), mode="dense",
                         layout=layout)
+
+
+def slab_shards(params, mesh, cfg: ModelConfig, rules=None) -> RankShards:
+    """This rank's shards of a whole params tree for the dense slab:
+    :func:`~repro_torch.parallel.sharding.shard_params` inside its mesh
+    context, so attention whose kv heads the model axis does not divide
+    takes the reference's column blocks (the ``"attn_cols"`` part)
+    whatever the config, as it does for every config :func:`generate`
+    sends to the dense slab."""
+    with mesh_context(mesh, rules or make_rules("serve"), mode="dense"):
+        return shard_params(params, mesh, cfg, rules)
 
 
 def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
@@ -691,8 +699,8 @@ def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
     (seed, i).
 
     Under ``mesh`` a rank holds its shards of the params under the serve
-    rules (a whole tree is cut by :func:`~repro_torch.parallel.sharding.
-    shard_params`; a :class:`RankShards` tree is taken as it is), its
+    rules (a whole tree is cut by :func:`slab_shards`; a
+    :class:`RankShards` tree is taken as it is), its
     blocks of the caches, and runs the loop in :func:`slab_context`, where
     GSPMD's meaning holds: the row-parallel projections take the whole
     row's scale. The ranks along the model axis feed back rank 0's tokens
@@ -707,7 +715,7 @@ def _generate_dense(params, cfg: ModelConfig, prompt: torch.Tensor, *,
     scope = contextlib.nullcontext()
     if mesh is not None:
         if not isinstance(params, RankShards):
-            params = shard_params(params, mesh, cfg, rules)
+            params = slab_shards(params, mesh, cfg, rules)
         scope = slab_context(mesh, params.layout, rules)
         prompt = batch_block(prompt, mesh, rules)
     caches = init_serve_caches(cfg, b, max_len or (s + steps),

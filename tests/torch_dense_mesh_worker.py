@@ -26,7 +26,8 @@ from repro_torch.parallel.sharding import (batch_block, make_rules,
 from repro_torch.serving import engine as engine_mod
 from repro_torch.serving.engine import (build_decode_step,
                                         build_prefill_step,
-                                        init_serve_caches, slab_context)
+                                        init_serve_caches, slab_context,
+                                        slab_shards)
 
 PROJ_SEED = 11           # the row-parallel projections' input
 MOE_SEED = 13            # layer 0's MoE input
@@ -64,7 +65,7 @@ def slab_run(cfg, params, prompt, steps, mesh=None, rules=None,
     b, s = prompt.shape[:2]
     scope = contextlib.nullcontext()
     if mesh is not None:
-        params = shard_params(params, mesh, cfg, rules)
+        params = slab_shards(params, mesh, cfg, rules)
         scope = slab_context(mesh, params.layout, rules)
         prompt = batch_block(prompt, mesh, rules)
     caches = init_serve_caches(cfg, b, s + steps, kv_dtype=kv_dtype,
@@ -212,7 +213,7 @@ def moe_layer(params, cfg, mesh=None, rules=None):
     scope = contextlib.nullcontext()
     if mesh is not None:
         rules = rules or make_rules("decode")
-        local = shard_params(params, mesh, cfg, rules)
+        local = slab_shards(params, mesh, cfg, rules)
         p = local["layers"][0]["moe"]
         x = batch_block(x, mesh, rules)
         scope = slab_context(mesh, local.layout, rules)

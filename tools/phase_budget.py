@@ -18,7 +18,10 @@ Builds the kernels as ``chip_smoke.py`` does, then runs each part of
   (``int32_sums``) and the dense slab on shards (``dense_slab_mesh``);
 * ``14``: phase 14 (``fsdp_training``: qwen3-0.6b, then moonshot-v1-16b-a3b
   and rwkv6-7b under a train mesh, one layer gathered at a time, in one
-  spawn of two ranks).
+  spawn of two ranks);
+* ``16``: phase 16 (``dryrun_phase``: the dry run's prediction of rank
+  0's step against the card) with the qwen3-0.6b train cell at each of
+  ``--dry-layers`` (0: its full 28).
 
 Each part's checks gate as they do in ``chip_smoke.py``. It prints every
 part's seconds and the card's name and power limit. Needs a CUDA card;
@@ -46,9 +49,11 @@ import chip_smoke as cs  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parts", default="9,13",
-                    help="comma-separated: 8, 9, 13, 13s, 14")
+                    help="comma-separated: 8, 9, 13, 13s, 14, 16")
     ap.add_argument("--layers", default=f"48,{cs.MOE_W8A8_LAYERS}",
                     help="phase 9's W8A8 depths, in turn")
+    ap.add_argument("--dry-layers", default=str(cs.DRYRUN_CELLS[1][3]),
+                    help="phase 16's train depths, in turn (0: full)")
     ap.add_argument("--out", help="also write the seconds here (JSON)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,6 +100,12 @@ def main(argv=None) -> int:
             timed("phase 13 dense slab", dense_slab)
         if "14" in parts:
             timed("phase 14", cs.fsdp_training, cs.SEED, smi)
+        if "16" in parts:
+            for n in (int(x) for x in args.dry_layers.split(",")):
+                cells = (cs.DRYRUN_CELLS[0],
+                         (*cs.DRYRUN_CELLS[1][:3], n or None))
+                timed(f"phase 16, train at {n or 'full'} layers",
+                      cs.dryrun_phase, smi, cells)
     print(f"[phase_budget] {smi}; seconds: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     depths = [k for k in seconds if k.startswith("phase 9")]
