@@ -245,7 +245,11 @@ Phases (any failure exits non-zero and prints no result):
    a (2, 1) mesh run (c) moonshot-v1-16b-a3b W8A8 (4 of 48 layers) under
    the decode rules, 8 × (128 + 4): layer 0's MoE FFN on each rank's rows
    bit for bit one process's, with half of one process's expert GEMMs
-   (K1), the streams equal. Each prints its gloo calls a decode step.
+   (K1), the streams equal; then all four as a (2, 2) mesh run (d)
+   moonshot W8A8 (2 of 48 layers) under the decode rules with the
+   hillclimb's B2 override (experts over model, expert_ff over data),
+   the same mix: streams bit for bit one process's, every decode forward
+   launching K1, K7 and K5. Each prints its gloo calls a decode step.
 14. Sharded (FSDP) training, one layer gathered at a time (its gather
    and reduce counted: gloo calls and bytes a rank sends a step), every
    entry of ``FSDP_FAMILIES`` at full width with int8 moments and int8
@@ -276,6 +280,13 @@ Phases (any failure exits non-zero and prints no result):
    from the shards (rank 0 writes), restored into one process byte for
    byte the state the ranks hold (a CRC a leaf), whose next step's loss
    and grad_norm lie within ``FSDP_FIRST_RTOL`` of the ranks' same step.
+   Then the multi-pod train rules on (pod, data, model) = (2, 1, 1), the
+   two ranks splitting the sequence (``MULTIPOD_FAMILIES``: qwen3-0.6b
+   and jamba-v0.1-52b, 2 layers each, jamba with 4 of its 16 experts):
+   each rank's block its rows' half of the positions, the first step's
+   loss and grad_norm within ``MULTIPOD_RTOL`` of one process's from the
+   same state; each control (the sequence gather's backward without the
+   sum over the pods) puts grad_norm outside.
 15. The examples on the card (``examples/torch/``: quickstart,
    serve_quantized, fault_tolerance_demo), each in a process of its own,
    started together before phase 14 and running beside it: each exits 0
@@ -284,9 +295,10 @@ Phases (any failure exits non-zero and prints no result):
    version, the speculative greedy stream equal to the plain one, the
    resumed training equal to the uninterrupted run).
 16. The dry run against the card (``src/repro_torch/launch/dryrun.py``),
-   in one spawned process holding a fake process group of 256 ranks:
-   rank 0's step of each of ``DRYRUN_CELLS`` (qwen2-0.5b x decode_32k
-   W8A8, full depth; qwen3-0.6b x train_4k, 2 of 28 layers) first on the
+   in a spawned process a world size holding a fake process group (256
+   ranks on one pod, 512 on two), side by side: rank 0's step of each of
+   ``DRYRUN_CELLS`` (qwen2-0.5b x decode_32k W8A8, full depth; qwen3-0.6b
+   x train_4k, 2 of 28 layers, on (16, 16) and on (2, 16, 16)) first on the
    meta device (the dry run's prediction: argument and peak bytes, the
    kernels' meta rules), then on the card from the same arguments made
    real (collectives of the fake group move nothing), after one warm
@@ -364,7 +376,7 @@ from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.transformer import init_quantized_params  # noqa: E402
 from repro_torch.launch.mesh import RankMesh, spawn_ranks  # noqa: E402
-from repro_torch.launch.mesh import AXES  # noqa: E402
+from repro_torch.launch.mesh import AXES, axis_sizes, make_mesh  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.parallel import fsdp as fsdp_mod  # noqa: E402
 from repro_torch.parallel.sharding import (axes_of, batch_block,  # noqa: E402
@@ -4552,8 +4564,8 @@ def tp_moe_ffn(local, cfg, x, mesh):
                                    qmode=cfg.qmode)[0].float().cpu()
     y = run()
     inner = modules_mod.row_absmax
-    modules_mod.row_absmax = lambda h2, m: h2.abs().amax(dim=-1,
-                                                         keepdim=True)
+    modules_mod.row_absmax = lambda h2, m, *axis: h2.abs().amax(
+        dim=-1, keepdim=True)
     try:
         return y, run()
     finally:
@@ -4758,6 +4770,10 @@ SEQ_MIX = (8, 512, 8)
 EXPERT_LAYERS = 4
 EXPERT_MIX = (8, 128, 4)
 EXPERT_FFN_SHAPE = (8, 32)   # layer 0's MoE check: (8, 32, d) input
+# (d) the hillclimb's B2 (experts over model, expert_ff over data) on
+# (2, 2): moonshot-v1-16b-a3b at 2 of 48 layers, the mix of (c)
+B2_RULES = {"expert": ("model",), "expert_ff": ("data",)}
+B2_LAYERS = 2
 SLAB_TIMEOUT_S = 420.0
 # K5 with int32 out (no flush) at the dense slab's row-parallel shards, (M,
 # K, N): rwkv6 / jamba w_down at tp 2 (K 7,168 of 14,336, N 4,096; M a
@@ -5003,10 +5019,37 @@ def slab_part_c(mesh, job):
                 decode_launches=dec[-1]["launches"])
 
 
+def slab_part_d(mesh, job):
+    """(d) A (2, 2) rank under the decode rules with the hillclimb's B2
+    override: moonshot's weights as those rules place them (every
+    expert's column block over model), each model rank running its
+    experts block on its data rank's expert_ff block for every data
+    rank's slots (``moe._experts_over_model``); the stream."""
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=B2_LAYERS)
+    rules = {**make_rules("decode"), **B2_RULES}
+    with mesh_context(mesh, rules, mode="dense"):     # the slab's shards
+        local = init_quantized_params(
+            cfg, "w8a8", generator=torch.Generator(
+                device="cuda").manual_seed(job["seed"]), device="cuda",
+            mesh=mesh)
+    prompts = job["expert_prompts"].to("cuda")
+    slab_loop(local, cfg, prompts[:, :16], 2, mesh, rules)            # warm
+    reset_counts()
+    with gloo_calls() as seen:
+        toks, _, _, recs = slab_loop(local, cfg, prompts, EXPERT_MIX[2],
+                                     mesh, rules, seen=seen)
+    dec = [r for r in recs if r["decode"]]
+    return dict(tokens=toks, bytes=tree_bytes(local),
+                launches={k: v for k, v in read_counts().items() if v},
+                decode_calls=dec[-1]["calls"],
+                decode_launches=dec[-1]["launches"])
+
+
 def slab_rank(mesh, job):
     """One rank of the dense-slab spawn, four ranks on one card through
     gloo: (b) on the whole (1, 4) mesh; then ranks 0-1 run (a) as a (1, 2)
-    mesh while ranks 2-3 run (c) as a (2, 1) mesh."""
+    mesh while ranks 2-3 run (c) as a (2, 1) mesh; then all four (d) as a
+    (2, 2) mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": mesh.rank, "b": slab_part_b(mesh, job)}
     torch.cuda.empty_cache()
@@ -5022,6 +5065,9 @@ def slab_rank(mesh, job):
         pair = RankMesh({"data": 2, "model": 1}, r - 2, group,
                         {"data": group}, mesh.device)
         out["c"] = slab_part_c(pair, job)
+    del pair
+    torch.cuda.empty_cache()
+    out["d"] = slab_part_d(make_mesh((2, 2), device=mesh.device), job)
     return out
 
 
@@ -5077,6 +5123,12 @@ def slab_one_process(seed: int, device: str = "cuda"):
     one["c"] = dict(tokens=toks, ffn=y.float().cpu(), ffn_k1=ffn_k1)
     del params
     torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH, qmode="w8a8", n_layers=B2_LAYERS)
+    params = build_layerwise(cfg, "w8a8", seed, device=device)
+    toks, _, _, _ = slab_loop(params, cfg, prompts, EXPERT_MIX[2])
+    one["d"] = dict(tokens=toks, whole_bytes=tree_bytes(params))
+    del params
+    torch.cuda.empty_cache()
     return one, job
 
 
@@ -5085,8 +5137,9 @@ def dense_slab_mesh(seed: int, smi: str, device: str = "cuda"):
     on their shards under the serve rules, (1, 2); (b) qwen2-0.5b under the
     decode rules on (1, 4), its int8 slab split along the sequence; (c)
     moonshot-v1-16b-a3b under the decode rules on (2, 1), its experts split
-    over data; each against one process on the same inputs. Four ranks
-    share the card through gloo. Every failure raises."""
+    over data; (d) moonshot under the decode rules with the hillclimb's B2
+    override on (2, 2); each against one process on the same inputs. Four
+    ranks share the card through gloo. Every failure raises."""
     t0 = time.perf_counter()
     one, job = slab_one_process(seed, device)
     one_s = time.perf_counter() - t0
@@ -5180,6 +5233,23 @@ def dense_slab_mesh(seed: int, smi: str, device: str = "cuda"):
           f"for bit; expert GEMMs (K1) a rank {c0['ffn_k1']} against one "
           f"process's {c_one['ffn_k1']}; streams equal; a decode step "
           f"{c0['decode_calls']} gloo calls, launches {c0['decode_launches']}")
+    d_one = one["d"]
+    for rr in ranks:
+        dd, r = rr["d"], rr["rank"]
+        rows = slice(n_req // 2 * (r // 2), n_req // 2 * (r // 2 + 1))
+        if not np.array_equal(dd["tokens"], d_one["tokens"][rows].numpy()):
+            fails.append(f"(d) rank {r}: streams differ from one process's")
+        if not {"K1", "K5", "K7"} <= set(dd["decode_launches"]):
+            fails.append(f"(d) rank {r}: a decode forward launched "
+                         f"{dd['decode_launches']}")
+    d0 = ranks[0]["d"]
+    print(f"  (d) {MOE_ARCH} W8A8, {B2_LAYERS} of 48 layers, {n_req} x "
+          f"({prompt_len} + {new}), decode rules with the hillclimb's B2 "
+          f"(experts over model, expert_ff over data) on (2, 2): a rank "
+          f"holds {d0['bytes'] / 1e9:.3f} GB of "
+          f"{d_one['whole_bytes'] / 1e9:.3f}; streams equal to one "
+          f"process's bit for bit; a decode step {d0['decode_calls']} gloo "
+          f"calls, launches {d0['decode_launches']}")
     seconds = time.perf_counter() - t0
     print(f"  phase 13 dense slab seconds: {seconds:.1f} (one process "
           f"{one_s:.1f})")
@@ -5193,9 +5263,11 @@ def dense_slab_mesh(seed: int, smi: str, device: str = "cuda"):
                    if k not in ("tokens", "prefill_logits", "att",
                                 "control")},
                 c={k: v for k, v in c0.items() if k not in ("tokens", "ffn")},
+                d={k: v for k, v in d0.items() if k != "tokens"},
                 one_process_c_k1=c_one["ffn_k1"],
                 launches={"slab (1, 4) rank 0": b0["launches"],
                           "slab (2, 1) rank 0": c0["launches"],
+                          "slab B2 (2, 2) rank 0": d0["launches"],
                           **{f"slab {a} (1, 2) rank 0": ranks[0]["a"][a][
                               "launches"] for a in SLAB_LAYERS}})
 
@@ -5288,7 +5360,7 @@ def state_crcs(state) -> list:
 def fsdp_split_leaves(cfg, mesh_shape) -> list:
     """For each params leaf, in leaf order: does ``mesh_shape`` split its
     last dim (so that its int8 rows need the MAX over the split)?"""
-    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)))
+    mesh = types.SimpleNamespace(shape=axis_sizes(mesh_shape))
     specs, _ = param_specs(cfg, make_rules("train", family=cfg.family), mesh)
     return [adamw_mod.row_max_of(spec, mesh) is not None
             for spec in leaves(specs)]
@@ -5345,6 +5417,8 @@ def fsdp_training(seed: int, smi: str):
     failure raises."""
     t0 = time.perf_counter()
     one = {arch: family_one_process(arch, seed) for arch in FSDP_FAMILIES}
+    pod_one = {arch: multipod_one_process(arch, seed)
+               for arch in MULTIPOD_FAMILIES}
     with tempfile.TemporaryDirectory(prefix="fsdp-") as d:
         ck = os.path.join(d, "ck")
         ranks = spawn_ranks(fsdp_phase_rank, math.prod(FSDP_MESH),
@@ -5356,10 +5430,13 @@ def fsdp_training(seed: int, smi: str):
                                  smi, elastic if spec["checkpoint"]
                                  else None)
              for arch, spec in FSDP_FAMILIES.items()}
+    multi_pod = multipod_report(pod_one, [r["multi-pod"] for r in ranks],
+                                smi)
     seconds = time.perf_counter() - t0
     print(f"  phase 14 seconds: {seconds:.1f} (one spawn of "
           f"{len(ranks)} ranks for every part)")
-    return dict(card=smi, families=parts, seconds=seconds)
+    return dict(card=smi, families=parts, multi_pod=multi_pod,
+                seconds=seconds)
 
 
 def restored_step(path: str, seed: int) -> dict:
@@ -5385,28 +5462,172 @@ def restored_step(path: str, seed: int) -> dict:
 
 def fsdp_phase_rank(mesh, job):
     """One rank of phase 14: each of ``FSDP_FAMILIES`` on its own mesh over
-    the spawned ``FSDP_MESH`` processes."""
+    the spawned ``FSDP_MESH`` processes, then each of
+    ``MULTIPOD_FAMILIES`` on ``MULTIPOD_MESH``."""
     out = {}
     for arch in FSDP_FAMILIES:
         gc.collect()
         torch.cuda.empty_cache()
         out[arch] = fsdp_family_rank(family_mesh(mesh, arch),
                                      dict(job, arch=arch))
+    out["multi-pod"] = {}
+    for arch in MULTIPOD_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["multi-pod"][arch] = multipod_rank(
+            mesh_over(mesh, MULTIPOD_MESH), dict(job, arch=arch))
     return out
 
 
 def family_mesh(mesh, arch):
     """``arch``'s mesh (``FSDP_FAMILIES``) over the ranks of ``mesh``, each
     rank at its own place: the axis longer than one spans them all."""
-    shape = FSDP_FAMILIES[arch]["mesh"]
-    if tuple(mesh.shape[a] for a in AXES) == shape:
+    return mesh_over(mesh, FSDP_FAMILIES[arch]["mesh"])
+
+
+def mesh_over(mesh, shape):
+    """A mesh of ``shape`` ((d, m) or (p, d, m)) with one axis longer than
+    one over the ranks of ``mesh``, each rank at its own place."""
+    sizes = axis_sizes(shape)
+    if sizes == mesh.shape:
         return mesh
-    if math.prod(shape) != mesh.shape["data"] * mesh.shape["model"] or \
-            min(shape) != 1:
-        raise ValueError(f"{arch}'s mesh {shape} over {mesh.shape}")
-    live = [a for a, n in zip(AXES, shape) if n > 1]
-    return RankMesh(dict(zip(AXES, shape)), mesh.rank, mesh.group,
+    live = [a for a in AXES if sizes[a] > 1]
+    if math.prod(sizes.values()) != math.prod(mesh.shape.values()) or \
+            len(live) > 1:
+        raise ValueError(f"a mesh {shape} over {mesh.shape}")
+    return RankMesh(sizes, mesh.rank, mesh.group,
                     {a: mesh.group for a in live}, mesh.device)
+
+
+# Phase 14 (continued): the multi-pod train rules. The two ranks split
+# the sequence only ((pod, data, model) = (2, 1, 1): ``seq_act`` on pod,
+# each rank a replica of every parameter): each holds its rows' half of
+# the positions, and each mixer gathers the sequence over pod. Gated: the
+# first step's loss and grad_norm against one process from the same
+# state within ``MULTIPOD_RTOL``; the control (the sequence gather's
+# backward without the sum over the pods) must put grad_norm outside.
+# qwen3-0.6b at full width, 2 of 28 layers; jamba-v0.1-52b at full width,
+# 2 of 32 layers (a Mamba layer with its MLP, then a Mamba layer with its
+# MoE), its 16 experts cut to 4: at 16 a replica's step peaks at 58.0 GB
+# (the meta run of ``launch/dryrun.py::measure``, int8 moments), and two
+# replicas share the 80 GB card. In jamba the cross-pod terms reach only
+# the Mamba layers' x_in, through a scan whose steps are scaled by a
+# small dt at initialisation, and the token-local MLP and MoE gradients
+# fill the norm: its control moved grad_norm by 5.13e-4 where qwen3's
+# moved it by 0.114 (its attention's k/v gradients cross the pods).
+# ``MULTIPOD_RTOL`` sits between the sound readings (qwen3 6.66e-5,
+# jamba 1.44e-5) and jamba's control, with room on both sides (NVIDIA
+# H100 80GB HBM3, 700 W).
+MULTIPOD_MESH = (2, 1, 1)
+MULTIPOD_FAMILIES = {TRAIN_ARCH: dict(n_layers=2),
+                     "jamba-v0.1-52b": dict(n_layers=2, moe_experts=4)}
+MULTIPOD_RTOL = 2e-4
+
+
+def multipod_config(arch: str):
+    """``arch`` at full width with ``MULTIPOD_FAMILIES``' cuts."""
+    return get_config(arch, **MULTIPOD_FAMILIES[arch])
+
+
+def _own_pod_block(blocks, mesh, axes):
+    """The control's sequence-gather backward: this rank's own gradient of
+    its block, the other pods' left out."""
+    return blocks[mesh.coords["pod"]].clone()
+
+
+def multipod_rank(mesh, job):
+    """One rank of the multi-pod part: the seed's full-width state (every
+    leaf a replica), the first step on its block of the batch (its rows'
+    half of the positions) → loss, grad_norm, the step's ms and K7
+    launches; the control's first step from the same state."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = multipod_config(job["arch"])
+    opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
+    rules = make_rules("train", multi_pod=True, family=cfg.family)
+    b = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ,
+                        seed=job["seed"]).batch_at(0)
+    out = dict(rank=mesh.rank)
+    with mesh_context(mesh, rules, mode="train"):
+        full = train_state(cfg, opt, job["seed"])
+        state0 = shard_tree(full, named(train_state_pspecs(full, rules, mesh),
+                                        mesh))
+        del full
+        batch = shard_batch(b, mesh=mesh, specs=batch_specs(b, rules, mesh))
+        out["block"] = [list(batch["labels"].shape), batch.start]
+        for name, patch in (("control", patched(collectives, "seq_grad",
+                                                _own_pod_block)),
+                            ("step", contextlib.nullcontext())):
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with patch:
+                state, m = step(state0, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            out[name] = dict(loss=loss, grad_norm=norm,
+                             ms=(time.perf_counter() - t1) * 1e3,
+                             k7=read_counts()["K7"])
+            del state
+    return out
+
+
+def multipod_one_process(arch: str, seed: int) -> dict:
+    """One process's first step of ``arch`` (``MULTIPOD_FAMILIES``) from
+    the seed's state on the whole batch."""
+    cfg = multipod_config(arch)
+    opt, step = train_setup(cfg, True, FSDP_STEPS + 1)
+    state = train_state(cfg, opt, seed)
+    b = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, TRAIN_SEQ,
+                        seed=seed).batch_at(0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, m = step(state, shard_batch(b, device="cuda"))
+    out = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t1) * 1e3
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def multipod_report(one: dict, ranks: list, smi: str) -> dict:
+    """The multi-pod part's gates (raises on a failure) and its print."""
+    fails, out = [], {}
+    for arch, want in one.items():
+        cfg = multipod_config(arch)
+        got = [r[arch] for r in ranks]
+        gaps = {k: max(_rel_gap(g["step"][k], want[k]) for g in got)
+                for k in ("loss", "grad_norm")}
+        control = min(_rel_gap(g["control"]["grad_norm"], want["grad_norm"])
+                      for g in got)
+        for k, gap in gaps.items():
+            if gap > MULTIPOD_RTOL:
+                fails.append(f"{arch}: first {k} {gap:.3g} from one process "
+                             f"(limit {MULTIPOD_RTOL:g})")
+        if control <= MULTIPOD_RTOL:
+            fails.append(f"{arch}: the control (no sum over the pods) put "
+                         f"grad_norm within {control:.3g}")
+        blocks = [g["block"] for g in got]
+        if blocks != [[[FSDP_BATCH, TRAIN_SEQ // 2], r * TRAIN_SEQ // 2]
+                      for r in range(len(got))]:
+            fails.append(f"{arch}: the ranks' blocks {blocks}")
+        print(f"  multi-pod {arch}, {cfg.n_layers} layers"
+              + (f", {cfg.moe_experts} experts" if cfg.moe_experts else "")
+              + f", {FSDP_BATCH} x {TRAIN_SEQ} on (pod, data, model) = "
+              f"{MULTIPOD_MESH} ({smi}): each rank {blocks[0][0]} from "
+              f"positions {[b[1] for b in blocks]}; first loss "
+              f"{got[0]['step']['loss']:.6f} vs one process "
+              f"{want['loss']:.6f} ({gaps['loss']:.3g}), grad_norm "
+              f"{got[0]['step']['grad_norm']:.6f} vs {want['grad_norm']:.6f} "
+              f"({gaps['grad_norm']:.3g}; limit {MULTIPOD_RTOL:g}); the "
+              f"no-pod-sum control's grad_norm {control:.3g} away; step "
+              f"{got[0]['step']['ms']:.1f} ms a rank (one process "
+              f"{want['ms']:.1f}), K7 {got[0]['step']['k7']} a rank")
+        out[arch] = dict(one=want, ranks=got, gaps=gaps, control=control,
+                         launches={"K7": got[0]["step"]["k7"]})
+    if fails:
+        raise RuntimeError("phase 14 multi-pod: " + "; ".join(fails))
+    return out
 
 
 class RoutedLayer0(Exception):
@@ -5483,7 +5704,7 @@ def fsdp_peak_gb(cfg, mesh_shape) -> dict:
 
     Activations are left out (they are small beside these at 2 x 512
     tokens a rank)."""
-    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)),
+    mesh = types.SimpleNamespace(shape=axis_sizes(mesh_shape),
                                  coords={a: 0 for a in AXES})
     specs, shapes = param_specs(cfg, make_rules("train", family=cfg.family),
                                 mesh)
@@ -5501,7 +5722,7 @@ def fsdp_peak_gb(cfg, mesh_shape) -> dict:
     moments = 2 * sum(n + 4 * r for n, r in zip(blocks, rows))
     grads = params
     total = size(shapes)
-    n = mesh_shape[0] * mesh_shape[1]
+    n = math.prod(mesh_shape)
     parts = [size(layer) for layer in shapes["layers"]] + [
         math.prod(v) for k, v in shapes.items() if k != "layers"]
     part = max(parts)
@@ -5521,10 +5742,11 @@ def sharded_loss(cfg, state, batch, mesh, rules) -> float:
     forward, each part gathered where it is used, as the step does)."""
     specs, _ = param_specs(cfg, rules, mesh)
     with torch.no_grad(), fsdp_mod.sharded_step(mesh, specs, batch.axes,
-                                                batch.shards):
+                                                batch.shards,
+                                                batch.seq_axes):
         lval = loss_fn(state["params"], cfg, batch)
-    return float(collectives.all_reduce(lval, mesh, batch.axes)
-                 / batch.shards)
+    return float(collectives.all_reduce(lval, mesh, batch.axes
+                                        + batch.seq_axes) / batch.shards)
 
 
 def fsdp_family_rank(mesh, job):
@@ -5586,12 +5808,17 @@ def fsdp_family_rank(mesh, job):
             _, loss, norm, _ = one_step(state0, 0)
         out["control_dropped"] = dict(loss=loss, grad_norm=norm)
         if cfg.moe_experts:
-            def own_counts(counts, g0, groups, rank, split):
+            def own_counts(counts, grids, groups, split, rows):
                 return moe_mod.split_offsets(counts[None], 0)
             routes = []           # the first forward, to layer 0's routing
             with patched(moe_mod, "_exchange_offsets", own_counts), \
                     first_route(routes, stop=True):
                 step(state0, batch(0))
+            # the step stopped inside layer 0's checkpoint: torch 2.11's
+            # ``checkpoint`` leaves that block's saved-tensor hooks
+            # pushed until its generator is collected, and the next
+            # forward would pack its tensors into them
+            gc.collect()
             out["control_route"] = routes[0]
         calls, state = [], state0
         out["routes"] = []        # layer 0's routing at each step
@@ -5648,7 +5875,7 @@ def fsdp_family_rank(mesh, job):
 def row_blocks(cfg, mesh_shape) -> int:
     """How many distinct row blocks ``mesh_shape`` splits a
     ``FSDP_BATCH``-row batch into under ``cfg``'s train rules."""
-    mesh = types.SimpleNamespace(shape=dict(zip(AXES, mesh_shape)))
+    mesh = types.SimpleNamespace(shape=axis_sizes(mesh_shape))
     batch = SyntheticLMData(cfg.vocab_size, FSDP_BATCH, 1).batch_at(0)
     spec = batch_specs(batch, make_rules("train", family=cfg.family),
                        mesh)["labels"][0]
@@ -5932,10 +6159,13 @@ def finish_examples(runs: dict):
 # ---------------------------------------------------------------------------
 # Phase 16: the dry run against the card
 # ---------------------------------------------------------------------------
-# (arch, shape, qmode, layers: None for full depth) of the cells whose
-# rank-0 step the meta run predicts and the card then runs
-DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "w8a8", None),
-                ("qwen3-0.6b", "train_4k", "none", 2))
+# (arch, shape, qmode, layers: None for full depth, multi-pod) of the
+# cells whose rank-0 step the meta run predicts and the card then runs;
+# the multi-pod cell is rank 0 of (pod, data, model) = (2, 16, 16), its
+# rows' first 2,048 of 4,096 positions
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", "w8a8", None, False),
+                ("qwen3-0.6b", "train_4k", "none", 2, False),
+                ("qwen3-0.6b", "train_4k", "none", 2, True))
 DRYRUN_PEAK_RTOL = 0.05            # predicted peak vs the card's ...
 DRYRUN_PEAK_ATOL = 64 * 2**20      # ... within 5% + 64 MiB
 # The peak's two parts, each against the card's within 1% + 2 MiB (the
@@ -5991,10 +6221,11 @@ def materialize(tree, device, gen: torch.Generator):
 
 def dryrun_card_cells(conn, cells) -> None:
     """Phase 16's body, in a spawned process of its own (the fake
-    process group is global to a process): for each cell, rank 0's step
-    on the meta device under the 256-rank fake group (the dry run's
-    prediction, ``launch/dryrun.py::measure``), then the same step on the
-    card from the same arguments made real; the card's peak
+    process group is global to a process, so the cells of one world
+    size: 256 ranks on one pod, 512 on two): for each cell, rank 0's step
+    on the meta device under the fake group (the dry run's prediction,
+    ``launch/dryrun.py::measure``), then the same step on the card from
+    the same arguments made real; the card's peak
     (``max_memory_allocated``, reset after a warm step) beside the
     prediction."""
     try:
@@ -6008,15 +6239,16 @@ def dryrun_card_cells(conn, cells) -> None:
         from repro_torch.launch import dryrun as dr
         from repro_torch.launch.mesh import fake_production_mesh
         from repro_torch.parallel.sharding import make_rules, tree_bytes
-        mesh = fake_production_mesh(False)
         setup_s = time.perf_counter() - t_in
         out = []
-        for arch, shape_name, qmode, layers in cells:
+        for arch, shape_name, qmode, layers, multi in cells:
             t0 = time.perf_counter()
             shape = SHAPES[shape_name]
+            mesh = fake_production_mesh(multi, train=shape.kind == "train")
             cfg = get_config(arch, qmode=qmode,
                              **({"n_layers": layers} if layers else {}))
-            rules = make_rules(shape.kind, family=cfg.family)
+            rules = make_rules(shape.kind, multi_pod=multi,
+                               family=cfg.family)
             grad = (torch.enable_grad if shape.kind == "train"
                     else torch.no_grad)
             with grad():
@@ -6048,6 +6280,7 @@ def dryrun_card_cells(conn, cells) -> None:
             torch.cuda.empty_cache()
             out.append(dict(
                 arch=arch, shape=shape_name, qmode=qmode,
+                mesh="2x16x16" if multi else "16x16",
                 layers=layers or cfg.n_layers, n_layers=cfg.n_layers,
                 predicted=pred["memory"], kernels=pred["kernels"],
                 collectives=pred["collectives"], cost=pred["cost"],
@@ -6095,22 +6328,33 @@ def dryrun_phase(smi: str, cells=DRYRUN_CELLS):
     ``DRYRUN_PART_RTOL`` + ``DRYRUN_PART_ATOL`` with its controls outside
     (:func:`dryrun_parts`); K1, K5 and K7 launched."""
     ctx = torch.multiprocessing.get_context("spawn")
-    parent, child = ctx.Pipe()
-    proc = ctx.Process(target=dryrun_card_cells, args=(child, cells),
-                       daemon=True)
-    proc.start()
+    runs = []              # a process a world size, side by side
+    for multi in sorted({c[4] for c in cells}):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=dryrun_card_cells, daemon=True, args=(
+            child, [c for c in cells if c[4] == multi]))
+        proc.start()
+        runs.append((proc, parent))
+    out, errors = [], []
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
     try:
-        if not parent.poll(DRYRUN_TIMEOUT_S):
-            raise RuntimeError(f"phase 16 gave no result in "
-                               f"{DRYRUN_TIMEOUT_S:g} s")
-        status, out = parent.recv()
+        for proc, parent in runs:
+            if not parent.poll(max(deadline - time.monotonic(), 0.1)):
+                raise RuntimeError(f"phase 16 gave no result in "
+                                   f"{DRYRUN_TIMEOUT_S:g} s")
+            status, got = parent.recv()
+            if status == "ok":
+                out += got
+            else:
+                errors.append(got)
     finally:
-        proc.join(10)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    if status != "ok":
-        raise RuntimeError(f"phase 16 failed:\n{out}")
+        for proc, _ in runs:
+            proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    if errors:
+        raise RuntimeError("phase 16 failed:\n" + "\n".join(errors))
     fails, launched = [], {}
     print(f"  card: {smi}")
     for c in out:
@@ -6127,16 +6371,16 @@ def dryrun_phase(smi: str, cells=DRYRUN_CELLS):
                   + ", ".join(f"{k} {g / 2**20:+.2f}"
                               for k, g in part["controls"].items()))
             if abs(part["gap"]) > part["limit"]:
-                fails.append(f"{c['arch']}: {name} {part['gap'] / 2**20:+.2f}"
+                fails.append(f"{c['arch']} {c['mesh']}: {name} {part['gap'] / 2**20:+.2f}"
                              f" MiB off, limit {part['limit'] / 2**20:.2f}")
             for k, g in part["controls"].items():
                 if abs(g) <= part["limit"]:
-                    fails.append(f"{c['arch']}: {name}'s control '{k}' "
+                    fails.append(f"{c['arch']} {c['mesh']}: {name}'s control '{k}' "
                                  f"passed ({g / 2**20:+.2f} MiB)")
         for k, n in c["launches"].items():
             launched[k] = launched.get(k, 0) + n
-        print(f"  {c['arch']} x {c['shape']} ({c['qmode']}, {c['layers']} "
-              f"layers): arguments meta {m['argument_bytes']:,} / card "
+        print(f"  {c['arch']} x {c['shape']} on {c['mesh']} ({c['qmode']}, "
+              f"{c['layers']} layers): arguments meta {m['argument_bytes']:,} / card "
               f"{c['card_argument_bytes']:,} B; peak predicted "
               f"{m['peak_bytes'] / 2**20:.1f} MiB, card "
               f"{c['card_peak_bytes'] / 2**20:.1f} MiB (resident at the "
@@ -6147,9 +6391,9 @@ def dryrun_phase(smi: str, cells=DRYRUN_CELLS):
               f"process's setup {c['setup_s']:.1f} s); "
               f"launches {({k: n for k, n in c['launches'].items() if n})}")
         if c["card_argument_bytes"] != m["argument_bytes"]:
-            fails.append(f"{c['arch']}: argument bytes apart")
+            fails.append(f"{c['arch']} {c['mesh']}: argument bytes apart")
         if abs(gap) > limit:
-            fails.append(f"{c['arch']}: peak {gap / 2**20:+.1f} MiB off, "
+            fails.append(f"{c['arch']} {c['mesh']}: peak {gap / 2**20:+.1f} MiB off, "
                          f"limit {limit / 2**20:.1f}")
     missing = [k for k in DRYRUN_KERNELS if not launched.get(k)]
     if missing:
@@ -6331,7 +6575,8 @@ def smoke(args) -> int:
           f"{', '.join(SLAB_LAYERS)} under the serve rules on (1, 2); "
           f"{SEQ_ARCH} under the decode rules on (1, {SEQ_RANKS}), its int8 "
           f"slab split along the sequence; {MOE_ARCH} on (2, 1), its experts "
-          f"split over data")
+          f"split over data, and on (2, 2) under the hillclimb's B2 "
+          f"(experts over model)")
     int32_rows = int32_sums(timer, gen13)
     gate(int32_rows, "phase 13: K5 / K6a / K6b with int32 out")
     rows += int32_rows
@@ -6349,7 +6594,9 @@ def smoke(args) -> int:
                           for a, v in FSDP_FAMILIES.items()) + " "
               f"(processes sharing the card through gloo), int8 moments and "
               f"gradients, against one process; {TRAIN_ARCH}'s checkpoint "
-              f"restored into one process")
+              f"restored into one process; then "
+              + ", ".join(MULTIPOD_FAMILIES) + " under the multi-pod "
+              f"train rules on {MULTIPOD_MESH}")
         fsdp = fsdp_training(SEED, smi)
         torch.cuda.empty_cache()
     except BaseException:
@@ -6360,10 +6607,11 @@ def smoke(args) -> int:
     lap("14 + 15")
 
     print("[phase 16] the dry run against the card: rank 0's step of "
-          + ", ".join(f"{a} x {s} ({q}{f', {n} layers' if n else ''})"
-                      for a, s, q, n in DRYRUN_CELLS)
-          + " on the meta device under a 256-rank fake process group, then "
-          "on the card")
+          + ", ".join(f"{a} x {s} on {'2x16x16' if m else '16x16'} "
+                      f"({q}{f', {n} layers' if n else ''})"
+                      for a, s, q, n, m in DRYRUN_CELLS)
+          + " on the meta device under a fake process group of the mesh's "
+          "world size, then on the card")
     dry = dryrun_phase(smi)
     lap(16)
 
@@ -6408,6 +6656,8 @@ def smoke(args) -> int:
     counts.update(slab["launches"])
     for arch, part in fsdp["families"].items():
         counts[f"fsdp {arch} rank 0"] = part["launches"]
+    for arch, part in fsdp["multi_pod"].items():
+        counts[f"fsdp multi-pod {arch} rank 0"] = part["launches"]
     kernels = []
     for key, meta in KERNELS.items():
         h = headline[key]

@@ -11,7 +11,9 @@ numpy and yields the reference's batches bit for bit.
   mesh of ranks, only this rank's rows (:class:`RankBatch`), by the specs
   ``spec_for`` gives the batch's dims (:func:`batch_specs`): the batch
   binds ``("data", "model")`` in training (recurrent families ``data``
-  only), and rows the mesh does not divide stay replicated. With
+  only), and rows the mesh does not divide stay replicated; under the
+  multi-pod train rules the sequence binds ``pod``, and a rank holds its
+  block of positions of its rows. With
   ``grad_accum=k`` a rank holds its block of each of the k global
   micro-batches, in order, as the reference's micro-batch i is global
   rows [i·GB/k, (i+1)·GB/k) (an MoE layer routes over each).
@@ -23,6 +25,7 @@ structure to learn.
 """
 from __future__ import annotations
 
+import math
 import queue
 import threading
 from typing import Iterator, Optional
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.parallel.sharding import axes_of, block_view, spec_for
+from repro_torch.parallel.sharding import (_block, axes_of, block_view,
+                                           spec_for)
 
 
 class SyntheticLMData:
@@ -70,28 +74,33 @@ class SyntheticLMData:
 
 
 class RankBatch(dict):
-    """This rank's rows of a batch (:func:`shard_batch` on a mesh).
+    """This rank's block of a batch (:func:`shard_batch` on a mesh).
 
     ``axes``: the mesh axes the rows are split over (empty: every rank
-    holds the whole batch); ``shards``: how many distinct row blocks the
-    mesh holds; ``micro``: how many micro-batches the rows hold (this
-    rank's block of each, in order). The sharded train step reduces its
-    gradients over ``axes`` and divides by ``shards``, so replicated rows
-    count once.
+    holds every row); ``seq_axes``: those the sequence is split over (the
+    multi-pod train rules' ``pod``; empty: every rank holds the whole
+    sequence of its rows); ``shards``: how many distinct blocks of tokens
+    (rows × sequence) the mesh holds; ``micro``: how many micro-batches
+    the rows hold (this rank's block of each, in order); ``start``: the
+    position of the block's first token in its sequence. The sharded
+    train step reduces its gradients over ``axes`` and ``seq_axes`` and
+    divides by ``shards``, so replicated tokens count once.
     """
 
     def __init__(self, rows: dict, axes: tuple, shards: int,
-                 micro: int = 1):
+                 micro: int = 1, seq_axes: tuple = (), start: int = 0):
         super().__init__(rows)
         self.axes, self.shards = tuple(axes), int(shards)
         self.micro = int(micro)
+        self.seq_axes, self.start = tuple(seq_axes), int(start)
 
 
 def batch_specs(batch: dict, rules, mesh, grad_accum: int = 1) -> dict:
     """The spec of each array of a host batch: dims named ``("batch",
-    "seq")`` (embedding inputs: ``+ ("embed",)``); with ``grad_accum``,
-    of each of its micro-batches."""
-    names = ("batch", "seq", "embed")
+    "seq_act")`` (embedding inputs: ``+ ("embed",)``), as the reference's
+    dry run names them; with ``grad_accum``, of each of its micro-batches.
+    Only the multi-pod train rules bind ``seq_act`` (to ``pod``)."""
+    names = ("batch", "seq_act", "embed")
 
     def shape(v):
         gb = np.shape(v)[0]
@@ -103,14 +112,24 @@ def batch_specs(batch: dict, rules, mesh, grad_accum: int = 1) -> dict:
             for k, v in batch.items()}
 
 
+def _split_of(specs: dict, dim: int, mesh) -> tuple:
+    """(the axes every array's ``dim`` binds, their rank count)."""
+    bound = {specs[k][dim] for k in specs}
+    if len(bound) != 1:
+        raise ValueError(f"the arrays' dim {dim} binds apart: {bound}")
+    axes = axes_of(bound.pop())
+    return axes, math.prod(mesh.shape[a] for a in axes)
+
+
 def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
                 device=None, grad_accum: int = 1) -> dict:
     """A host batch of numpy arrays → tensors on ``device`` (default: the
     card; see :func:`repro_torch.device.resolve_device`; on a mesh, the
     mesh's device). With ``mesh`` and ``specs`` (:func:`batch_specs` with
-    the same ``grad_accum``): this rank's block of every array, of each
-    micro-batch in turn, as a :class:`RankBatch`; every array's batch
-    dim must bind the same axes."""
+    the same ``grad_accum``): this rank's block of every array (its rows,
+    and under the multi-pod train rules its block of the sequence), of
+    each micro-batch in turn, as a :class:`RankBatch`; every array's
+    batch dim must bind the same axes, and so must its sequence dim."""
     if mesh is None:
         if specs is not None:
             raise ValueError("specs without a mesh")
@@ -120,13 +139,10 @@ def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
     if specs is None:
         raise ValueError("a mesh needs the batch's specs (batch_specs)")
     device = mesh.device if device is None else torch.device(device)
-    rows = {specs[k][0] for k in batch}
-    if len(rows) != 1:
-        raise ValueError(f"the arrays' batch dims bind apart: {rows}")
-    axes = axes_of(rows.pop())
-    shards = 1
-    for a in axes:
-        shards *= mesh.shape[a]
+    axes, rows = _split_of(specs, 0, mesh)
+    seq_axes, blocks = _split_of(specs, 1, mesh)
+    seq_len = {np.shape(v)[1] for v in batch.values()}.pop()
+    start = _block(seq_axes, mesh.coords, mesh)[0] * (seq_len // blocks)
 
     def rows_of(v, spec):
         v = torch.from_numpy(np.asarray(v))
@@ -137,7 +153,7 @@ def shard_batch(batch: dict, mesh=None, specs: Optional[dict] = None, *,
                           for x in v.chunk(grad_accum)]).contiguous().to(
                               device)
     return RankBatch({k: rows_of(v, specs[k]) for k, v in batch.items()},
-                     axes, shards, grad_accum)
+                     axes, rows * blocks, grad_accum, seq_axes, start)
 
 
 class Prefetcher:

@@ -8,8 +8,10 @@ cost analyses. There is no compiler to ask here, so the port runs rank
 
   1. joins a fake process group of the production world size (256 ranks
      on one pod, 512 on two) and takes rank 0's mesh
-     (:func:`repro_torch.launch.mesh.fake_production_mesh`; each mesh shape
-     in a process of its own);
+     (:func:`repro_torch.launch.mesh.fake_production_mesh`: (16, 16); on
+     two pods (2, 16, 16) for the train rules, whose ``seq_act`` puts the
+     sequence on ``pod``, and (32, 16) for the serve rules; each world
+     size in a process of its own);
   2. builds rank 0's blocks of the params, optimizer state, caches and
      inputs on the ``meta`` device (shapes, no data), from the specs the
      port's sharded paths use (``slab_shards`` / ``shard_tree`` /
@@ -41,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import multiprocessing
 import time
 import traceback
@@ -60,10 +63,10 @@ from repro_torch.launch.mesh import fake_production_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import init_params, quantize_params
 from repro_torch.optim.adamw import adamw
-from repro_torch.parallel.sharding import (block_view, make_rules,
-                                           mesh_context, named, shard_tree,
-                                           spec_for, train_state_pspecs,
-                                           tree_bytes)
+from repro_torch.parallel.sharding import (_block, axes_of, block_view,
+                                           make_rules, mesh_context, named,
+                                           shard_tree, spec_for,
+                                           train_state_pspecs, tree_bytes)
 from repro_torch.serving.engine import (build_decode_step,
                                         build_prefill_step,
                                         init_serve_caches, slab_context,
@@ -79,20 +82,12 @@ HBM_BYTES = 81559 * 2**20
 
 BIG_PARAM_THRESHOLD = 20e9   # int8 optimizer moments above this
 
-ROADMAP_12B = ("multi-pod training puts seq_act on pod (sequence-sharded "
-               "activations), which the port's train step does not have: "
-               "ROADMAP item 12b")
-
-
 # ---------------------------------------------------------------------------
 # Input and state specs
 # ---------------------------------------------------------------------------
 def batch_specs(cfg: ModelConfig, batch: int, seq: int, rules, mesh):
-    """(whole meta inputs and labels, their specs) of a train batch.
-    Rules that put ``seq_act`` on an axis the mesh lacks (the multi-pod
-    train rules' ``pod``: sequence-sharded activations) raise."""
-    if any(a not in mesh.shape for a in rules.get("seq_act", ())):
-        raise NotImplementedError(ROADMAP_12B)
+    """(whole meta inputs and labels, their specs) of a train batch: the
+    multi-pod train rules put its sequence (``seq_act``) on ``pod``."""
     if cfg.embedding_inputs:
         inp = torch.empty((batch, seq, cfg.d_model), dtype=torch.bfloat16,
                           device="meta")
@@ -145,14 +140,12 @@ def build_train_cell(cfg: ModelConfig, shape, mesh, rules):
                                     mesh))
     whole, specs = batch_specs(cfg, shape.global_batch, shape.seq_len,
                                rules, mesh)
-    axes = specs["labels"][0]
-    axes = () if axes is None else (axes,) if isinstance(axes, str) \
-        else tuple(axes)
-    shards = 1
-    for a in axes:
-        shards *= mesh.shape[a]
+    axes, seq_axes = (axes_of(e) for e in specs["labels"])
+    seq_idx, seq_n = _block(seq_axes, mesh.coords, mesh)
+    shards = math.prod(mesh.shape[a] for a in axes + seq_axes)
     batch = RankBatch({k: _rows(v, specs[k], mesh) for k, v in whole.items()},
-                      axes, shards)
+                      axes, shards, seq_axes=seq_axes,
+                      start=seq_idx * shape.seq_len // seq_n)
 
     def run(state, batch):
         with mesh_context(mesh, rules, mode="train"):
@@ -517,8 +510,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     cfg = get_config(arch, qmode=qmode)
     if cfg_override:
         cfg = dataclasses.replace(cfg, **cfg_override)
-    mesh = fake_production_mesh(multi_pod)
-    n_dev = mesh.shape["data"] * mesh.shape["model"]
+    mesh = fake_production_mesh(multi_pod, train=shape.kind == "train")
+    n_dev = math.prod(mesh.shape.values())
     rules = make_rules(mode=shape.kind, multi_pod=multi_pod,
                        family=cfg.family)
     if rules_override:

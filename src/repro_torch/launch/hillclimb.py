@@ -19,9 +19,11 @@ and overrides:
        → C3 flash attention: an analytic memory-term entry marked
          ``modeled`` (K8 is on no model path of the port either).
 
-B2 records ``FAIL``: the port's dense-slab MoE splits the experts over
-data (``models.moe.expert_split``), and experts over model raise
-``NotImplementedError`` (ROADMAP item 12b).
+B2's override moves no weight (the reference's ``params_pspecs`` matches
+an expert stack by the dense MLP's patterns first, so every expert's
+columns stay over model): each model rank gathers its block of experts
+whole over model for every step and runs it on its data rank's
+``expert_ff`` block (``models.moe.experts_over_model``).
 
 Usage:  PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell A
 """

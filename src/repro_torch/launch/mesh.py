@@ -6,11 +6,13 @@ joined to the others through ``torch.distributed``:
 
 * :func:`init_rank` joins the process group with an explicit backend and
   ``init_method`` (nothing on the machine announces a cluster);
-* :func:`make_mesh` returns this rank's :class:`RankMesh` of a (data,
-  model) shape (the counterpart of ``make_test_mesh(shape, axes)``): its
-  coordinates, rank ``data_index * model + model_index``, and a process
-  subgroup along each axis (its row of the model axis, its column of the
-  data axis); a serving mesh of ``tp`` ranks is ``make_mesh((1, tp))``;
+* :func:`make_mesh` returns this rank's :class:`RankMesh` of a (pod,
+  data, model) shape (the counterpart of ``make_test_mesh(shape,
+  axes)``; a (data, model) shape has one pod): its coordinates, its rank
+  row-major over them, and a process subgroup over each set of axes (its
+  row of the model axis, its column of the data axis, its pod pair, the
+  ranks of its (pod, data) plane ...); a serving mesh of ``tp`` ranks is
+  ``make_mesh((1, tp))``;
 * :func:`spawn_ranks` starts the rank processes (the ``spawn`` start
   method), runs a function in each and returns their results, failing
   loudly on any error or past its timeout;
@@ -27,6 +29,8 @@ card unless the caller asks for the CPU (:mod:`repro_torch.device`).
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import queue as queue_mod
 import time
@@ -79,25 +83,49 @@ def init_rank(rank: int, world: int, *, init_method: str,
     return device
 
 
-AXES = ("data", "model")
+AXES = ("pod", "data", "model")
+
+
+def axis_sizes(shape) -> dict:
+    """``(d, m)``, ``(p, d, m)`` or a dict of axis sizes → a size for each
+    of :data:`AXES` (an axis left out is 1)."""
+    if not isinstance(shape, dict):
+        shape = tuple(shape)
+        if len(shape) not in (2, 3):
+            raise ValueError(f"mesh shape {shape}: (d, m) or (p, d, m)")
+        shape = dict(zip(AXES[3 - len(shape):], shape))
+    unknown = set(shape) - set(AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}: of {AXES}")
+    return {a: int(shape.get(a, 1)) for a in AXES}
+
+
+def _live(axes, shape) -> tuple:
+    """The axes of ``axes`` longer than one, in mesh order."""
+    return tuple(a for a in AXES if a in axes and shape[a] > 1)
 
 
 class RankMesh:
-    """This rank's view of a (data, model) mesh of ranks.
+    """This rank's view of a (pod, data, model) mesh of ranks.
 
-    ``shape``: ``{"data": d, "model": m}``; ``rank``: this rank's index in
-    ``group`` (all the mesh's ranks), ``coords["data"] * m +
-    coords["model"]``; ``groups``: for each axis longer than one, the
-    subgroup of the ranks that differ from this one only along it, its
-    members in the order of their coordinate.
+    ``shape``: ``{"pod": p, "data": d, "model": m}`` (an axis left out of
+    the given shape is 1); ``rank``: this rank's index in ``group`` (all
+    the mesh's ranks), row-major over the coordinates, ``(pod · d + data)
+    · m + model``; ``groups``: for each set of axes longer than one that
+    is not all of them, the subgroup of the ranks that differ from this
+    one only along those axes, its members row-major over their
+    coordinates. A single axis's group is keyed by its name, a set by the
+    tuple of its names in mesh order.
     """
 
     def __init__(self, shape: dict, rank: int, group, groups: dict,
                  device: torch.device):
-        self.shape = {a: int(shape[a]) for a in AXES}
+        self.shape = axis_sizes(shape)
         self.rank = rank
-        m = self.shape["model"]
-        self.coords = {"data": rank // m, "model": rank % m}
+        coords, r = {}, rank
+        for a in reversed(AXES):
+            r, coords[a] = divmod(r, self.shape[a])
+        self.coords = {a: coords[a] for a in AXES}
         self.group = group
         self.groups = dict(groups)
         self.device = device
@@ -105,19 +133,18 @@ class RankMesh:
     def group_of(self, axes):
         """The subgroup over ``axes`` (longer-than-one axes only): None if
         none is left, the whole mesh's group if every such axis is in."""
-        live = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        live = _live(axes, self.shape)
         if not live:
             return None
-        if len(live) == sum(self.shape[a] > 1 for a in AXES):
+        if live == _live(AXES, self.shape):
             return self.group
-        return self.groups[live[0]]
+        return self.groups[live[0] if len(live) == 1 else live]
 
     def member_coords(self, axes, j: int) -> dict:
         """The coordinates of member ``j`` of :meth:`group_of` ``(axes)``:
         this rank's, with the group's axes taken row-major from ``j``."""
         coords = dict(self.coords)
-        for a in reversed([a for a in AXES
-                           if a in axes and self.shape[a] > 1]):
+        for a in reversed(_live(axes, self.shape)):
             j, coords[a] = divmod(j, self.shape[a])
         return coords
 
@@ -126,36 +153,42 @@ class RankMesh:
                 f"{dist.get_backend(self.group)} on {self.device})")
 
 
+def _subsets(live: tuple) -> list:
+    """Every set of the ``live`` axes but the empty one and all of them,
+    in one order (single axes first)."""
+    return [c for size in range(1, len(live))
+            for c in itertools.combinations(live, size)]
+
+
 def make_mesh(shape, *, device=None) -> RankMesh:
-    """This rank's (data, model) mesh over the joined process group (call
-    :func:`init_rank` first); ``shape``: ``(d, m)`` or ``{"data": d,
-    "model": m}``, d·m the world size. Every rank creates every subgroup,
-    in one order (``dist.new_group`` must be called so)."""
+    """This rank's (pod, data, model) mesh over the joined process group
+    (call :func:`init_rank` first); ``shape``: ``(d, m)``, ``(p, d, m)``
+    or a dict of axis sizes, p·d·m the world size. Every rank creates
+    every subgroup, in one order (``dist.new_group`` must be called so)."""
     if not dist.is_initialized():
         raise RuntimeError("join the process group first (init_rank)")
-    if not isinstance(shape, dict):
-        shape = dict(zip(AXES, shape))
-    d, m = int(shape["data"]), int(shape["model"])
+    shape = axis_sizes(shape)
+    size = math.prod(shape.values())
     world = dist.get_world_size()
-    if d * m != world:
-        raise ValueError(f"a {d} x {m} mesh needs {d * m} ranks, not {world}")
+    if size != world:
+        raise ValueError(f"a {tuple(shape.values())} mesh needs {size} "
+                         f"ranks, not {world}")
     rank = dist.get_rank()
+    coords = [RankMesh(shape, r, None, {}, None).coords for r in range(size)]
     groups = {}
-    if d > 1 and m > 1:
-        rows = [dist.new_group([i * m + j for j in range(m)])
-                for i in range(d)]
-        cols = [dist.new_group([i * m + j for i in range(d)])
-                for j in range(m)]
-        groups = {"model": rows[rank // m], "data": cols[rank % m]}
-    elif m > 1:
-        groups = {"model": dist.group.WORLD}
-    elif d > 1:
-        groups = {"data": dist.group.WORLD}
+    for axes in _subsets(_live(AXES, shape)):
+        rest = [a for a in AXES if a not in axes]
+        members = {}         # the coordinates off ``axes`` → the ranks
+        for r, c in enumerate(coords):
+            members.setdefault(tuple(c[a] for a in rest), []).append(r)
+        for key, ranks in members.items():
+            grp = dist.new_group(ranks)
+            if key == tuple(coords[rank][a] for a in rest):
+                groups[axes[0] if len(axes) == 1 else axes] = grp
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return RankMesh({"data": d, "model": m}, rank, dist.group.WORLD, groups,
-                    device)
+    return RankMesh(shape, rank, dist.group.WORLD, groups, device)
 
 
 def _to_host(x):
@@ -194,8 +227,8 @@ def spawn_ranks(fn: Callable[..., Any], world: int, *, init_dir: str,
                 shape=None) -> List[Any]:
     """Run ``fn(mesh, *args)`` in ``world`` rank processes → the results
     in rank order (their tensors as numpy arrays). ``mesh`` is this rank's
-    :func:`make_mesh` of ``shape`` (d, m), by default (1, ``world``): the
-    serving mesh, every rank on the model axis.
+    :func:`make_mesh` of ``shape`` ((d, m) or (p, d, m)), by default (1,
+    ``world``): the serving mesh, every rank on the model axis.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path); each rank
     joins through a file under ``init_dir`` (a fresh directory of the
@@ -252,37 +285,42 @@ def spawn_ranks(fn: Callable[..., Any], world: int, *, init_dir: str,
     return [got[r] for r in range(world)]
 
 
-def production_shape(multi_pod: bool = False) -> tuple:
-    """The (data, model) shape of the production mesh: (16, 16) on one
-    pod; (32, 16) on two, where the reference's (pod, data, model) is (2,
-    16, 16). Every serve, prefill and decode rule binds ``pod`` only
-    together with ``data`` (``parallel.sharding.make_rules``), so a
-    rank's blocks are the same on both."""
-    return (32, 16) if multi_pod else (16, 16)
+def production_shape(multi_pod: bool = False, train: bool = False
+                     ) -> tuple:
+    """The shape of the production mesh: (16, 16) (data, model) on one
+    pod. On two, the train rules' (2, 16, 16) (pod, data, model): their
+    ``seq_act`` takes the pod axis alone. The serve, prefill and decode
+    rules bind ``pod`` only together with ``data``
+    (``parallel.sharding.make_rules``), so their cells take (32, 16),
+    whose rank blocks are the reference's on (2, 16, 16)."""
+    if not multi_pod:
+        return (16, 16)
+    return (2, 16, 16) if train else (32, 16)
 
 
-def fake_production_mesh(multi_pod: bool = False, *, device="meta"
-                         ) -> RankMesh:
+def fake_production_mesh(multi_pod: bool = False, *, train: bool = False,
+                         device="meta") -> RankMesh:
     """Rank 0's :class:`RankMesh` of :func:`production_shape` under a fake
     process group (``torch.testing._internal.distributed.fake_pg``) of its
     world size, joined here unless this process has joined it already:
     every collective takes tensors of any device and moves nothing. The
-    process group is global to a process, so each mesh shape runs in a
+    process group is global to a process, so each world size runs in a
     process of its own (a joined group of another size raises)."""
-    d, m = production_shape(multi_pod)
+    shape = production_shape(multi_pod, train)
+    world = math.prod(shape)
     if not dist.is_initialized():
         from torch.testing._internal.distributed.fake_pg import FakeStore
         dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=d * m)
+                                world_size=world)
     elif (dist.get_backend() != "fake"
-          or dist.get_world_size() != d * m):
+          or dist.get_world_size() != world):
         raise RuntimeError(
             f"this process joined a {dist.get_backend()} group of "
-            f"{dist.get_world_size()} ranks; the {d} x {m} mesh needs a fake "
-            "one of its own (run each mesh shape in a process of its own)")
-    if (d, m) not in _FAKE:       # the subgroups, made once a process
-        _FAKE[(d, m)] = make_mesh((d, m), device="cpu")
-    mesh = _FAKE[(d, m)]
+            f"{dist.get_world_size()} ranks; the {shape} mesh needs a fake "
+            "one of its own (run each world size in a process of its own)")
+    if shape not in _FAKE:       # the subgroups, made once a process
+        _FAKE[shape] = make_mesh(shape, device="cpu")
+    mesh = _FAKE[shape]
     return RankMesh(mesh.shape, mesh.rank, mesh.group, mesh.groups,
                     resolve_device(device))
 

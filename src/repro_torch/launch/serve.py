@@ -152,7 +152,8 @@ def _serve_rank(mesh, args) -> None:
     cfg = get_config(args.arch, reduced=args.reduced, qmode=args.qmode)
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
     tp_eff = effective_model_shards(mesh, cfg.n_kv_heads)
-    say(f"[serve] mesh {dict(mesh.shape)}; kv-head sharding: "
+    shape = {a: n for a, n in mesh.shape.items() if a != "pod" or n > 1}
+    say(f"[serve] mesh {shape}; kv-head sharding: "
         f"{tp_eff if tp_eff > 1 else 'replicated'}")
     say(f"[serve] {tp} ranks, {torch.distributed.get_backend(mesh.group)} "
         f"on {mesh.device}")

@@ -40,6 +40,14 @@ and ``wo`` takes the rank's block of the attention output's columns as
 its rows (:func:`~repro_torch.models.modules.row_linear`); every value
 is one process's, bit for bit, in the integer modes.
 
+**A sequence split in training.** Under the multi-pod train rules a rank
+holds its block of positions (``parallel.fsdp.seq_split``): it projects
+q/k/v on its block (rope at the global positions), gathers k and v over
+``pod`` (``collectives.gather_seq``, whose backward sums the pods'
+gradients of each block), and attends its own queries over the whole
+sequence, q-chunked as before; only its block of the output reaches
+``wo``. Each query row is the one one process computes.
+
 **A sequence-split slab.** Under the dense slab's prefill / decode rules,
 where the model axis does not divide the kv heads, each rank's
 :class:`DenseKVCache` holds its block of positions (``start``, whole
@@ -64,7 +72,9 @@ from repro_torch.kernels.paged_prefill import (paged_prefill_attention,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (apply_rope, linear, rms_norm,
                                         rope_freqs, row_linear)
-from repro_torch.parallel.collectives import all_gather_last, all_reduce
+from repro_torch.parallel.collectives import (all_gather_last, all_reduce,
+                                              gather_seq)
+from repro_torch.parallel.fsdp import seq_split
 from repro_torch.parallel.sharding import dense_ctx, sharded, tp_mesh
 from repro_torch.serving.kv_cache import (DEFAULT_PAGE_SIZE, DenseKVCache,
                                           PagedDecodeCache, PagedPrefillCache)
@@ -229,6 +239,14 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
                                                device=x.device)
             k_len = cache_pos + 1
 
+    q_pos = k_pos
+    split = seq_split() if cache is None else None
+    if split is not None:     # this rank's queries over the whole sequence
+        kv_all = gather_seq(torch.cat([k, v], dim=-1), split.mesh,
+                            split.seq_axes)
+        k_all, v_all = kv_all.split(hd, dim=-1)
+        k_pos = torch.arange(k_all.shape[1], device=x.device)
+
     qg = q.reshape(b, s, kv, g, hd)
     chunk = cfg.attn_q_chunk
     if cache is not None and s == 1:
@@ -245,10 +263,10 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor,
             raise ValueError(f"sequence {s} is not a multiple of "
                              f"attn_q_chunk {chunk}")
         out = torch.cat([_grouped_attn(qg[:, i:i + chunk], k_all, v_all,
-                                       k_pos[i:i + chunk], k_pos)
+                                       q_pos[i:i + chunk], k_pos)
                          for i in range(0, s, chunk)], dim=1)
     else:
-        out = _grouped_attn(qg, k_all, v_all, k_pos, k_pos)
+        out = _grouped_attn(qg, k_all, v_all, q_pos, k_pos)
     return out_proj(out.reshape(b, s, h * hd)), new_cache
 
 

@@ -130,8 +130,7 @@ def row_parallel_linear(x: torch.Tensor, w, *, mesh, axis: str = "model",
     return reduce_partials(y, mesh, axis, quantized_reduce).to(x.dtype)
 
 
-def row_absmax(h2: torch.Tensor, mesh, axis: str = "model"
-               ) -> torch.Tensor:
+def row_absmax(h2: torch.Tensor, mesh, axis="model") -> torch.Tensor:
     """h2 (M, K/tp), this rank's block of each row → (M, 1) the whole
     row's absmax, in h2's dtype: the block's, MAX-reduced over ``axis``
     (exact: it is one of the row's values)."""
@@ -140,14 +139,15 @@ def row_absmax(h2: torch.Tensor, mesh, axis: str = "model"
 
 
 def quantize_whole_rows(h2: torch.Tensor, mesh, *, a4: bool,
-                        impl: str = "auto"):
+                        impl: str = "auto", axis="model"):
     """This rank's (M, K/tp) block of each row, quantized as one process
     quantizes the whole row: K7 over the block with one more column
-    holding the row's absmax (:func:`row_absmax`), so the scale and every
-    value are the whole row's, bit for bit → (int8 q (M, K/tp), packed
-    along K for ``a4`` (w4a4), f32 scales (M, 1))."""
+    holding the row's absmax (:func:`row_absmax` over ``axis``, the axes
+    splitting the rows), so the scale and every value are the whole
+    row's, bit for bit → (int8 q (M, K/tp), packed along K for ``a4``
+    (w4a4), f32 scales (M, 1))."""
     q, s = ops.quantize_rowwise(
-        torch.cat([h2, row_absmax(h2, mesh)], dim=-1).contiguous(),
+        torch.cat([h2, row_absmax(h2, mesh, axis)], dim=-1).contiguous(),
         bits=4 if a4 else 8, impl=impl)
     q = q[:, :-1]
     return (pack_int4(q.T).T if a4 else q).contiguous(), s

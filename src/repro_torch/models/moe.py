@@ -59,6 +59,19 @@ brings the outputs back for the combine (the eager counterpart of the
 reference's ``logical(xe, "moe_group", "expert", ...)``). The expert
 weights stay whole over data, as the reference places them.
 
+Under the multi-pod train rules a rank's tokens are not one run: its
+rows' block of the sequence is one run a row, the other pods' runs
+between them in token order (:func:`token_runs`). Each run takes its own
+rows of the grid, and its offsets count every run before it in the
+global token order (:func:`_exchange_offsets`), so the slots are one
+process's.
+
+Under the hillclimb's B2 rules (``expert`` over model, ``expert_ff`` over
+data) the weights stay where the reference's ``params_pspecs`` puts them
+(every expert's columns over model): model rank j gathers experts block
+j whole over model, keeps its data rank's ``expert_ff`` block, and runs
+it on every data rank's slots (:func:`_experts_over_model`).
+
 The reference's other sharding annotations (``logical(...)``) are GSPMD
 layout hints with no eager counterpart and are left out.
 """
@@ -163,7 +176,7 @@ def _expert_matmul(xe: torch.Tensor, w, qmode: str,
 
 
 def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
-                  mesh) -> torch.Tensor:
+                  mesh, axis="model") -> torch.Tensor:
     """This rank's f32 partial of the down projection: h (..., E, C,
     F/tp) its block of every expert's rows, ``w`` its (E, F/tp, D) rows →
     (..., E, C, D) f32.
@@ -185,7 +198,7 @@ def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
     h2 = h.reshape(-1, e, c, kk).transpose(0, 1).reshape(-1, kk)
     rows = h2.shape[0] // e                                       # L*C
     a4 = w.bits == 4 and qmode == "w4a4"
-    q, s = quantize_whole_rows(h2, mesh, a4=a4, impl=impl)
+    q, s = quantize_whole_rows(h2, mesh, a4=a4, impl=impl, axis=axis)
     parts, kw = [], dict(out_dtype=torch.float32, impl=impl)
     for ei in range(e):
         a, sa = q[ei * rows:(ei + 1) * rows], s[ei * rows:(ei + 1) * rows]
@@ -202,7 +215,7 @@ def _down_partial(h: torch.Tensor, w, qmode: str, impl: str,
 
 
 def _down_whole(h: torch.Tensor, w, qmode: str, impl: str,
-                mesh) -> torch.Tensor:
+                mesh, axis="model") -> torch.Tensor:
     """The dense slab's down projection, as GSPMD runs the reference's
     expert einsum on K-sharded rows: h (..., E, C, F/tp) this rank's block
     of every expert's rows, ``w`` its (E, F/tp, D) rows → the whole (...,
@@ -212,17 +225,19 @@ def _down_whole(h: torch.Tensor, w, qmode: str, impl: str,
     the layer's rows), take K5 / K6a / K6b's int32 sums unflushed per
     expert, add them over the ranks (exact) and flush: one process's
     expert outputs, bit for bit. The float and weight-only modes add f32
-    partials (:func:`_down_partial`) and round once."""
+    partials (:func:`_down_partial`) and round once. ``axis``: the axes
+    that split the rows (the model axis; the data axes under the
+    hillclimb's B2 rules)."""
     if not isinstance(w, QuantizedTensor) or qmode in ("w8a16", "w4a16",
                                                         "none"):
-        return reduce_partials(_down_partial(h, w, qmode, impl, mesh),
-                               mesh).to(h.dtype)
+        return reduce_partials(_down_partial(h, w, qmode, impl, mesh, axis),
+                               mesh, axis).to(h.dtype)
     lead = h.shape[:-3]
     e, c, kk = h.shape[-3:]
     h2 = h.reshape(-1, e, c, kk).transpose(0, 1).reshape(-1, kk)
     rows = h2.shape[0] // e                                       # L*C
     a4 = w.bits == 4 and qmode == "w4a4"
-    q, s = quantize_whole_rows(h2, mesh, a4=a4, impl=impl)
+    q, s = quantize_whole_rows(h2, mesh, a4=a4, impl=impl, axis=axis)
     acc = torch.stack([gemm_acc(q[ei * rows:(ei + 1) * rows],
                                 s[ei * rows:(ei + 1) * rows],
                                 QuantizedTensor(q=w.q[ei], scale=w.scale[ei],
@@ -230,7 +245,7 @@ def _down_whole(h: torch.Tensor, w, qmode: str, impl: str,
                                                 shape=tuple(w.shape[1:])),
                                 kk, a4=a4, impl=impl)
                        for ei in range(e)])                       # (E,L*C,N)
-    acc = all_reduce(acc, mesh, "model")
+    acc = all_reduce(acc, mesh, axis)
     y = ops.flush(acc, s.reshape(e, rows, 1), w.scale,
                   out_dtype=torch.float32)
     n = y.shape[-1]
@@ -302,6 +317,27 @@ def run_grid(first: int, t: int, sg: int):
     return g0, (first + t - 1) // sg - g0 + 1, first - g0 * sg
 
 
+def token_runs(split, b: int, s: int, coords=None) -> list:
+    """The runs of the global token array (rows × sequence, row-major)
+    that the rank at ``coords`` (default: this rank) holds under
+    ``split`` (a :class:`~repro_torch.parallel.sharding.Split`), each
+    ``(first token, length)``, in its own token order: its ``b`` rows of
+    ``s`` positions. One run where it holds whole rows; one a row where
+    it holds a block of the sequence (the multi-pod train rules), the
+    other sequence blocks' runs between them."""
+    row, _, blk, blocks = split.blocks(coords)
+    if blocks == 1:
+        return [(row * b * s, b * s)]
+    whole = s * blocks
+    return [((row * b + i) * whole + blk * s, s) for i in range(b)]
+
+
+def _run_order(firsts) -> list:
+    """The runs of every rank (members in the group's order, each rank's
+    runs in its order) sorted into global token order: their indices."""
+    return sorted(range(len(firsts)), key=lambda i: firsts[i])
+
+
 def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
             qmode: str = "none", impl: str = "auto"):
     """x: (B, S, D) → (y (B, S, D), Switch load-balance aux loss). Under
@@ -314,7 +350,7 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     e, k = cfg.moe_experts, cfg.moe_top_k
     t = b * s
     split = batch_split() or data_split()
-    n, rank = (1, 0) if split is None else split[2:]
+    n = 1 if split is None else split.n
     sg = routing_group_size(n * t)
     cap = expert_capacity(sg, cfg)
     refuse_tf32(x, "the MoE router")
@@ -322,9 +358,16 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     if split is None:
         g, cells = t // sg, None
         xg = x.reshape(g, sg, d)
-    else:         # this rank's tokens on the grid of the groups they meet
-        g0, g, lo = run_grid(rank * t, t, sg)
-        cells = torch.arange(lo, lo + t, device=x.device)
+    else:    # each run of this rank's tokens on the grid of its groups
+        runs = token_runs(split, b, s)
+        grids = [run_grid(first, length, sg) for first, length in runs]
+        g = sum(gl for _, gl, _ in grids)
+        starts = [sg * sum(gl for _, gl, _ in grids[:u])
+                  for u in range(len(runs))]
+        cells = torch.cat([torch.arange(at + lo, at + lo + length,
+                                        device=x.device)
+                           for at, (_, _, lo), (_, length)
+                           in zip(starts, grids, runs)])
         xg = x.new_zeros(g * sg, d).index_copy(0, cells, x.reshape(t, d))
         xg = xg.reshape(g, sg, d)
     gates = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
@@ -334,7 +377,8 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         mask = torch.zeros(g * sg, dtype=torch.int32, device=x.device)
         mask = mask.index_fill(0, cells, 1).reshape(g, sg)
         slots, weights = _route(gates, k, cap, mask, _exchange_offsets(
-            level_counts(gates, k, mask), g0, n * t // sg, rank, split))
+            level_counts(gates, k, mask), grids, n * t // sg, split,
+            (b, s)))
         slots = torch.where(mask[..., None].bool(), slots, e * cap)
 
     # slot → token map; the sentinel token index sg reads a zero row
@@ -350,22 +394,27 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     xe = torch.gather(xpad, 1, idx).reshape(g, e, cap, d)
 
     ep = expert_split(cfg)
+    b2 = None if ep is not None else experts_over_model(cfg)
     experts = p["experts"]
-    if ep is not None:       # this data rank's experts, every rank's slots
-        xe, experts = _to_expert_ranks(xe, experts, ep, t, sg)
-    gate = _expert_matmul(xe, experts["w_gate"], qmode, impl)
-    up = _expert_matmul(xe, experts["w_up"], qmode, impl)
-    h = F.silu(gate.float()).to(x.dtype) * up
-    mesh = tp_mesh()[0] if sharded("experts") else None
-    if mesh is None:
-        ye = _expert_matmul(h, experts["w_down"], qmode, impl)
-    elif dense_ctx() is not None:     # GSPMD's: the slab whole, then combine
-        ye = _down_whole(h, experts["w_down"], qmode, impl, mesh)
-        mesh = None
+    mesh = None
+    if b2 is not None:       # the model rank's experts, every rank's slots
+        ye = _experts_over_model(xe, experts, b2, t, sg, qmode, impl)
     else:
-        ye = _down_partial(h, experts["w_down"], qmode, impl, mesh)
-    if ep is not None:       # the slots' outputs back to their tokens' rank
-        ye = _from_expert_ranks(ye, ep, g)
+        if ep is not None:   # this data rank's experts, every rank's slots
+            xe, experts = _to_expert_ranks(xe, experts, ep, t, sg)
+        gate = _expert_matmul(xe, experts["w_gate"], qmode, impl)
+        up = _expert_matmul(xe, experts["w_up"], qmode, impl)
+        h = F.silu(gate.float()).to(x.dtype) * up
+        mesh = tp_mesh()[0] if sharded("experts") else None
+        if mesh is None:
+            ye = _expert_matmul(h, experts["w_down"], qmode, impl)
+        elif dense_ctx() is not None:  # GSPMD's: the slab whole, then combine
+            ye = _down_whole(h, experts["w_down"], qmode, impl, mesh)
+            mesh = None
+        else:
+            ye = _down_partial(h, experts["w_down"], qmode, impl, mesh)
+        if ep is not None:   # the slots' outputs back to their tokens' rank
+            ye = _from_expert_ranks(ye, ep, g)
 
     # combine: gather each token's k expert outputs, weight, sum in f32
     ye_pad = torch.cat([ye.reshape(g, e * cap, d), ye.new_zeros(g, 1, d)],
@@ -388,7 +437,7 @@ def moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     # gradients, in the backward), over its token count
     sums = torch.stack([top1.reshape(-1, e)[cells].sum(dim=0),
                         gates.reshape(-1, e)[cells].sum(dim=0)])
-    frac, mean_gate = psum_grad(sums, split[0], split[1]) / (n * t)
+    frac, mean_gate = psum_grad(sums, split.mesh, split.axes) / (n * t)
     aux = e * torch.sum(frac * mean_gate)
     return y.reshape(-1, d)[cells].reshape(b, s, d), aux
 
@@ -399,18 +448,136 @@ def expert_split(cfg: ModelConfig):
     their rank count n, this rank's index), when n divides the experts:
     each data rank then runs the expert GEMMs of its E/n experts; else
     None (every rank runs every expert on its own slots). Rules that put
-    the experts over the model axis raise ``NotImplementedError``."""
+    the experts over the model axis take :func:`experts_over_model`."""
     split = data_split()
-    if split is None:
+    if split is None or "model" in dense_ctx().rules.get("expert", ()):
         return None
-    if "model" in dense_ctx().rules.get("expert", ()):
-        raise NotImplementedError(
-            "experts over the model axis on the dense slab (the rules' "
-            "'expert': ('model',)); the port splits them over data: ROADMAP "
-            "item 12b")
-    if cfg.moe_experts % split[2]:
+    if cfg.moe_experts % split.n:
         return None
     return split
+
+
+def experts_over_model(cfg: ModelConfig):
+    """Under a dense-slab context whose rules put the experts over the
+    model axis and ``expert_ff`` over the data axes (the hillclimb's B2:
+    ``{"expert": ("model",), "expert_ff": ("data",)}``): (the rows'
+    :class:`~repro_torch.parallel.sharding.Split` over data or None, the
+    model rank count M), when M divides the experts and the data ranks
+    divide ``expert_ff``; else None (every rank runs every expert on its
+    own slots)."""
+    ctx = dense_ctx()
+    if ctx is None or "model" not in ctx.rules.get("expert", ()):
+        return None
+    m = ctx.mesh.shape["model"]
+    split = data_split()
+    n = 1 if split is None else split.n
+    ff = tuple(a for a in ctx.rules.get("expert_ff", ())
+               if ctx.mesh.shape.get(a, 1) > 1)
+    if (m == 1 or cfg.moe_experts % m or cfg.expert_ff % n
+            or ff != (() if split is None else split.axes)):
+        return None
+    return split, m
+
+
+def _cols(w, lo: int, hi: int):
+    """Columns [lo, hi) of an (E, K, N) stack (a QuantizedTensor's scales
+    alike), copied out: the GEMM kernels take contiguous weights."""
+    if isinstance(w, QuantizedTensor):
+        return QuantizedTensor(q=w.q[..., lo:hi].contiguous(),
+                               scale=w.scale[..., lo:hi].contiguous(),
+                               bits=w.bits, shape=(*w.shape[:-1], hi - lo))
+    return w[..., lo:hi].contiguous()
+
+
+def _rows(w, lo: int, hi: int):
+    """Rows [lo, hi) of an (E, K, N) stack (a packed int4 payload's rows
+    halved, so ``lo`` and ``hi`` even; the scales kept), copied out."""
+    if isinstance(w, QuantizedTensor):
+        pk = 2 if w.bits == 4 else 1
+        if lo % pk or hi % pk:
+            raise ValueError(f"rows [{lo}, {hi}) of a packed int4 stack: "
+                             "its bytes hold rows in pairs")
+        return QuantizedTensor(q=w.q[:, lo // pk:hi // pk].contiguous(),
+                               scale=w.scale, bits=w.bits,
+                               shape=(w.shape[0], hi - lo, w.shape[2]))
+    return w[:, lo:hi].contiguous()
+
+
+def _gather_experts(w, mesh, m: int, dim: int):
+    """This model rank's block of the experts (block j of ``m``) made
+    whole along ``dim`` (2: the columns of w_gate / w_up, 1: the rows of
+    w_down), from every model rank's block of every expert: one
+    all-to-all over the model axis a payload (a row-split
+    QuantizedTensor's scales are whole already)."""
+    j = mesh.coords["model"]
+    el = w.shape[0] // m
+
+    def move(t):
+        got = all_to_all([t[i * el:(i + 1) * el] for i in range(m)], mesh,
+                         "model")
+        return torch.cat(got, dim=dim)
+    if not isinstance(w, QuantizedTensor):
+        return move(w)
+    q = move(w.q)
+    scale = (move(w.scale) if dim == 2
+             else w.scale[j * el:(j + 1) * el])
+    rows = q.shape[1] * (2 if w.bits == 4 else 1)
+    return QuantizedTensor(q=q, scale=scale, bits=w.bits,
+                           shape=(el, rows, q.shape[2]))
+
+
+def _experts_over_model(xe, experts: dict, b2, t: int, sg: int, qmode: str,
+                        impl: str) -> torch.Tensor:
+    """The hillclimb's B2 layout on the dense slab → ye (G, E, C, D) of
+    this rank's slots, one process's.
+
+    xe (G, E, C, D): this rank's dispatch slab. Model rank j runs experts
+    block j (E/M experts), data rank i their ``expert_ff`` block i:
+
+    * the dispatch slabs are gathered over data (every data rank's slots,
+      each padded to the most groups a rank meets);
+    * the weights come as the reference places them (every expert's
+      column block of w_gate / w_up and row block of w_down over model):
+      one all-to-all over model makes experts block j whole, and the rank
+      keeps its ``expert_ff`` block i (:func:`_gather_experts`);
+    * gate and up run through K1 / K4 on the column block (x's rows are
+      whole, so their quantization is one process's);
+    * the down projection takes each h row's whole scale by a row MAX
+      over data (K7 with one more column), K5 / K6a / K6b's int32 sums
+      are added over data and flushed once (:func:`_down_whole`);
+    * the experts' outputs are gathered over model, and the rank keeps
+      its own slots."""
+    split, m = b2
+    mesh = dense_ctx().mesh
+    axes = () if split is None else split.axes
+    n, i = (1, 0) if split is None else (split.n, split.index)
+    g, e, c, d = xe.shape
+    gmax = g if split is None else _grid_rows(t, sg, n)
+    pad = xe.new_zeros(gmax, e, c, d)
+    pad[:g] = xe
+    slab = torch.cat(gather_blocks(pad, mesh, axes)) if axes else pad
+    j, el = mesh.coords["model"], e // m
+    mine = slab[:, j * el:(j + 1) * el]
+    if sharded("experts"):        # every expert's model block: regather
+        w = {"w_gate": _gather_experts(experts["w_gate"], mesh, m, 2),
+             "w_up": _gather_experts(experts["w_up"], mesh, m, 2),
+             "w_down": _gather_experts(experts["w_down"], mesh, m, 1)}
+    else:
+        w = {k: _expert_block(v, j * el, (j + 1) * el)
+             for k, v in experts.items()}
+    fb = w["w_gate"].shape[-1] // n
+    gate = _expert_matmul(mine, _cols(w["w_gate"], i * fb, (i + 1) * fb),
+                          qmode, impl)
+    up = _expert_matmul(mine, _cols(w["w_up"], i * fb, (i + 1) * fb),
+                        qmode, impl)
+    h = F.silu(gate.float()).to(xe.dtype) * up
+    down = _rows(w["w_down"], i * fb, (i + 1) * fb)
+    if axes:
+        ye = _down_whole(h, down, qmode, impl, mesh, axes)
+    else:
+        ye = _expert_matmul(h, down, qmode, impl)
+    ye = torch.cat(gather_blocks(ye.contiguous(), mesh, "model"), dim=1)
+    return ye[i * gmax:i * gmax + g]
 
 
 def _expert_block(w, lo: int, hi: int):
@@ -437,7 +604,7 @@ def _to_expert_ranks(xe: torch.Tensor, experts: dict, ep, t: int, sg: int):
     rank j. Every output row of an expert's GEMM depends on its input row
     alone (rowwise quantization, integer sums), so each slot's output is
     one process's."""
-    mesh, axes, n, me = ep
+    mesh, axes, n, me = ep.mesh, ep.axes, ep.n, ep.index
     g, e, c, d = xe.shape
     gmax = _grid_rows(t, sg, n)
     el = e // n
@@ -454,17 +621,31 @@ def _from_expert_ranks(ye: torch.Tensor, ep, g: int) -> torch.Tensor:
     """ye (n·Gmax, E/n, C, D') this rank's experts' outputs of every data
     rank's slots → this rank's slab (G, E, C, D'): block r goes back to
     data rank r, and the blocks received stack by expert."""
-    mesh, axes, n, _ = ep
-    got = all_to_all(list(ye.chunk(n, dim=0)), mesh, axes)
+    got = all_to_all(list(ye.chunk(ep.n, dim=0)), ep.mesh, ep.axes)
     return torch.cat(got, dim=1)[:g]
 
 
-def _exchange_offsets(counts, g0: int, groups: int, rank: int, split):
-    """This rank's :func:`split_offsets` from its ``counts`` (its groups
-    from ``g0`` on): every rank's counts of the ``groups`` global groups,
-    all-gathered as int32 over the batch axes, one call a layer."""
-    mesh, axes = split[:2]
-    mine = counts.new_zeros((groups,) + tuple(counts.shape[1:]))
-    mine[g0:g0 + counts.shape[0]] = counts
-    every = torch.stack(gather_blocks(mine, mesh, axes))
-    return split_offsets(every, rank)[g0:g0 + counts.shape[0]]
+def _exchange_offsets(counts, grids, groups: int, split, rows: tuple):
+    """The :func:`split_offsets` of each of this rank's runs, their grid
+    rows stacked as ``counts`` (G, k, E) is (``grids``: each run's
+    :func:`run_grid`): every rank's counts of each of its runs over the
+    ``groups`` global groups, all-gathered as int32 over the split's axes
+    (one call a layer), the runs sorted into global token order
+    (:func:`token_runs` of each member, ``rows`` = (b, s) its block's
+    rows and positions, :func:`_run_order`), and each run's offsets
+    those of the runs before it."""
+    b, s = rows
+    mine = counts.new_zeros((len(grids), groups) + tuple(counts.shape[1:]))
+    at = 0
+    for u, (g0, gl, _) in enumerate(grids):
+        mine[u, g0:g0 + gl] = counts[at:at + gl]
+        at += gl
+    every = gather_blocks(mine, split.mesh, split.axes)
+    firsts = [first for j in range(len(every)) for first, _ in token_runs(
+        split, b, s, split.mesh.member_coords(split.axes, j))]
+    order = _run_order(firsts)
+    ranked = torch.cat(every)[order]
+    place = {run: pos for pos, run in enumerate(order)}
+    me = split.index * len(grids)
+    return torch.cat([split_offsets(ranked, place[me + u])[g0:g0 + gl]
+                      for u, (g0, gl, _) in enumerate(grids)])

@@ -23,6 +23,13 @@ for the whole ``out_proj`` (every value one process's). Sharding the
 channel mix ("rwkv_cm"), it holds the w_gate and receptance w_up columns
 and w_down's rows: relu² of its d_ff block, the down projection
 row-parallel (``modules.row_linear``), the receptance gathered.
+
+Under the multi-pod train rules a rank holds its block of positions
+(``parallel.fsdp.seq_split``): both token shifts take the previous
+rank's last position (``collectives.halo_prev``), the time mix gathers
+r, k, v and the log decays over ``pod`` (``collectives.gather_seq``),
+runs the WKV over the whole sequence from a zero state, as the
+reference's ``seq`` rule keeps it, and keeps its own block of y.
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (group_norm_heads, linear, refuse_tf32,
                                         row_linear)
-from repro_torch.parallel.collectives import all_gather_last
+from repro_torch.parallel.collectives import (all_gather_last, gather_seq,
+                                              halo_prev)
+from repro_torch.parallel.fsdp import seq_split
 from repro_torch.parallel.sharding import sharded, tp_mesh
 
 LW_MAX = 2.5
@@ -71,6 +80,17 @@ def init_rwkv_time_mix(gen: torch.Generator, cfg: ModelConfig, dtype,
         "g_norm_scale": full((h, hd), 1.0),
         "g_norm_bias": full((h, hd), 0.0),
     }
+
+
+def _prev_token(x, cache, split):
+    """The token shift's input before x's first position (B, 1, D): the
+    cache's last token, the previous rank's last position under a
+    sequence split (``collectives.halo_prev``), else zeros."""
+    if cache is not None:
+        return cache["x_prev"][:, None]
+    if split is not None:
+        return halo_prev(x, split.mesh, split.seq_axes)
+    return x.new_zeros(x.shape[0], 1, x.shape[2])
 
 
 def _ddlerp(p, x, x_prev):
@@ -149,11 +169,9 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         h //= tp
         heads = slice(mesh.coords["model"] * h, (mesh.coords["model"] + 1) * h)
     cols = slice(heads.start * hd, heads.stop * hd)
+    split = seq_split() if cache is None else None
 
-    if cache is not None:
-        x_prev_tok = cache["x_prev"][:, None]
-    else:
-        x_prev_tok = x.new_zeros(b, 1, d)
+    x_prev_tok = _prev_token(x, cache, split)
     x_shift = torch.cat([x_prev_tok, x[:, :-1]], dim=1)
     mixed = _ddlerp(p, x, x_shift)
 
@@ -168,6 +186,10 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     rh, kh, vh = (t.reshape(b, s, h, hd).float() for t in (r, k, v))
     lwh = lw.reshape(b, s, h, hd)
+    if split is not None:     # the WKV over the whole sequence of the rows
+        whole = gather_seq(torch.stack([rh, kh, vh, lwh], dim=-1),
+                           split.mesh, split.seq_axes)
+        rh, kh, vh, lwh = whole.unbind(dim=-1)
     s0 = (cache["s"] if cache is not None
           else x.new_zeros(b, h, hd, hd, dtype=torch.float32))
     u = p["u"][heads].float()
@@ -175,10 +197,13 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     if s == 1:
         y, s_fin = _wkv6_step(rh, kh, vh, lwh, u, s0)
     else:
-        chunk = min(cfg.rwkv_chunk, s)
-        while s % chunk:
+        s_all = rh.shape[1]
+        chunk = min(cfg.rwkv_chunk, s_all)
+        while s_all % chunk:
             chunk -= 1
         y, s_fin = _wkv6_chunked(rh, kh, vh, lwh, u, s0, chunk)
+        if split is not None:                  # this rank's positions
+            y = y[:, split.seq_index * s:(split.seq_index + 1) * s]
 
     y = group_norm_heads(y, p["g_norm_scale"][heads], p["g_norm_bias"][heads],
                          cfg.norm_eps)
@@ -230,11 +255,8 @@ def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                      cache: Optional[dict] = None, qmode: str = "none",
                      impl: str = "auto"):
     """x: (B, S, D) → (y, new_cache); cache = {'x_prev': (B, D)}."""
-    b, s, d = x.shape
-    if cache is not None:
-        x_prev_tok = cache["x_prev"][:, None]
-    else:
-        x_prev_tok = x.new_zeros(b, 1, d)
+    x_prev_tok = _prev_token(x, cache,
+                             seq_split() if cache is None else None)
     sx = torch.cat([x_prev_tok, x[:, :-1]], dim=1) - x
     xk = x + sx * p["maa_k"].to(x.dtype)
     xr = x + sx * p["maa_r"].to(x.dtype)

@@ -22,6 +22,12 @@ columns of the whole ``in_proj``'s output, runs the conv and the scan on
 its block (state ``h`` (B, di/tp, N), window ``conv`` (B, cw-1, di/tp)),
 and gathers the block for the whole ``x_proj`` and ``out_proj`` (every
 value one process's).
+
+Under the multi-pod train rules a rank holds its block of positions
+(``parallel.fsdp.seq_split``): ``x_in`` (after ``in_proj``) is gathered
+over ``pod`` (``collectives.gather_seq``), the conv, ``x_proj`` and the
+scan run over the whole sequence, and the rank's block of ``y`` meets
+its own ``z`` and goes into ``out_proj``.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import linear, refuse_tf32
-from repro_torch.parallel.collectives import all_gather_last
+from repro_torch.parallel.collectives import all_gather_last, gather_seq
+from repro_torch.parallel.fsdp import seq_split
 from repro_torch.parallel.sharding import sharded, tp_mesh
 
 
@@ -141,6 +148,9 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     xz = linear(x, p["in_proj"], qmode=qmode, impl=impl)
     x_in, z = xz[..., own], xz[..., cfg.d_inner:][..., own]
+    split = seq_split() if cache is None else None
+    if split is not None:         # the whole sequence of this rank's rows
+        x_in = gather_seq(x_in, split.mesh, split.seq_axes)
 
     prev_conv = cache["conv"] if cache is not None else None
     x_c, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"][own],
@@ -161,6 +171,7 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     h = (cache["h"] if cache is not None
          else torch.zeros(b, di, n, dtype=f32, device=x.device))
+    s = x_in.shape[1]
     chunks = cfg.ssm_seq_chunks
     nseg = chunks if s > chunks and s % chunks == 0 else 1
     seg = s // nseg
@@ -172,6 +183,9 @@ def mamba_mixer(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         ys.append(torch.einsum("bsdn,bsn->bsd", h_all, cmf[:, sl]))
     y = torch.cat(ys, dim=1)
     y = y + p["D"][own].float() * x_c.float()
+    if split is not None:                      # this rank's positions
+        blk = z.shape[1]
+        y = y[:, split.seq_index * blk:(split.seq_index + 1) * blk]
     y = (y * F.silu(z.float())).to(x.dtype)
 
     if mesh is not None:                       # out_proj is whole

@@ -39,7 +39,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import (chunked_xent, gated_mlp, linear,
                                         rms_norm)
 from repro_torch.parallel.collectives import all_gather_last, psum
-from repro_torch.parallel.fsdp import whole
+from repro_torch.parallel.fsdp import seq_split, whole
 from repro_torch.parallel.sharding import (RankShards, shard_params, sharded,
                                            tp_mesh)
 
@@ -214,6 +214,12 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
     Under a sharded train step (:mod:`repro_torch.parallel.fsdp`)
     ``params`` holds this rank's blocks: each block gathers its layer
     where it runs and each top-level leaf is gathered around its use.
+    Where the step splits the sequence (the multi-pod train rules'
+    ``seq_act`` on ``pod``), ``inputs`` is this rank's block of
+    positions: the embedding, the stash between blocks and the head hold
+    that block alone (its positions global), and each mixer gathers its
+    sequence (:mod:`~repro_torch.models.attention`,
+    :mod:`~repro_torch.models.ssm`, :mod:`~repro_torch.models.rwkv`).
     """
     qmode = cfg.qmode if qmode is None else qmode
     b, s = inputs.shape[:2]
@@ -221,6 +227,9 @@ def forward(params: dict, cfg: ModelConfig, inputs: torch.Tensor,
         base = torch.arange(s, device=inputs.device)
         if cache_pos is not None:
             base = base + cache_pos
+        split = seq_split()
+        if split is not None:          # this rank's block of the sequence
+            base = base + split.seq_index * s
         positions = base.expand(b, s)
     if inputs.is_floating_point():
         if not cfg.embedding_inputs:

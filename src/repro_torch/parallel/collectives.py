@@ -36,6 +36,16 @@ reduce-scatters blocks over one axis or both:
 * :func:`psum_grad` — a sum whose backward sums too (the MoE aux loss's
   per-expert sums over the global batch).
 
+Under the multi-pod train rules a rank holds its block of the sequence
+(``seq_act`` on ``pod``) and a mixer runs over the whole of it:
+
+* :func:`gather_seq` — the ranks' sequence blocks made whole; its
+  backward sums the ranks' gradients of every block and hands a rank its
+  own (a reduce-scatter: each rank used every block);
+* :func:`halo_prev` — the previous rank's last position (the token
+  shift's input at a block's first position); its backward sends the
+  gradient back to that rank.
+
 Every call takes tensors on the rank's device as they are: NCCL and gloo
 both take CUDA tensors for these calls (gloo stages them through host
 memory itself). ``broadcast_ints`` builds its tensor where the backend
@@ -49,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.quant import div_exact
-from repro_torch.launch.mesh import AXES
+from repro_torch.launch.mesh import AXES, _live
 
 
 Axes = Union[str, Sequence[str]]
@@ -133,6 +143,76 @@ def psum_grad(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
     process's gradient, summed again once the step reduces the ranks'
     parameter gradients and divides by their count)."""
     return _PsumGrad.apply(x, mesh, _axes(axis))
+
+
+def _index(mesh, axes: tuple) -> tuple:
+    """(this rank's index along ``axes``, row-major over them; their rank
+    count)."""
+    idx, n = 0, 1
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def seq_grad(blocks: List[torch.Tensor], mesh, axes) -> torch.Tensor:
+    """The gradient of this rank's block of a gathered sequence: ``blocks``
+    this rank's gradient of every rank's block, in the group's order →
+    their sum over the ranks for this rank's block (each rank's mixer
+    used every block)."""
+    return reduce_scatter(blocks, mesh, axes)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return torch.cat(gather_blocks(x, mesh, axes), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = _index(ctx.mesh, ctx.axes)[1]
+        blocks = [b.contiguous() for b in g.chunk(n, dim=ctx.dim)]
+        return seq_grad(blocks, ctx.mesh, ctx.axes), None, None, None
+
+
+def gather_seq(x: torch.Tensor, mesh, axis: Axes, dim: int = 1
+               ) -> torch.Tensor:
+    """Every rank's block of a sequence along ``axis``, concatenated along
+    ``dim`` in the group's order (the whole sequence), differentiable:
+    the backward is :func:`seq_grad`."""
+    axes = _live(_axes(axis), mesh.shape)
+    if not axes:
+        return x
+    return _GatherSeq.apply(x, mesh, axes, dim)
+
+
+class _HaloPrev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.shape = mesh, axes, x.shape
+        idx = _index(mesh, axes)[0]
+        last = gather_blocks(x[:, -1:].contiguous(), mesh, axes)
+        return last[idx - 1] if idx else torch.zeros_like(last[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, n = _index(ctx.mesh, ctx.axes)
+        back = gather_blocks(g.contiguous(), ctx.mesh, ctx.axes)
+        out = g.new_zeros(ctx.shape)
+        if idx + 1 < n:
+            out[:, -1:] = back[idx + 1]
+        return out, None, None
+
+
+def halo_prev(x: torch.Tensor, mesh, axis: Axes) -> torch.Tensor:
+    """x (B, S/n, ...) this rank's sequence block → (B, 1, ...) the last
+    position of the previous rank's block along ``axis`` (zeros on the
+    first), differentiable."""
+    axes = _live(_axes(axis), mesh.shape)
+    if not axes:
+        return x.new_zeros((x.shape[0], 1) + tuple(x.shape[2:]))
+    return _HaloPrev.apply(x, mesh, axes)
 
 
 def psum(y: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:

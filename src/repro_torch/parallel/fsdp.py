@@ -27,6 +27,13 @@ No rank ever holds the whole gradient tree: each gather's backward hands
 autograd this rank's reduced blocks. Outside :func:`sharded_step`,
 :func:`whole` returns its argument.
 
+Under the multi-pod train rules the batch's sequence is split over
+``pod`` too (``RankBatch.seq_axes``): a rank's loss is the mean of its
+own positions, every leaf's block is a replica over ``pod``, and each
+reduce sums over the sequence's axes as well (:func:`reduce_blocks`);
+the model reads :func:`seq_split` for its block's positions and
+:func:`batch_split` for its tokens' runs in the global order.
+
 The step's setting is a module global, not a context variable: the
 backward (and the recompute inside it) runs on autograd's worker threads,
 which see no context variable of the caller's. Steps of one process run
@@ -51,7 +58,8 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from repro_torch.core.quant import div_exact
 from repro_torch.launch.mesh import AXES
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.sharding import _block, block_view, live_axes
+from repro_torch.parallel.sharding import (Split, _block, block_view,
+                                           live_axes, token_split)
 from repro_torch.tree import leaves, unflatten
 
 KINDS = ("gather", "regather", "reduce")
@@ -59,13 +67,18 @@ KINDS = ("gather", "regather", "reduce")
 
 class Step:
     """One sharded step: the mesh, the params' spec tree, the axes the
-    batch's rows are split over (``RankBatch.axes``) and the number of
-    distinct row blocks (``RankBatch.shards``); its counters."""
+    batch's rows are split over (``RankBatch.axes``), the axes its
+    sequence is split over (``RankBatch.seq_axes``: the multi-pod train
+    rules' ``pod``) and the number of distinct token blocks
+    (``RankBatch.shards``); its counters."""
 
-    def __init__(self, mesh, specs, batch_axes: tuple, shards: int):
+    def __init__(self, mesh, specs, batch_axes: tuple, shards: int,
+                 seq_axes: tuple = ()):
         self.mesh, self.specs = mesh, specs
         self.batch_axes = tuple(a for a in AXES if a in batch_axes
                                 and mesh.shape[a] > 1)
+        self.seq_axes = tuple(a for a in AXES if a in seq_axes
+                              and mesh.shape[a] > 1)
         self.shards = int(shards)
         self.calls = {k: 0 for k in KINDS}
         self.sent = {k: 0 for k in KINDS}
@@ -130,15 +143,19 @@ class Step:
 def reduce_blocks(step: Step, grads, specs) -> list:
     """This rank's block of every mean gradient of ``grads`` (whole
     leaves under ``specs``): its block summed in f32 over the ranks along
-    the step's batch axes (those holding distinct rows), divided by the
-    step's shard count, in the leaf's dtype. The leaves those axes shard
-    are reduce-scattered (each member of the group gets its own block),
-    the others all-reduced: one call each, over one flat buffer."""
-    mesh, live = step.mesh, step.batch_axes
+    the step's batch and sequence axes (those holding distinct tokens),
+    divided by the step's shard count, in the leaf's dtype. The leaves
+    the batch axes shard are reduce-scattered over them (each member of
+    the group gets its own block), then all-reduced over the sequence
+    axes (a leaf's block is the same on every sequence block's rank);
+    the others are all-reduced over both: one call each, over one flat
+    buffer."""
+    mesh, live, seq = step.mesh, step.batch_axes, step.seq_axes
     scatter = [i for i, s in enumerate(specs)
                if set(live) & set(live_axes(s, mesh))]
     whole = sorted(set(range(len(grads))) - set(scatter))
     n = int(math.prod(mesh.shape[a] for a in live))
+    n_seq = int(math.prod(mesh.shape[a] for a in seq))
     out = [None] * len(grads)
 
     def flat(idx, coords=None):
@@ -156,12 +173,16 @@ def reduce_blocks(step: Step, grads, specs) -> list:
         blocks = [flat(scatter, mesh.member_coords(live, j))
                   for j in range(n)]
         step._count("reduce", blocks[0].numel() * 4 * n, n)
-        place(scatter, coll.reduce_scatter(blocks, mesh, live))
+        total = coll.reduce_scatter(blocks, mesh, live)
+        if seq:
+            step._count("reduce", total.numel() * 4, n_seq, factor=2)
+            total = coll.all_reduce(total, mesh, seq)
+        place(scatter, total)
     if whole:
         total = flat(whole)
-        if n > 1:
-            step._count("reduce", total.numel() * 4, n, factor=2)
-        place(whole, coll.all_reduce(total, mesh, live))
+        if n * n_seq > 1:
+            step._count("reduce", total.numel() * 4, n * n_seq, factor=2)
+        place(whole, coll.all_reduce(total, mesh, live + seq))
     return out
 
 
@@ -185,13 +206,15 @@ _STEP: Optional[Step] = None
 
 
 @contextlib.contextmanager
-def sharded_step(mesh, specs, batch_axes: tuple, shards: int):
-    """Make one sharded step's setting current for :func:`whole` and
-    :func:`batch_split` (the forward, the backward and its recompute)."""
+def sharded_step(mesh, specs, batch_axes: tuple, shards: int,
+                 seq_axes: tuple = ()):
+    """Make one sharded step's setting current for :func:`whole`,
+    :func:`batch_split` and :func:`seq_split` (the forward, the backward
+    and its recompute)."""
     global _STEP
     if _STEP is not None:
         raise RuntimeError("a sharded step is already running")
-    _STEP = Step(mesh, specs, batch_axes, shards)
+    _STEP = Step(mesh, specs, batch_axes, shards, seq_axes)
     try:
         yield _STEP
     finally:
@@ -212,12 +235,19 @@ def whole(tree, path: tuple):
     return unflatten(tree, _Gather.apply(step, leaves(spec), *blocks))
 
 
-def batch_split():
-    """Under a sharded step whose rows are split over ranks: (mesh, batch
-    axes, their rank count, this rank's index); None otherwise."""
+def batch_split() -> Optional[Split]:
+    """Under a sharded step whose tokens are split over ranks (rows, or
+    the sequence too): the :class:`~repro_torch.parallel.sharding.Split`
+    of its token blocks; None otherwise."""
     step = _STEP
-    if step is None or not step.batch_axes:
+    if step is None or not (step.batch_axes or step.seq_axes):
         return None
-    return (step.mesh, step.batch_axes,
-            int(math.prod(step.mesh.shape[a] for a in step.batch_axes)),
-            step.batch_index())
+    return token_split(step.mesh, step.batch_axes, step.seq_axes)
+
+
+def seq_split() -> Optional[Split]:
+    """Under a sharded step whose sequence is split over ranks: its
+    :func:`batch_split` (``seq_axes`` the sequence's axes, ``seq_index``
+    this rank's block of it); None otherwise."""
+    split = batch_split()
+    return split if split is not None and split.seq_axes else None

@@ -42,7 +42,9 @@ Two serving modes run on shards, and the model code tells them apart:
   the MoE dispatch slab by expert over data (``models.moe``).
 
 Training (flat FSDP under ``make_rules("train")``) keeps every leaf of the
-train state as this rank's block along every sharded dim, on both axes:
+train state as this rank's block along every sharded dim, on the data and
+model axes (the multi-pod rules bind no weight to ``pod``: a block is a
+replica there, and the pod axis splits the batch's sequence instead):
 :func:`train_state_pspecs` gives the specs of a whole state,
 :class:`NamedSharding` pairs a spec with its mesh (as the reference's), and
 :func:`shard_tree` / :func:`gather_tree` cut a whole tree into this rank's
@@ -57,7 +59,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import re
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Mapping, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -167,12 +169,50 @@ def sharded(part: str) -> bool:
     return mesh is not None and part in active_ctx().layout
 
 
-def data_split():
+class Split(NamedTuple):
+    """How a step's tokens are split over ranks: ``axes`` every axis
+    (longer than one, in mesh order) along which the ranks hold distinct
+    tokens, ``n`` their rank count, ``index`` this rank's index among
+    them (row-major over ``axes``: member ``index`` of the group over
+    ``axes``); ``row_axes`` those of ``axes`` that split the batch's
+    rows, ``seq_axes`` those that split its sequence (the multi-pod
+    train rules' ``pod``)."""
+    mesh: Any
+    axes: tuple
+    n: int
+    index: int
+    row_axes: tuple
+    seq_axes: tuple
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's block of the sequence (0 when it is whole)."""
+        return _block(self.seq_axes, self.mesh.coords, self.mesh)[0]
+
+    def blocks(self, coords=None) -> tuple:
+        """(row block, rows' block count, sequence block, its block
+        count) of the rank at ``coords`` (default: this rank)."""
+        coords = self.mesh.coords if coords is None else coords
+        return (*_block(self.row_axes, coords, self.mesh),
+                *_block(self.seq_axes, coords, self.mesh))
+
+
+def token_split(mesh, row_axes: tuple, seq_axes: tuple = ()) -> Split:
+    """The :class:`Split` of a mesh whose ranks hold distinct rows along
+    ``row_axes`` and distinct sequence blocks along ``seq_axes``."""
+    rows = tuple(a for a in AXES if a in row_axes and mesh.shape[a] > 1)
+    seq = tuple(a for a in AXES if a in seq_axes and mesh.shape[a] > 1)
+    axes = tuple(a for a in AXES if a in rows + seq)
+    idx, n = _block(axes, mesh.coords, mesh)
+    return Split(mesh, axes, n, idx, rows, seq)
+
+
+def data_split() -> Optional[Split]:
     """Under a dense-slab context whose rules split the batch over a data
-    axis longer than one: (mesh, the batch's axes, their rank count, this
-    rank's index among them), the tuple ``parallel.fsdp.batch_split``
-    gives a sharded train step; None otherwise. A rank's rows are then
-    its block of the global batch (:func:`batch_block`)."""
+    axis longer than one: the :class:`Split` of its rows (the kind
+    ``parallel.fsdp.batch_split`` gives a sharded train step); None
+    otherwise. A rank's rows are then its block of the global batch
+    (:func:`batch_block`)."""
     ctx = dense_ctx()
     if ctx is None:
         return None
@@ -180,8 +220,7 @@ def data_split():
                  and ctx.mesh.shape[a] > 1)
     if not axes:
         return None
-    idx, n = _block(axes, ctx.mesh.coords, ctx.mesh)
-    return ctx.mesh, axes, n, idx
+    return token_split(ctx.mesh, axes)
 
 
 def batch_block(x: torch.Tensor, mesh, rules) -> torch.Tensor:

@@ -11,8 +11,10 @@ Port of ``repro/train/train_step.py``.
 
 Under a train :func:`~repro_torch.parallel.sharding.mesh_context` (flat
 FSDP on a (data, model) mesh of ranks, the counterpart of the reference's
-GSPMD step under ``make_rules("train", family=...)``, every model family)
-the state holds this rank's blocks of the params and moments
+GSPMD step under ``make_rules("train", family=...)``, every model family;
+under ``make_rules("train", multi_pod=True)`` on a (pod, data, model)
+mesh, where a rank's rows hold its block of the sequence) the state
+holds this rank's blocks of the params and moments
 (:func:`~repro_torch.parallel.sharding.shard_tree` by
 :func:`~repro_torch.parallel.sharding.train_state_pspecs`) and the batch
 is this rank's rows of each global micro-batch (``shard_batch(mesh=,
@@ -26,8 +28,10 @@ grad_accum=)``). A step:
    distinct rows and divided by their count (rows a batch replicates
    count once; :func:`~repro_torch.parallel.fsdp.reduce_blocks`). An MoE
    layer routes the global micro-batch's groups (its counts exchanged
-   over the batch axes, its aux loss over the global tokens);
-2. reduces the loss alike;
+   over the batch axes, its aux loss over the global tokens). Under a
+   sequence split each mixer gathers its sequence over ``pod``, and the
+   gradients are summed over ``pod`` too;
+2. reduces the loss alike (over ``pod`` too);
 3. compresses the reduced gradient blocks with each whole row's absmax
    (``int8``), and runs AdamW on the blocks (``update(specs=)``).
 
@@ -156,13 +160,13 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
             raise ValueError("under a train mesh the state holds this "
                              "rank's shards (shard_tree by "
                              "train_state_pspecs)")
-        with fsdp.sharded_step(mesh, specs, batch.axes,
-                               batch.shards) as step:
+        with fsdp.sharded_step(mesh, specs, batch.axes, batch.shards,
+                               batch.seq_axes) as step:
             lval, grads = local_grads(state["params"], batch)
         train_step.last = step
         with torch.no_grad():
-            lval = div_exact(coll.all_reduce(lval, mesh, batch.axes),
-                             batch.shards)
+            lval = div_exact(coll.all_reduce(
+                lval, mesh, batch.axes + batch.seq_axes), batch.shards)
             if compress_grads == "int8":
                 grads = tree_map(lambda g, spec: _int8_compress(
                     g, row_max_of(spec, mesh)), grads, specs)

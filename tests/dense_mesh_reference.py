@@ -17,8 +17,11 @@ suite: ``tests/conftest.py`` says why) it records:
   builds its prefill and decode cells: the greedy stream of
   :func:`prompt` over :data:`STEPS` tokens, the prefill's last logits and
   each decode step's logits (``forward`` jitted with the same shardings;
-  those of the :data:`SEQ_CASE` cases only), the caches' specs and the
-  weights' SHA-256 (as the numpy tree the port converts).
+  those of the :data:`SEQ_CASE` and :data:`OVERRIDES` cases only), the
+  caches' specs and the weights' SHA-256 (as the numpy tree the port
+  converts). A case of :data:`OVERRIDES` updates the decode rules with
+  its override (the hillclimb's B2: experts over model, ``expert_ff``
+  over data).
 """
 from __future__ import annotations
 
@@ -48,7 +51,15 @@ CASES = {
                             (2, 2)),
     "moonshot w8a8 (2, 1)": ("moonshot-v1-16b-a3b", "w8a8", "bfloat16",
                              None, (2, 1)),
+    "moonshot B2 f32 (2, 2)": ("moonshot-v1-16b-a3b", "none", "float32",
+                               None, (2, 2)),
+    "moonshot B2 w8a8 (2, 2)": ("moonshot-v1-16b-a3b", "w8a8", "bfloat16",
+                                None, (2, 2)),
 }
+# the hillclimb's B2 rules (``repro.launch.hillclimb.cell_b``): the experts
+# over model, expert_ff over data, on top of the decode rules
+B2 = {"expert": ("model",), "expert_ff": ("data",)}
+OVERRIDES = {"moonshot B2 f32 (2, 2)": B2, "moonshot B2 w8a8 (2, 2)": B2}
 SEQ_CASE = "qwen2 seq-split"     # the cases whose every step's logits count
 BATCH, PROMPT_LEN, STEPS = 4, 20, 6
 
@@ -133,7 +144,7 @@ for name, (arch, qmode, dtype, kv, shape) in dm.CASES.items():
     if qmode != "none":
         params = quantize_params(params, cfg, qmode)
     mesh = make_test_mesh(shape)
-    rules = make_rules("decode")
+    rules = {{**make_rules("decode"), **dm.OVERRIDES.get(name, {{}})}}
     x = jnp.asarray(dm.prompt(cfg))
     max_len = dm.PROMPT_LEN + dm.STEPS
     with mesh_context(mesh, rules):
@@ -164,7 +175,8 @@ for name, (arch, qmode, dtype, kv, shape) in dm.CASES.items():
     cases[name] = dict(
         tokens=np.concatenate([np.asarray(t) for t in toks], 1).tolist(),
         prefill_logits=np.asarray(last, np.float32).tolist(),
-        step_logits=logits if name.startswith(dm.SEQ_CASE) else [],
+        step_logits=(logits if name.startswith(dm.SEQ_CASE)
+                     or name in dm.OVERRIDES else []),
         kv_spec=dict(k=first.k, k_scale=first.k_scale),
         weights_sha256=weight_digest(jax_to_numpy(params)))
     print(name, cases[name]["tokens"][0], file=sys.stderr, flush=True)

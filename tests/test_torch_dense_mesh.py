@@ -30,7 +30,17 @@ process on them:
   MoE output equal to one process's (W8A8 bit for bit, f32 within 1e-5
   of max |y|), each data rank running the expert GEMMs of its E/2
   experts (counted), the streams equal to one process's and the
-  recording.
+  recording;
+* **the hillclimb's B2**: the decode rules with the experts over model and
+  ``expert_ff`` over data, reduced moonshot on (2, 2): the weights where
+  the reference's ``params_pspecs`` puts them (the override moves none),
+  each model rank running E/2 experts' GEMMs on its data rank's block of
+  ``expert_ff`` for every data rank's slots; layer 0's MoE output and the
+  streams and logits equal one process's (W8A8, W4A8 and W4A4 bit for
+  bit, f32 within 1e-5) and the recording (W8A8 streams; f32 logits
+  within 1e-5 at every step; the 4-bit modes have none), while h
+  quantized with shard-local scales (each rank's own ``expert_ff``
+  block) lands outside.
 """
 import concurrent.futures
 import json
@@ -151,6 +161,19 @@ def build_inputs():
     return part_a, got[SEQ_CASE][0], moon, digests
 
 
+def b2_int4_cases():
+    """{qmode: (cfg, params, prompt, steps)} of reduced moonshot in bf16
+    with 4-bit weights (:data:`B2_INT4`), the port's own weights (seed
+    0): B2 cuts their packed w_down by rows of ``expert_ff``."""
+    out = {}
+    for qmode in B2_INT4:
+        cfg = dm_config(get_config, MOONSHOT, qmode, "bfloat16")
+        params = quantize_params(init_params(cfg, device="cpu"), cfg, qmode)
+        out[qmode] = (cfg, params, torch.from_numpy(dm_prompt(cfg)).long(),
+                      STEPS)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(each rank's outputs, the one-process runs, the recordings, the
@@ -162,8 +185,9 @@ def runs(tmp_path_factory):
                           args=(d / "inputs.pt",), timeout=300,
                           shape=(2, 2))
         part_a, seq, moon, digests = build_inputs()
+        int4 = b2_int4_cases()
         torch.save({"part_a": part_a, "pairs": PAIRS, "seq_split": seq,
-                    "moonshot": moon}, d / "inputs.tmp")
+                    "moonshot": moon, "b2_int4": int4}, d / "inputs.tmp")
         os.replace(d / "inputs.tmp", d / "inputs.pt")
         one = {"part_a": {a: {q: worker.slab_run(*c)
                               for q, c in part_a[a].items()}
@@ -173,11 +197,12 @@ def runs(tmp_path_factory):
                                                      keep_pages=True)},
                "moonshot": {q: dict(worker.slab_run(*c),
                                     moe=worker.moe_layer(c[1], c[0]))
-                            for q, c in moon.items()}}
+                            for q, c in {**moon, **int4}.items()}}
         ranks = fut.result()
     rec = {"recurrent": json.loads(REC_JSON.read_text())["cases"],
            "dense_mesh": json.loads(DM_JSON.read_text())}
-    return ranks, one, rec, dict(part_a=part_a, seq=seq, moon=moon), digests
+    return ranks, one, rec, dict(part_a=part_a, seq=seq,
+                                 moon={**moon, **int4}), digests
 
 
 def part_a_ranks(ranks, arch):
@@ -196,7 +221,8 @@ def test_recordings_hold_the_reference_weights(runs):
             assert rec["recurrent"][f"{arch}/{qmode}"]["weights_sha256"] \
                 == digest, (arch, qmode)
     for name, case in rec["dense_mesh"]["decode"].items():
-        key = name.replace(" (2, 2)", " (2, 1)").replace(" int8", "")
+        key = name.replace(" B2", "").replace(" (2, 2)", " (2, 1)").replace(
+            " int8", "")
         assert case["weights_sha256"] == digests[key], name
 
 
@@ -522,3 +548,88 @@ def test_int32_sums_of_shards_add_up_to_the_flushed_gemm(kind, out_dtype):
     assert torch.equal(parts, whole)
     assert torch.equal(ops.flush(parts, sa, sb, out_dtype=out_dtype),
                        gemm(a, b, out_dtype))
+
+
+# ---------------------------------------------------------------------------
+# The hillclimb's B2: the experts over model, expert_ff over data
+# ---------------------------------------------------------------------------
+B2_CASES = {"none": "moonshot B2 f32 (2, 2)",
+            "w8a8": "moonshot B2 w8a8 (2, 2)"}
+B2_INT4 = ("w4a8", "w4a4")     # held to one process only: no recording
+
+
+@pytest.mark.parametrize("qmode", list(B2_CASES) + list(B2_INT4))
+def test_b2_moe_output_equals_one_process(runs, qmode):
+    """Layer 0's MoE FFN on each rank's rows under B2: W8A8, W4A8 and
+    W4A4 (whose packed int4 w_down each data rank cuts by rows of
+    ``expert_ff``) one process's bit for bit, f32 within 1e-5 of max
+    |y|; each model rank's gate and up run over E/2-expert stacks."""
+    ranks, one, _, inputs, _ = runs
+    cfg = inputs["moon"][qmode][0]
+    want, _ = one["moonshot"][qmode]["moe"]
+    rows = want.shape[0] // 2
+    top = float(np.abs(want).max())
+    for r, out in enumerate(ranks):
+        mine = want[(r // 2) * rows:(r // 2 + 1) * rows].numpy()
+        got, seen = out["b2"][qmode]["moe"]
+        assert seen["experts"][:2] == [cfg.moe_experts // 2] * 2
+        if qmode == "none":
+            assert float(np.abs(got - mine).max()) <= F32_TOL * top, r
+        else:
+            np.testing.assert_array_equal(got, mine)
+
+
+@pytest.mark.parametrize("qmode", B2_INT4)
+def test_b2_int4_streams_and_logits_equal_one_process(runs, qmode):
+    """W4A8 / W4A4 under B2: the streams and every step's logits are one
+    process's bit for bit (no recording holds them)."""
+    ranks, one, *_ = runs
+    base = one["moonshot"][qmode]
+    rows = base["tokens"].shape[0] // 2
+    for r, out in enumerate(ranks):
+        mine = slice((r // 2) * rows, (r // 2 + 1) * rows)
+        got = out["b2"][qmode]
+        assert got["tokens"].tolist() == base["tokens"][mine].tolist(), r
+        np.testing.assert_array_equal(got["logits"],
+                                      base["logits"][:, mine].numpy())
+
+
+def test_b2_shard_local_scales_control_misses(runs):
+    ranks, one, *_ = runs
+    want, _ = one["moonshot"]["w8a8"]["moe"]
+    rows = want.shape[0] // 2
+    for r, out in enumerate(ranks):
+        mine = want[(r // 2) * rows:(r // 2 + 1) * rows].numpy()
+        gap = float(np.abs(out["b2"]["control"] - mine).max())
+        assert gap > bf16_ulp(float(np.abs(mine).max())), (r, gap)
+
+
+@pytest.mark.parametrize("qmode", list(B2_CASES))
+def test_b2_streams_and_logits(runs, qmode):
+    """The streams equal one process's and the recording; the logits of
+    every step equal one process's (W8A8 bit for bit, f32 within 1e-5)
+    and, in f32, the recording's within 1e-5."""
+    ranks, one, rec, *_ = runs
+    base = one["moonshot"][qmode]
+    want = rec["dense_mesh"]["decode"][B2_CASES[qmode]]
+    assert base["tokens"].tolist() == want["tokens"]
+    refs = [np.asarray(want["prefill_logits"])] + [
+        np.asarray(x) for x in want["step_logits"]]
+    assert len(refs) == STEPS
+    rows = base["tokens"].shape[0] // 2
+    for r, out in enumerate(ranks):
+        mine = slice((r // 2) * rows, (r // 2 + 1) * rows)
+        got = out["b2"][qmode]
+        assert got["tokens"].tolist() == want["tokens"][mine], r
+        # the override moves no weight: the decode rules' shards
+        assert "experts" in got["layout"]
+        assert got["bytes"] == out["experts (2, 2)"][qmode]["bytes"], r
+        if qmode == "w8a8":
+            np.testing.assert_array_equal(
+                got["logits"], base["logits"][:, mine].numpy())
+            continue
+        for step, ref in enumerate(refs):
+            for other in (base["logits"][step, mine].numpy(), ref[mine]):
+                np.testing.assert_allclose(got["logits"][step], other,
+                                           rtol=SEQ_TOL, atol=SEQ_TOL,
+                                           err_msg=f"rank {r} step {step}")

@@ -1,14 +1,15 @@
 """The dry run and the hillclimb (``repro_torch.launch.dryrun`` /
 ``hillclimb``) against the reference's.
 
-* (a) For every arch × shape on the single-pod mesh and every serve shape
-  on the multi-pod one, rank 0's argument bytes by group (params, opt
-  state, step, caches, inputs, labels) as the port's cell builders make
-  them on meta equal the reference's per-device shard bytes, recorded in
-  ``tests/dryrun_reference.json`` (``tests/dryrun_reference.py``:
-  ``NamedSharding.shard_shape`` of each leaf, no compile). The reference
-  also holds the decode position as a 4-byte device scalar; the port's
-  step takes it as a host int.
+* (a) For every arch × shape on the single-pod mesh and on the multi-pod
+  one (the train cells on (2, 16, 16), the serve cells on (32, 16)), and
+  for the hillclimb's B2 (its rules' override), rank 0's argument bytes
+  by group (params, opt state, step, caches, inputs, labels) as the
+  port's cell builders make them on meta equal the reference's
+  per-device shard bytes, recorded in ``tests/dryrun_reference.json``
+  (``tests/dryrun_reference.py``: ``NamedSharding.shard_shape`` of each
+  leaf, no compile). The reference also holds the decode position as a
+  4-byte device scalar; the port's step takes it as a host int.
 * (b) One live ``run_cell`` in a spawned process (qwen2-0.5b ×
   decode_32k × single, W8A8) ends OK, and its kernels' counted GEMM
   FLOPs equal Σ 2·M·N·K over the step's projections, from the shapes.
@@ -25,6 +26,13 @@
 * The dense slab's attention in the reference's layout (``attn_cols``) on
   a (1, 2) gloo mesh equals one process bit for bit (W8A8); that layout
   is the dense slab's, the paged engine's keeps such attention whole.
+* Multi-pod training runs under its rules: the batch's sequence binds
+  ``pod``, and rank 0's train step of reduced qwen3-0.6b and
+  jamba-v0.1-52b (Mamba, attention and MoE layers) on a (2, 2, 2) mesh
+  of an 8-rank fake group runs on meta, its blocks the rank's rows and
+  sequence block, its mixers gathering the sequence over ``pod``; so
+  does rank 0's decode step under the hillclimb's B2 rules (reduced
+  moonshot W8A8 on (2, 2)), through the kernels' meta rules.
 """
 import concurrent.futures
 import json
@@ -108,9 +116,15 @@ def background(tmp_path_factory):
     ranks = pool.submit(spawn_ranks, worker.attn_cols_rank, 2,
                         init_dir=str(tmp), backend="gloo", device="cpu",
                         shape=(1, 2), timeout=180)
-    state = {"live": (live, parent), "ref_hc": ref_hc, "ranks": ranks}
+    pod_parent, pod_child = ctx.Pipe()
+    pod = ctx.Process(target=worker.meta_steps, args=(pod_child,),
+                      daemon=True)
+    pod.start()
+    state = {"live": (live, parent), "ref_hc": ref_hc, "ranks": ranks,
+             "pod": (pod, pod_parent)}
     yield state
     live.kill()
+    pod.kill()
     ref_hc.kill()
     pool.shutdown(wait=True)
 
@@ -146,19 +160,24 @@ def _groups(kind, args) -> dict:
             "inputs": tree_bytes(inputs)}
 
 
+# the rules' overrides of the tagged cells (the hillclimb's)
+OVERRIDES = {"B2_experts_model": {"expert": ("model",),
+                                  "expert_ff": ("data",)}}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_argument_bytes_equal_reference(arch):
     cells = [k for k in REF if k.startswith(arch + "__")]
     assert len(cells) >= 4
     for key in cells:
-        _, shape_name, mesh_name, qmode = key.split("__")
+        _, shape_name, mesh_name, qmode, *tag = key.split("__")
         multi, shape = mesh_name == "multi", SHAPES[shape_name]
-        d, m = production_shape(multi)
-        mesh = RankMesh({"data": d, "model": m}, 0, None, {},
-                        torch.device("meta"))
+        mesh = RankMesh(production_shape(multi, shape.kind == "train"), 0,
+                        None, {}, torch.device("meta"))
         cfg = get_config(arch, qmode=qmode)
         rules = make_rules(mode=shape.kind, multi_pod=multi,
                            family=cfg.family)
+        rules.update(OVERRIDES[tag[0]] if tag else {})
         _, args = dr.build_cell(cfg, shape, mesh, rules, qmode)
         want = {g: b for g, b in REF[key].items() if g != "pos"}
         assert _groups(shape.kind, args) == want, key
@@ -391,13 +410,48 @@ def test_attention_layout_follows_the_path(arch):
         ContinuousBatchingEngine(slab, cfg, mesh=_Pair(), device="cpu")
 
 
-def test_multi_pod_training_is_refused_by_its_rules():
-    """The multi-pod train rules put seq_act on pod, which no (data,
-    model) mesh has: the batch's specs raise ROADMAP item 12b's error on
-    any mesh, the single-pod rules' do not."""
+def _meta_steps(background):
+    if "meta_steps" not in background:
+        proc, conn = background["pod"]
+        assert conn.poll(240), "the meta steps gave no result in 240 s"
+        status, out = conn.recv()
+        proc.join(10)
+        assert status == "ok", out
+        background["meta_steps"] = out
+    return background["meta_steps"]
+
+
+def test_multi_pod_training_runs_under_its_rules(background):
+    """The multi-pod train rules put the batch's sequence (``seq_act``) on
+    ``pod``, the single-pod rules keep it whole; rank 0's step under them
+    runs on meta (reduced qwen3-0.6b, and jamba-v0.1-52b's Mamba,
+    attention and MoE layers, on a (2, 2, 2) fake mesh): its batch holds
+    its rows' first 32 of 64 positions, and every mixer's gather of the
+    sequence sums its gradient over ``pod`` in the backward."""
     cfg = get_config("qwen2-0.5b", reduced=True)
     _, specs = dr.batch_specs(cfg, 4, 8, make_rules("train"), _Pair())
     assert specs["labels"] == (("data", "model"), None)
-    with pytest.raises(NotImplementedError, match="12b"):
-        dr.batch_specs(cfg, 4, 8, make_rules("train", multi_pod=True),
-                       _Pair())
+    out = _meta_steps(background)
+    for arch in worker.MULTI_POD_ARCHS:
+        spec, rec = out[arch]
+        family = get_config(arch).family
+        rows = ("data",) if family == "hybrid" else ("data", "model")
+        assert spec == (rows if len(rows) > 1 else rows[0], "pod"), arch
+        b = 8 // (2 if family == "hybrid" else 4)
+        assert rec["batch"]["labels"] == [b, 32] and rec["start"] == 0
+        n_layers = get_config(arch, reduced=True).n_layers
+        assert rec["seq_grads"] == [("pod",)] * n_layers, arch
+        assert rec["memory"]["peak_bytes"] > 0, arch
+
+
+def test_b2_decode_runs_on_meta(background):
+    """The hillclimb's B2 (experts over model, expert_ff over data): rank
+    0's decode step of reduced moonshot W8A8 on a (2, 2) fake mesh runs
+    through the kernels' meta rules (the card's path: contiguous
+    operands), the experts' weights moving by all-to-all over model and
+    the dispatch slabs by all-gather over data."""
+    rec = _meta_steps(background)["b2"]
+    assert rec["kernels"]["camp_gemm_fused_w8a8"]["calls"] > 0
+    assert rec["kernels"]["camp_gemm_i8"]["calls"] > 0
+    assert {"all-to-all", "all-gather", "all-reduce"} <= set(
+        rec["collectives"])

@@ -18,6 +18,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import RankMesh
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import modules as modules_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.modules import (linear, row_linear,
                                         row_parallel_linear)
@@ -233,13 +234,37 @@ def experts_split(mesh, cases):
     return out
 
 
+B2 = {"expert": ("model",), "expert_ff": ("data",)}
+
+
+def experts_over_model(mesh, cases):
+    """moonshot under the decode rules with the hillclimb's B2 override
+    (experts over model, expert_ff over data) on (2, 2): each qmode's
+    stream and logits, layer 0's MoE FFN, and (W8A8) the FFN with h
+    quantized from the rank's own expert_ff block (the control)."""
+    rules = {**make_rules("decode"), **B2}
+    out = {}
+    for q, (cfg, params, prompt, steps) in cases.items():
+        out[q] = slab_run(cfg, params, prompt, steps, mesh, rules)
+        out[q]["moe"] = moe_layer(params, cfg, mesh, rules)
+    cfg, params, _, _ = cases["w8a8"]
+    inner = modules_mod.row_absmax
+    modules_mod.row_absmax = lambda h2, m, *axis: h2.abs().amax(
+        dim=-1, keepdim=True)
+    try:
+        out["control"] = moe_layer(params, cfg, mesh, rules)[0]
+    finally:
+        modules_mod.row_absmax = inner
+    return out
+
+
 def dense_mesh(mesh, path):
     """Four ranks on a (2, 2) mesh. Two pairs (ranks 0-1, 2-3) each take
     half of part A's models as (1, 2) meshes; then pair 0 runs qwen2's
     sequence-split slab on (1, 2) while pair 1 runs moonshot on (2, 1)
-    (the pair as the data axis); then all four moonshot on (2, 2). The
-    ranks start while the parent still builds the inputs: they wait for
-    ``path``."""
+    (the pair as the data axis); then all four moonshot on (2, 2), under
+    the decode rules and with the hillclimb's B2 override. The ranks start
+    while the parent still builds the inputs: they wait for ``path``."""
     torch.set_num_threads(1)
     deadline = time.monotonic() + 240
     while not os.path.exists(path):
@@ -262,4 +287,6 @@ def dense_mesh(mesh, path):
     else:
         out["experts (2, 1)"] = experts_split(data, inp["moonshot"])
     out["experts (2, 2)"] = experts_split(mesh, inp["moonshot"])
+    out["b2"] = experts_over_model(mesh, {**inp["moonshot"],
+                                          **inp["b2_int4"]})
     return out

@@ -8,7 +8,12 @@
 * :func:`one_process` — the same runs in one process;
 * :func:`live_dryrun` — a spawned process's dry run: one live
   ``run_cell`` and a :class:`~repro_torch.launch.dryrun.Counter` over
-  collectives at group sizes 2, 16 and 256 of the 256-rank fake group.
+  collectives at group sizes 2, 16 and 256 of the 256-rank fake group;
+* :func:`meta_steps` — a spawned process's steps on meta under an
+  8-rank fake group, measured as the dry run measures a cell: the train
+  step under the multi-pod train rules (reduced models on a (2, 2, 2)
+  mesh) and the decode step under the hillclimb's B2 rules (reduced
+  moonshot W8A8 on a (2, 2) mesh of four of the ranks).
 """
 from __future__ import annotations
 
@@ -101,3 +106,64 @@ def live_dryrun(conn):
     except BaseException as exc:  # noqa: BLE001 — reported to the parent
         import traceback
         conn.send(("error", f"{exc!r}\n{traceback.format_exc()}", None))
+
+
+MULTI_POD_ARCHS = ("qwen3-0.6b", "jamba-v0.1-52b")
+B2 = {"expert": ("model",), "expert_ff": ("data",)}
+
+
+def meta_steps(conn):
+    """In a spawned process, under an 8-rank fake group, on meta: each of
+    :data:`MULTI_POD_ARCHS` (reduced), rank 0's train step under
+    ``make_rules("train", multi_pod=True)`` on a (2, 2, 2) mesh at 8
+    rows of 64 positions → {arch: (the batch's labels spec, the step's
+    record: ``dr.measure``'s, with the rank's batch shapes, its first
+    position and the axes of each sequence gather's backward sum)}; and
+    under ``"b2"`` rank 0's decode step of reduced moonshot W8A8 under
+    the decode rules with the hillclimb's B2 override on a (2, 2) mesh
+    (its kernels on their meta rules, as on the card)."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+
+        from repro_torch.configs.shapes import ShapeSpec
+        from repro_torch.launch import dryrun as dr
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import collectives as coll
+        from torch_multipod_worker import sub_mesh
+        inner, summed = coll.seq_grad, []
+
+        def seq_grad(blocks, mesh, axes):
+            summed.append(tuple(axes))
+            return inner(blocks, mesh, axes)
+        coll.seq_grad = seq_grad
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=8)
+        mesh = make_mesh((2, 2, 2), device="meta")
+        shape = ShapeSpec("train_tiny", 64, 8, "train")
+        out = {}
+        for arch in MULTI_POD_ARCHS:
+            cfg = get_config(arch, reduced=True)
+            rules = make_rules("train", multi_pod=True, family=cfg.family)
+            _, specs = dr.batch_specs(cfg, 8, 64, rules, mesh)
+            run, args = dr.build_train_cell(cfg, shape, mesh, rules)
+            batch = args[1]
+            summed.clear()
+            with torch.enable_grad():
+                rec = dr.measure(run, args)
+            rec["seq_grads"] = list(summed)
+            rec["batch"] = {k: list(v.shape) for k, v in batch.items()}
+            rec["start"] = batch.start
+            out[arch] = (specs["labels"], rec)
+        coll.seq_grad = inner
+        square = sub_mesh((2, 2), 0, torch.device("meta"))
+        cfg = get_config("moonshot-v1-16b-a3b", reduced=True, qmode="w8a8")
+        rules = {**make_rules("decode"), **B2}
+        with torch.no_grad():
+            run, args = dr.build_decode_cell(
+                cfg, ShapeSpec("decode_tiny", 64, 4, "decode"), square,
+                rules, "w8a8")
+            out["b2"] = dr.measure(run, args)
+        conn.send(("ok", out))
+    except BaseException as exc:  # noqa: BLE001 — reported to the parent
+        import traceback
+        conn.send(("error", f"{exc!r}\n{traceback.format_exc()}"))

@@ -258,7 +258,8 @@ def moe_ffn_case(mesh, cfg, params, local):
     n, r = calls[0][2].shape[-1], mesh.coords["model"]
     cols = [out[..., r * n:(r + 1) * n] for out in whole]
     inner = modules.row_absmax
-    modules.row_absmax = lambda h2, m: h2.abs().amax(dim=-1, keepdim=True)
+    modules.row_absmax = lambda h2, m, *axis: h2.abs().amax(
+        dim=-1, keepdim=True)
     try:
         with mesh_context(mesh, make_rules("serve"), mode="serve",
                           layout=local.layout):

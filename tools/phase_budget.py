@@ -15,13 +15,15 @@ Builds the kernels as ``chip_smoke.py`` does, then runs each part of
 * ``13``: phase 13's second part: K1 / K7 / K5 at a tp 2 rank's expert
   shard shapes (``tp_moe_kernels``) and ``tp_families``;
 * ``13s``: phase 13's third part: K5 / K6a / K6b with int32 out
-  (``int32_sums``) and the dense slab on shards (``dense_slab_mesh``);
+  (``int32_sums``) and the dense slab on shards (``dense_slab_mesh``,
+  with the hillclimb's B2 on (2, 2));
 * ``14``: phase 14 (``fsdp_training``: qwen3-0.6b, then moonshot-v1-16b-a3b
-  and rwkv6-7b under a train mesh, one layer gathered at a time, in one
+  and rwkv6-7b under a train mesh, one layer gathered at a time, then
+  qwen3-0.6b and jamba-v0.1-52b under the multi-pod train rules, in one
   spawn of two ranks);
 * ``16``: phase 16 (``dryrun_phase``: the dry run's prediction of rank
-  0's step against the card) with the qwen3-0.6b train cell at each of
-  ``--dry-layers`` (0: its full 28).
+  0's step against the card) with the qwen3-0.6b train cells (one pod and
+  two) at each of ``--dry-layers`` (0: its full 28).
 
 Each part's checks gate as they do in ``chip_smoke.py``. It prints every
 part's seconds and the card's name and power limit. Needs a CUDA card;
@@ -103,7 +105,8 @@ def main(argv=None) -> int:
         if "16" in parts:
             for n in (int(x) for x in args.dry_layers.split(",")):
                 cells = (cs.DRYRUN_CELLS[0],
-                         (*cs.DRYRUN_CELLS[1][:3], n or None))
+                         *((*c[:3], n or None, c[4])
+                           for c in cs.DRYRUN_CELLS[1:]))
                 timed(f"phase 16, train at {n or 'full'} layers",
                       cs.dryrun_phase, smi, cells)
     print(f"[phase_budget] {smi}; seconds: "
